@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of a warm TPC-H query goes in the PyTorch/CUDA port.
 
-    python3 chip_profile.py [--schema sf1] [--runs 5] [--out FILE]
+    python3 chip_profile.py [--runs 5] [--out FILE]
 
-For Q1 and then Q6 (the texts of chip_smoke.py) on one
+For Q1 and then Q6 on tpch.sf1 (the texts of chip_smoke.py) on one
 ``LocalQueryRunner(device="cuda")``: one cold run and two warm runs,
 then ``--runs`` warm runs under ``torch.profiler`` (CPU and CUDA
 activities). Prints, per query, the host wall time of a warm run, the
@@ -92,7 +92,6 @@ def profile_query(runner, sql: str, runs: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--schema", default="sf1")
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -108,14 +107,13 @@ def main() -> int:
 
     card = card_line()
     runner = LocalQueryRunner(device="cuda")
-    report = {"card": card, "schema": args.schema, "runs": args.runs}
+    report = {"card": card, "schema": "sf1", "runs": args.runs}
     for name, sql in (("q1", Q1), ("q6", Q6)):
-        sql = sql.replace("tpch.sf1.", f"tpch.{args.schema}.")
         rec = profile_query(runner, sql, args.runs)
         report[name] = rec
         share = rec["device_busy_share"]
         print(
-            f"{name} {args.schema}: cold_s {rec['cold_s']:.4f}, warm_s "
+            f"{name} sf1: cold_s {rec['cold_s']:.4f}, warm_s "
             f"{rec['warm_s']:.6f} (parse+plan {rec['plan_s']:.6f}), "
             f"device_s {rec['device_s']:.6f}, busy "
             f"share {'not measured' if share is None else f'{share:.4f}'} "

@@ -7,11 +7,16 @@
 // valid[i]) of x[i], for s in [0, nseg). gid == nseg marks a dead row;
 // any gid outside [0, nseg) contributes nothing.
 //
-// What bounds it on the card: bytes. Each row is read once — gid (4 B),
-// x (8 B for int64/float64) and the validity byte — and there is one
-// compare and one add per row, far below the card's compute rate. For
-// one of TPC-H Q1's sums at SF1 that is 13 B x 8,388,608 rows = 109 MB,
-// so about 33 us at 3.35 TB/s (a computed bound, not a measurement).
+// What bounds it on the card: bytes. There is one compare and one add
+// per row, far below the card's compute rate. The bytes it must move are
+// the gid of every row (4 B), the validity byte of each row whose gid is
+// in range (when there is a mask), and x (8 B for int64/float64) of each
+// row that counts. For one of TPC-H Q1's sums at SF1 (no mask; padding
+// and filtered rows dead) that is 4 B x 8,388,608 + 8 B x ~5.9 M rows,
+// about 81 MB, so about 24 us at 3.35 TB/s. Reading all three columns
+// for every row of the bucket (13 B x 8,388,608 = 109 MB, about 33 us)
+// is a looser bound. chip_smoke.py computes the stricter one from its
+// run's data and reports it as bound_ms. Both are computed, not measured.
 //
 // Design. On the TPU the grid ran in order and one (nseg, 128)
 // accumulator stayed in VMEM across all grid steps. Blocks here run in

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -42,53 +42,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _paths(name: str):
-    return CSRC / f"{name}.cu", BUILD / f"lib{name}.so"
-
-
-def _stale(name: str) -> bool:
-    src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
-
-
-def _start_build(name: str):
-    src, lib = _paths(name)
-    BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.Popen(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-    )
-    return proc, tmp, lib
-
-
-def _finish_build(name: str, proc, tmp: Path, lib: Path) -> None:
-    out, _ = proc.communicate()
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
-    os.replace(tmp, lib)
-
-
-def build(names: Iterable[str]) -> List[str]:
-    """Build the stale libraries among ``names``, one ``nvcc`` per
-    source, all started together. Returns the names it rebuilt."""
-    with _lock:
-        todo = [n for n in names if _stale(n)]
-        started = [(n, *_start_build(n)) for n in todo]
-        for n, proc, tmp, lib in started:
-            _finish_build(n, proc, tmp, lib)
-    return todo
-
-
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if stale."""
+    """The loaded library for ``csrc/<name>.cu``, built first if stale."""
     with _lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
-        if _stale(name):
-            _finish_build(name, *_start_build(name))
-        lib = ctypes.CDLL(str(_paths(name)[1]))
+        src, so = CSRC / f"{name}.cu", BUILD / f"lib{name}.so"
+        if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
+            BUILD.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
         _loaded[name] = lib
         return lib
