@@ -14,12 +14,17 @@ non-zero, and only a run where every phase passed prints the final
 3. kernels  - each kernel against its plain PyTorch version on the card,
               at the shapes the main path gives it, timed beside its
               computed bound and one PyTorch library call computing the
-              same function (``library_ms``; the port never calls it).
+              same function (``library_ms``; the port never calls it):
+              single reductions at the TPU tool's and Q1's shapes over a
+              random gid, then Q1's own aggregation at SF1 as the one
+              launch the slice makes (the headline of the kernels line),
+              and single reductions over Q1's own gid.
 4. slice    - TPC-H Q1 and Q6 at SF1 (lineitem 5,999,995 rows) through
               ``LocalQueryRunner(device="cuda")``, each cold then warm, with
               the kernels' launch counts reset just before and read just
               after, and both results held against an independent numpy
-              evaluation over the same generated columns.
+              evaluation over the same generated columns. Q1 must make
+              exactly one onehot_reduce launch.
 5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
@@ -28,6 +33,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -129,6 +135,158 @@ def bound_ms(nbytes: int, ops: int):
 
 
 # ------------------------------------------------------------ kernel phase
+
+
+@functools.lru_cache(maxsize=1)
+def sf1_lineitem():
+    """Q1's and Q6's lineitem columns at SF1, from the connector's own
+    generator (the rows the slice phase stages)."""
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+
+    gen = TpchGenerator(SCHEMAS["sf1"])
+    check(
+        gen.counts["lineitem"] == SF1_LINEITEM_ROWS,
+        "unexpected SF1 lineitem row count",
+    )
+    cols = [
+        "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+        "l_returnflag", "l_linestatus", "l_shipdate",
+    ]
+    return gen.generate("lineitem", 0, SF1_LINEITEM_ROWS, cols)
+
+
+def q1_inputs(dev):
+    """Q1's gid and its aggregation's 8 requests at SF1, as the one-hot
+    operator builds them: gid = returnflag id * 2 + linestatus id where
+    l_shipdate <= Q1_DATE, 6 (dead) elsewhere and in the padding up to
+    CAPACITY; the live-row count, the 4 int64 sums (scaled decimals) and
+    the 3 float64 sums behind the averages."""
+    import numpy as np
+    import torch
+
+    d = sf1_lineitem()
+    n = SF1_LINEITEM_ROWS
+    rf, ls = d["l_returnflag"], d["l_linestatus"]
+    nseg = len(rf.values) * len(ls.values)
+    check(nseg == 6, f"Q1 has {nseg} groups, expected 6")
+    keep = d["l_shipdate"].astype(np.int64) <= Q1_DATE
+    g = np.full(CAPACITY, nseg, np.int32)
+    g[:n] = np.where(
+        keep, rf.ids.astype(np.int32) * len(ls.values) + ls.ids, nseg
+    )
+
+    def col(name):
+        a = np.zeros(CAPACITY, np.int64)
+        a[:n] = d[name]
+        return torch.from_numpy(a).to(dev)
+
+    qty, price, disc, tax = (
+        col(c) for c in ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+    )
+    disc_price = price * (100 - disc)
+    charge = disc_price * (100 + tax)
+    reqs = [("count", None, None)]
+    reqs += [("sum", x, None) for x in (qty, price, disc_price, charge)]
+    reqs += [("sum", x.to(torch.float64) / 100, None) for x in (qty, price, disc)]
+    return torch.from_numpy(g).to(dev), reqs, nseg
+
+
+def fused_case(label, gid, reqs, nseg, card):
+    """Hold ``onehot_reduce_many`` against its plain version on the card:
+    exact for integers, rel 1e-12 of each segment's sum of |x| for float64
+    sums; check that two launches agree bit for bit; time it beside its
+    bound and a library yardstick the port never calls (``index_add_``
+    over the int64 requests' and the float64 requests' x stacked as
+    columns, one call each, in one timed function)."""
+    import torch
+
+    from presto_tpu_torch.ops.aggregation import (
+        onehot_reduce_many,
+        onehot_reduce_many_plain,
+        onehot_reduce_plain,
+        onehot_results,
+    )
+
+    out = onehot_reduce_many(gid, reqs, nseg)
+    again = onehot_reduce_many(gid, reqs, nseg)
+    want = onehot_reduce_many_plain(gid, reqs, nseg)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), f"{label}: two launches differ")
+    err = 0.0
+    for got, exp, (op, x, valid) in zip(
+        onehot_results(out, reqs), onehot_results(want, reqs), reqs
+    ):
+        if not got.is_floating_point():
+            check(torch.equal(got, exp), f"{label}: {op} kernel != plain")
+            err = max(err, float((got - exp).abs().max()))
+            continue
+        scale = onehot_reduce_plain(gid, x.abs(), valid, nseg, "sum")
+        diff = (got - exp).abs()
+        err = max(err, float(diff.max()))
+        check(
+            bool((diff <= 1e-12 * scale).all()),
+            f"{label}: float sum off by {float(diff.max())} (rel 1e-12)",
+        )
+
+    live = (gid >= 0) & (gid < nseg)
+    idx = torch.where(live, gid, nseg).to(torch.int64)
+    ints = [x for _, x, _ in reqs if x is not None and x.dtype == torch.int64]
+    flts = [x for _, x, _ in reqs if x is not None and x.is_floating_point()]
+    xi = torch.stack(ints, dim=1) if ints else None
+    xf = torch.stack(flts, dim=1) if flts else None
+
+    def library():
+        outs = []
+        for xs in (xi, xf):
+            if xs is not None:
+                outs.append(
+                    torch.zeros((nseg + 1, xs.shape[1]), dtype=xs.dtype,
+                                device=gid.device).index_add_(0, idx, xs)
+                )
+        return outs
+
+    if xi is not None:
+        lib_i = library()[0][:nseg]
+        got_i = torch.stack(
+            [r for r, (_, x, _) in zip(onehot_results(out, reqs), reqs)
+             if x is not None and x.dtype == torch.int64], dim=1)
+        check(torch.equal(lib_i, got_i), f"{label}: library call disagrees")
+
+    ms = time_ms(lambda: onehot_reduce_many(gid, reqs, nseg))
+    plain_ms = time_ms(lambda: onehot_reduce_many_plain(gid, reqs, nseg))
+    library_ms = time_ms(library)
+
+    n_counted = int(live.sum())
+    nbytes = 4 * gid.numel() + 8 * len(reqs) * nseg
+    for op, x, valid in reqs:
+        if valid is not None:
+            nbytes += int(live.sum())
+        if x is not None:
+            nbytes += x.element_size() * n_counted
+    b_ms, b_by = bound_ms(nbytes, n_counted * len(reqs))
+    rec = {
+        "label": label,
+        "rows": gid.numel(),
+        "nseg": nseg,
+        "op": "+".join(op for op, _, _ in reqs),
+        "dtype": "mixed",
+        "k": len(reqs),
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "bytes": nbytes,
+    }
+    print(
+        f"{label}: ok (K={len(reqs)}, two launches bit-identical), "
+        f"max_abs_err {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{nbytes} B) [{card}]",
+        flush=True,
+    )
+    return rec
 
 
 def onehot_case(label, gid, x, valid, nseg, op, tol, card):
@@ -282,6 +440,19 @@ def kernel_phase(card: str):
         records.append(onehot_case(f"q1 i64 {op}", g, xi, v, nseg, op, None, card))
         records.append(onehot_case(f"q1 f64 {op}", g, xf, v, nseg, op, None, card))
     records.append(onehot_case("q1 f64 sum", g, xf, v, nseg, "sum", 1e-12, card))
+
+    # Q1's own data: the one launch its aggregation makes (the headline),
+    # and the single-column cases again at Q1's gid, whose segments
+    # cluster in neighbouring rows
+    g, reqs, nseg = q1_inputs(dev)
+    records.append(fused_case("q1 fused", g, reqs, nseg, card))
+    price = reqs[2][1]
+    records.append(
+        onehot_case("q1-gid count", g, None, None, nseg, "count", None, card)
+    )
+    records.append(
+        onehot_case("q1-gid i64 sum", g, price, None, nseg, "sum", None, card)
+    )
     return records
 
 
@@ -293,18 +464,7 @@ def numpy_q1_q6():
     exact int64 sums and counts per (returnflag, linestatus) id pair."""
     import numpy as np
 
-    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
-
-    gen = TpchGenerator(SCHEMAS["sf1"])
-    check(
-        gen.counts["lineitem"] == SF1_LINEITEM_ROWS,
-        "unexpected SF1 lineitem row count",
-    )
-    cols = [
-        "l_quantity", "l_extendedprice", "l_discount", "l_tax",
-        "l_returnflag", "l_linestatus", "l_shipdate",
-    ]
-    d = gen.generate("lineitem", 0, SF1_LINEITEM_ROWS, cols)
+    d = sf1_lineitem()
     qty = d["l_quantity"].astype(np.int64)
     price = d["l_extendedprice"].astype(np.int64)
     disc = d["l_discount"].astype(np.int64)
@@ -374,7 +534,11 @@ def slice_phase(card: str):
         torch.cuda.synchronize()
         q6_s.append(time.perf_counter() - t0)
     launches = onehot_reduce.launches
-    check(per_q1 > 0, "Q1 did not launch the onehot_reduce kernel")
+    check(
+        per_q1 == 1,
+        f"Q1 made {per_q1} onehot_reduce launches, expected 1 (one per "
+        "GROUP BY)",
+    )
 
     want_q1, want_q6 = numpy_q1_q6()
     for res in (cold, warm):
@@ -457,7 +621,7 @@ def main() -> int:
     phase("slice")
     counts = slice_phase(card)
 
-    headline = next(r for r in records if r["label"] == "q1 i64 sum")
+    headline = next(r for r in records if r["label"] == "q1 fused")
     kernels_line = {
         "kernels": [
             {

@@ -5,11 +5,13 @@ The PyTorch counterpart of ``presto_tpu/ops/aggregation.py``:
 - **one-hot path**: when every group key has a statically *provable*
   small domain (dictionary ids, booleans) and the composite domain has
   at most 256 segments, each row gets a segment id and every
-  accumulator is one masked per-segment reduction. On a CUDA tensor
-  that reduction is the hand-written kernel ``csrc/onehot_reduce.cu``
-  (the port of ``tools/pallas_groupby.py::pallas_onehot``); on a CPU
-  tensor it is the plain one-hot broadcast-reduce that the JAX engine
-  composes (``onehot_reduce_plain``).
+  accumulator is one masked per-segment reduction. All of a GROUP BY's
+  reductions go to one ``onehot_reduce_many`` call. On a CUDA tensor
+  that is one launch of the hand-written kernel
+  ``csrc/onehot_reduce.cu`` (the port of
+  ``tools/pallas_groupby.py::pallas_onehot``); on a CPU tensor it is the
+  plain one-hot broadcast-reduce that the JAX engine composes
+  (``onehot_reduce_plain``), once per reduction.
 - **global path** (no keys): plain masked whole-array reductions.
 - **sorted path** (general keys): not ported yet; it raises.
 
@@ -26,7 +28,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -91,8 +94,14 @@ _ONEHOT_MAX_SEGMENTS = 256
 
 _ONEHOT_OPS = {"count": 0, "sum": 1, "min": 2, "max": 3}
 _ONEHOT_XKIND = {torch.int64: 1, torch.float64: 2, torch.float32: 3}
-_THREADS = 256  # kThreads in csrc/onehot_reduce.cu
-_BLOCKS_PER_SM = 8
+#: requests per launch (kMaxRequests in csrc/onehot_reduce.cu)
+K_MAX = 16
+#: one reduction request: (op, x or None for count, validity or None)
+OnehotRequest = Tuple[str, Optional[torch.Tensor], Optional[torch.Tensor]]
+#: the kernel's persistent grid: up to this many blocks per SM (as many
+#: as fit), and no block for fewer rows than _MIN_ROWS_PER_BLOCK
+_MAX_BLOCKS_PER_SM = 4
+_MIN_ROWS_PER_BLOCK = 4096
 
 
 def _onehot_fill(op: str, dtype: torch.dtype):
@@ -153,23 +162,146 @@ def onehot_reduce_plain(
     return reduce(masked, dim=0)
 
 
+def _to_slots(t: torch.Tensor) -> torch.Tensor:
+    """A result as 8-byte slots: int64 as it is, a float as float64 bits
+    (float32 widens exactly)."""
+    if t.dtype == torch.int64:
+        return t
+    return t.to(torch.float64).view(torch.int64)
+
+
+def onehot_results(
+    out: torch.Tensor, requests: Sequence[OnehotRequest]
+) -> List[torch.Tensor]:
+    """Row k of ``onehot_reduce_many``'s slots in request k's type."""
+    res = []
+    for row, (_, x, _) in zip(out, requests):
+        if x is None or x.dtype == torch.int64:
+            res.append(row)
+        else:
+            res.append(row.view(torch.float64).to(x.dtype))
+    return res
+
+
+def onehot_reduce_many_plain(
+    gid: torch.Tensor, requests: Sequence[OnehotRequest], nseg: int
+) -> torch.Tensor:
+    """Plain PyTorch version of ``onehot_reduce_many``:
+    ``onehot_reduce_plain`` per request, stacked as 8-byte slots."""
+    return torch.stack([
+        _to_slots(onehot_reduce_plain(gid, x, valid, nseg, op))
+        for op, x, valid in requests
+    ])
+
+
 def _onehot_lib():
     from presto_tpu_torch import kernels
 
     lib = kernels.load("onehot_reduce")
-    fn = lib.onehot_reduce_launch
+    fn = lib.onehot_reduce_many_launch
     if fn.argtypes is None:
         fn.argtypes = [
-            ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p,
+            ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        lib.onehot_reduce_many_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.onehot_reduce_many_blocks_per_sm.restype = ctypes.c_int
         lib.onehot_reduce_error_string.argtypes = [ctypes.c_int]
         lib.onehot_reduce_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_blocks(index: int, nseg: int) -> int:
+    """The largest grid the kernel runs for nseg segments on device
+    ``index``: blocks per SM (as many as fit, at most
+    ``_MAX_BLOCKS_PER_SM``) times the SM count; read once per device."""
+    lib = _onehot_lib()
+    with torch.cuda.device(index):
+        per_sm = lib.onehot_reduce_many_blocks_per_sm(nseg)
+    if per_sm < 0:
+        msg = lib.onehot_reduce_error_string(-per_sm).decode()
+        raise RuntimeError(f"onehot_reduce occupancy query failed: {msg}")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return min(per_sm, _MAX_BLOCKS_PER_SM) * sms
+
+
+#: per device: the zeroed scratch whose first word is the kernel's ticket
+_scratch: Dict[int, torch.Tensor] = {}
+
+
+def _scratch_for(device: torch.device, slots: int) -> torch.Tensor:
+    buf = _scratch.get(device.index)
+    if buf is None or buf.numel() < 1 + slots:
+        buf = torch.zeros(1 + slots, dtype=torch.int64, device=device)
+        _scratch[device.index] = buf
+    return buf
+
+
+def onehot_reduce_many(
+    gid: torch.Tensor,
+    requests: Sequence[OnehotRequest],
+    nseg: int,
+) -> torch.Tensor:
+    """K per-segment reductions over one ``gid``: request k is
+    ``(op, x, valid)`` as ``onehot_reduce`` takes them, and row k of the
+    ``[K, nseg]`` int64 result holds its values as 8-byte slots (float
+    results as float64 bits; ``onehot_results`` gives each row its type).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (``csrc/onehot_reduce.cu``) once per ``K_MAX`` requests, in
+    order, or raises. Launches on one device must be stream-ordered: they
+    share one scratch. ``onehot_reduce.launches`` counts the launches."""
+    if not requests:
+        raise ValueError("onehot_reduce_many: no requests")
+    for op, x, valid in requests:
+        _check_onehot_args(gid, x, valid, nseg, op)
+    if gid.device.type == "cpu":
+        return onehot_reduce_many_plain(gid, requests, nseg)
+    if gid.device.type != "cuda":
+        raise ValueError(f"onehot_reduce: no kernel for {gid.device}")
+    dev = gid.device
+    gid = gid.contiguous()
+    n = gid.shape[0]
+    lib = _onehot_lib()
+    grid = max(1, min(_grid_blocks(dev.index, nseg),
+                      -(-n // _MIN_ROWS_PER_BLOCK)))
+    k_all = len(requests)
+    out = torch.empty((k_all, nseg), dtype=torch.int64, device=dev)
+    scratch = _scratch_for(dev, grid * min(k_all, K_MAX) * nseg)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for k0 in range(0, k_all, K_MAX):
+            part = requests[k0:k0 + K_MAX]
+            k = len(part)
+            xs = [None if x is None else x.contiguous() for _, x, _ in part]
+            vs = [None if v is None else v.contiguous() for _, _, v in part]
+            rc = lib.onehot_reduce_many_launch(
+                k,
+                (ctypes.c_int * k)(*[_ONEHOT_OPS[op] for op, _, _ in part]),
+                (ctypes.c_int * k)(
+                    *[0 if x is None else _ONEHOT_XKIND[x.dtype] for x in xs]
+                ),
+                (ctypes.c_void_p * k)(
+                    *[None if x is None else x.data_ptr() for x in xs]
+                ),
+                (ctypes.c_void_p * k)(
+                    *[None if v is None else v.data_ptr() for v in vs]
+                ),
+                gid.data_ptr(), n, nseg, scratch.data_ptr(), grid,
+                out[k0].data_ptr(), stream,
+            )
+            if rc != 0:
+                msg = lib.onehot_reduce_error_string(rc).decode()
+                raise RuntimeError(
+                    f"onehot_reduce launch failed: {msg} ({rc})"
+                )
+            onehot_reduce.launches += 1
+    return out
 
 
 def onehot_reduce(
@@ -188,44 +320,10 @@ def onehot_reduce(
     nothing. Sums accumulate in x's type; counts are int64; an empty
     segment holds the op's identity (0, int64 max/min, +-inf).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (``csrc/onehot_reduce.cu``) or raises. ``launches`` counts
-    the kernel launches."""
-    _check_onehot_args(gid, x, valid, nseg, op)
-    if gid.device.type == "cpu":
-        return onehot_reduce_plain(gid, x, valid, nseg, op)
-    if gid.device.type != "cuda":
-        raise ValueError(f"onehot_reduce: no kernel for {gid.device}")
-    gid = gid.contiguous()
-    x = None if x is None else x.contiguous()
-    valid = None if valid is None else valid.contiguous()
-    lib = _onehot_lib()
-    n = gid.shape[0]
-    acc = torch.int64 if x is None else x.dtype
-    sms = torch.cuda.get_device_properties(gid.device).multi_processor_count
-    grid = max(1, min(-(-n // _THREADS), sms * _BLOCKS_PER_SM))
-    partials = torch.empty((grid, nseg), dtype=acc, device=gid.device)
-    out = torch.empty((nseg,), dtype=acc, device=gid.device)
-    with torch.cuda.device(gid.device):
-        stream = torch.cuda.current_stream(gid.device).cuda_stream
-        rc = lib.onehot_reduce_launch(
-            _ONEHOT_OPS[op],
-            0 if x is None else _ONEHOT_XKIND[x.dtype],
-            gid.data_ptr(),
-            None if x is None else x.data_ptr(),
-            None if valid is None else valid.data_ptr(),
-            n,
-            nseg,
-            partials.data_ptr(),
-            grid,
-            out.data_ptr(),
-            stream,
-        )
-    if rc != 0:
-        msg = lib.onehot_reduce_error_string(rc).decode()
-        raise RuntimeError(f"onehot_reduce launch failed: {msg} ({rc})")
-    onehot_reduce.launches += 1
-    return out
+    The one-request case of ``onehot_reduce_many``: a CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
+    req = [(op, x, valid)]
+    return onehot_results(onehot_reduce_many(gid, req, nseg), req)[0]
 
 
 onehot_reduce.launches = 0
@@ -353,7 +451,17 @@ def _onehot_aggregate(
         gid = gid + comp * stride
     gid = torch.where(live, gid, nseg).to(torch.int32).contiguous()
 
-    counts = onehot_reduce(gid, None, None, nseg, "count")  # live rows
+    # phase 1: every aggregate registers its reductions; request 0 is
+    # the live-row count. Phase 2: one onehot_reduce_many call
+    requests: List[OnehotRequest] = [("count", None, None)]
+
+    def add(op, x, valid) -> int:
+        requests.append((op, x, valid))
+        return len(requests) - 1
+
+    finishers = [_onehot_agg_requests(agg, page, lowerer, add) for agg in aggs]
+    res = onehot_results(onehot_reduce_many(gid, requests, nseg), requests)
+    counts = res[0]  # live rows per segment
     occupied = counts > 0
     num_groups = torch.sum(occupied).to(torch.int32)
     overflow = num_groups > max_groups
@@ -380,8 +488,9 @@ def _onehot_aggregate(
             Block(data=data, valid=valid, dtype=e.dtype, dictionary=dictionary)
         )
 
-    for agg in aggs:
-        full = _onehot_one_agg(agg, page, gid, nseg, counts, lowerer)
+    # phase 3: each aggregate's Block from its rows of the result
+    for agg, finish in zip(aggs, finishers):
+        full = finish(res)
         blocks.append(
             dataclasses.replace(
                 full,
@@ -399,70 +508,74 @@ def _onehot_aggregate(
     return out, overflow
 
 
-def _onehot_one_agg(
+def _onehot_agg_requests(
     agg: AggCall,
     page: Page,
-    gid: torch.Tensor,  # (cap,) int32; dead rows hold nseg
-    nseg: int,
-    counts: torch.Tensor,  # (nseg,) live rows per group
     lowerer: ExprLowerer,
-) -> Block:
-    """One aggregate as full (nseg,) tensors, every per-segment
-    reduction through ``onehot_reduce``."""
+    add: Callable[[str, Optional[torch.Tensor], Optional[torch.Tensor]], int],
+) -> Callable[[List[torch.Tensor]], Block]:
+    """Evaluate one aggregate's argument and register its per-segment
+    reductions with ``add(op, x, valid) -> index``. Returns the function
+    that builds the aggregate's full (nseg,) Block from the results, in
+    which ``res[0]`` is the live-row count."""
     if agg.func == "count_star":
-        return Block(data=counts, valid=None, dtype=T.BIGINT)
+        return lambda res: Block(data=res[0], valid=None, dtype=T.BIGINT)
 
     cap = page.capacity
     d, v = lowerer.eval(agg.arg)
     d = torch.broadcast_to(d, (cap,))
     valid = None if v is None else torch.broadcast_to(v, (cap,))
 
-    def reduce(x, op):
-        return onehot_reduce(gid, x, valid, nseg, op)
-
-    # a null-free argument counts exactly the live rows: reuse ``counts``
-    cnt = counts if valid is None else reduce(None, "count")
+    # a null-free argument counts exactly the live rows: reuse res[0]
+    i_cnt = 0 if valid is None else add("count", None, valid)
     if agg.func == "count":
-        return Block(data=cnt, valid=None, dtype=T.BIGINT)
+        return lambda res: Block(data=res[i_cnt], valid=None, dtype=T.BIGINT)
 
-    group_has_value = cnt > 0
     at = agg.arg.dtype
 
     if agg.func in _VARIANCE_FUNCS:
         x = d.to(torch.float64)
         if at.is_decimal:
             x = x / (10 ** at.scale)
-        s1 = reduce(x, "sum")
-        s2 = reduce(x * x, "sum")
-        return _variance_block(s1, s2, cnt, agg.func)
+        i1, i2 = add("sum", x, valid), add("sum", x * x, valid)
+        return lambda res: _variance_block(
+            res[i1], res[i2], res[i_cnt], agg.func
+        )
 
     if agg.func in ("sum", "avg"):
         if at.name in ("double", "real") or agg.func == "avg":
             x = d.to(torch.float64)
             if at.is_decimal:
                 x = x / (10 ** at.scale)
-            s = reduce(x, "sum")
+            i_s = add("sum", x, valid)
             if agg.func == "avg":
-                return Block(
-                    data=s / torch.clamp(cnt, min=1),
-                    valid=group_has_value,
+                return lambda res: Block(
+                    data=res[i_s] / torch.clamp(res[i_cnt], min=1),
+                    valid=res[i_cnt] > 0,
                     dtype=T.DOUBLE,
                 )
-            return Block(data=s, valid=group_has_value, dtype=T.DOUBLE)
-        s = reduce(d.to(torch.int64), "sum")
-        return Block(data=s, valid=group_has_value, dtype=agg.result_type())
+            return lambda res: Block(
+                data=res[i_s], valid=res[i_cnt] > 0, dtype=T.DOUBLE
+            )
+        i_s = add("sum", d.to(torch.int64), valid)
+        return lambda res: Block(
+            data=res[i_s], valid=res[i_cnt] > 0, dtype=agg.result_type()
+        )
 
     if agg.func in ("min", "max"):
         if at.name in ("double", "real"):
             x = d.to(torch.float64)
         else:
             x = d.to(torch.int64)
-        data = reduce(x, agg.func).to(at.torch_dtype)
+        i_m = add(agg.func, x, valid)
         dictionary = None
         if at.is_string:
             dictionary = lowerer.dictionary_of(agg.arg)
-        return Block(
-            data=data, valid=group_has_value, dtype=at, dictionary=dictionary
+        return lambda res: Block(
+            data=res[i_m].to(at.torch_dtype),
+            valid=res[i_cnt] > 0,
+            dtype=at,
+            dictionary=dictionary,
         )
 
     raise NotImplementedError(f"aggregate {agg.func}")

@@ -139,17 +139,20 @@ def test_onehot_max_groups_overflow():
 
 
 def test_onehot_path_is_taken_for_small_domains(monkeypatch):
+    # every aggregate of one GROUP BY goes to ONE onehot_reduce_many call
     calls = []
-    real = PA.onehot_reduce
+    real = PA.onehot_reduce_many
 
-    def spy(gid, x, valid, nseg, op):
-        calls.append((nseg, op))
-        return real(gid, x, valid, nseg, op)
+    def spy(gid, requests, nseg):
+        calls.append((nseg, [op for op, _, _ in requests]))
+        return real(gid, requests, nseg)
 
-    monkeypatch.setattr(PA, "onehot_reduce", spy)
+    monkeypatch.setattr(PA, "onehot_reduce_many", spy)
     _run_both(["flag", "status"], 0, max_groups=64)
-    assert calls and all(n == 6 for n, _ in calls)
-    assert {op for _, op in calls} == {"count", "sum", "min", "max"}
+    assert len(calls) == 1
+    nseg, ops = calls[0]
+    assert nseg == 6 and ops[0] == "count"
+    assert {"count", "sum", "min", "max"} <= set(ops)
 
 
 def test_sorted_path_is_not_ported():
@@ -228,3 +231,70 @@ def test_onehot_reduce_checks_its_arguments():
     # (neither the CPU nor CUDA) raises
     with pytest.raises(ValueError, match="no kernel"):
         PA.onehot_reduce(g.to("meta"), x.to("meta"), None, 4, "sum")
+
+
+# ------------------------- the multi-request reduction's plain version
+
+
+def _many_requests(rng, rows, k, mix):
+    """k requests cycling through ``mix`` of (op, dtype, masked)."""
+    reqs = []
+    for i in range(k):
+        op, dtype, masked = mix[i % len(mix)]
+        valid = torch.from_numpy(rng.random(rows) < 0.7) if masked else None
+        x = None
+        if op != "count":
+            if dtype == torch.int64:
+                x = torch.from_numpy(
+                    rng.integers(-(2**40), 2**40, rows, dtype=np.int64))
+            else:
+                xn = rng.standard_normal(rows) * 1e3
+                if rows and i % 2:
+                    xn[rows // 3] = np.nan
+                x = torch.from_numpy(xn).to(dtype)
+        reqs.append((op, x, valid))
+    return reqs
+
+
+MIXES = {
+    "q1": [("count", None, False)] + [("sum", torch.int64, False)] * 4
+    + [("sum", torch.float64, False)] * 3,
+    "all_ops": [
+        ("count", None, True), ("sum", torch.float32, False),
+        ("min", torch.int64, True), ("max", torch.float64, False),
+        ("min", torch.float32, True), ("max", torch.int64, False),
+        ("sum", torch.float64, True), ("min", torch.float64, True),
+    ],
+}
+
+
+@pytest.mark.parametrize("mix", sorted(MIXES))
+@pytest.mark.parametrize("k", [1, 8, 17])
+@pytest.mark.parametrize("nseg", [1, 6, 64, 256])
+def test_plain_many_matches_plain_per_request(mix, k, nseg):
+    rng = np.random.default_rng(nseg * 31 + k)
+    rows = 3000
+    g = torch.from_numpy(rng.integers(-1, nseg + 2, rows).astype(np.int32))
+    reqs = _many_requests(rng, rows, k, MIXES[mix])
+    out = PA.onehot_reduce_many(g, reqs, nseg)
+    assert out.shape == (k, nseg) and out.dtype == torch.int64
+    assert torch.equal(out, PA.onehot_reduce_many_plain(g, reqs, nseg))
+    for got, (op, x, valid) in zip(PA.onehot_results(out, reqs), reqs):
+        want = PA.onehot_reduce_plain(g, x, valid, nseg, op)
+        assert got.dtype == want.dtype
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(got[~torch.isnan(want)], want[~torch.isnan(want)])
+
+
+def test_onehot_reduce_many_checks_its_arguments():
+    g = torch.zeros(8, dtype=torch.int32)
+    x = torch.zeros(8, dtype=torch.int64)
+    with pytest.raises(ValueError, match="no requests"):
+        PA.onehot_reduce_many(g, [], 4)
+    with pytest.raises(ValueError):
+        PA.onehot_reduce_many(g, [("count", None, None), ("sum", None, None)],
+                              4)
+    with pytest.raises(ValueError):
+        PA.onehot_reduce_many(g, [("sum", x[:4], None)], 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        PA.onehot_reduce_many(g.to("meta"), [("sum", x.to("meta"), None)], 4)

@@ -17,8 +17,12 @@ import pytest
 import torch
 
 from presto_tpu_torch.ops.aggregation import (
+    K_MAX,
     onehot_reduce,
+    onehot_reduce_many,
+    onehot_reduce_many_plain,
     onehot_reduce_plain,
+    onehot_results,
 )
 
 pytestmark = pytest.mark.cuda
@@ -117,3 +121,83 @@ def test_onehot_reduce_refuses_mixed_devices(cuda):
     x = torch.zeros(8, dtype=torch.int64)
     with pytest.raises(ValueError, match="device"):
         onehot_reduce(g, x, None, 4, "sum")
+
+
+# ------------------------------------------ K requests in one launch
+
+#: the per-thread shared-memory layout takes nseg <= 32
+#: (kPerThreadMaxSegments in csrc/onehot_reduce.cu); above it, per warp
+LAYOUT_LIMIT = 32
+
+
+def _requests(rows, k, nseg, seed, dev):
+    """k requests cycling through every (op, dtype), masked or not."""
+    reqs = []
+    for i in range(k):
+        op, dtype = OPS[i % len(OPS)]
+        _, x, v = _inputs(rows, nseg, dtype, i % 3 == 1, seed + i, dev)
+        reqs.append((op, None if op == "count" else x, v))
+    return reqs
+
+
+def _assert_many_agrees(g, reqs, nseg, out):
+    assert out.shape == (len(reqs), nseg) and out.dtype == torch.int64
+    got_rows = onehot_results(out, reqs)
+    want_rows = onehot_results(onehot_reduce_many_plain(g, reqs, nseg), reqs)
+    for got, want, (op, x, v) in zip(got_rows, want_rows, reqs):
+        abs_sum = None
+        if op == "sum" and x.is_floating_point():
+            abs_sum = onehot_reduce_plain(g, x.abs(), v, nseg, "sum")
+        _assert_agrees(got, want, op, abs_sum)
+
+
+@pytest.mark.parametrize("rows", [0, 1, 1000, 70_001, 1_000_003])
+@pytest.mark.parametrize(
+    "nseg", [1, LAYOUT_LIMIT, LAYOUT_LIMIT + 1, 256]
+)
+@pytest.mark.parametrize("k", [1, K_MAX, K_MAX + 1])
+def test_onehot_reduce_many_matches_plain(cuda, rows, nseg, k):
+    g = _inputs(rows, nseg, torch.int64, False, rows + nseg, cuda)[0]
+    reqs = _requests(rows, k, nseg, rows + k, cuda)
+    before = onehot_reduce.launches
+    out = onehot_reduce_many(g, reqs, nseg)
+    torch.cuda.synchronize()
+    assert onehot_reduce.launches == before + -(-k // K_MAX)
+    _assert_many_agrees(g, reqs, nseg, out)
+
+
+@pytest.mark.parametrize("nseg", [6, LAYOUT_LIMIT + 1])
+def test_onehot_reduce_many_takes_unaligned_views(cuda, nseg):
+    # g[1:] and x[3:] start off 16-byte alignment; the kernel's scalar
+    # head and tail take them
+    rows = 100_003
+    g, x, v = _inputs(rows + 3, nseg, torch.int64, True, 7, cuda)
+    _, xf, _ = _inputs(rows + 3, nseg, torch.float32, False, 8, cuda)
+    _, xd, _ = _inputs(rows + 3, nseg, torch.float64, False, 9, cuda)
+    g1, v1 = g[1:rows + 1], v[1:rows + 1]
+    reqs = [
+        ("count", None, v1),
+        ("sum", x[3:rows + 3], None),
+        ("sum", xf[3:rows + 3], v1),
+        ("max", xd[3:rows + 3], None),
+        ("min", x[1:rows + 1], v1),
+    ]
+    _assert_many_agrees(g1, reqs, nseg, onehot_reduce_many(g1, reqs, nseg))
+
+
+def test_onehot_reduce_many_int64_sum_wraps(cuda):
+    g = torch.zeros(70_001, dtype=torch.int32, device=cuda)
+    x = torch.full((70_001,), 2**62, dtype=torch.int64, device=cuda)
+    reqs = [("sum", x, None), ("count", None, None)]
+    out = onehot_reduce_many(g, reqs, 1)
+    assert torch.equal(out, onehot_reduce_many_plain(g, reqs, 1))
+
+
+@pytest.mark.parametrize("nseg", [6, LAYOUT_LIMIT + 1])
+def test_onehot_reduce_many_float_sums_are_bit_identical(cuda, nseg):
+    g, x, _ = _inputs(2_000_003, nseg, torch.float64, False, 5, cuda)
+    x = torch.nan_to_num(x)
+    reqs = [("sum", x, None), ("sum", x.to(torch.float32), None)]
+    first = onehot_reduce_many(g, reqs, nseg)
+    for _ in range(3):
+        assert torch.equal(onehot_reduce_many(g, reqs, nseg), first)
