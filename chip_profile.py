@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
 """Where the time of a warm TPC-H query goes in the PyTorch/CUDA port.
 
-    python3 chip_profile.py [--runs 5] [--out FILE]
+    python3 chip_profile.py [--runs 5] [--queries q1,q6,q3,q5] [--out FILE]
 
-For Q1 and then Q6 on tpch.sf1 (the texts of chip_smoke.py) on one
-``LocalQueryRunner(device="cuda")``: one cold run and two warm runs,
-then ``--runs`` warm runs under ``torch.profiler`` (CPU and CUDA
+For Q1 and then Q6 on tpch.sf1, then Q3 and Q5 on tpch.sf10 with
+``max_device_rows`` 2^26 (the texts and session of chip_smoke.py; or
+the ``--queries`` named), each on one
+``LocalQueryRunner(device="cuda")``: one cold run and two warm
+runs, then ``--runs`` warm runs under ``torch.profiler`` (CPU and CUDA
 activities). Prints, per query, the host wall time of a warm run, the
 device time of its kernels, the device's busy share of the wall time,
-the host time of parsing and planning alone, the kernels by device time
-and the host operators by CPU time, and writes the same as JSON to
-``--out``. Needs a CUDA device.
+the host time of parsing and planning alone, the device time by kind of
+kernel (sort passes, searchsorted, gathers and scatters, scans,
+onehot_reduce, the rest), the CUDA runtime calls per query
+(``cudaLaunchKernel``, ``cudaStreamSynchronize``, ...), the host's
+Python functions by own time (cProfile, ``--runs`` more warm runs), the
+kernels by device time and the host operators by CPU time, and writes
+the same as JSON to ``--out``. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,6 +28,46 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+#: kinds of kernel by name (lower case), first match wins
+KINDS = (
+    ("onehot_reduce", ("onehot_reduce", "onehot_many")),
+    ("searchsorted", ("searchsorted",)),
+    ("sort", ("sort", "radix")),
+    ("scan", ("scan",)),
+    ("gather/scatter", ("index", "gather", "scatter")),
+)
+
+
+def kind_of(name: str) -> str:
+    low = name.lower()
+    for kind, marks in KINDS:
+        if any(m in low for m in marks):
+            return kind
+    return "other"
+
+
+def host_functions(runner, sql: str, runs: int, top: int = 10):
+    """The host's Python functions by own time over ``runs`` warm runs
+    under cProfile: where a host-bound query spends its wall time."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(runs):
+        runner.execute(sql)
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [
+        {"function": f"{Path(file).name}:{line}({fn})",
+         "calls": calls // runs, "own_s": own / runs, "cum_s": cum / runs}
+        for (file, line, fn), (_, calls, own, cum, _) in rows
+    ]
 
 
 def profile_query(runner, sql: str, runs: int):
@@ -78,13 +124,24 @@ def profile_query(runner, sql: str, runs: int):
     kernels.sort(key=lambda k: -k["device_us"])
     host.sort(key=lambda h: -h["self_cpu_us"])
     device_s = sum(k["device_us"] for k in kernels) / 1e6
+    by_kind = {}
+    for k in kernels:
+        agg = by_kind.setdefault(kind_of(k["name"]), {"device_us": 0.0,
+                                                      "calls": 0})
+        agg["device_us"] += k["device_us"]
+        agg["calls"] += k["calls"]
+    runtime = {h["name"]: h["calls"] for h in host
+               if h["name"].startswith("cuda")}
     return {
+        "host_functions": host_functions(runner, sql, runs),
         "cold_s": cold_s,
         "warm_s": warm_s,
         "plan_s": plan_s,
         "profiled_wall_s": wall_s,
         "device_s": device_s,
         "device_busy_share": device_s / wall_s if device_s else None,
+        "by_kind": by_kind,
+        "cuda_runtime_calls": runtime,
         "kernels": kernels,
         "host_ops": host,
     }
@@ -93,6 +150,8 @@ def profile_query(runner, sql: str, runs: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--queries", default="q1,q6,q3,q5",
+                    help="comma-separated subset of q1,q6,q3,q5")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -102,24 +161,51 @@ def main() -> int:
         print("chip_profile.py: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import Q1, Q6, card_line
+    from chip_smoke import (
+        JOINS_MAX_DEVICE_ROWS, JOINS_SCHEMA, Q1, Q3, Q5, Q6, card_line,
+    )
     from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.session import Session
 
     card = card_line()
-    runner = LocalQueryRunner(device="cuda")
-    report = {"card": card, "schema": "sf1", "runs": args.runs}
-    for name, sql in (("q1", Q1), ("q6", Q6)):
+    sf1 = LocalQueryRunner(device="cuda")
+    joins = LocalQueryRunner(
+        device="cuda",
+        session=Session(
+            schema=JOINS_SCHEMA,
+            properties={"max_device_rows": JOINS_MAX_DEVICE_ROWS},
+        ),
+    )
+    report = {"card": card, "runs": args.runs}
+    wanted = args.queries.split(",")
+    for name, schema, runner, sql in (
+        ("q1", "sf1", sf1, Q1), ("q6", "sf1", sf1, Q6),
+        ("q3", JOINS_SCHEMA, joins, Q3), ("q5", JOINS_SCHEMA, joins, Q5),
+    ):
+        if name not in wanted:
+            continue
         rec = profile_query(runner, sql, args.runs)
+        rec["schema"] = schema
         report[name] = rec
         share = rec["device_busy_share"]
         print(
-            f"{name} sf1: cold_s {rec['cold_s']:.4f}, warm_s "
+            f"{name} {schema}: cold_s {rec['cold_s']:.4f}, warm_s "
             f"{rec['warm_s']:.6f} (parse+plan {rec['plan_s']:.6f}), "
             f"device_s {rec['device_s']:.6f}, busy "
             f"share {'not measured' if share is None else f'{share:.4f}'} "
             f"[{card}]",
             flush=True,
         )
+        for kind, agg in sorted(rec["by_kind"].items(),
+                                key=lambda kv: -kv[1]["device_us"]):
+            print(f"  kind   {agg['device_us']:10.1f} us x{agg['calls']:<4} "
+                  f"{kind}")
+        print("  runtime calls per query: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(rec["cuda_runtime_calls"].items())))
+        for f in rec["host_functions"][:6]:
+            print(f"  python {f['own_s'] * 1e6:10.1f} us own "
+                  f"{f['cum_s'] * 1e6:10.1f} us cum x{f['calls']:<4} "
+                  f"{f['function']}")
         for k in rec["kernels"][:12]:
             print(f"  kernel {k['device_us']:10.1f} us x{k['calls']:<4} "
                   f"{k['name'][:100]}")

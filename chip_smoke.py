@@ -25,7 +25,19 @@ non-zero, and only a run where every phase passed prints the final
               after, and both results held against an independent numpy
               evaluation over the same generated columns. Q1 must make
               exactly one onehot_reduce launch.
-5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+5. joins    - TPC-H Q3 and Q5 at SF10 (lineitem 59,999,997 rows, staged
+              whole into the 2^26-row bucket: session ``max_device_rows``
+              2^26) through a CUDA runner, each cold then twice warm, with
+              the launch counts reset just before and read just after:
+              joins, the sorted GROUP BY (Q3), the one-hot GROUP BY over
+              25 nations (Q5: exactly one onehot_reduce launch per run)
+              and stage-at-a-time execution with dynamic filters. Both
+              are held exactly against a numpy evaluation by key lookup
+              over the generator's own SF10 columns (Q3: every group, run
+              without its LIMIT, and the top 10; Q5: all 5 nations), the
+              two warm runs must be identical, and the one-hot reduction
+              is checked against its plain version at Q5's own inputs.
+6. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -74,6 +86,37 @@ where l_shipdate >= date '1994-01-01'
   and l_shipdate < date '1994-01-01' + interval '1' year
   and l_discount between 0.05 and 0.07 and l_quantity < 24
 """
+
+#: TPC-H Q3 and Q5 (standard substitution parameters) over the session's
+#: schema; the joins phase runs them at sf10
+Q3_ALL = """
+select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+  o_orderdate, o_shippriority
+from customer, orders, lineitem
+where c_mktsegment = 'BUILDING' and c_custkey = o_custkey
+  and l_orderkey = o_orderkey and o_orderdate < date '1995-03-15'
+  and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate
+"""
+Q3 = Q3_ALL + "limit 10\n"
+Q5 = """
+select n_name, sum(l_extendedprice * (1 - l_discount)) as revenue
+from customer, orders, lineitem, supplier, nation, region
+where c_custkey = o_custkey and l_orderkey = o_orderkey
+  and l_suppkey = s_suppkey and c_nationkey = s_nationkey
+  and s_nationkey = n_nationkey and n_regionkey = r_regionkey
+  and r_name = 'ASIA' and o_orderdate >= date '1994-01-01'
+  and o_orderdate < date '1994-01-01' + interval '1' year
+group by n_name
+order by revenue desc
+"""
+Q3_DATE = 9204  # date '1995-03-15' in epoch days
+Q5_FROM, Q5_TO = 8766, 9131  # 1994-01-01 and 1995-01-01
+#: the joins phase's session: SF10 lineitem (~60 M rows) is staged whole
+#: into the 2^26-row bucket instead of being streamed
+JOINS_SCHEMA = "sf10"
+JOINS_MAX_DEVICE_ROWS = 1 << 26
 
 
 def phase(name: str) -> None:
@@ -584,6 +627,236 @@ def slice_phase(card: str):
     }
 
 
+# ------------------------------------------------------------- joins phase
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def joins_columns():
+    """The generator's own columns of the tables Q3 and Q5 read, at the
+    joins phase's scale (generated here, not through the port)."""
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+
+    gen = TpchGenerator(SCHEMAS[JOINS_SCHEMA])
+    want = {
+        "lineitem": ["l_orderkey", "l_suppkey", "l_extendedprice",
+                     "l_discount", "l_shipdate"],
+        "orders": ["o_orderkey", "o_custkey", "o_orderdate",
+                   "o_shippriority"],
+        "customer": ["c_custkey", "c_mktsegment", "c_nationkey"],
+        "supplier": ["s_suppkey", "s_nationkey"],
+        "nation": ["n_nationkey", "n_name", "n_regionkey"],
+        "region": ["r_regionkey", "r_name"],
+    }
+    return gen.counts["lineitem"], {
+        t: gen.generate(t, 0, gen.counts[t], cols) for t, cols in want.items()
+    }
+
+
+def _lookup(keys, values, fill):
+    """values[i] at position keys[i] of a dense array over the key range
+    (the numpy join by key lookup)."""
+    import numpy as np
+
+    out = np.full(int(keys.max()) + 1, fill, dtype=np.asarray(values).dtype)
+    out[keys] = values
+    return out
+
+
+def numpy_q3_q5(d):
+    """Q3 (every group: orderkey -> (revenue, orderdate, shippriority))
+    and Q5 (nation name -> revenue) in numpy by key lookup: exact int64
+    revenue at scale 4, as the query computes it."""
+    import numpy as np
+
+    li, o, c = d["lineitem"], d["orders"], d["customer"]
+    revenue = li["l_extendedprice"].astype(np.int64) * (
+        100 - li["l_discount"].astype(np.int64)
+    )
+    lk = li["l_orderkey"].astype(np.int64)
+    order_row = _lookup(o["o_orderkey"], np.arange(len(o["o_orderkey"])), -1)
+    orow = order_row[lk]
+    check(bool((orow >= 0).all()), "a lineitem row without its order")
+
+    seg = c["c_mktsegment"]
+    building = int(np.flatnonzero(seg.values == "BUILDING")[0])
+    cust_building = _lookup(c["c_custkey"], seg.ids == building, False)
+    o_ok = (o["o_orderdate"] < Q3_DATE) & cust_building[o["o_custkey"]]
+    m3 = o_ok[orow] & (li["l_shipdate"] > Q3_DATE)
+    keys3, inv = np.unique(lk[m3], return_inverse=True)
+    rev3 = np.zeros(len(keys3), np.int64)
+    np.add.at(rev3, inv, revenue[m3])
+    q3 = {
+        int(k): (int(r), int(o["o_orderdate"][order_row[k]]),
+                 int(o["o_shippriority"][order_row[k]]))
+        for k, r in zip(keys3, rev3)
+    }
+
+    n, r = d["nation"], d["region"]
+    asia_id = int(np.flatnonzero(r["r_name"].values == "ASIA")[0])
+    asia = int(r["r_regionkey"][r["r_name"].ids == asia_id][0])
+    in_asia = _lookup(n["n_nationkey"], n["n_regionkey"] == asia, False)
+    cust_nation = _lookup(c["c_custkey"], c["c_nationkey"], -1)
+    supp_nation = _lookup(d["supplier"]["s_suppkey"],
+                          d["supplier"]["s_nationkey"], -1)
+    o_in_1994 = (o["o_orderdate"] >= Q5_FROM) & (o["o_orderdate"] < Q5_TO)
+    sn = supp_nation[li["l_suppkey"]]
+    m5 = (
+        o_in_1994[orow]
+        & (cust_nation[o["o_custkey"][orow]] == sn)
+        & in_asia[sn]
+    )
+    name_of = {
+        int(k): str(n["n_name"].values[i])
+        for k, i in zip(n["n_nationkey"], n["n_name"].ids)
+    }
+    q5 = {
+        name_of[int(k)]: int(revenue[m5 & (sn == k)].sum())
+        for k in np.unique(sn[m5])
+    }
+    return q3, q5
+
+
+def run_timed(runner, sql, dev):
+    t0 = time.perf_counter()
+    res = runner.execute(sql)
+    sync(dev)
+    return res, time.perf_counter() - t0
+
+
+def joins_phase(card: str, dev=None, records=None):
+    """Q3 and Q5 at the joins phase's scale on ``dev`` (the card unless
+    a CPU rehearsal passes another), each cold then twice warm. Returns
+    the onehot_reduce launches counted over the phase's query runs."""
+    import torch
+
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.ops import aggregation as PA
+    from presto_tpu_torch.session import Session
+
+    dev = torch.device("cuda") if dev is None else dev
+    runner = LocalQueryRunner(
+        device=dev,
+        session=Session(
+            schema=JOINS_SCHEMA,
+            properties={"max_device_rows": JOINS_MAX_DEVICE_ROWS},
+        ),
+    )
+    t0 = time.perf_counter()
+    n_lineitem, cols = joins_columns()
+    want_q3, want_q5 = numpy_q3_q5(cols)
+    numpy_s = time.perf_counter() - t0
+    del cols
+    print(f"numpy evaluation of Q3/Q5 at {JOINS_SCHEMA} "
+          f"({n_lineitem} lineitem rows): {numpy_s:.2f} s", flush=True)
+
+    launches = 0
+    results = {}
+    for name, sql in (("Q3", Q3), ("Q5", Q5)):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        frags = runner.fragments_run
+        dyn = runner.dynamic_filters_applied
+        runs, per_run = [], []
+        for _ in range(3):  # cold, warm, warm
+            PA.onehot_reduce.launches = 0
+            res, secs = run_timed(runner, sql, dev)
+            per_run.append(PA.onehot_reduce.launches)
+            runs.append((res, secs))
+        launches += sum(per_run)
+        peak = (
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB"
+            if dev.type == "cuda" else "not measured (no card)"
+        )
+        (cold, cold_s), (w1, w1_s), (w2, w2_s) = runs
+        check(w1.rows() == w2.rows(), f"{name}: two warm runs differ")
+        check(cold.rows() == w1.rows(), f"{name}: cold and warm runs differ")
+        if name == "Q5":
+            # a CPU rehearsal takes the plain version: no launch counts
+            want = 1 if dev.type == "cuda" else 0
+            check(
+                per_run == [want] * 3,
+                f"Q5 made {per_run} onehot_reduce launches per run, "
+                f"expected {want} (its GROUP BY n_name is one launch)",
+            )
+        results[name] = w1
+        print(
+            f"{name} {JOINS_SCHEMA}: cold_s {cold_s:.4f}, warm_s {w1_s:.4f} "
+            f"/ {w2_s:.4f}, warm lineitem rows/s {n_lineitem / w1_s:.1f}, "
+            f"peak memory {peak}, fragments run "
+            f"{(runner.fragments_run - frags) // 3} and dynamic filters "
+            f"applied {(runner.dynamic_filters_applied - dyn) // 3} per "
+            f"run, onehot_reduce launches per run {per_run} [{card}]",
+            flush=True,
+        )
+
+    # Q3: the top 10 in order, then every group (the query without LIMIT)
+    ranked = sorted(
+        want_q3.items(), key=lambda kv: (-kv[1][0], kv[1][1], kv[0])
+    )
+    top = [(k, r, dt, sp) for k, (r, dt, sp) in ranked[:10]]
+    got = [
+        (row[0], row[1], row[2], row[3])
+        for row in result_rows(results["Q3"], (
+            "l_orderkey", "revenue", "o_orderdate", "o_shippriority"))
+    ]
+    check(got == top, f"Q3 top 10 {got} != numpy {top}")
+    PA.onehot_reduce.launches = 0
+    all_groups, all_s = run_timed(runner, Q3_ALL, dev)
+    launches += PA.onehot_reduce.launches
+    got_all = {
+        k: (r, dt, sp)
+        for k, r, dt, sp in result_rows(all_groups, (
+            "l_orderkey", "revenue", "o_orderdate", "o_shippriority"))
+    }
+    check(len(got_all) == len(want_q3) and got_all == want_q3,
+          f"Q3 without LIMIT: {len(got_all)} groups, numpy "
+          f"{len(want_q3)}, or a group differs")
+    got5 = dict(
+        (nm, r) for nm, r in result_rows(results["Q5"], ("n_name", "revenue"))
+    )
+    check(got5 == want_q5, f"Q5 {got5} != numpy {want_q5}")
+    for row in results["Q3"].rows():
+        print("Q3 row:", row, flush=True)
+    for row in results["Q5"].rows():
+        print("Q5 row:", row, flush=True)
+    print(f"Q3 without LIMIT: {len(got_all)} groups equal numpy's "
+          f"({all_s:.4f} s)", flush=True)
+
+    if records is not None:
+        # the one-hot reduction at Q5's own inputs (a run not counted)
+        seen = []
+        real = PA.onehot_reduce_many
+
+        def record(gid, requests, nseg):
+            seen.append((gid, list(requests), nseg))
+            return real(gid, requests, nseg)
+
+        PA.onehot_reduce_many = record
+        try:
+            runner.execute(Q5)
+        finally:
+            PA.onehot_reduce_many = real
+        check(len(seen) == 1, f"Q5 made {len(seen)} one-hot calls")
+        records.append(fused_case("q5 fused", *seen[0], card))
+    return launches
+
+
+def result_rows(res, names):
+    """A result's rows as tuples of exact stored values: scaled int64
+    for decimals, epoch days for dates, strings for dictionary ids."""
+    _, cols = result_columns(res)
+    return list(zip(*(
+        [v if isinstance(v, str) else int(v) for v in cols[name]]
+        for name in names
+    )))
+
+
 def main() -> int:
     if not (ROOT / "presto_tpu_torch").is_dir():
         print(
@@ -621,6 +894,9 @@ def main() -> int:
     phase("slice")
     counts = slice_phase(card)
 
+    phase("joins")
+    joins_launches = joins_phase(card, records=records)
+
     headline = next(r for r in records if r["label"] == "q1 fused")
     kernels_line = {
         "kernels": [
@@ -629,7 +905,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": "presto_tpu_torch/csrc/onehot_reduce.cu",
                 "replaces": "tools/pallas_groupby.py:96",
-                "launches": counts["onehot_reduce"],
+                "launches": counts["onehot_reduce"] + joins_launches,
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
@@ -639,7 +915,8 @@ def main() -> int:
             }
         ]
     }
-    print(json.dumps({"cases": records, "slice": counts, "card": card}))
+    print(json.dumps({"cases": records, "slice": counts,
+                      "joins_onehot_reduce": joins_launches, "card": card}))
     print(json.dumps(kernels_line))
     print(
         json.dumps(

@@ -3,19 +3,26 @@
 The PyTorch counterpart of ``presto_tpu/exec/local_runner.py``'s
 ``LocalQueryRunner``, for the plans this slice of the port runs: a
 SELECT is parsed, planned and optimized exactly as the reference does
-(``prune_columns`` + ``push_scan_constraints``), the root
-Output/Sort/Limit is peeled to the host (``exec/host_ops.py``), and the
-rest runs as eager torch operators over whole-table pages staged on the
-runner's device. There is no jit and no plan cache: PyTorch runs
-eagerly.
+(``prune_columns`` + ``push_scan_constraints``), scalar subqueries run
+first and bind as literals, the root Output/Sort/Limit is peeled to the
+host (``exec/host_ops.py``), and the rest runs as eager torch operators
+over whole-table pages staged on the runner's device. There is no jit
+and no plan cache: PyTorch runs eagerly.
 
 Static shapes are kept: an aggregation that finds more groups than its
-planned ``max_groups`` raises an overflow flag, and the plan re-runs
-with every capacity scaled 4x (``_scale_capacities``).
+planned ``max_groups``, or a join whose output exceeds its
+``out_capacity``, raises an overflow flag, and the plan re-runs with
+every capacity scaled 4x (``_scale_capacities``).
 
-Not ported yet (they raise): statements other than SELECT, scalar
-subqueries, joins, sorts and windows on the device, streaming of tables
-larger than ``max_device_rows``, and stage-at-a-time execution.
+A plan heavier than ``max_fragment_weight`` runs stage-at-a-time, as
+the reference's does: heavy subtrees run as fragments of their own
+(build side first), their results stay on the device re-bucketed to
+their live rows, and an executed join build side pre-filters its probe
+side (``exec/dynfilter.py``).
+
+Not ported yet (they raise): statements other than SELECT, windows,
+unnest and UNION ALL on the device, and streaming of tables larger than
+``max_device_rows``.
 """
 
 from __future__ import annotations
@@ -27,16 +34,33 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import expr as E
+from presto_tpu_torch import types as T
 from presto_tpu_torch.connectors import create_connector
 from presto_tpu_torch.connectors.tpch import DictColumn
+from presto_tpu_torch.exec import dynfilter
 from presto_tpu_torch.exec.host_ops import apply_host_ops, peel_host_ops
 from presto_tpu_torch.exec.staging import (
     CatalogManager,
     bucket_capacity,
     stage_page,
 )
-from presto_tpu_torch.ops import filter_project, hash_aggregate, project
-from presto_tpu_torch.page import Page, compact_page, to_host
+from presto_tpu_torch.ops import (
+    distinct,
+    filter_project,
+    hash_aggregate,
+    hash_join,
+    limit,
+    order_by,
+    project,
+)
+from presto_tpu_torch.ops.join import cross_join
+from presto_tpu_torch.page import (
+    Block,
+    Page,
+    compact_page,
+    pad_capacity,
+    to_host,
+)
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.optimizer import (
     prune_columns,
@@ -98,6 +122,10 @@ class LocalQueryRunner:
         self.session = session or Session()
         #: staged whole-table pages, keyed by scan identity
         self._tables: Dict[tuple, Page] = {}
+        #: stage-at-a-time counters since the runner was made: fragments
+        #: run on their own, and dynamic filters applied to a probe side
+        self.fragments_run = 0
+        self.dynamic_filters_applied = 0
 
     # ------------------------------------------------------------- public
 
@@ -112,9 +140,7 @@ class LocalQueryRunner:
         )
 
     def execute_plan(self, plan: Plan) -> QueryResult:
-        if plan.params:
-            raise ExecutionError("scalar subqueries: later slice of the port")
-        root = push_scan_constraints(prune_columns(plan.root))
+        root = push_scan_constraints(prune_columns(self._bind_params(plan)))
         host_ops: List[N.PlanNode] = []
         if self.session.get("host_root_stage"):
             root, host_ops = peel_host_ops(root)
@@ -122,6 +148,22 @@ class LocalQueryRunner:
         if host_ops:
             page = apply_host_ops(page, host_ops)
         return QueryResult(plan.output_names, page)
+
+    # ------------------------------------------------- params (subqueries)
+
+    def _bind_params(self, plan: Plan) -> N.PlanNode:
+        """Run each scalar subquery (its own subqueries first) and
+        substitute its one value into the plan as a Literal."""
+        bindings: Dict[int, E.Literal] = {}
+        for pid, sub in plan.params:
+            sub_root = push_scan_constraints(
+                prune_columns(self._bind_params(sub))
+            )
+            page = self._run(sub_root)
+            bindings[pid] = _scalar_literal(page, sub.output_names[0])
+        if not bindings:
+            return plan.root
+        return _substitute_params(plan.root, bindings)
 
     # ---------------------------------------------------------- execution
 
@@ -138,46 +180,157 @@ class LocalQueryRunner:
                 )
         budget = int(self.session.get("max_fragment_weight"))
         if budget > 0 and _plan_weight(root) > budget:
-            raise ExecutionError(
-                "plan exceeds max_fragment_weight: stage-at-a-time "
-                "execution is a later slice"
-            )
+            return self._run_fragmented(root, budget)
         pages = [self._load_table(s) for s in scans]
         return self._run_with_pages(root, scans, pages)
 
+    # ------------------------------------------- stage-at-a-time execution
+
+    def _run_fragmented(self, root: N.PlanNode, budget: int) -> Page:
+        """Execute a heavy plan stage-at-a-time: heavy subtrees run as
+        fragments of their own, their outputs stay on the device, and
+        the remaining tree consumes them as leaves."""
+        pages_map: Dict[int, Page] = {}
+        reduced = self._reduce_fragment(root, budget, pages_map)
+        leaves, pages = self.leaf_pages(reduced, pages_map)
+        return self._run_with_pages(reduced, leaves, pages)
+
+    def leaf_pages(
+        self, root: N.PlanNode, pages_map: Dict[int, Page]
+    ) -> Tuple[List[N.PlanNode], List[Page]]:
+        """A fragment's leaves (scans + remote sources) and their input
+        pages: scans load (cached) tables, remote sources resolve
+        through ``pages_map`` (id(node) -> already-produced page)."""
+        leaves = [
+            n
+            for n in N.walk(root)
+            if isinstance(n, (N.TableScanNode, N.RemoteSourceNode))
+        ]
+        pages = [
+            pages_map[id(n)]
+            if isinstance(n, N.RemoteSourceNode)
+            else self._load_table(n)
+            for n in leaves
+        ]
+        return leaves, pages
+
+    def _reduce_fragment(
+        self, node: N.PlanNode, budget: int, pages_map: Dict[int, Page]
+    ) -> N.PlanNode:
+        """Bottom-up: shrink ``node``'s subtree to at most ``budget``
+        weight by executing its heaviest child subtrees as fragments of
+        their own (device-resident results become RemoteSourceNode
+        leaves). A node whose own weight exceeds the budget with only
+        leaf children runs as one fragment anyway."""
+        node = N.map_children(
+            node, lambda c: self._reduce_fragment(c, budget, pages_map)
+        )
+        while _plan_weight(node) > budget:
+            cands = [
+                c
+                for c in node.children()
+                if not isinstance(
+                    c, (N.TableScanNode, N.RemoteSourceNode, N.ValuesNode)
+                )
+            ]
+            if not cands:
+                break
+            # BUILD side first when reducing a join (build before
+            # probe): its executed page then feeds a dynamic filter
+            # into the probe side
+            if isinstance(node, N.JoinNode) and node.right in cands:
+                child = node.right
+            else:
+                child = max(cands, key=_plan_weight)
+            leaf = self._execute_to_leaf(child, pages_map)
+            node = N.map_children(node, lambda c: leaf if c is child else c)
+            node = self._apply_dynamic_filter(node, leaf, pages_map)
+        return node
+
+    def _apply_dynamic_filter(
+        self, node: N.PlanNode, leaf: N.RemoteSourceNode, pages_map
+    ) -> N.PlanNode:
+        """When a join's BUILD side has just run as a fragment, fetch its
+        join-key summary (one host read) and pre-filter the probe side,
+        which has not run yet: probe rows outside the build's key domain
+        cannot match an inner or semi join."""
+        if not self.session.get("enable_dynamic_filtering"):
+            return node
+        if not (
+            isinstance(node, N.JoinNode)
+            and node.right is leaf
+            and node.join_type in ("inner", "semi")
+            and not isinstance(node.left, (N.RemoteSourceNode, N.ValuesNode))
+        ):
+            return node
+        conjuncts, n_filters = dynfilter.device_conjuncts(
+            pages_map[id(leaf)],
+            list(zip(node.left_keys, node.right_keys)),
+            node.left.output_schema(),
+            ndv_limit=int(self.session.get("dynamic_filtering_ndv_limit")),
+        )
+        if not conjuncts:
+            return node
+        self.dynamic_filters_applied += n_filters
+        pred = conjuncts[0] if len(conjuncts) == 1 else E.And(tuple(conjuncts))
+        return dataclasses.replace(
+            node,
+            left=N.FilterNode(source=node.left, predicate=pred),
+        )
+
+    def _execute_to_leaf(
+        self, subtree: N.PlanNode, pages_map: Dict[int, Page]
+    ) -> N.RemoteSourceNode:
+        """Run one fragment; its result stays on the device, re-bucketed
+        to its live rows, and is read through a RemoteSourceNode."""
+        leaves, pages = self.leaf_pages(subtree, pages_map)
+        remote = N.RemoteSourceNode(fragment_root=subtree)
+        pages_map[id(remote)] = self._run_with_pages(
+            subtree, leaves, pages, fetch_result=False
+        )
+        self.fragments_run += 1
+        return remote
+
     def _run_with_pages(
-        self, root: N.PlanNode, scans: List[N.PlanNode], pages: List[Page]
+        self,
+        root: N.PlanNode,
+        scans: List[N.PlanNode],
+        pages: List[Page],
+        fetch_result: bool = True,
     ) -> Page:
-        """Run the plan over staged pages, re-running at 4x capacities
+        """Run the plan over its leaf pages, re-running at 4x capacities
         while an operator reports overflow. One host read per attempt
-        fetches the flags, the error bits and the live count."""
+        fetches the flags, the error bits and the live count.
+
+        Returns the result page on the host; with ``fetch_result=False``
+        (a stage-at-a-time fragment) the page stays on the device,
+        compacted and re-bucketed to its live rows."""
         scan_ids = {id(s): i for i, s in enumerate(scans)}
         tries = 0
         while True:
-            flags: List[torch.Tensor] = []
-            errors: List[Tuple[str, torch.Tensor]] = []
-            out = compact_page(
-                _execute_node(root, pages, scan_ids, flags, errors)
-            )
+            ctx = _ExecContext(pages, scan_ids, self.device)
+            out = compact_page(_execute_node(root, ctx))
             control = torch.stack(
-                [f.reshape(()).to(torch.int64) for f in flags]
-                + [e.reshape(()).to(torch.int64) for _, e in errors]
+                [f.reshape(()).to(torch.int64) for f in ctx.flags]
+                + [e.reshape(()).to(torch.int64) for _, e in ctx.errors]
                 + [out.num_valid.to(torch.int64)]
             ).cpu().tolist()
-            flag_vals = control[: len(flags)]
-            err_vals = control[len(flags): len(flags) + len(errors)]
-            for (msg, _), bit in zip(errors, err_vals):
+            nf = len(ctx.flags)
+            for (msg, _), bit in zip(ctx.errors, control[nf:-1]):
                 if bit:
                     raise ExecutionError(msg)
-            if not any(flag_vals):
-                return materialize_page(out, control[-1])
+            if not any(control[:nf]):
+                n = control[-1]
+                if not fetch_result:
+                    return pad_capacity(out, bucket_capacity(n))
+                return materialize_page(out, n)
             tries += 1
             if tries >= self.MAX_RETRIES:
                 raise ExecutionError(
                     "capacity overflow persisted after retries "
-                    "(group count beyond buckets)"
+                    "(join fan-out or group count beyond buckets)"
                 )
-            # scans carry no capacity, so they keep their identity and
+            # leaves carry no capacity, so they keep their identity and
             # scan_ids stays valid
             root = _scale_capacities(root, 4)
 
@@ -235,9 +388,9 @@ def materialize_page(page: Page, n: int) -> Page:
     )
 
 
-#: compile-cost weight per plan node in the reference (the cut decision
-#: for stage-at-a-time execution); kept so the port refuses the same
-#: plans the reference would fragment
+#: plan weight per node in the reference (its compile-size proxy and the
+#: cut decision for stage-at-a-time execution); kept so the port
+#: fragments exactly the plans the reference fragments
 _HEAVY_NODES = (
     N.JoinNode,
     N.AggregationNode,
@@ -249,21 +402,46 @@ _HEAVY_NODES = (
 
 
 def _plan_weight(root: N.PlanNode) -> int:
+    """Does not descend into executed fragments (RemoteSourceNode has no
+    children)."""
     return sum(
         6 if isinstance(n, _HEAVY_NODES) else 1 for n in N.walk(root)
     )
 
 
-def _execute_node(node, pages, scan_ids, flags, errors) -> Page:
-    """Execute one plan node eagerly. ``flags`` collects 0-d overflow
-    tensors (capacity retries); ``errors`` collects (message, 0-d bool)
-    hard errors."""
+class _ExecContext:
+    """One run of a plan over its leaf pages, and what it collects: 0-d
+    overflow flags (capacity retries) and (message, 0-d bool) hard
+    errors."""
+
+    def __init__(self, pages, scan_ids, device: torch.device):
+        self.pages = pages
+        self.scan_ids = scan_ids
+        self.device = device
+        self.flags: List[torch.Tensor] = []
+        self.errors: List[Tuple[str, torch.Tensor]] = []
+
+
+def _execute_node(node: N.PlanNode, ctx: _ExecContext) -> Page:
+    """Execute one plan node eagerly."""
 
     def run(n):
-        return _execute_node(n, pages, scan_ids, flags, errors)
+        return _execute_node(n, ctx)
 
-    if isinstance(node, N.TableScanNode):
-        return pages[scan_ids[id(node)]]
+    if isinstance(node, (N.TableScanNode, N.RemoteSourceNode)):
+        return ctx.pages[ctx.scan_ids[id(node)]]
+    if isinstance(node, N.ValuesNode):
+        return Page(
+            blocks=(
+                Block(
+                    data=torch.zeros((8,), dtype=torch.int64, device=ctx.device),
+                    valid=None,
+                    dtype=T.BIGINT,
+                ),
+            ),
+            num_valid=torch.ones((), dtype=torch.int32, device=ctx.device),
+            names=("$dummy",),
+        )
     if isinstance(node, N.FilterNode):
         src = run(node.source)
         schema = node.source.output_schema()
@@ -277,10 +455,51 @@ def _execute_node(node, pages, scan_ids, flags, errors) -> Page:
             node.group_keys,
             node.aggs,
             node.max_groups,
-            errors_out=errors,
+            errors_out=ctx.errors,
         )
-        flags.append(overflow)
+        ctx.flags.append(overflow)
         return out
+    if isinstance(node, N.DistinctNode):
+        out, overflow = distinct(run(node.source), node.max_groups)
+        ctx.flags.append(overflow)
+        return out
+    if isinstance(node, N.JoinNode):
+        probe = run(node.left)
+        build = run(node.right)
+        out, overflow = hash_join(
+            probe,
+            build,
+            node.left_keys,
+            node.right_keys,
+            join_type=node.join_type,
+            build_payload=node.payload,
+            build_unique=node.build_unique,
+            out_capacity=node.out_capacity,
+            payload_rename=dict(node.payload_rename),
+        )
+        ctx.flags.append(overflow)
+        if node.residual is not None:
+            projs = [(n, E.ColumnRef(n, t)) for n, t in out.schema().items()]
+            out = filter_project(out, node.residual, projs)
+        return out
+    if isinstance(node, N.CrossJoinNode):
+        left = run(node.left)
+        right = run(node.right)
+        if node.out_capacity is not None:
+            out, overflow = cross_join(left, right, node.out_capacity)
+            ctx.flags.append(overflow)
+            return out
+        # single-row broadcast (the scalar-aggregate shape); more than
+        # one row is a hard error, not an overflow a retry could fix
+        ctx.errors.append(
+            ("cross join build produced more than one row",
+             right.num_valid > 1)
+        )
+        return cross_join_single_row(left, right)
+    if isinstance(node, N.SortNode):
+        return order_by(run(node.source), node.keys, limit=node.limit)
+    if isinstance(node, N.LimitNode):
+        return limit(run(node.source), node.count)
     if isinstance(node, N.OutputNode):
         src = run(node.source)
         return Page(
@@ -294,18 +513,85 @@ def _execute_node(node, pages, scan_ids, flags, errors) -> Page:
     )
 
 
+def cross_join_single_row(left: Page, right: Page) -> Page:
+    """Cross product against a single-row right side (the scalar-aggregate
+    broadcast). The caller flags ``right.num_valid > 1``."""
+    right = compact_page(right)  # row 0 must really be the single row
+    blocks = list(left.blocks)
+    names = list(left.names)
+    for bname, blk in zip(right.names, right.blocks):
+        data = torch.broadcast_to(blk.data[0], (left.capacity,))
+        valid = None
+        if blk.valid is not None:
+            valid = torch.broadcast_to(blk.valid[0], (left.capacity,))
+        blocks.append(dataclasses.replace(blk, data=data, valid=valid))
+        names.append(bname)
+    has_row = right.num_valid > 0
+    return Page(
+        blocks=tuple(blocks),
+        num_valid=torch.where(has_row, left.num_valid, 0).to(torch.int32),
+        names=tuple(names),
+        live=None if left.live is None else left.live & has_row,
+    )
+
+
+# ----------------------------------------------------------- param binding
+
+
+def _substitute_params(v, bindings):
+    """Replace every Param in a plan (its nodes, expressions, and the
+    tuples and dataclasses such as AggCall and SortKey that hold them)
+    with its bound Literal. Parts without a Param keep their identity:
+    executed fragments are looked up by ``id``."""
+    if isinstance(v, E.Param):
+        lit = bindings.get(v.param_id)
+        if lit is None:
+            raise ExecutionError(f"unbound param {v.param_id}")
+        return lit
+    if isinstance(v, tuple):
+        new = tuple(_substitute_params(x, bindings) for x in v)
+        return v if all(a is b for a, b in zip(new, v)) else new
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        changes = {}
+        for f in dataclasses.fields(v):
+            old = getattr(v, f.name)
+            new = _substitute_params(old, bindings)
+            if new is not old:
+                changes[f.name] = new
+        return dataclasses.replace(v, **changes) if changes else v
+    return v
+
+
+def _scalar_literal(page: Page, col: str) -> E.Literal:
+    """A scalar subquery's result (a host page of 0 or 1 rows) as a
+    Literal: no row is NULL, two rows are an error."""
+    blk = page.block(col)
+    n = int(page.num_valid)
+    if n == 0:
+        return E.Literal(None, blk.dtype)
+    if n > 1:
+        raise ExecutionError("scalar subquery returned more than one row")
+    data, valid = blk.to_numpy(1)
+    if not valid[0]:
+        return E.Literal(None, blk.dtype)
+    v = data[0]
+    if blk.dtype.is_string:
+        return E.Literal(str(blk.dictionary.values[int(v)]), blk.dtype)
+    if blk.dtype.is_decimal or blk.dtype.is_integer or blk.dtype.name in (
+        "date",
+        "timestamp",
+    ):
+        return E.Literal(int(v), blk.dtype)
+    if blk.dtype.name == "boolean":
+        return E.Literal(bool(v), blk.dtype)
+    return E.Literal(float(v), blk.dtype)
+
+
 def _scale_capacities(node: N.PlanNode, factor: int) -> N.PlanNode:
     if isinstance(node, N.RemoteSourceNode):
-        return node
+        return node  # an executed fragment: its page is fixed
+    node = N.map_children(node, lambda c: _scale_capacities(c, factor))
     changes = {}
-    for f in dataclasses.fields(node):
-        v = getattr(node, f.name)
-        if isinstance(v, N.PlanNode):
-            changes[f.name] = _scale_capacities(v, factor)
-        elif isinstance(v, tuple) and v and isinstance(v[0], N.PlanNode):
-            changes[f.name] = tuple(
-                _scale_capacities(x, factor) for x in v
-            )
     if isinstance(node, (N.AggregationNode, N.DistinctNode)):
         changes["max_groups"] = node.max_groups * factor
     if (

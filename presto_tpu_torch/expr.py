@@ -14,9 +14,10 @@ torch tensors, eagerly, with the reference's semantics:
   remainder use ``rounding_mode="floor"`` / ``torch.remainder``, which
   match ``jnp`` ``//`` and ``%`` on negative operands.
 
-This slice lowers what TPC-H Q1 and Q6 need: column refs, literals,
-arithmetic, negation, comparisons, AND/OR/NOT, BETWEEN, IS NULL, CAST,
-CASE and COALESCE. Every other node raises ``NotImplementedError`` with
+This slice lowers what TPC-H Q1, Q3-Q6, Q10-Q12, Q15, Q17-Q19 and Q21
+need: column refs, literals, arithmetic, negation, comparisons,
+AND/OR/NOT, BETWEEN, IS NULL, CAST, CASE, COALESCE and IN lists of
+literals. Every other node raises ``NotImplementedError`` with
 its class name; none is evaluated approximately. Long decimals (int128
 limb pairs) are not ported yet.
 """
@@ -908,7 +909,13 @@ class ExprLowerer:
         self._transform_cache = {}
 
     def _lut(self, lut: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(lut)).to(self.device)
+        t = torch.from_numpy(np.ascontiguousarray(lut))
+        if self.device.type == "cuda":
+            # from pinned memory the copy is queued on the stream, so the
+            # host does not wait for the card's queued work (a pageable
+            # copy would)
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     def _remap(self, ids: torch.Tensor, lut: np.ndarray) -> torch.Tensor:
         if not len(lut):
@@ -1338,6 +1345,40 @@ class ExprLowerer:
         hi = Compare("<=", e.arg, e.high)
         d, v = self._eval_and(And((lo, hi)))
         return (~d if e.negate else d), v
+
+    def _eval_inlist(self, e: InList):
+        """Literal members only (a RuntimeParam member needs the plan
+        cache, a later slice). A string argument gathers a membership LUT
+        over its dictionary; a numeric one ORs one compare per member,
+        each member cast to the argument's type as the reference does."""
+        if not all(isinstance(lit, Literal) for lit in e.values):
+            raise NotImplementedError(
+                "IN list with non-literal members: later slice of the port"
+            )
+        data, valid = self.eval(e.arg)
+        if e.arg.dtype.is_string:
+            members = {lit.value for lit in e.values}
+            lut = self.dictionary_of(e.arg).predicate_lut(
+                lambda s: s in members
+            )
+            if not lut.any():
+                res = self._zeros(torch.bool)
+            else:
+                res = self._lut(lut)[torch.clamp(data, 0, len(lut) - 1).long()]
+        else:
+            vals = np.asarray(
+                [lit.value for lit in e.values], dtype=e.arg.dtype.np_dtype
+            )
+            res = self._zeros(torch.bool)
+            for x in vals.tolist():
+                res = res | (data == x)
+        return (~res if e.negate else res), valid
+
+    def _eval_param(self, e: Param):
+        raise NotImplementedError(
+            f"unbound scalar-subquery parameter ${e.param_id}: the executor "
+            "must substitute Params before execution"
+        )
 
 
 def _maybe_zero(e: Expr) -> bool:

@@ -5,5 +5,6 @@ from presto_tpu_torch.ops.filter_project import (  # noqa: F401
     project,
 )
 from presto_tpu_torch.ops.aggregation import AggCall, hash_aggregate  # noqa: F401
-from presto_tpu_torch.ops.sort import SortKey  # noqa: F401
+from presto_tpu_torch.ops.join import hash_join, pack_keys  # noqa: F401
+from presto_tpu_torch.ops.sort import SortKey, distinct, limit, order_by  # noqa: F401
 from presto_tpu_torch.ops.window import WindowCall  # noqa: F401

@@ -13,7 +13,10 @@ The PyTorch counterpart of ``presto_tpu/ops/aggregation.py``:
   plain one-hot broadcast-reduce that the JAX engine composes
   (``onehot_reduce_plain``), once per reduction.
 - **global path** (no keys): plain masked whole-array reductions.
-- **sorted path** (general keys): not ported yet; it raises.
+- **sorted path** (general keys): one stable multi-key sort
+  (``ops/common.py``) brings equal keys together; integer sums and
+  counts are int64 cumsum differences over each group's span, float
+  sums and min/max a segmented scan read at group ends.
 
 Shapes stay static: the planner supplies ``max_groups`` (the output
 capacity); the one-hot path reports overflow instead of reallocating,
@@ -35,6 +38,7 @@ import torch
 
 from presto_tpu_torch import types as T
 from presto_tpu_torch.expr import Expr, ExprLowerer
+from presto_tpu_torch.ops.common import boundaries, sort_order
 from presto_tpu_torch.page import Block, Page, nonzero_static
 
 
@@ -379,8 +383,10 @@ def hash_aggregate(
 
     Returns (result_page, overflow): overflow is a 0-d bool tensor, True
     when the data had more than ``max_groups`` groups (the runner
-    re-runs with a larger bucket). ``errors_out`` is accepted for
-    signature parity; the ported paths raise no traced errors.
+    re-runs with a larger bucket). ``errors_out``, when given, collects
+    ``(message, 0-d bool)`` hard errors: the sorted path's per-group
+    bigint-sum overflow trap (``_sorted_one_agg``); the runner raises
+    the message when the flag is set.
     Global aggregation (no keys) is the plain-reduction case."""
     live = page.row_mask()
     lowerer = ExprLowerer(page)
@@ -391,7 +397,10 @@ def hash_aggregate(
     keys = [(name, *lowerer.eval(e), e) for name, e in group_keys]
     domains = [_static_domain(e, lowerer) for _, _, _, e in keys]
     if any(a.func in _ORDER_FUNCS for a in aggs):
-        return _sorted_aggregate()
+        # these need the sorted layout (a per-group value order)
+        return _sorted_aggregate(
+            page, keys, aggs, max_groups, live, lowerer, errors_out
+        )
     if all(d is not None for d in domains):
         slots = [
             d + (1 if v is not None else 0)
@@ -405,11 +414,9 @@ def hash_aggregate(
                 page, keys, domains, slots, nseg, aggs, max_groups,
                 live, lowerer,
             )
-    return _sorted_aggregate()
-
-
-def _sorted_aggregate():
-    raise NotImplementedError("sorted aggregation: later slice")
+    return _sorted_aggregate(
+        page, keys, aggs, max_groups, live, lowerer, errors_out
+    )
 
 
 # --------------------------------------------------------- one-hot path
@@ -576,6 +583,281 @@ def _onehot_agg_requests(
             valid=res[i_cnt] > 0,
             dtype=at,
             dictionary=dictionary,
+        )
+
+    raise NotImplementedError(f"aggregate {agg.func}")
+
+
+# ---------------------------------------------------------- sorted path
+
+
+def _segmented_scan_reduce(
+    x: torch.Tensor, bnd: torch.Tensor, op
+) -> torch.Tensor:
+    """Inclusive segmented reduction scan: position p holds the
+    op-reduction of its segment's values up to p; segments restart where
+    ``bnd``. Read at segment END positions for per-segment totals.
+
+    The reference's ``lax.associative_scan`` as a fixed doubling tree
+    (Hillis-Steele): step s combines each position with the one s rows
+    back unless a segment starts between them. The tree depends only on
+    the length, so a float sum comes out the same on every run, and no
+    page-wide running total is differenced (that would cancel
+    catastrophically for small late groups)."""
+    vals, flags = x, bnd
+    n = x.shape[0]
+    s = 1
+    while s < n:
+        cur_v, cur_f = vals[s:], flags[s:]
+        vals = torch.cat(
+            [vals[:s], torch.where(cur_f, cur_v, op(vals[:-s], cur_v))]
+        )
+        flags = torch.cat([flags[:s], cur_f | flags[:-s]])
+        s *= 2
+    return vals
+
+
+def _group_spans(
+    bnd: torch.Tensor, max_groups: int, cap: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(starts, ends) sorted-space positions per group (gather-safe).
+
+    ``ends[i] = starts[i+1] - 1`` with cap-1 for the final and fill
+    groups: safe because rows past the live prefix carry neutral values
+    for every accumulator (0 for cumsum deltas, fills for min/max)."""
+    starts = nonzero_static(bnd, max_groups, fill_value=cap)
+    nxt = torch.cat([
+        starts[1:],
+        torch.full((1,), cap, dtype=starts.dtype, device=starts.device),
+    ])
+    ends = torch.clamp(nxt - 1, 0, cap - 1)
+    return torch.clamp(starts, max=cap - 1), ends
+
+
+def _cumsum_span(
+    w: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor
+) -> torch.Tensor:
+    """Per-group totals of ``w`` via an inclusive cumsum differenced over
+    [start, end] spans (no scatter). An int64 running total may wrap:
+    the difference is still exact whenever the group's sum fits."""
+    c = torch.cumsum(w, dim=0)
+    return c[ends] - c[starts] + w[starts]
+
+
+def _sorted_aggregate(
+    page: Page,
+    keys,
+    aggs: Sequence[AggCall],
+    max_groups: int,
+    live: torch.Tensor,
+    lowerer: ExprLowerer,
+    errors_out: Optional[List] = None,
+) -> Tuple[Page, torch.Tensor]:
+    cap = page.capacity
+    keys = [
+        (name, torch.broadcast_to(d, (cap,)), v, e) for name, d, v, e in keys
+    ]
+    order = sort_order([(d, v, e.dtype) for _, d, v, e in keys], live)
+    live_s = live[order]
+    keys_s = [
+        (name, d[order], None if v is None else v[order], e)
+        for name, d, v, e in keys
+    ]
+    bnd = boundaries([(d, v) for _, d, v, _ in keys_s], live_s)
+    num_groups = torch.sum(bnd).to(torch.int32)
+    overflow = num_groups > max_groups
+
+    starts, ends = _group_spans(bnd, max_groups, cap)
+
+    names: List[str] = []
+    blocks: List[Block] = []
+    for name, d, v, e in keys_s:
+        names.append(name)
+        dictionary = None
+        if e.dtype.is_string:
+            dictionary = lowerer.dictionary_of(e)
+        blocks.append(
+            Block(
+                data=d[starts],
+                valid=None if v is None else v[starts],
+                dtype=e.dtype,
+                dictionary=dictionary,
+            )
+        )
+
+    for agg in aggs:
+        if agg.func in ("approx_percentile", "min_by", "max_by"):
+            blk = _order_stat_agg(
+                agg, page, keys, live, starts, ends, lowerer
+            )
+        else:
+            blk = _sorted_one_agg(
+                agg, page, order, live_s, bnd, starts, ends, lowerer,
+                errors_out,
+            )
+        names.append(agg.out_name)
+        blocks.append(blk)
+
+    out = Page(
+        blocks=tuple(blocks),
+        num_valid=torch.clamp(num_groups, max=max_groups).to(torch.int32),
+        names=tuple(names),
+    )
+    return out, overflow
+
+
+def _order_stat_agg(
+    agg: AggCall,
+    page: Page,
+    keys,  # ORIGINAL (unsorted) key evals: [(name, d, v, e), ...]
+    live: torch.Tensor,
+    starts: torch.Tensor,
+    ends: torch.Tensor,
+    lowerer: ExprLowerer,
+) -> Block:
+    """approx_percentile / min_by / max_by on the sorted path.
+
+    Each takes its own sort by (group keys, ordering value): within every
+    group the ordering value's non-null rows form an ascending prefix,
+    and every group keeps the span it has in the primary order, so the
+    primary spans are reused.
+
+    - approx_percentile(x, p): the element at nearest rank ceil(p*n)
+      among the group's n valid values (exact).
+    - min_by(x, y) / max_by(x, y): x at the group's first / last y-valid
+      position."""
+    cap = page.capacity
+    is_by = agg.func in ("min_by", "max_by")
+    val = agg.arg2 if is_by else agg.arg
+    vd, vv = lowerer.eval(val)
+    vd = torch.broadcast_to(vd, (cap,))
+    vvb = None if vv is None else torch.broadcast_to(vv, (cap,))
+    order2 = sort_order(
+        [(d, v, e.dtype) for _, d, v, e in keys] + [(vd, vvb, val.dtype)],
+        live,
+    )
+    live2 = live[order2]
+    valid2 = live2 if vvb is None else (live2 & vvb[order2])
+    cntv = _cumsum_span(valid2.to(torch.int64), starts, ends)
+    group_has = cntv > 0
+    last = torch.clamp(cntv - 1, min=0)
+
+    if agg.func == "approx_percentile":
+        p = float(agg.param if agg.param is not None else 0.5)
+        k = torch.ceil(p * cntv.to(torch.float64)).to(torch.int64) - 1
+        k = torch.minimum(torch.clamp(k, min=0), last)
+        idx = torch.clamp(starts + k, max=cap - 1)
+        return Block(
+            data=vd[order2][idx], valid=group_has, dtype=agg.arg.dtype
+        )
+
+    xd, xv = lowerer.eval(agg.arg)
+    xd2 = torch.broadcast_to(xd, (cap,))[order2]
+    if agg.func == "min_by":
+        idx = starts
+    else:
+        idx = torch.clamp(starts + last, max=cap - 1)
+    valid = group_has
+    if xv is not None:
+        valid = valid & torch.broadcast_to(xv, (cap,))[order2][idx]
+    dictionary = None
+    if agg.arg.dtype.is_string:
+        dictionary = lowerer.dictionary_of(agg.arg)
+    return Block(
+        data=xd2[idx], valid=valid, dtype=agg.arg.dtype,
+        dictionary=dictionary,
+    )
+
+
+def _sorted_one_agg(
+    agg: AggCall,
+    page: Page,
+    order: torch.Tensor,
+    live_s: torch.Tensor,
+    bnd: torch.Tensor,
+    starts: torch.Tensor,
+    ends: torch.Tensor,
+    lowerer: ExprLowerer,
+    errors_out: Optional[List] = None,
+) -> Block:
+    rt = agg.result_type()
+
+    if agg.func == "count_star":
+        data = _cumsum_span(live_s.to(torch.int64), starts, ends)
+        return Block(data=data, valid=None, dtype=T.BIGINT)
+
+    if agg.func == "array_agg":
+        raise NotImplementedError(
+            "array_agg: array blocks are a later slice of the port"
+        )
+
+    cap = page.capacity
+    d, v = lowerer.eval(agg.arg)
+    d = torch.broadcast_to(d, (cap,))[order]
+    valid_s = live_s if v is None else (
+        live_s & torch.broadcast_to(v, (cap,))[order]
+    )
+
+    cnt = _cumsum_span(valid_s.to(torch.int64), starts, ends)
+    if agg.func == "count":
+        return Block(data=cnt, valid=None, dtype=T.BIGINT)
+    group_has_value = cnt > 0
+    at = agg.arg.dtype
+
+    if agg.func in _VARIANCE_FUNCS:
+        x = d.to(torch.float64)
+        if at.is_decimal:
+            x = x / (10 ** at.scale)
+        x = torch.where(valid_s, x, 0.0)
+        s1 = _segmented_scan_reduce(x, bnd, torch.add)[ends]
+        s2 = _segmented_scan_reduce(x * x, bnd, torch.add)[ends]
+        return _variance_block(s1, s2, cnt, agg.func)
+
+    if agg.func in ("sum", "avg"):
+        if at.name in ("double", "real") or agg.func == "avg":
+            # decimal avg and double sums: a SEGMENTED scan, not a
+            # page-wide cumsum (see _segmented_scan_reduce)
+            x = d.to(torch.float64)
+            if at.is_decimal:
+                x = x / (10 ** at.scale)
+            x = torch.where(valid_s, x, 0.0)
+            s = _segmented_scan_reduce(x, bnd, torch.add)[ends]
+            if agg.func == "avg":
+                s = s / torch.clamp(cnt, min=1)
+            return Block(data=s, valid=group_has_value, dtype=T.DOUBLE)
+        x = torch.where(valid_s, d.to(torch.int64), 0)
+        s = _cumsum_span(x, starts, ends)
+        if errors_out is not None:
+            # per-group overflow trap: the differenced int64 sums are
+            # exact under two's-complement wrap whenever the TRUE group
+            # sum fits int64 (even if the page-wide running total
+            # wraps), so the check is per group, against a float64
+            # shadow of the same span difference. A real per-group
+            # overflow displaces the int result by ~2^64; float
+            # cancellation error stays far below the 2^62 threshold.
+            sf = _cumsum_span(x.to(torch.float64), starts, ends)
+            wrapped = torch.any(
+                torch.abs(s.to(torch.float64) - sf) > 2.0 ** 62
+            )
+            errors_out.append(
+                (f"bigint sum overflow in {agg.out_name}", wrapped)
+            )
+        return Block(data=s, valid=group_has_value, dtype=rt)
+
+    if agg.func in ("min", "max"):
+        # torch.minimum/maximum propagate NaN, as jnp.minimum does
+        op = torch.minimum if agg.func == "min" else torch.maximum
+        if at.name in ("double", "real"):
+            x = d.to(torch.float64)
+        else:
+            x = d.to(torch.int64)
+        x = torch.where(valid_s, x, _onehot_fill(agg.func, x.dtype))
+        data = _segmented_scan_reduce(x, bnd, op)[ends].to(at.torch_dtype)
+        dictionary = None
+        if at.is_string:
+            dictionary = lowerer.dictionary_of(agg.arg)
+        return Block(
+            data=data, valid=group_has_value, dtype=at, dictionary=dictionary
         )
 
     raise NotImplementedError(f"aggregate {agg.func}")

@@ -71,11 +71,18 @@ AGGS = [
 ]
 
 
-def _agg_calls(col, A):
-    return [
-        A.AggCall(func, None if arg is None else col(arg), f"a{i}")
-        for i, (func, arg) in enumerate(AGGS)
-    ]
+def _agg_calls(col, A, aggs):
+    """AggCalls of (func, arg[, arg2 or quantile]) specs."""
+    calls = []
+    for i, (func, arg, *extra) in enumerate(aggs):
+        kw = {}
+        if func in ("min_by", "max_by"):
+            kw["arg2"] = col(extra[0])
+        elif func == "approx_percentile":
+            kw["param"] = extra[0]
+        calls.append(A.AggCall(
+            func, None if arg is None else col(arg), f"a{i}", **kw))
+    return calls
 
 
 KEYSETS = {
@@ -85,11 +92,17 @@ KEYSETS = {
     "bool_with_nulls": ["b"],
     "dict_and_bool": ["status", "b"],
     "none": [],
+    # keys with no provable small domain take the sorted path
+    "int": ["n"],
+    "bigint_with_nulls": ["i"],
+    "double_with_nulls": ["f"],
+    "int_and_dict": ["n", "flag"],
+    "dict_with_nulls_and_decimal": ["s", "d"],
 }
 
 
-def _run_both(keys, seed, max_groups, live_mask=None):
-    cols = _columns(seed)
+def _run_both(keys, seed, max_groups, live_mask=None, aggs=None, cols=None):
+    cols = _columns(seed) if cols is None else cols
     ref_page, port_page = both_pages(cols, LIVE)
     if live_mask is not None:
         ref_page = RP.Page(ref_page.blocks, jnp.asarray(int(live_mask.sum()),
@@ -97,12 +110,13 @@ def _run_both(keys, seed, max_groups, live_mask=None):
         port_page = PP.Page(port_page.blocks, torch.tensor(
             int(live_mask.sum()), dtype=torch.int32), port_page.names,
             torch.from_numpy(live_mask))
+    aggs = AGGS if aggs is None else aggs
     ref_out, ref_ovf = RA.hash_aggregate(
-        ref_page, [(k, _ref(k)) for k in keys], _agg_calls(_ref, RA),
+        ref_page, [(k, _ref(k)) for k in keys], _agg_calls(_ref, RA, aggs),
         max_groups,
     )
     port_out, port_ovf = PA.hash_aggregate(
-        port_page, [(k, _port(k)) for k in keys], _agg_calls(_port, PA),
+        port_page, [(k, _port(k)) for k in keys], _agg_calls(_port, PA, aggs),
         max_groups,
     )
     assert bool(port_ovf) == bool(ref_ovf)
@@ -118,16 +132,18 @@ def _run_both(keys, seed, max_groups, live_mask=None):
 @pytest.mark.parametrize("keyset", sorted(KEYSETS))
 @pytest.mark.parametrize("seed", [0, 1])
 def test_hash_aggregate_matches_reference(keyset, seed):
-    _run_both(KEYSETS[keyset], seed, max_groups=64)
+    _run_both(KEYSETS[keyset], seed, max_groups=CAP)
 
 
-@pytest.mark.parametrize("keyset", ["q1_keys", "dict_with_nulls", "none"])
+@pytest.mark.parametrize(
+    "keyset", ["q1_keys", "dict_with_nulls", "none", "int", "int_and_dict"]
+)
 def test_hash_aggregate_over_masked_page(keyset):
     live = np.random.default_rng(5).random(CAP) < 0.6
     _run_both(KEYSETS[keyset], 2, max_groups=64, live_mask=live)
 
 
-@pytest.mark.parametrize("keyset", ["q1_keys", "none"])
+@pytest.mark.parametrize("keyset", ["q1_keys", "none", "int"])
 def test_hash_aggregate_with_no_live_rows(keyset):
     _run_both(KEYSETS[keyset], 3, max_groups=16,
               live_mask=np.zeros(CAP, bool))
@@ -155,11 +171,89 @@ def test_onehot_path_is_taken_for_small_domains(monkeypatch):
     assert {"count", "sum", "min", "max"} <= set(ops)
 
 
-def test_sorted_path_is_not_ported():
-    _, port_page = both_pages(_columns(0), LIVE)
-    with pytest.raises(NotImplementedError, match="sorted aggregation"):
-        PA.hash_aggregate(port_page, [("i", _port("i"))],
-                          [PA.AggCall("count_star", None, "c")], 64)
+def test_sorted_max_groups_overflow():
+    out, overflow = _run_both(["n"], 4, max_groups=16)
+    assert overflow and int(out.num_valid) == 16 and out.capacity == 16
+
+
+def test_sorted_path_launches_no_onehot_reduction(monkeypatch):
+    def spy(*args):
+        raise AssertionError("the sorted path reached onehot_reduce_many")
+
+    monkeypatch.setattr(PA, "onehot_reduce_many", spy)
+    _run_both(["n", "flag"], 0, max_groups=CAP)
+
+
+ORDER_AGGS = [
+    ("approx_percentile", "f", 0.3), ("approx_percentile", "d", 0.9),
+    ("approx_percentile", "n", 0.5),
+    ("min_by", "s", "f"), ("max_by", "i", "d"), ("min_by", "f", "n"),
+    ("max_by", "flag", "i"), ("count_star", None), ("sum", "q"),
+]
+
+
+@pytest.mark.parametrize("keyset", ["int", "q1_keys", "dict_with_nulls"])
+def test_order_statistic_aggregates_match_reference(keyset):
+    # these force the sorted path even over one-hot-able keys
+    _run_both(KEYSETS[keyset], 6, max_groups=CAP, aggs=ORDER_AGGS)
+
+
+def test_sorted_float_min_max_sum_propagate_nan():
+    cols = _columns(7)
+    f = cols["f"][0].copy()
+    keys = cols["n"][0]
+    valid = cols["f"][1].copy()
+    for k in (-50, 3, 17):  # a NaN in three groups, among other values
+        i = np.flatnonzero(keys[:LIVE] == k)[0]
+        f[i], valid[i] = np.nan, True
+    cols["f"] = (f, valid, "double", None)
+    aggs = [("min", "f"), ("max", "f"), ("sum", "f"), ("avg", "f"),
+            ("count", "f")]
+    out, _ = _run_both(["n"], 7, max_groups=CAP, aggs=aggs, cols=cols)
+    res = convert.page_to_numpy(out)
+    groups = res["n"][0]
+    for k in (-50, 3, 17):
+        g = np.flatnonzero(groups == k)[0]
+        for name in ("a0", "a1", "a2", "a3"):
+            assert np.isnan(res[name][0][g]), (k, name)
+    assert np.isfinite(res["a0"][0][groups == 0]).all()
+
+
+@pytest.mark.parametrize("overflows", [False, True])
+def test_sorted_bigint_sum_overflow_trap(overflows):
+    big = 2 ** 62
+    if overflows:
+        # group 0 sums to 2^63: a real per-group overflow
+        keys, values = [0, 0, 1], [big, big, 5]
+    else:
+        # every group sum fits, but the page-wide running total wraps
+        keys, values = [0, 0, 1, 2], [big, big - 1, big, -big]
+    cols = {
+        "k": (np.asarray(keys, np.int32), None, "integer", None),
+        "x": (np.asarray(values, np.int64), None, "bigint", None),
+    }
+    ref_page, port_page = both_pages(cols, len(keys))
+    ref_errs, port_errs = [], []
+    ref_out, _ = RA.hash_aggregate(
+        ref_page, [("k", RE.ColumnRef("k", RT.INTEGER))],
+        [RA.AggCall("sum", RE.ColumnRef("x", RT.BIGINT), "s")], 8,
+        errors_out=ref_errs,
+    )
+    port_out, _ = PA.hash_aggregate(
+        port_page, [("k", PE.ColumnRef("k", PT.INTEGER))],
+        [PA.AggCall("sum", PE.ColumnRef("x", PT.BIGINT), "s")], 8,
+        errors_out=port_errs,
+    )
+    assert len(port_errs) == len(ref_errs) == 1
+    assert port_errs[0][0] == ref_errs[0][0] == "bigint sum overflow in s"
+    assert bool(port_errs[0][1]) == bool(ref_errs[0][1]) == overflows
+    if not overflows:
+        assert_columns_equal(
+            jax_live_columns(ref_out), convert.page_to_numpy(port_out)
+        )
+        assert convert.page_to_numpy(port_out)["s"][0].tolist() == [
+            2 ** 63 - 1, big, -big
+        ]
 
 
 # ------------------------------------------- the reduction's plain version

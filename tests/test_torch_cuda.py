@@ -201,3 +201,25 @@ def test_onehot_reduce_many_float_sums_are_bit_identical(cuda, nseg):
     first = onehot_reduce_many(g, reqs, nseg)
     for _ in range(3):
         assert torch.equal(onehot_reduce_many(g, reqs, nseg), first)
+
+
+# ------------------------------------------- the slice's queries on the card
+
+
+@pytest.mark.parametrize("q", [3, 5, 12, 19])
+def test_tpch_join_queries_on_the_card_equal_the_cpu(cuda, q):
+    # joins, the sorted GROUP BY (Q3), the one-hot GROUP BY (Q5), IN
+    # lists through a dictionary LUT copied to the card (Q12, Q19) and
+    # stage-at-a-time execution with dynamic filters (Q3, Q5), all on
+    # the card; Q19's sum is a decimal and Q12's are counts, so every
+    # result is exact and the rows must be equal
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from tpch_queries import QUERIES
+
+    gpu = LocalQueryRunner(device="cuda")
+    cpu = LocalQueryRunner(device="cpu")
+    got = gpu.execute(QUERIES[q]).rows()
+    assert got == cpu.execute(QUERIES[q]).rows() and len(got) > 0
+    if q in (3, 5):
+        assert gpu.fragments_run > 0 and gpu.dynamic_filters_applied > 0
+    assert got == gpu.execute(QUERIES[q]).rows()  # a warm run repeats

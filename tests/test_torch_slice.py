@@ -117,10 +117,9 @@ def test_overflow_retry_rescales_max_groups(runners):
 @pytest.mark.parametrize(
     "sql",
     [
-        "select count(*) from tpch.tiny.orders o join tpch.tiny.customer c "
-        "on o.o_custkey = c.c_custkey",
-        "select l_orderkey, count(*) from tpch.tiny.lineitem "
-        "group by l_orderkey",
+        QUERIES[2],  # LIKE
+        "select o_orderkey, rank() over (partition by o_custkey "
+        "order by o_totalprice) from tpch.tiny.orders",
         "show tables",
     ],
 )
