@@ -5,7 +5,9 @@
 
 For Q1 and then Q6 on tpch.sf1, then Q3 and Q5 on tpch.sf10 with
 ``max_device_rows`` 2^26 (the texts and session of chip_smoke.py; or
-the ``--queries`` named), each on one
+the ``--queries`` named, out of those and ``window`` (BASELINE.json's
+window query over tpch.sf10.orders, default session), ``q9`` and
+``q22`` (on tpch.sf10 in the joins session)), each on one
 ``LocalQueryRunner(device="cuda")``: one cold run and two warm
 runs, then ``--runs`` warm runs under ``torch.profiler`` (CPU and CUDA
 activities). Prints, per query, the host wall time of a warm run, the
@@ -151,7 +153,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--queries", default="q1,q6,q3,q5",
-                    help="comma-separated subset of q1,q6,q3,q5")
+                    help="comma-separated subset of "
+                    "q1,q6,q3,q5,window,q9,q22")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -162,7 +165,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (
-        JOINS_MAX_DEVICE_ROWS, JOINS_SCHEMA, Q1, Q3, Q5, Q6, card_line,
+        JOINS_MAX_DEVICE_ROWS, JOINS_SCHEMA, Q1, Q3, Q5, Q6, WINDOW,
+        WINDOW_SCHEMA, card_line, tpch_queries,
     )
     from presto_tpu_torch.exec.local_runner import LocalQueryRunner
     from presto_tpu_torch.session import Session
@@ -178,9 +182,13 @@ def main() -> int:
     )
     report = {"card": card, "runs": args.runs}
     wanted = args.queries.split(",")
+    tpch = tpch_queries()
     for name, schema, runner, sql in (
         ("q1", "sf1", sf1, Q1), ("q6", "sf1", sf1, Q6),
         ("q3", JOINS_SCHEMA, joins, Q3), ("q5", JOINS_SCHEMA, joins, Q5),
+        ("window", WINDOW_SCHEMA, sf1, WINDOW),
+        ("q9", JOINS_SCHEMA, joins, tpch["Q9"]),
+        ("q22", JOINS_SCHEMA, joins, tpch["Q22"]),
     ):
         if name not in wanted:
             continue

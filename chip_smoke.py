@@ -37,7 +37,18 @@ non-zero, and only a run where every phase passed prints the final
               without its LIMIT, and the top 10; Q5: all 5 nations), the
               two warm runs must be identical, and the one-hot reduction
               is checked against its plain version at Q5's own inputs.
-6. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+6. rest     - the third slice: BASELINE.json's window query over SF10
+              orders (15,000,000 rows, default session), every row's rn
+              and rk held exactly against a numpy evaluation; TPC-H Q9
+              (LIKE, EXTRACT, a six-way join), Q22 and Q22 without its NOT
+              EXISTS (a transformed-dictionary key: exactly one
+              onehot_reduce launch per run) at SF10 in the joins phase's
+              session, exact against numpy; then Q2, Q7, Q8, Q13, Q14, Q16
+              and Q20 at SF1, each equal to the same query on the port's
+              CPU runner (doubles within rel 1e-9). Each query runs cold
+              then twice warm with the launch counts reset just before and
+              read just after; the warm runs must agree bit for bit.
+7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -51,6 +62,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -857,6 +869,381 @@ def result_rows(res, names):
     )))
 
 
+# -------------------------------------------------------------- rest phase
+
+#: BASELINE.json's window configuration (bench.py's window query) at the
+#: joins phase's scale: SF10 orders, 15,000,000 rows, fits the default
+#: ``max_device_rows`` (2^24) whole
+WINDOW_SCHEMA = JOINS_SCHEMA
+WINDOW = f"""
+select o_orderkey, o_custkey,
+  row_number() over (partition by o_custkey order by o_orderdate) as rn,
+  rank() over (partition by o_orderpriority order by o_totalprice) as rk
+from tpch.{WINDOW_SCHEMA}.orders
+"""
+#: Q22's NOT EXISTS: the generator gives every customer orders, so it
+#: keeps almost no row; Q22 also runs without it
+Q22_NOT_EXISTS = """
+    and not exists (
+      select * from orders where o_custkey = c_custkey)
+"""
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+#: the third slice's queries the card runs at SF1, each held against the
+#: same query on the port's CPU runner
+REST_SF1 = (2, 7, 8, 13, 14, 16, 20)
+REST_SF1_SCHEMA = "sf1"
+
+
+def tpch_queries():
+    """The TPC-H texts of tests/tpch_queries.py (standard substitution
+    parameters, unqualified table names)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from tpch_queries import QUERIES
+
+    q22 = QUERIES[22]
+    check(Q22_NOT_EXISTS in q22, "Q22's NOT EXISTS clause not found")
+    return {
+        **{f"Q{q}": QUERIES[q] for q in (9, 22) + REST_SF1},
+        "Q22 without not exists": q22.replace(Q22_NOT_EXISTS, "\n"),
+    }
+
+
+def host_columns(res):
+    """(rows, {name: (data, valid, dictionary values or None)}) of a
+    result's live rows, undecoded."""
+    page = res.page
+    n = int(page.num_valid)
+    out = {}
+    for name, blk in zip(page.names, page.blocks):
+        data, valid = blk.to_numpy(n)
+        values = None if blk.dictionary is None else blk.dictionary.values
+        out[name] = (data, valid, values)
+    return n, out
+
+
+def results_differ(a, b, rel: float = 0.0):
+    """None if results ``a`` and ``b`` agree, else what differs: the same
+    columns, rows and NULLs; strings (decoded), integers, decimals and
+    dates exactly; doubles bit for bit (``rel`` 0) or within ``rel`` of
+    the larger magnitude."""
+    import numpy as np
+
+    if a.columns != b.columns:
+        return f"columns {a.columns} != {b.columns}"
+    na, ca = host_columns(a)
+    nb, cb = host_columns(b)
+    if na != nb:
+        return f"{na} rows != {nb} rows"
+    for name in ca:
+        (da, va, sa), (db, vb, sb) = ca[name], cb[name]
+        if not np.array_equal(va, vb):
+            return f"{name}: NULLs differ"
+        da, db = da[va], db[va]
+        if sa is not None:
+            same = np.array_equal(sa[da].astype(str), sb[db].astype(str))
+        elif da.dtype.kind == "f" and rel > 0:
+            scale = np.maximum(np.abs(da), np.abs(db))
+            same = bool(((np.abs(da - db) <= rel * scale)
+                         | (np.isnan(da) & np.isnan(db))).all())
+        elif da.dtype.kind == "f":
+            same = da.tobytes() == db.tobytes()
+        else:
+            same = np.array_equal(da, db)
+        if not same:
+            return f"{name}: values differ"
+    return None
+
+
+def syncs_per_run(runner, sql, dev):
+    """``cudaStreamSynchronize`` calls of one warm run under
+    torch.profiler (None on the CPU: nothing to count)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type != "cuda":
+        return None
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        runner.execute(sql)
+        torch.cuda.synchronize(dev)
+    return sum(
+        e.count for e in prof.key_averages()
+        if e.key == "cudaStreamSynchronize"
+    )
+
+
+def run_three(runner, name, sql, dev, card, scanned: Optional[int] = None):
+    """Cold then twice warm, the launch count reset before each run and
+    read after it; the warm runs must agree bit for bit. ``scanned``: the
+    rows a warm rate is given for. Returns (the first warm result, its
+    record)."""
+    import torch
+
+    from presto_tpu_torch.ops import aggregation as PA
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    runs, per_run = [], []
+    for _ in range(3):
+        PA.onehot_reduce.launches = 0
+        runs.append(run_timed(runner, sql, dev))
+        per_run.append(PA.onehot_reduce.launches)
+    (cold, cold_s), (w1, w1_s), (w2, w2_s) = runs
+    diff = results_differ(w1, w2)
+    check(diff is None, f"{name}: two warm runs differ ({diff})")
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else None)
+    rec = {
+        "query": name, "rows": int(w1.page.num_valid), "cold_s": cold_s,
+        "warm_s": [w1_s, w2_s],
+        "rows_per_s": scanned and scanned / min(w1_s, w2_s),
+        "peak_gib": peak,
+        "syncs_per_warm_run": syncs_per_run(runner, sql, dev),
+        "onehot_reduce_launches": per_run,
+    }
+    rate = (f", {rec['rows_per_s']:.1f} rows/s of {scanned} scanned"
+            if scanned else "")
+    print(
+        f"{name}: {rec['rows']} rows; cold_s {cold_s:.4f}, warm_s "
+        f"{w1_s:.4f} / {w2_s:.4f}{rate}, peak memory "
+        f"{'not measured (no card)' if peak is None else f'{peak:.3f} GiB'}"
+        f", cudaStreamSynchronize per warm run "
+        f"{rec['syncs_per_warm_run']}, onehot_reduce launches per run "
+        f"{per_run} [{card}]",
+        flush=True,
+    )
+    return w1, rec
+
+
+def rest_columns(schema: str):
+    """The generator's own columns of the tables the window query, Q9
+    and Q22 read, at ``schema``'s scale (not through the port)."""
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+
+    gen = TpchGenerator(SCHEMAS[schema])
+    want = {
+        "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+                     "l_extendedprice", "l_discount"],
+        "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice",
+                   "o_orderpriority"],
+        "part": ["p_partkey", "p_name"],
+        "partsupp": ["ps_partkey", "ps_suppkey", "ps_supplycost"],
+        "supplier": ["s_suppkey", "s_nationkey"],
+        "customer": ["c_custkey", "c_phone", "c_acctbal"],
+        "nation": ["n_nationkey", "n_name"],
+    }
+    return {
+        t: gen.generate(t, 0, gen.counts[t], cols) for t, cols in want.items()
+    }
+
+
+def numpy_window(o):
+    """rn and rk of every order row, in the generator's row order: the
+    planner runs the first window (rn) over the scan and the second over
+    its output, and each orders its input with a stable sort, so rn
+    breaks (custkey, orderdate) ties in row order; rank() gives each row
+    its first peer's position."""
+    import numpy as np
+
+    def ranks(perm, part, peer):
+        pos = np.arange(len(perm))
+        head = np.ones(len(perm), bool)
+        head[1:] = part[perm][1:] != part[perm][:-1]
+        first = head.copy()
+        first[1:] |= peer[perm][1:] != peer[perm][:-1]
+        start = np.maximum.accumulate(np.where(head, pos, 0))
+        out = np.empty(len(perm), np.int64)
+        out[perm] = np.maximum.accumulate(np.where(first, pos, 0)) - start + 1
+        return out
+
+    ck = o["o_custkey"].astype(np.int64)
+    pos = np.arange(len(ck))
+    rn = ranks(np.lexsort((o["o_orderdate"], ck)), ck, pos)  # every row a peer
+    prio = o["o_orderpriority"].ids.astype(np.int64)
+    price = o["o_totalprice"].astype(np.int64)
+    rk = ranks(np.lexsort((price, prio)), prio, price)
+    return rn, rk
+
+
+def check_window(res, o):
+    import numpy as np
+
+    rn, rk = numpy_window(o)
+    n, cols = host_columns(res)
+    check(n == len(rn), f"window: {n} rows, expected {len(rn)}")
+    for name in ("rn", "rk"):
+        check(cols[name][0].dtype == np.int32,
+              f"window {name}: {cols[name][0].dtype} data, expected int32")
+    row_of = _lookup(o["o_orderkey"], np.arange(len(rn)), -1)
+    rows = row_of[cols["o_orderkey"][0]]
+    check(bool((rows >= 0).all()) and len(np.unique(rows)) == n,
+          "window: the orderkeys are not the table's, each once")
+    for name, want in (("o_custkey", o["o_custkey"]), ("rn", rn), ("rk", rk)):
+        check(bool(cols[name][1].all()), f"window {name}: a NULL")
+        check(np.array_equal(cols[name][0].astype(np.int64),
+                             np.asarray(want, np.int64)[rows]),
+              f"window {name} differs from numpy")
+
+
+def numpy_q9(d):
+    """Q9 by key lookup: {(nation, year): profit at scale 4, exact}."""
+    import numpy as np
+
+    li, p, ps, o = d["lineitem"], d["part"], d["partsupp"], d["orders"]
+    green = np.asarray(["green" in str(v) for v in p["p_name"].values])
+    part_green = _lookup(p["p_partkey"], green[p["p_name"].ids], False)
+    m = part_green[li["l_partkey"]]
+    pk, sk = li["l_partkey"][m], li["l_suppkey"][m]
+    wide = int(ps["ps_suppkey"].max()) + 1
+    ps_key = ps["ps_partkey"] * wide + ps["ps_suppkey"]
+    order = np.argsort(ps_key)
+    at = np.searchsorted(ps_key[order], pk * wide + sk)
+    check(bool((ps_key[order][np.minimum(at, len(order) - 1)]
+                == pk * wide + sk).all()), "a lineitem without its partsupp")
+    cost = ps["ps_supplycost"][order][at].astype(np.int64)
+    amount = (
+        li["l_extendedprice"][m].astype(np.int64)
+        * (100 - li["l_discount"][m].astype(np.int64))
+        - cost * li["l_quantity"][m].astype(np.int64)
+    )
+    nation = _lookup(d["supplier"]["s_suppkey"],
+                     d["supplier"]["s_nationkey"], -1)[sk]
+    order_row = _lookup(o["o_orderkey"], np.arange(len(o["o_orderkey"])), -1)
+    odate = o["o_orderdate"][order_row[li["l_orderkey"][m]]]
+    year = (odate.astype("datetime64[D]").astype("datetime64[Y]")
+            .astype(np.int64) + 1970)
+    keys, inv = np.unique(nation * 10000 + year, return_inverse=True)
+    total = np.zeros(len(keys), np.int64)
+    np.add.at(total, inv, amount)
+    n = d["nation"]
+    name_of = {int(k): str(n["n_name"].values[i])
+               for k, i in zip(n["n_nationkey"], n["n_name"].ids)}
+    rows = [(name_of[int(k) // 10000], int(k) % 10000, int(t))
+            for k, t in zip(keys, total)]
+    return sorted(rows, key=lambda r: (r[0], -r[1]))
+
+
+def numpy_q22(d, not_exists: bool):
+    """Q22: [(cntrycode, customers, acctbal at scale 2)], exact. The
+    subquery's average is a double; the returned margin is the closest
+    any customer's balance comes to it (a comparison that a last-bit
+    difference in the average could flip needs a margin near 0)."""
+    import numpy as np
+
+    c = d["customer"]
+    phone = c["c_phone"]
+    code = np.asarray([str(v)[:2] for v in phone.values])[phone.ids]
+    inset = np.isin(code, Q22_CODES)
+    bal = c["c_acctbal"].astype(np.int64)
+    pos = inset & (bal > 0)
+    avg = float(bal[pos].sum()) / 100 / int(pos.sum())
+    margin = float(np.abs(bal[inset] / 100 - avg).min())
+    keep = inset & (bal / 100 > avg)
+    if not_exists:
+        has_order = np.zeros(int(c["c_custkey"].max()) + 1, bool)
+        has_order[d["orders"]["o_custkey"]] = True
+        keep &= ~has_order[c["c_custkey"]]
+    rows = [(cc, int((keep & (code == cc)).sum()),
+             int(bal[keep & (code == cc)].sum()))
+            for cc in sorted(Q22_CODES)]
+    return [r for r in rows if r[1] > 0], margin
+
+
+def rest_phase(card: str, dev=None):
+    """The third slice's path on ``dev`` (the card unless a CPU rehearsal
+    passes another): the window query and Q9/Q22 at SF10, exact against
+    numpy; Q2/Q7/Q8/Q13/Q14/Q16/Q20 at SF1 against the port's CPU
+    runner. Each query runs cold then twice warm. Returns (the
+    onehot_reduce launches of the phase's counted runs, the records)."""
+    import torch
+
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.session import Session
+
+    dev = torch.device("cuda") if dev is None else dev
+    queries = tpch_queries()
+    t0 = time.perf_counter()
+    d = rest_columns(WINDOW_SCHEMA)
+    n_orders, n_lineitem = len(d["orders"]["o_orderkey"]), len(
+        d["lineitem"]["l_orderkey"])
+    want_q9 = numpy_q9(d)
+    want_q22 = {name: numpy_q22(d, name == "Q22")
+                for name in ("Q22", "Q22 without not exists")}
+    print(f"numpy evaluation of Q9/Q22 at {WINDOW_SCHEMA}: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    launches, records = 0, []
+
+    # the window configuration, default session
+    runner = LocalQueryRunner(device=dev)
+    res, rec = run_three(runner, "window", WINDOW, dev, card, n_orders)
+    launches += sum(rec["onehot_reduce_launches"])
+    t0 = time.perf_counter()
+    check_window(res, d["orders"])
+    print(f"window {WINDOW_SCHEMA}: rn and rk of all {n_orders} orders "
+          f"equal numpy's ({time.perf_counter() - t0:.2f} s)", flush=True)
+    records.append(rec)
+    del runner, res
+
+    # Q9 and Q22 in the joins phase's session
+    runner = LocalQueryRunner(
+        device=dev,
+        session=Session(
+            schema=JOINS_SCHEMA,
+            properties={"max_device_rows": JOINS_MAX_DEVICE_ROWS},
+        ),
+    )
+    res, rec = run_three(runner, "Q9", queries["Q9"], dev, card, n_lineitem)
+    launches += sum(rec["onehot_reduce_launches"])
+    check(res.page.block("sum_profit").dtype.scale == 4,
+          "Q9 sum_profit is not at scale 4")
+    got = result_rows(res, ("nation", "o_year", "sum_profit"))
+    check(got == want_q9, f"Q9 {got[:3]}... != numpy {want_q9[:3]}...")
+    print(f"Q9 {JOINS_SCHEMA}: all {len(got)} (nation, year) groups equal "
+          "numpy's", flush=True)
+    records.append(rec)
+    for name, (want, margin) in want_q22.items():
+        res, rec = run_three(runner, name, queries[name], dev, card,
+                             len(d["customer"]["c_custkey"]))
+        launches += sum(rec["onehot_reduce_launches"])
+        # one onehot_reduce launch per run: GROUP BY substring(c_phone,
+        # 1, 2) over the transformed dictionary's 25 country codes
+        per = 1 if dev.type == "cuda" else 0
+        check(rec["onehot_reduce_launches"] == [per] * 3,
+              f"{name} made {rec['onehot_reduce_launches']} onehot_reduce "
+              f"launches per run, expected {per}")
+        check(margin > 1e-6, f"{name}: a balance within {margin} of the "
+              "average")
+        check(res.page.block("totacctbal").dtype.scale == 2,
+              f"{name} totacctbal is not at scale 2")
+        got = result_rows(res, ("cntrycode", "numcust", "totacctbal"))
+        check(got == want, f"{name} {got} != numpy {want}")
+        print(f"{name} {JOINS_SCHEMA}: {got} equal numpy's (closest "
+              f"balance {margin:.4f} from the average)", flush=True)
+        records.append(rec)
+    del runner, res, d
+
+    # the rest at SF1 against the port's CPU runner
+    session = Session(schema=REST_SF1_SCHEMA)
+    runner = LocalQueryRunner(device=dev, session=session)
+    cpu = LocalQueryRunner(device="cpu", session=session)
+    for q in REST_SF1:
+        name = f"Q{q}"
+        res, rec = run_three(runner, name, queries[name], dev, card)
+        launches += sum(rec["onehot_reduce_launches"])
+        t0 = time.perf_counter()
+        want = cpu.execute(queries[name])
+        cpu_s = time.perf_counter() - t0
+        diff = results_differ(res, want, rel=1e-9)
+        check(diff is None, f"{name} {REST_SF1_SCHEMA}: card != CPU ({diff})")
+        check(int(want.page.num_valid) > 0, f"{name}: an empty result")
+        print(f"{name} {REST_SF1_SCHEMA}: equal to the CPU runner's "
+              f"{rec['rows']} rows (CPU run {cpu_s:.2f} s)", flush=True)
+        rec["cpu_s"] = cpu_s
+        records.append(rec)
+    return launches, records
+
+
 def main() -> int:
     if not (ROOT / "presto_tpu_torch").is_dir():
         print(
@@ -897,6 +1284,9 @@ def main() -> int:
     phase("joins")
     joins_launches = joins_phase(card, records=records)
 
+    phase("rest")
+    rest_launches, rest_records = rest_phase(card)
+
     headline = next(r for r in records if r["label"] == "q1 fused")
     kernels_line = {
         "kernels": [
@@ -905,7 +1295,8 @@ def main() -> int:
                 "route": "cuda",
                 "source": "presto_tpu_torch/csrc/onehot_reduce.cu",
                 "replaces": "tools/pallas_groupby.py:96",
-                "launches": counts["onehot_reduce"] + joins_launches,
+                "launches": (counts["onehot_reduce"] + joins_launches
+                             + rest_launches),
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
@@ -916,7 +1307,9 @@ def main() -> int:
         ]
     }
     print(json.dumps({"cases": records, "slice": counts,
-                      "joins_onehot_reduce": joins_launches, "card": card}))
+                      "joins_onehot_reduce": joins_launches,
+                      "rest": rest_records, "rest_onehot_reduce": rest_launches,
+                      "card": card}))
     print(json.dumps(kernels_line))
     print(
         json.dumps(

@@ -17,7 +17,13 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
-from presto_tpu_torch.page import Block, Dictionary, Page, compact_page
+from presto_tpu_torch.page import (
+    Block,
+    Dictionary,
+    Page,
+    compact_page,
+    resolve_device,
+)
 
 Column = Tuple[np.ndarray, Optional[np.ndarray], str, Optional[np.ndarray]]
 
@@ -25,10 +31,12 @@ Column = Tuple[np.ndarray, Optional[np.ndarray], str, Optional[np.ndarray]]
 def page_from_numpy(
     columns: Dict[str, Column],
     num_valid: int,
-    device=torch.device("cpu"),
+    device=None,
 ) -> Page:
-    """A prefix-form Page on ``device`` whose first ``num_valid`` rows
-    are live; every column has the same length (the capacity)."""
+    """A prefix-form Page on ``device`` (``None``: the CUDA device, see
+    ``page.resolve_device``) whose first ``num_valid`` rows are live;
+    every column has the same length (the capacity)."""
+    device = resolve_device(device)
     blocks = []
     for data, valid, type_name, dict_values in columns.values():
         dictionary = (

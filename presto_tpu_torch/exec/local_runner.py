@@ -20,9 +20,8 @@ the reference's does: heavy subtrees run as fragments of their own
 their live rows, and an executed join build side pre-filters its probe
 side (``exec/dynfilter.py``).
 
-Not ported yet (they raise): statements other than SELECT, windows,
-unnest and UNION ALL on the device, and streaming of tables larger than
-``max_device_rows``.
+Not ported yet (they raise): statements other than SELECT, unnest,
+and streaming of tables larger than ``max_device_rows``.
 """
 
 from __future__ import annotations
@@ -52,6 +51,8 @@ from presto_tpu_torch.ops import (
     limit,
     order_by,
     project,
+    union_all,
+    window,
 )
 from presto_tpu_torch.ops.join import cross_join
 from presto_tpu_torch.page import (
@@ -59,6 +60,7 @@ from presto_tpu_torch.page import (
     Page,
     compact_page,
     pad_capacity,
+    resolve_device,
     to_host,
 )
 from presto_tpu_torch.plan import nodes as N
@@ -87,18 +89,6 @@ class QueryResult:
 
     def row_dicts(self) -> List[dict]:
         return self.page.to_pylist()
-
-
-def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """``None`` means the CUDA device; a CUDA device without CUDA raises
-    (the port never drops to the CPU on its own)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: pass device='cpu' to run the port's "
-            "plain PyTorch path on the CPU"
-        )
-    return dev
 
 
 class LocalQueryRunner:
@@ -500,6 +490,12 @@ def _execute_node(node: N.PlanNode, ctx: _ExecContext) -> Page:
         return order_by(run(node.source), node.keys, limit=node.limit)
     if isinstance(node, N.LimitNode):
         return limit(run(node.source), node.count)
+    if isinstance(node, N.WindowNode):
+        return window(
+            run(node.source), node.partition_by, node.order_by, node.calls
+        )
+    if isinstance(node, N.UnionAllNode):
+        return union_all([run(s) for s in node.sources])
     if isinstance(node, N.OutputNode):
         src = run(node.source)
         return Page(

@@ -24,7 +24,7 @@ import torch
 
 from presto_tpu_torch import types as T
 from presto_tpu_torch.connectors.tpch import DictColumn
-from presto_tpu_torch.page import Block, Dictionary, Page
+from presto_tpu_torch.page import Block, Dictionary, Page, resolve_device
 
 MIN_BUCKET = 1 << 10
 
@@ -62,11 +62,13 @@ def stage_page(
     data: Dict[str, object],
     schema: Dict[str, T.DataType],
     capacity: Optional[int] = None,
-    device: torch.device = torch.device("cpu"),
+    device=None,
 ) -> Page:
-    """Build a Page on ``device`` from SPI column payloads."""
+    """Build a Page on ``device`` (``None``: the CUDA device, see
+    ``page.resolve_device``) from SPI column payloads."""
     from presto_tpu_torch.connectors.spi import payload_len
 
+    device = resolve_device(device)
     names = tuple(schema.keys())
     n = 0
     for v in data.values():

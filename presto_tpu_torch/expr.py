@@ -14,18 +14,23 @@ torch tensors, eagerly, with the reference's semantics:
   remainder use ``rounding_mode="floor"`` / ``torch.remainder``, which
   match ``jnp`` ``//`` and ``%`` on negative operands.
 
-This slice lowers what TPC-H Q1, Q3-Q6, Q10-Q12, Q15, Q17-Q19 and Q21
-need: column refs, literals, arithmetic, negation, comparisons,
-AND/OR/NOT, BETWEEN, IS NULL, CAST, CASE, COALESCE and IN lists of
-literals. Every other node raises ``NotImplementedError`` with
-its class name; none is evaluated approximately. Long decimals (int128
-limb pairs) are not ported yet.
+Every node the reference lowers over flat columns is lowered here:
+column refs, literals, arithmetic, comparisons, three-valued logic,
+BETWEEN, IS NULL, CAST, CASE, COALESCE, IN lists of literals, the
+dictionary functions (LIKE, DictPredicate/Transform/Combine/IntFunc,
+IntToDict: a host LUT over the dictionary, gathered on the device), the
+civil-calendar date functions (EXTRACT, date_trunc, date_add), scalar
+math and ValueHash. Nodes over array/map/row columns, RuntimeParam (the
+plan cache) and long decimals (int128 limb pairs) are not ported yet:
+they raise ``NotImplementedError`` with their names; none is evaluated
+approximately.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import re
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -814,6 +819,48 @@ def _floordiv(a, b):
     return torch.div(a, b, rounding_mode="floor")
 
 
+_US_PER_DAY = 86_400_000_000
+
+
+def _i64(c: int) -> int:
+    """A uint64 constant as the int64 with the same bits."""
+    return c - (1 << 64) if c >= (1 << 63) else c
+
+
+def _lsr(z: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (``>>`` on int64 is arithmetic:
+    mask off the copies of the sign bit)."""
+    return (z >> k) & ((1 << (64 - k)) - 1)
+
+
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign``: NaN and -0.0 map to themselves (``torch.sign`` gives
+    0 for both)."""
+    if not x.is_floating_point():
+        return torch.sign(x)
+    return torch.where(x > 0, 1.0, torch.where(x < 0, -1.0, x))
+
+
+def _to_i64(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> int64 as XLA converts: NaN to 0, out-of-range values
+    saturate (torch's own conversion leaves them undefined)."""
+    big = x >= 2.0 ** 63
+    small = x < -(2.0 ** 63)
+    ok = ~(big | small | torch.isnan(x))
+    out = torch.where(ok, x, 0.0).to(torch.int64)
+    out = torch.where(big, torch.iinfo(torch.int64).max, out)
+    return torch.where(small, torch.iinfo(torch.int64).min, out)
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    """Real cube root (torch has none): |x|^(1/3) with x's sign, then one
+    Newton step written as y + (x/y^2 - y)/3, which cannot overflow."""
+    y = _sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+    ok = torch.isfinite(y) & (y != 0)
+    safe = torch.where(ok, y, 1.0)
+    return torch.where(ok, safe + (x / (safe * safe) - safe) / 3.0, y)
+
+
 def _rescale(data, from_scale: int, to_scale: int):
     if to_scale > from_scale:
         return data * (10 ** (to_scale - from_scale))
@@ -890,6 +937,16 @@ def _days_from_civil(y, m, d):
     return era * 146097 + doe - 719468
 
 
+def lut_to_device(lut: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host lookup table on ``device``. To a card it goes from pinned
+    memory, so the copy is queued on the stream and the host does not
+    wait for the card's queued work (a pageable copy would)."""
+    t = torch.from_numpy(np.ascontiguousarray(lut))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _long_unsupported():
     return NotImplementedError(
         "long decimals (int128 limb pairs): later slice of the port"
@@ -909,13 +966,7 @@ class ExprLowerer:
         self._transform_cache = {}
 
     def _lut(self, lut: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(lut))
-        if self.device.type == "cuda":
-            # from pinned memory the copy is queued on the stream, so the
-            # host does not wait for the card's queued work (a pageable
-            # copy would)
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return lut_to_device(lut, self.device)
 
     def _remap(self, ids: torch.Tensor, lut: np.ndarray) -> torch.Tensor:
         if not len(lut):
@@ -939,16 +990,75 @@ class ExprLowerer:
 
         if isinstance(expr, ColumnRef):
             return self.page.block(expr.name).dictionary
+        if isinstance(expr, DictTransform):
+            return self._transform(expr)[0]
+        if isinstance(expr, DictCombine):
+            return self._combine(expr)[0]
         if isinstance(expr, Coalesce) and expr.dtype.is_string:
             return self._coalesce_dict(expr)[0]
         if isinstance(expr, Case) and expr.dtype.is_string:
             return self._case_dicts(expr)[0][0]
+        if isinstance(expr, IntToDict):
+            return self._int_to_dict(expr)[0]
         if isinstance(expr, Literal):
             vals = [] if expr.value is None else [str(expr.value)]
             return Dictionary(np.asarray(vals, object))
         raise NotImplementedError(
             f"no dictionary for string expression {type(expr).__name__}"
         )
+
+    def _sorted_lut(self, key, values):
+        """(sorted Dictionary of the distinct strings of ``values()``, an
+        int32 LUT from each value's position to its id), made once per
+        ``key``: the shared host step of every dictionary-valued
+        function."""
+        if key not in self._transform_cache:
+            from presto_tpu_torch.page import Dictionary
+
+            strings = np.asarray([str(v) for v in values()], dtype=str)
+            uniq = np.unique(strings)
+            self._transform_cache[key] = (
+                Dictionary(uniq.astype(object)),
+                np.searchsorted(uniq, strings).astype(np.int32),
+            )
+        return self._transform_cache[key]
+
+    def _combine(self, e: DictCombine):
+        """(new dictionary, pair-id -> new-id LUT) for a two-dictionary
+        combine. pair id = id_left * |right| + id_right."""
+        ld = self.dictionary_of(e.left)
+        rd = self.dictionary_of(e.right)
+        nl, nr = len(ld.values), len(rd.values)
+        if nl * nr > (1 << 20):
+            raise NotImplementedError(
+                f"combined dictionary too large ({nl}x{nr}); "
+                "two-column string functions are bounded to 2^20 "
+                "combinations (names/labels, not free text)"
+            )
+        return self._sorted_lut(
+            (e.fn_key, ld, rd),
+            lambda: (e.fn(a, b) for a in ld.values for b in rd.values),
+        )
+
+    def _transform(self, e: DictTransform):
+        """(new dictionary, old-id -> new-id LUT)."""
+        src = self.dictionary_of(e.arg)
+        return self._sorted_lut(
+            (e.fn_key, src), lambda: map(e.fn, src.values)
+        )
+
+    def _int_to_dict(self, e: IntToDict):
+        """(Dictionary, value LUT over [lo, hi])."""
+        return self._sorted_lut(
+            (e.fn_key, e.lo, e.hi), lambda: map(e.fn, range(e.lo, e.hi + 1))
+        )
+
+    def _gather_lut(self, lut: np.ndarray, idx: torch.Tensor, empty):
+        """``lut[clamp(idx)]`` on the device; an empty LUT (an empty or
+        all-NULL dictionary) gives ``empty``'s zeros."""
+        if len(lut) == 0:
+            return self._zeros(empty)
+        return self._lut(lut)[torch.clamp(idx, 0, len(lut) - 1).long()]
 
     def eval(self, expr: Expr):
         method = getattr(self, "_eval_" + type(expr).__name__.lower(), None)
@@ -1379,6 +1489,276 @@ class ExprLowerer:
             f"unbound scalar-subquery parameter ${e.param_id}: the executor "
             "must substitute Params before execution"
         )
+
+    # -- dictionary functions (host LUT over the dictionary, device gather)
+
+    def _dict_lut_eval(self, arg: Expr, fn):
+        data, valid = self.eval(arg)
+        lut = self.dictionary_of(arg).predicate_lut(fn)
+        return self._gather_lut(lut, data, torch.bool), valid
+
+    def _eval_like(self, e: Like):
+        rx = like_to_regex(e.pattern)
+        res, valid = self._dict_lut_eval(
+            e.arg, lambda s: rx.match(s) is not None
+        )
+        return (~res if e.negate else res), valid
+
+    def _eval_dictpredicate(self, e: DictPredicate):
+        return self._dict_lut_eval(e.arg, e.fn)
+
+    def _eval_dicttransform(self, e: DictTransform):
+        data, valid = self.eval(e.arg)
+        _, lut = self._transform(e)
+        return self._gather_lut(lut, data, torch.int32), valid
+
+    def _eval_dictcombine(self, e: DictCombine):
+        dl, vl = self.eval(e.left)
+        dr, vr = self.eval(e.right)
+        nr = max(len(self.dictionary_of(e.right).values), 1)
+        _, lut = self._combine(e)
+        valid = _and_valid(vl, vr)
+        if len(lut) == 0:
+            return self._zeros(torch.int32), valid
+        pair = (
+            torch.clamp(dl.to(torch.int64), 0, len(lut) // nr - 1) * nr
+            + torch.clamp(dr.to(torch.int64), 0, nr - 1)
+        )
+        return self._lut(lut)[pair], valid
+
+    def _eval_inttodict(self, e: IntToDict):
+        d, v = self.eval(e.arg)
+        _, lut = self._int_to_dict(e)
+        return self._gather_lut(lut, d.to(torch.int64) - e.lo, torch.int32), v
+
+    def _eval_dictintfunc(self, e: DictIntFunc):
+        data, valid = self.eval(e.arg)
+        lut = np.asarray(
+            [int(e.fn(v)) for v in self.dictionary_of(e.arg).values],
+            dtype=np.int64,
+        )
+        return self._gather_lut(lut, data, torch.int64), valid
+
+    # -- numeric functions --------------------------------------------------
+
+    def _eval_mathfunc(self, e: MathFunc):
+        d, v = self.eval(e.arg)
+        at = e.arg.dtype
+        if at.is_long_decimal:
+            raise _long_unsupported()
+        if e.func == "abs":
+            return torch.abs(d), v
+        if e.func == "sign":
+            return _sign(d).to(e.dtype.torch_dtype), v
+        if e.func in ("round", "truncate") and (
+            at.is_integer or at.is_decimal
+        ):
+            if at.is_integer:
+                return d, v  # already integral
+            # decimal: round/truncate the unscaled value to 0 digits; the
+            # result keeps the decimal type
+            factor = 10 ** at.scale
+            half = factor // 2 if e.func == "round" else 0
+            q = _floordiv(torch.abs(d.to(torch.int64)) + half, factor)
+            return torch.sign(d) * q * factor, v
+        x = d.to(torch.float64)
+        if at.is_decimal:
+            x = x / (10 ** at.scale)
+        tiny = float(np.finfo(np.float64).tiny)
+        if e.func == "sqrt":
+            return torch.sqrt(torch.clamp(x, min=0.0)), _and_valid(v, x >= 0)
+        if e.func in ("ln", "log2", "log10"):
+            out = torch.log(torch.clamp(x, min=tiny))
+            if e.func != "ln":
+                out = out / math.log(2.0 if e.func == "log2" else 10.0)
+            return out, _and_valid(v, x > 0)
+        if e.func == "exp":
+            return torch.exp(x), v
+        if e.func == "floor":
+            return _to_i64(torch.floor(x)), v
+        if e.func == "ceil":
+            return _to_i64(torch.ceil(x)), v
+        if e.func in ("round", "truncate"):
+            # SQL half away from zero (torch.round is half to even)
+            half = 0.5 if e.func == "round" else 0.0
+            return _sign(x) * torch.floor(torch.abs(x) + half), v
+        if e.func == "cbrt":
+            return _cbrt(x), v
+        if e.func in ("asin", "acos"):
+            fn = torch.asin if e.func == "asin" else torch.acos
+            return (
+                fn(torch.clamp(x, -1.0, 1.0)),
+                _and_valid(v, torch.abs(x) <= 1.0),
+            )
+        fn = {
+            "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+            "atan": torch.atan, "sinh": torch.sinh, "cosh": torch.cosh,
+            "tanh": torch.tanh,
+        }.get(e.func)
+        if fn is not None:
+            return fn(x), v
+        if e.func == "degrees":
+            return x * (180.0 / math.pi), v
+        if e.func == "radians":
+            return x * (math.pi / 180.0), v
+        raise NotImplementedError(f"math function {e.func}")
+
+    def _eval_mathfunc2(self, e: MathFunc2):
+        lt, rt = e.left.dtype, e.right.dtype
+        if lt.is_long_decimal or rt.is_long_decimal:
+            raise _long_unsupported()
+        ld, lv = self.eval(e.left)
+        rd, rv = self.eval(e.right)
+        valid = _and_valid(lv, rv)
+        x = ld.to(torch.float64)
+        if lt.is_decimal:
+            x = x / (10 ** lt.scale)
+        y = rd.to(torch.float64)
+        if rt.is_decimal:
+            y = y / (10 ** rt.scale)
+        if e.func == "power":
+            return torch.pow(x, y), valid
+        if e.func == "atan2":
+            return torch.atan2(x, y), valid
+        if e.func == "log":  # log(base, x)
+            tiny = float(np.finfo(np.float64).tiny)
+            out = torch.log(torch.clamp(y, min=tiny)) / torch.log(
+                torch.clamp(x, min=tiny)
+            )
+            return out, _and_valid(valid, (x > 0) & (y > 0))
+        if e.func in ("round", "truncate"):
+            factor = torch.pow(10.0, y)
+            scaled = x * factor
+            half = 0.5 if e.func == "round" else 0.0
+            out = _sign(scaled) * torch.floor(
+                torch.abs(scaled) + half
+            ) / factor
+            if lt.is_integer:
+                return _to_i64(out), valid
+            if lt.is_decimal:
+                return _to_i64(
+                    _sign(out)
+                    * torch.floor(torch.abs(out) * (10 ** lt.scale) + 0.5)
+                ), valid
+            return out, valid
+        raise NotImplementedError(f"math function {e.func}")
+
+    def _eval_valuehash(self, e: ValueHash):
+        """splitmix64's finalizer folded to 32 bits, bit-equal to the
+        reference's uint64 arithmetic: torch has no uint64 multiply or
+        shift, so it runs in int64 (two's-complement products wrap the
+        same way, constants >= 2^63 are written as their negative int64
+        values, and a logical right shift masks off the sign fill)."""
+        d, v = self.eval(e.arg)
+        at = e.arg.dtype
+        if at.is_long_decimal:
+            raise _long_unsupported()
+        if at.name in ("double", "real"):
+            f = d.to(torch.float64)
+            f = torch.where(f == 0, 0.0, f)  # +0.0 and -0.0 are SQL-equal
+            x = f.view(torch.int64)
+        else:
+            x = d.to(torch.int64)
+        z = x + _i64(0x9E3779B97F4A7C15)
+        z = (z ^ _lsr(z, 30)) * _i64(0xBF58476D1CE4E5B9)
+        z = (z ^ _lsr(z, 27)) * _i64(0x94D049BB133111EB)
+        z = z ^ _lsr(z, 31)
+        h = z & 0xFFFFFFFF
+        if v is not None:
+            h = torch.where(v, h, 0x9E3779B9)
+        return h, None
+
+    # -- dates ---------------------------------------------------------------
+
+    def _eval_extract(self, e: Extract):
+        d, v = self.eval(e.arg)
+        if e.arg.dtype.name == "timestamp":
+            d = _floordiv(d, _US_PER_DAY)
+        y, m, day = _civil_from_days(d)
+        f = e.field.lower()
+        if f == "year":
+            return y, v
+        if f == "month":
+            return m, v
+        if f == "day":
+            return day, v
+        if f == "quarter":
+            return _floordiv(m + 2, 3), v
+        if f in ("day_of_week", "dow"):
+            # ISO: 1 = Monday .. 7 = Sunday; epoch day 0 was a Thursday
+            return torch.remainder(d + 3, 7) + 1, v
+        if f in ("day_of_year", "doy"):
+            one = torch.ones_like(y)
+            return d - _days_from_civil(y, one, one) + 1, v
+        if f == "week":
+            # ISO week number of the ISO year holding the date
+            thursday = d - torch.remainder(d + 3, 7) + 3
+            ty, _, _ = _civil_from_days(thursday)
+            one = torch.ones_like(ty)
+            jan1 = _days_from_civil(ty, one, one)
+            return _floordiv(thursday - jan1, 7) + 1, v
+        raise NotImplementedError(f"extract({e.field})")
+
+    def _eval_datetrunc(self, e: DateTrunc):
+        d, v = self.eval(e.arg)
+        unit = e.unit
+        is_ts = e.arg.dtype.name == "timestamp"
+        days = d
+        if is_ts:
+            sub_day = {"hour": 3_600_000_000, "minute": 60_000_000,
+                       "second": 1_000_000}
+            if unit in sub_day:
+                q = sub_day[unit]
+                return _floordiv(d, q) * q, v
+            days = _floordiv(d, _US_PER_DAY)
+        if unit == "day":
+            out_days = days
+        elif unit == "week":
+            # epoch day 0 = Thursday; Monday-start ISO weeks
+            out_days = days - torch.remainder(days + 3, 7)
+        else:
+            y, m, _ = _civil_from_days(days)
+            one = torch.ones_like(y)
+            if unit == "month":
+                out_days = _days_from_civil(y, m, one)
+            elif unit == "quarter":
+                out_days = _days_from_civil(
+                    y, _floordiv(m - 1, 3) * 3 + 1, one
+                )
+            elif unit == "year":
+                out_days = _days_from_civil(y, one, one)
+            else:
+                raise NotImplementedError(f"date_trunc({unit})")
+        if is_ts:
+            return out_days * _US_PER_DAY, v
+        return out_days.to(e.arg.dtype.torch_dtype), v
+
+    def _eval_dateadd(self, e: DateAdd):
+        nd, nv = self.eval(e.n)
+        d, v = self.eval(e.arg)
+        valid = _and_valid(nv, v)
+        n = nd.to(torch.int64)
+        is_ts = e.arg.dtype.name == "timestamp"
+        days = _floordiv(d, _US_PER_DAY) if is_ts else d
+        if e.unit in ("day", "week"):
+            out_days = days + n * (7 if e.unit == "week" else 1)
+        else:
+            months = n * (12 if e.unit == "year" else 1)
+            y, m, day = _civil_from_days(days)
+            total = y * 12 + (m - 1) + months
+            y2 = _floordiv(total, 12)
+            m2 = total - y2 * 12 + 1
+            one = torch.ones_like(y2)
+            first = _days_from_civil(y2, m2, one)
+            dec = m2 == 12
+            nxt = _days_from_civil(
+                y2 + dec.to(torch.int64), torch.where(dec, 1, m2 + 1), one
+            )
+            # the day of month clamps to the target month's length
+            out_days = first + torch.minimum(day, nxt - first) - 1
+        if is_ts:
+            return out_days * _US_PER_DAY + (d - days * _US_PER_DAY), valid
+        return out_days.to(e.arg.dtype.torch_dtype), valid
 
 
 def _maybe_zero(e: Expr) -> bool:

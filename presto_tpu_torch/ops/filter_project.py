@@ -5,7 +5,8 @@ filter is LAZY by default: survivors stay in place and the output page
 carries the selection mask (``Page.live``), because downstream operators
 read ``row_mask()`` anyway and a gather would cost a full pass per
 column. ``lazy=False`` or an ``out_capacity`` compacts survivors to the
-front with the sync-free ``nonzero_static``.
+front with the sync-free ``nonzero_static``. ``union_all`` concatenates
+pages for UNION ALL (and the set operations the planner builds on it).
 """
 
 from __future__ import annotations
@@ -13,10 +14,23 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from presto_tpu_torch.expr import ColumnRef, Expr, ExprLowerer, eval_predicate
-from presto_tpu_torch.page import Block, Page, compact_page, nonzero_static
+from presto_tpu_torch.expr import (
+    ColumnRef,
+    Expr,
+    ExprLowerer,
+    eval_predicate,
+    lut_to_device,
+)
+from presto_tpu_torch.page import (
+    Block,
+    Dictionary,
+    Page,
+    compact_page,
+    nonzero_static,
+)
 
 
 def project(
@@ -120,4 +134,63 @@ def filter_project(
         blocks=tuple(blocks),
         num_valid=torch.clamp(count, max=cap).to(torch.int32),
         names=tuple(names),
+    )
+
+
+def union_all(pages: Sequence[Page]) -> Page:
+    """UNION ALL: concatenate pages (capacities add, liveness
+    concatenates as masks, no compaction). The planner aligns the inputs'
+    names and types; a string column re-encodes every input's ids into
+    the sorted union of their dictionaries through a host LUT."""
+    first = pages[0]
+    dev = first.device
+    blocks = []
+    for ci, name in enumerate(first.names):
+        blks = [p.blocks[ci] for p in pages]
+        dtype = first.blocks[ci].dtype
+        if dtype.is_nested:
+            raise NotImplementedError(
+                f"nested column {name} through UNION is not supported"
+            )
+        dictionary = None
+        datas = [b.data for b in blks]
+        if dtype.is_string:
+            parts = [
+                np.asarray(b.dictionary.values, object)
+                if b.dictionary is not None and len(b.dictionary.values)
+                else np.empty(0, object)
+                for b in blks
+            ]
+            values = np.unique(np.concatenate(parts).astype(str))
+            dictionary = Dictionary(values.astype(object))
+            datas = []
+            for b, part in zip(blks, parts):
+                if not len(part):
+                    datas.append(torch.zeros_like(b.data))
+                    continue
+                lut = np.searchsorted(values, part.astype(str))
+                datas.append(
+                    lut_to_device(lut.astype(np.int32), dev)[
+                        torch.clamp(b.data, 0, len(part) - 1).long()
+                    ]
+                )
+        valid = None
+        if any(b.valid is not None for b in blks):
+            valid = torch.cat([
+                b.valid if b.valid is not None else torch.ones(
+                    (b.capacity,), dtype=torch.bool, device=dev
+                )
+                for b in blks
+            ])
+        blocks.append(
+            Block(data=torch.cat(datas), valid=valid, dtype=dtype,
+                  dictionary=dictionary)
+        )
+    return Page(
+        blocks=tuple(blocks),
+        num_valid=torch.stack([p.num_valid for p in pages]).sum().to(
+            torch.int32
+        ),
+        names=first.names,
+        live=torch.cat([p.row_mask() for p in pages]),
     )

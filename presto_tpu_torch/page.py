@@ -103,6 +103,19 @@ def encode_strings(values: Sequence) -> tuple:
     return ids, ~isnull, dictionary
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a builder or runner puts its tensors on: ``None`` means
+    the CUDA device, and a CUDA device without CUDA raises (the port
+    never drops to the CPU on its own; pass ``"cpu"`` for that)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: pass device='cpu' to run the port's "
+            "plain PyTorch path on the CPU"
+        )
+    return dev
+
+
 def _nested_unsupported(dtype: T.DataType):
     return NotImplementedError(
         f"{dtype} blocks (array/map/row): later slice of the port"
@@ -129,8 +142,9 @@ class Block:
         dtype: T.DataType,
         valid: Optional[np.ndarray] = None,
         dictionary: Optional[Dictionary] = None,
-        device: torch.device = torch.device("cpu"),
+        device=None,
     ) -> "Block":
+        device = resolve_device(device)
         arr = np.ascontiguousarray(np.asarray(values).astype(dtype.np_dtype))
         data = torch.from_numpy(arr).to(device)
         v = (
@@ -147,10 +161,11 @@ class Block:
         cls,
         values: Sequence,
         dtype: T.DataType,
-        device: torch.device = torch.device("cpu"),
+        device=None,
     ) -> "Block":
         """Build from Python values (None = NULL): dictionary encoding
-        for varchar, exact half-up scaling for decimals."""
+        for varchar, exact half-up scaling for decimals. ``device=None``
+        means CUDA (``resolve_device``)."""
         if dtype.is_nested:
             raise _nested_unsupported(dtype)
         if dtype.is_string:
@@ -253,10 +268,12 @@ class Page:
         data: Dict[str, Sequence],
         schema: Dict[str, T.DataType],
         capacity: Optional[int] = None,
-        device: torch.device = torch.device("cpu"),
+        device=None,
     ) -> "Page":
         """Test/ingest helper: build a page from {name: python values},
-        padding every column to ``capacity`` (default: exact length)."""
+        padding every column to ``capacity`` (default: exact length).
+        ``device=None`` means CUDA (``resolve_device``)."""
+        device = resolve_device(device)
         names = tuple(schema.keys())
         n = len(next(iter(data.values()))) if data else 0
         cap = capacity if capacity is not None else max(n, 1)

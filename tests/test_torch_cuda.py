@@ -205,21 +205,65 @@ def test_onehot_reduce_many_float_sums_are_bit_identical(cuda, nseg):
 
 # ------------------------------------------- the slice's queries on the card
 
+#: BASELINE.json's window configuration (bench.py's window query)
+WINDOW = """
+select o_orderkey, o_custkey,
+  row_number() over (partition by o_custkey order by o_orderdate) as rn,
+  rank() over (partition by o_orderpriority order by o_totalprice) as rk
+from tpch.tiny.orders
+"""
 
-@pytest.mark.parametrize("q", [3, 5, 12, 19])
-def test_tpch_join_queries_on_the_card_equal_the_cpu(cuda, q):
-    # joins, the sorted GROUP BY (Q3), the one-hot GROUP BY (Q5), IN
-    # lists through a dictionary LUT copied to the card (Q12, Q19) and
-    # stage-at-a-time execution with dynamic filters (Q3, Q5), all on
-    # the card; Q19's sum is a decimal and Q12's are counts, so every
-    # result is exact and the rows must be equal
-    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+
+def _card_queries():
     from tpch_queries import QUERIES
 
+    not_exists = """
+    and not exists (
+      select * from orders where o_custkey = c_custkey)
+"""
+    assert not_exists in QUERIES[22]
+    out = {q: QUERIES[q] for q in range(1, 23)}
+    out["q22_without_not_exists"] = QUERIES[22].replace(not_exists, "\n")
+    out["window"] = WINDOW
+    return out
+
+
+def _rows_agree(got, want):
+    """Equal rows; doubles within rel 1e-9 (a reduction on the card adds
+    in another order)."""
+    import math
+
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        for a, b in zip(g, w):
+            if isinstance(a, float) and isinstance(b, float):
+                if not (a == b or math.isclose(a, b, rel_tol=1e-9)
+                        or (math.isnan(a) and math.isnan(b))):
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+@pytest.mark.parametrize("q", sorted(_card_queries(), key=str), ids=str)
+def test_tpch_join_queries_on_the_card_equal_the_cpu(cuda, q):
+    # all 22 TPC-H queries, Q22 without its NOT EXISTS (which keeps no
+    # row at tiny: the generator gives every customer orders) and the
+    # window query, on the card against the port's CPU runner: joins,
+    # the sorted and one-hot GROUP BYs, LIKE/EXTRACT/dictionary LUTs
+    # copied to the card, windows, and stage-at-a-time execution with
+    # dynamic filters (Q3, Q5). Q18's HAVING keeps no order at tiny
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+
+    sql = _card_queries()[q]
     gpu = LocalQueryRunner(device="cuda")
     cpu = LocalQueryRunner(device="cpu")
-    got = gpu.execute(QUERIES[q]).rows()
-    assert got == cpu.execute(QUERIES[q]).rows() and len(got) > 0
+    got = gpu.execute(sql).rows()
+    assert _rows_agree(got, cpu.execute(sql).rows())
+    assert len(got) > 0 or q in (18, 22)
     if q in (3, 5):
         assert gpu.fragments_run > 0 and gpu.dynamic_filters_applied > 0
-    assert got == gpu.execute(QUERIES[q]).rows()  # a warm run repeats
+    assert got == gpu.execute(sql).rows()  # a warm run repeats

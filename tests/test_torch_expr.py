@@ -47,11 +47,143 @@ def _columns(seed: int = 0):
               "double", None),
         "p": (rng.random(CAP) < 0.5, rng.random(CAP) < 0.7, "boolean", None),
         "q": (rng.random(CAP) < 0.5, rng.random(CAP) < 0.7, "boolean", None),
+        **_more_columns(seed),
+    }
+
+
+NAMES = np.asarray(
+    ["PROMO BRASS", "almond green", "forest green", "forest", "ivory",
+     "medium polished tin", "special requests", "", "Customer Complaints"],
+    object,
+)
+
+
+def _more_columns(seed: int):
+    """The columns of the dictionary, date, math and hash cases (their
+    own generator, so the columns above keep their values)."""
+    rng = np.random.default_rng(seed + 1)
+    # month ends on both sides of the epoch (leap Februaries included)
+    ends = np.asarray([
+        np.datetime64(f"{y}-{m:02d}", "M") + 1 for y in (1900, 1960, 1969,
+                                                          2000, 2023, 2024)
+        for m in range(1, 13)
+    ]).astype("datetime64[D]").astype(np.int64) - 1
+    g = rng.standard_normal(CAP) * 3
+    g[:6] = [0.0, -0.0, np.nan, -1.5, 2.5, np.inf]
+    return {
+        "name": (rng.integers(0, len(NAMES), CAP).astype(np.int32),
+                 rng.random(CAP) < 0.85, "varchar", NAMES),
+        "me": (rng.choice(ends, CAP).astype(np.int32), rng.random(CAP) < 0.9,
+               "date", None),
+        "ts": (rng.integers(-(10**15), 2 * 10**15, CAP).astype(np.int64),
+               rng.random(CAP) < 0.9, "timestamp", None),
+        "g": (g, rng.random(CAP) < 0.9, "double", None),
     }
 
 
 def _col(E, T, name):
     return E.ColumnRef(name, T.parse_type(_columns()[name][2]))
+
+
+def _dict_cases(E, T):
+    """LIKE and the dictionary functions: host LUTs gathered on the
+    device, over columns with NULLs and dead rows."""
+    c = lambda n: _col(E, T, n)  # noqa: E731
+    fn = E.dict_transform_fn
+    sub2 = E.DictTransform(c("name"), "substring:1:2", fn("substring:1:2"))
+    ym = 'date_format:["%Y-%m"]'
+    cat = 'concat2:["<", "|", ">"]'
+    return {
+        "like_prefix": E.Like(c("mode"), "A%"),
+        "like_infix": E.Like(c("name"), "%green%"),
+        "like_two_parts": E.Like(c("name"), "%special%requests%"),
+        "like_underscore_negate": E.Like(c("name"), "_o%", negate=True),
+        "like_empty_string": E.Like(c("name"), ""),
+        "dictpredicate": E.DictPredicate(
+            c("name"), 'starts_with:["f"]', fn('starts_with:["f"]')
+        ),
+        "dicttransform_substring": sub2,
+        "dicttransform_upper": E.DictTransform(c("mode"), "lower",
+                                               fn("lower")),
+        "dicttransform_eq": E.Compare("=", sub2, E.Literal("fo", T.VARCHAR)),
+        "dicttransform_in": E.InList(
+            sub2, (E.Literal("fo", T.VARCHAR), E.Literal("iv", T.VARCHAR),
+                   E.Literal("zz", T.VARCHAR)),
+        ),
+        "dicttransform_of_transform": E.DictTransform(
+            sub2, "upper", fn("upper")
+        ),
+        "dictcombine": E.DictCombine(c("mode"), c("l_returnflag"), cat,
+                                     fn(cat)),
+        "inttodict": E.IntToDict(c("l_shipdate"), ym, -800, 10600, fn(ym)),
+        "inttodict_like": E.Like(
+            E.IntToDict(c("me"), ym, -30000, 20000, fn(ym)), "19%"
+        ),
+        "dictintfunc_length": E.DictIntFunc(c("name"), "length",
+                                            fn("length")),
+        "dictintfunc_strpos": E.DictIntFunc(
+            c("name"), 'strpos:["e"]', fn('strpos:["e"]')
+        ),
+    }
+
+
+EXTRACT_FIELDS = ("year", "month", "day", "quarter", "dow", "doy", "week")
+
+
+def _date_cases(E, T):
+    """EXTRACT of every field, date_trunc of every unit and date_add over
+    month ends, negative epoch days and timestamps."""
+    c = lambda n: _col(E, T, n)  # noqa: E731
+    out = {}
+    for f in EXTRACT_FIELDS:
+        out[f"extract_{f}"] = E.Extract(f, c("l_shipdate"))
+        out[f"extract_{f}_ts"] = E.Extract(f, c("ts"))
+    out["extract_literal"] = E.Extract("year", E.Literal(-1, T.DATE))
+    for unit in ("day", "week", "month", "quarter", "year"):
+        out[f"trunc_{unit}"] = E.DateTrunc(unit, c("me"))
+        out[f"trunc_{unit}_ts"] = E.DateTrunc(unit, c("ts"))
+    for unit in ("hour", "minute", "second"):
+        out[f"trunc_{unit}_ts"] = E.DateTrunc(unit, c("ts"))
+    for unit in ("day", "week", "month", "year"):
+        out[f"add_{unit}"] = E.DateAdd(unit, c("j"), c("me"))
+        out[f"add_{unit}_ts"] = E.DateAdd(unit, c("j"), c("ts"))
+    out["add_month_nullable_n"] = E.DateAdd("month", c("i"), c("l_shipdate"))
+    out["add_literal_year"] = E.DateAdd(
+        "year", E.Literal(-3, T.BIGINT), c("me")
+    )
+    return out
+
+
+MATH1 = ("sqrt", "ln", "log2", "log10", "exp", "floor", "ceil", "round",
+         "truncate", "cbrt", "sin", "cos", "tan", "asin", "acos", "atan",
+         "degrees", "radians", "sinh", "cosh", "tanh", "abs", "sign")
+
+
+def _math_cases(E, T):
+    """Scalar math over doubles (with -0.0, NaN and inf), decimals and
+    integers, the two-argument functions, and ValueHash."""
+    c = lambda n: _col(E, T, n)  # noqa: E731
+    out = {f"math_{f}": E.MathFunc(f, c("g")) for f in MATH1}
+    for f in ("abs", "sign", "round", "truncate", "floor", "ceil", "sqrt"):
+        out[f"math_{f}_dec"] = E.MathFunc(f, c("d"))
+        out[f"math_{f}_int"] = E.MathFunc(f, c("i"))
+    out["math_exp_dec"] = E.MathFunc("exp", c("l_discount"))
+    out["math2_power"] = E.MathFunc2("power", c("g"), c("j"))
+    out["math2_atan2"] = E.MathFunc2("atan2", c("g"), c("d"))
+    out["math2_log"] = E.MathFunc2("log", c("k"), c("f"))
+    out["math2_round_double"] = E.MathFunc2("round", c("f"), c("j"))
+    out["math2_round_dec"] = E.MathFunc2(
+        "round", c("d"), E.Literal(1, T.BIGINT)
+    )
+    out["math2_truncate_dec"] = E.MathFunc2(
+        "truncate", c("d"), E.Literal(1, T.BIGINT)
+    )
+    out["math2_round_int"] = E.MathFunc2(
+        "round", c("k"), E.Literal(-2, T.BIGINT)
+    )
+    for n in ("i", "g", "f", "d", "mode", "p", "l_shipdate", "ts", "k"):
+        out[f"valuehash_{n}"] = E.ValueHash(c(n))
+    return out
 
 
 def _cases(E, T):
@@ -135,6 +267,9 @@ def _cases(E, T):
             ((c("q"), c("mode")),), c("l_returnflag"), T.VARCHAR,
         ),
         "literal_bool": lit(True, T.BOOLEAN),
+        **_dict_cases(E, T),
+        **_date_cases(E, T),
+        **_math_cases(E, T),
     }
 
 
@@ -199,9 +334,9 @@ def test_civil_date_math_matches_reference():
 
 def test_unported_node_raises_with_its_name():
     _, port_page = both_pages(_columns(), LIVE)
-    e = PE.Like(_col(PE, PT, "mode"), "A%")
-    with pytest.raises(NotImplementedError, match="Like"):
+    e = PE.ArrayLength(_col(PE, PT, "i"))
+    with pytest.raises(NotImplementedError, match="ArrayLength"):
         PE.ExprLowerer(port_page).eval(e)
-    e = PE.Extract("year", _col(PE, PT, "l_shipdate"))
-    with pytest.raises(NotImplementedError, match="Extract"):
+    e = PE.Literal(10**20, PT.decimal(38, 2))
+    with pytest.raises(NotImplementedError, match="long decimals"):
         PE.ExprLowerer(port_page).eval(e)

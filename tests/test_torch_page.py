@@ -87,7 +87,8 @@ def test_stage_page_matches_reference(n, capacity):
     rs = {k: RT.parse_type(v) for k, v in schema.items()}
     ps = {k: PT.parse_type(v) for k, v in schema.items()}
     ref = ref_staging.stage_page(ref_data, rs, capacity=capacity)
-    port = port_staging.stage_page(port_data, ps, capacity=capacity)
+    port = port_staging.stage_page(port_data, ps, capacity=capacity,
+                                   device="cpu")
     assert port.capacity == ref.capacity
     assert int(port.num_valid) == int(ref.num_valid) == n
     assert port.num_valid.dtype == torch.int32
@@ -101,10 +102,13 @@ def test_stage_page_matches_reference(n, capacity):
 def test_stage_page_round_trips_through_convert():
     _, port_data, schema = _payloads(3, 200)
     page = port_staging.stage_page(
-        port_data, {k: PT.parse_type(v) for k, v in schema.items()}
+        port_data, {k: PT.parse_type(v) for k, v in schema.items()},
+        device="cpu",
     )
     cols = convert.page_to_numpy(page)
-    again = convert.page_to_numpy(convert.page_from_numpy(cols, 200))
+    again = convert.page_to_numpy(
+        convert.page_from_numpy(cols, 200, device="cpu")
+    )
     assert_columns_equal(cols, again, rtol=0)
     assert len(cols["k"][0]) == 200
 
@@ -200,7 +204,7 @@ def test_from_pydict_to_pylist_matches_reference():
     ps = {"i": PT.BIGINT, "s": PT.VARCHAR, "d": PT.decimal(10, 2),
           "dt": PT.DATE, "f": PT.DOUBLE, "b": PT.BOOLEAN}
     ref = ref_page.Page.from_pydict(data, rs, capacity=8)
-    port = port_page.Page.from_pydict(data, ps, capacity=8)
+    port = port_page.Page.from_pydict(data, ps, capacity=8, device="cpu")
     assert port.to_pylist() == ref.to_pylist()
     assert_columns_equal(_ref_columns(ref), _port_columns(port), rtol=0)
 

@@ -117,11 +117,14 @@ def test_overflow_retry_rescales_max_groups(runners):
 @pytest.mark.parametrize(
     "sql",
     [
-        QUERIES[2],  # LIKE
-        "select o_orderkey, rank() over (partition by o_custkey "
-        "order by o_totalprice) from tpch.tiny.orders",
+        # array blocks
+        "select o_custkey, array_agg(o_orderkey) from tpch.tiny.orders "
+        "group by o_custkey",
+        "select n_name, x from tpch.tiny.nation "
+        "cross join unnest(array[1, 2]) as t(x)",
         "show tables",
     ],
+    ids=["array_agg", "unnest", "show tables"],
 )
 def test_unported_plans_raise(runners, sql):
     _, port_runner = runners
@@ -136,3 +139,41 @@ def test_runner_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LocalQueryRunner(device="cuda")
     assert LocalQueryRunner(device="cpu").device == torch.device("cpu")
+
+
+def _builders():
+    import numpy as np
+
+    from presto_tpu_torch import types as PT
+    from presto_tpu_torch.exec.staging import stage_page
+    from presto_tpu_torch.page import Block, Page
+
+    schema = {"k": PT.BIGINT}
+    return {
+        "stage_page": lambda **kw: stage_page(
+            {"k": np.arange(3, dtype=np.int64)}, schema, **kw),
+        "Block.from_numpy": lambda **kw: Block.from_numpy(
+            np.arange(3), PT.BIGINT, **kw),
+        "Block.from_pylist": lambda **kw: Block.from_pylist(
+            [1, None], PT.BIGINT, **kw),
+        "Page.from_pydict": lambda **kw: Page.from_pydict(
+            {"k": [1, 2]}, schema, **kw),
+        "page_from_numpy": lambda **kw: convert.page_from_numpy(
+            {"k": (np.arange(3, dtype=np.int64), None, "bigint", None)}, 3,
+            **kw),
+    }
+
+
+@pytest.mark.parametrize("builder", sorted(_builders()))
+def test_builders_put_pages_on_the_card_unless_asked(monkeypatch, builder):
+    # like the runner, every public page builder means CUDA by default
+    # and raises without it; device="cpu" is the caller's choice
+    build = _builders()[builder]
+    page_or_block = build(device="cpu")
+    data = getattr(page_or_block, "data", None)
+    if data is None:
+        data = page_or_block.blocks[0].data
+    assert data.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()

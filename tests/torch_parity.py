@@ -43,7 +43,7 @@ def jax_page(columns, num_valid: int) -> ref_page.Page:
 def both_pages(columns, num_valid: int):
     return (
         jax_page(columns, num_valid),
-        convert.page_from_numpy(columns, num_valid),
+        convert.page_from_numpy(columns, num_valid, device="cpu"),
     )
 
 
