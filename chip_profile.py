@@ -7,10 +7,16 @@ For Q1 and then Q6 on tpch.sf1, then Q3 and Q5 on tpch.sf10 with
 ``max_device_rows`` 2^26 (the texts and session of chip_smoke.py; or
 the ``--queries`` named, out of those and ``window`` (BASELINE.json's
 window query over tpch.sf10.orders, default session), ``q9`` and
-``q22`` (on tpch.sf10 in the joins session)), each on one
-``LocalQueryRunner(device="cuda")``: one cold run and two warm
-runs, then ``--runs`` warm runs under ``torch.profiler`` (CPU and CUDA
-activities). Prints, per query, the host wall time of a warm run, the
+``q22`` (on tpch.sf10 in the joins session), and the streamed
+``q1_stream`` and ``q18_stream`` (Q1 and Q18 on tpch.sf10 under the
+default session: lineitem streams in 2^20-row batches with host-RAM
+spill)), each on one ``LocalQueryRunner(device="cuda")``: one cold run
+and two warm runs (one for a streamed query), then ``--runs`` warm runs
+under ``torch.profiler`` (CPU and CUDA activities). A streamed query also
+reports its stream counters over the profiled runs: batches, buckets,
+spilled bytes, host seconds in connector generation, staging,
+``_bucket_of`` and ``merge_payloads``, and cudaStreamSynchronize per
+batch. Prints, per query, the host wall time of a warm run, the
 device time of its kernels, the device's busy share of the wall time,
 the host time of parsing and planning alone, the device time by kind of
 kernel (sort passes, searchsorted, gathers and scatters, scans,
@@ -24,6 +30,7 @@ the same as JSON to ``--out``. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -72,11 +79,12 @@ def host_functions(runner, sql: str, runs: int, top: int = 10):
     ]
 
 
-def profile_query(runner, sql: str, runs: int):
+def profile_query(runner, sql: str, runs: int, warm: int = 2):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from presto_tpu_torch.exec.streaming import StreamStats
     from presto_tpu_torch.plan.planner import plan_statement
     from presto_tpu_torch.sql import parse_statement
 
@@ -84,10 +92,11 @@ def profile_query(runner, sql: str, runs: int):
     runner.execute(sql)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    for _ in range(2):
+    for _ in range(warm):
         runner.execute(sql)
     torch.cuda.synchronize()
 
+    runner.stream_stats = StreamStats()
     with profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
     ) as prof:
@@ -96,6 +105,8 @@ def profile_query(runner, sql: str, runs: int):
             runner.execute(sql)
         torch.cuda.synchronize()
         wall_s = (time.perf_counter() - t0) / runs
+    stream = {k: v / runs
+              for k, v in dataclasses.asdict(runner.stream_stats).items()}
 
     # unprofiled warm runs: the profiler's own cost stays out of warm_s
     t0 = time.perf_counter()
@@ -134,7 +145,12 @@ def profile_query(runner, sql: str, runs: int):
         agg["calls"] += k["calls"]
     runtime = {h["name"]: h["calls"] for h in host
                if h["name"].startswith("cuda")}
+    if stream["batches"]:
+        stream["syncs_per_batch"] = (
+            runtime.get("cudaStreamSynchronize", 0) / stream["batches"]
+        )
     return {
+        "stream": stream if stream["batches"] else None,
         "host_functions": host_functions(runner, sql, runs),
         "cold_s": cold_s,
         "warm_s": warm_s,
@@ -154,7 +170,7 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--queries", default="q1,q6,q3,q5",
                     help="comma-separated subset of "
-                    "q1,q6,q3,q5,window,q9,q22")
+                    "q1,q6,q3,q5,window,q9,q22,q1_stream,q18_stream")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -166,7 +182,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (
         JOINS_MAX_DEVICE_ROWS, JOINS_SCHEMA, Q1, Q3, Q5, Q6, WINDOW,
-        WINDOW_SCHEMA, card_line, tpch_queries,
+        WINDOW_SCHEMA, card_line, stream_q1, stream_q18, tpch_queries,
     )
     from presto_tpu_torch.exec.local_runner import LocalQueryRunner
     from presto_tpu_torch.session import Session
@@ -180,6 +196,9 @@ def main() -> int:
             properties={"max_device_rows": JOINS_MAX_DEVICE_ROWS},
         ),
     )
+    stream = LocalQueryRunner(
+        device="cuda", session=Session(schema=JOINS_SCHEMA)
+    )
     report = {"card": card, "runs": args.runs}
     wanted = args.queries.split(",")
     tpch = tpch_queries()
@@ -189,10 +208,13 @@ def main() -> int:
         ("window", WINDOW_SCHEMA, sf1, WINDOW),
         ("q9", JOINS_SCHEMA, joins, tpch["Q9"]),
         ("q22", JOINS_SCHEMA, joins, tpch["Q22"]),
+        ("q1_stream", JOINS_SCHEMA, stream, stream_q1()),
+        ("q18_stream", JOINS_SCHEMA, stream, stream_q18()[0]),
     ):
         if name not in wanted:
             continue
-        rec = profile_query(runner, sql, args.runs)
+        rec = profile_query(runner, sql, args.runs,
+                            warm=1 if runner is stream else 2)
         rec["schema"] = schema
         report[name] = rec
         share = rec["device_busy_share"]
@@ -208,6 +230,9 @@ def main() -> int:
                                 key=lambda kv: -kv[1]["device_us"]):
             print(f"  kind   {agg['device_us']:10.1f} us x{agg['calls']:<4} "
                   f"{kind}")
+        if rec["stream"]:
+            print("  stream per query: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in rec["stream"].items()))
         print("  runtime calls per query: " + ", ".join(
             f"{k} {v}" for k, v in sorted(rec["cuda_runtime_calls"].items())))
         for f in rec["host_functions"][:6]:

@@ -48,7 +48,24 @@ non-zero, and only a run where every phase passed prints the final
               CPU runner (doubles within rel 1e-9). Each query runs cold
               then twice warm with the launch counts reset just before and
               read just after; the warm runs must agree bit for bit.
-7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+7. stream   - the fourth slice, split-streamed execution with host-RAM
+              spill, through a CUDA runner: TPC-H Q1 at SF10 under the
+              default session (lineitem's 59,999,997 rows over
+              ``max_device_rows`` 2^24 stream in 58 batches of 2^20;
+              onehot_reduce launches equal the batches plus the bucket
+              merges) and Q18 at SF10 (lineitem streams twice, orders is
+              replicated whole), each cold then warm and bit-identical,
+              Q18 also without its LIMIT (every order over 300 as a set)
+              and once more with ``staging_prefetch_depth`` 0 (the
+              serial loop, bit-identical to the prefetched runs);
+              then Q18 at SF100 (``max_device_rows`` 2^26, batches of
+              2^24: lineitem's 599,999,994 rows and orders' 150,000,000
+              both exceed the budget, so the outer join takes the
+              partitioned build-side spill), once. Every run is exact
+              against numpy over the generator's own columns and prints
+              its batches, buckets, spilled bytes, retries, host syncs,
+              peak device memory and peak RSS.
+8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -56,8 +73,10 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
+import resource
 import subprocess
 import sys
 import time
@@ -903,7 +922,7 @@ def tpch_queries():
     q22 = QUERIES[22]
     check(Q22_NOT_EXISTS in q22, "Q22's NOT EXISTS clause not found")
     return {
-        **{f"Q{q}": QUERIES[q] for q in (9, 22) + REST_SF1},
+        **{f"Q{q}": QUERIES[q] for q in (9, 18, 22) + REST_SF1},
         "Q22 without not exists": q22.replace(Q22_NOT_EXISTS, "\n"),
     }
 
@@ -1244,6 +1263,371 @@ def rest_phase(card: str, dev=None):
     return launches, records
 
 
+# ------------------------------------------------------------ stream phase
+
+#: the stream phase's sessions: SF10 under the default session
+#: (``max_device_rows`` 2^24, batches of 2^20), SF100 under the joins
+#: phase's budget with batches of 2^24 (a CPU rehearsal at a small scale
+#: sets smaller budgets here)
+STREAM_SF10_PROPS: dict = {}
+STREAM_SF100_PROPS = {"max_device_rows": JOINS_MAX_DEVICE_ROWS,
+                      "page_capacity": 1 << 24}
+#: orders per lineitem cycle: order i of a cycle has i + 1 lines
+CYCLE_ORDERS = 7
+CYCLE_ROWS = 28
+#: Q18's HAVING threshold, unscaled at decimal(18, 2)
+Q18_MIN_QTY = 300 * 100
+
+
+def stream_q1():
+    return Q1.replace("tpch.sf1.lineitem", "lineitem")
+
+
+def stream_q18():
+    q18 = tpch_queries()["Q18"]
+    q18_all = q18.replace("limit 100", "")
+    check(q18_all != q18, "Q18's LIMIT not found")
+    return q18, q18_all
+
+
+def parallel_chunks(total: int, chunk: int, fn):
+    """fn(lo, hi) over [0, total) in chunks on 8 host threads (numpy
+    releases the GIL), results in chunk order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    ranges = [(lo, min(lo + chunk, total)) for lo in range(0, total, chunk)]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return list(pool.map(lambda r: fn(*r), ranges))
+
+
+def numpy_q1_stream(schema: str):
+    """Q1 over ``schema``'s lineitem in numpy, in chunks: exact int64
+    sums and counts per (returnflag, linestatus)."""
+    import numpy as np
+
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+
+    gen = TpchGenerator(SCHEMAS[schema])
+    cols = ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
+            "l_returnflag", "l_linestatus", "l_shipdate"]
+
+    def part(lo, hi):
+        d = gen.generate("lineitem", lo, hi, cols)
+        rf, ls = d["l_returnflag"], d["l_linestatus"]
+        names = [str(v) for v in rf.values], [str(v) for v in ls.values]
+        keep = d["l_shipdate"].astype(np.int64) <= Q1_DATE
+        qty, price, disc, tax = (d[c].astype(np.int64) for c in cols[:4])
+        dp = price * (100 - disc)
+        out = {}
+        for i, f in enumerate(names[0]):
+            for j, st in enumerate(names[1]):
+                m = keep & (rf.ids == i) & (ls.ids == j)
+                out[(f, st)] = np.array([
+                    m.sum(), qty[m].sum(), price[m].sum(), dp[m].sum(),
+                    (dp[m] * (100 + tax[m])).sum(), disc[m].sum()], np.int64)
+        return out
+
+    total = {}
+    for out in parallel_chunks(gen.counts["lineitem"], 1 << 22, part):
+        for k, v in out.items():
+            total[k] = total.get(k, 0) + v
+    q1 = {}
+    for k, (n, qty, price, dp, charge, disc) in total.items():
+        if n:
+            q1[k] = {"count_order": int(n), "sum_qty": int(qty),
+                     "sum_base_price": int(price), "sum_disc_price": int(dp),
+                     "sum_charge": int(charge), "avg_qty": qty / 100 / n,
+                     "avg_price": price / 100 / n, "avg_disc": disc / 100 / n}
+    return gen.counts["lineitem"], q1
+
+
+def numpy_q18(schema: str):
+    """Every order of ``schema`` whose lines' quantity sums over 300, as
+    Q18 returns it: {orderkey: (c_name, c_custkey, o_orderkey,
+    o_orderdate, o_totalprice, sum(l_quantity))}. The generator keeps an
+    order's lines together, 1..7 lines per order in cycles of 7 orders,
+    so each chunk of whole cycles sums its orders by ``np.add.reduceat``
+    over the l_quantity column alone."""
+    import numpy as np
+
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+
+    gen = TpchGenerator(SCHEMAS[schema])
+    n_orders = gen.counts["orders"]
+    lens = np.tile(np.arange(1, CYCLE_ORDERS + 1), (1 << 22) // CYCLE_ORDERS)
+    chunk = int(lens.sum())  # rows of whole cycles
+
+    def part(lo, hi):
+        qty = gen.generate("lineitem", lo, hi, ["l_quantity"])["l_quantity"]
+        first = lo // CYCLE_ROWS * CYCLE_ORDERS
+        n = min(len(lens), n_orders - first)
+        starts = np.concatenate([[0], np.cumsum(lens[: n - 1])])
+        check(int(lens[:n].sum()) == hi - lo, "a chunk splits an order")
+        sums = np.add.reduceat(qty.astype(np.int64), starts)
+        big = np.flatnonzero(sums > Q18_MIN_QTY)
+        return first + big, sums[big]
+
+    idx, sums = (np.concatenate(a) for a in zip(*parallel_chunks(
+        gen.counts["lineitem"], chunk, part)))
+    ocols = ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"]
+    rows = {}
+    for i, q in zip(idx.tolist(), sums.tolist()):
+        o = gen.generate("orders", i, i + 1, ocols)
+        ck = int(o["o_custkey"][0])
+        c = gen.generate("customer", ck - 1, ck, ["c_name"])["c_name"]
+        rows[int(o["o_orderkey"][0])] = (
+            str(c.values[c.ids[0]]), ck, int(o["o_orderkey"][0]),
+            int(o["o_orderdate"][0]), int(o["o_totalprice"][0]), int(q))
+    return gen.counts["lineitem"], rows
+
+
+def check_q18(name, res, want, limit: Optional[int]):
+    """Q18's rows against numpy's: without a LIMIT every qualifying order
+    as a set; with one, the rows in (o_totalprice desc, o_orderdate)
+    order, each a qualifying order's row, carrying numpy's first
+    ``limit`` sort keys (ties at the cut may pick either row)."""
+    got = result_rows(res, ("c_name", "c_custkey", "o_orderkey",
+                            "o_orderdate", "o_totalprice", "_col5"))
+    check(len(set(got)) == len(got), f"{name}: a row twice")
+    if limit is None:
+        check(set(got) == set(want.values()),
+              f"{name}: {len(got)} rows, numpy {len(want)}, or a row differs")
+        return
+    keys = [(-r[4], r[3]) for r in got]
+    check(keys == sorted(keys), f"{name}: rows out of order")
+    check(all(want.get(r[2]) == r for r in got), f"{name}: a row differs")
+    want_keys = sorted((-r[4], r[3]) for r in want.values())[:limit]
+    check(keys == want_keys, f"{name}: not numpy's top {limit}")
+
+
+@contextlib.contextmanager
+def counting_syncs(dev):
+    """Counts the host's waits for the card while the block runs: torch's
+    sync debug mode warns at each synchronizing call (each
+    cudaStreamSynchronize behind a copy or a read of a device value),
+    from any thread, and each warning is counted here instead of shown.
+    Yields a one-item list; None on the CPU."""
+    import warnings
+
+    import torch
+
+    count = [None if dev.type != "cuda" else 0]
+    if dev.type != "cuda":
+        yield count
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def show(message, category, *args, **kwargs):
+            if "synchronizing" in str(message):
+                count[0] += 1
+            else:
+                shown(message, category, *args, **kwargs)
+
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield count
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def stream_run(runner, sql, dev, label, card, scanned, batches_expected):
+    """One streamed run with the launch counts and stream counters reset
+    just before and read just after; returns (result, record)."""
+    import torch
+
+    from presto_tpu_torch.exec.streaming import StreamStats
+    from presto_tpu_torch.ops import aggregation as PA
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    runner.stream_stats = StreamStats()
+    retries = runner.overflow_retries
+    PA.onehot_reduce.launches = 0
+    with counting_syncs(dev) as syncs:
+        res, secs = run_timed(runner, sql, dev)
+    launches = PA.onehot_reduce.launches
+    st = runner.stream_stats
+    check(st.batches == batches_expected,
+          f"{label}: {st.batches} batches, expected {batches_expected}")
+    check(st.buckets > 0, f"{label}: no spill bucket ran")
+    rec = {
+        "query": label, "rows": int(res.page.num_valid), "s": secs,
+        "rows_per_s": scanned / secs, "batches": st.batches,
+        "empty_batches": st.empty_batches, "buckets": st.buckets,
+        "spilled_rows": st.spilled_rows, "spilled_bytes": st.spilled_bytes,
+        "retries": runner.overflow_retries - retries,
+        "syncs": syncs[0],
+        "syncs_per_batch": None if syncs[0] is None else syncs[0] / st.batches,
+        "onehot_reduce_launches": launches,
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                     if dev.type == "cuda" else None),
+        "peak_rss_gib": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 2**20,
+        "host_s": {"generate": st.generate_s, "stage": st.stage_s,
+                   "bucket_of": st.hash_s, "merge_payloads": st.merge_s},
+    }
+    peak = ("not measured (no card)" if rec["peak_gib"] is None
+            else f"{rec['peak_gib']:.3f} GiB")
+    print(f"{label}: {rec['rows']} rows in {secs:.4f} s, "
+          f"{rec['rows_per_s']:.1f} lineitem rows/s; batches {st.batches} "
+          f"({st.empty_batches} empty), buckets {st.buckets}, spilled "
+          f"{st.spilled_rows} rows / {st.spilled_bytes} bytes, retries "
+          f"{rec['retries']}, host syncs {syncs[0]}, onehot_reduce launches "
+          f"{launches}, peak memory {peak}, peak RSS "
+          f"{rec['peak_rss_gib']:.3f} GiB; host s {rec['host_s']} [{card}]",
+          flush=True)
+    return res, rec
+
+
+def stream_phase(card: str, dev=None, records=None, sf100: str = "sf100"):
+    """The fourth slice's path on ``dev`` (the card unless a CPU
+    rehearsal passes another): streamed Q1 and Q18 at SF10 under the
+    default session, then Q18 at ``sf100`` once. Returns (the
+    onehot_reduce launches of the counted runs, the records)."""
+    import torch
+
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.ops import aggregation as PA
+    from presto_tpu_torch.session import Session
+
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    out = []
+    launches = 0
+    q18, q18_all = stream_q18()
+
+    def n_batches(rows, batch):
+        return -(-rows // batch)
+
+    # Q1 at SF10, default session: cold, warm
+    t0 = time.perf_counter()
+    n_li, want_q1 = numpy_q1_stream(JOINS_SCHEMA)
+    print(f"numpy evaluation of Q1 at {JOINS_SCHEMA}: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    runner = LocalQueryRunner(device=dev, session=Session(
+        schema=JOINS_SCHEMA, properties=STREAM_SF10_PROPS))
+    batch = int(runner.session.get("page_capacity"))
+    seen, calls = [], []
+    real = PA.onehot_reduce_many
+
+    def record(gid, requests, nseg):
+        if not seen:
+            seen.append((gid, list(requests), nseg))
+        calls.append(len(requests))
+        return real(gid, requests, nseg)
+
+    q1_runs = []
+    for label in ("Q1 stream cold", "Q1 stream warm"):
+        calls.clear()
+        PA.onehot_reduce_many = record
+        try:
+            res, rec = stream_run(runner, stream_q1(), dev,
+                                  f"{label} {JOINS_SCHEMA}", card, n_li,
+                                  n_batches(n_li, batch))
+        finally:
+            PA.onehot_reduce_many = real
+        # one one-hot call per batch (the partial GROUP BY) and per
+        # bucket merge (the final one), each one launch per K_MAX
+        # requests: the final step sums 11 nullable partial states, each
+        # with its count of non-NULL rows, so 22 requests, 2 launches
+        check(len(calls) == rec["batches"] + rec["buckets"],
+              f"{label}: {len(calls)} one-hot calls, expected one per "
+              f"batch and per bucket merge ({rec['batches']} + "
+              f"{rec['buckets']})")
+        want_launches = (sum(-(-k // PA.K_MAX) for k in calls)
+                         if on_card else 0)
+        check(rec["onehot_reduce_launches"] == want_launches,
+              f"{label}: {rec['onehot_reduce_launches']} onehot_reduce "
+              f"launches, expected {want_launches} for the requests "
+              f"{sorted(set(calls))}")
+        rec["onehot_calls"] = len(calls)
+        rec["onehot_requests"] = sorted(set(calls))
+        launches += rec["onehot_reduce_launches"]
+        n, cols = result_columns(res)
+        check(n == len(want_q1), f"{label}: {n} groups, numpy {len(want_q1)}")
+        for i in range(n):
+            key = (cols["l_returnflag"][i], cols["l_linestatus"][i])
+            exp = want_q1[key]
+            for name in ("sum_qty", "sum_base_price", "sum_disc_price",
+                         "sum_charge", "count_order"):
+                check(int(cols[name][i]) == exp[name],
+                      f"{label} {key} {name}: {cols[name][i]} != {exp[name]}")
+            for name in ("avg_qty", "avg_price", "avg_disc"):
+                got = float(cols[name][i])
+                check(abs(got - exp[name]) <= 1e-12 * abs(exp[name]),
+                      f"{label} {key} {name}: {got} vs {exp[name]}")
+        q1_runs.append(res)
+        out.append(rec)
+    diff = results_differ(*q1_runs)
+    check(diff is None, f"Q1 stream: cold and warm differ ({diff})")
+    if records is not None and on_card:
+        # the one-hot reduction at the first streamed batch's inputs
+        records.append(fused_case("q1 stream batch fused", *seen[0], card))
+    del runner, q1_runs, seen
+
+    # Q18 at SF10, default session: cold, warm, and without LIMIT
+    t0 = time.perf_counter()
+    n_li, want18 = numpy_q18(JOINS_SCHEMA)
+    print(f"numpy evaluation of Q18 at {JOINS_SCHEMA}: {len(want18)} orders "
+          f"over 300 ({time.perf_counter() - t0:.2f} s)", flush=True)
+    runner = LocalQueryRunner(device=dev, session=Session(
+        schema=JOINS_SCHEMA, properties=STREAM_SF10_PROPS))
+    q18_runs = []
+    # each run streams lineitem twice: the subquery, then the outer join
+    for label, sql, limit in (("Q18 stream cold", q18, 100),
+                              ("Q18 stream warm", q18, 100),
+                              ("Q18 stream without LIMIT", q18_all, None)):
+        res, rec = stream_run(runner, sql, dev, f"{label} {JOINS_SCHEMA}",
+                              card, n_li, 2 * n_batches(n_li, batch))
+        launches += rec["onehot_reduce_launches"]
+        check_q18(label, res, want18, limit)
+        if limit:
+            q18_runs.append(res)
+        out.append(rec)
+    # the serial loop (no prefetch thread) gives the same bits
+    serial = LocalQueryRunner(device=dev, session=Session(
+        schema=JOINS_SCHEMA,
+        properties={**STREAM_SF10_PROPS, "staging_prefetch_depth": 0}))
+    res, rec = stream_run(serial, q18, dev,
+                          f"Q18 stream prefetch depth 0 {JOINS_SCHEMA}",
+                          card, n_li, 2 * n_batches(n_li, batch))
+    launches += rec["onehot_reduce_launches"]
+    out.append(rec)
+    q18_runs.append(res)
+    for other in q18_runs[1:]:
+        diff = results_differ(q18_runs[0], other)
+        check(diff is None, f"Q18 stream: two runs differ ({diff})")
+    print(f"Q18 {JOINS_SCHEMA}: the top 100 and all {len(want18)} orders "
+          "equal numpy's; cold, warm and prefetch depth 0 bit-identical",
+          flush=True)
+    del runner, serial, q18_runs
+
+    # Q18 at SF100: lineitem and orders both over the budget, once
+    t0 = time.perf_counter()
+    n_li, want18 = numpy_q18(sf100)
+    print(f"numpy evaluation of Q18 at {sf100}: {len(want18)} orders over "
+          f"300 ({time.perf_counter() - t0:.2f} s)", flush=True)
+    runner = LocalQueryRunner(device=dev, session=Session(
+        schema=sf100, properties=STREAM_SF100_PROPS))
+    n_orders = TpchGenerator(SCHEMAS[sf100]).counts["orders"]
+    batch = STREAM_SF100_PROPS["page_capacity"]
+    # the subquery's pass over lineitem, then both join sides' passes
+    want_batches = 2 * n_batches(n_li, batch) + n_batches(n_orders, batch)
+    res, rec = stream_run(runner, q18, dev, f"Q18 stream {sf100}", card,
+                          n_li, want_batches)
+    launches += rec["onehot_reduce_launches"]
+    check_q18("Q18 stream " + sf100, res, want18, 100)
+    out.append(rec)
+    print(f"Q18 {sf100}: the top 100 of {len(want18)} orders equal numpy's",
+          flush=True)
+    return launches, out
+
+
 def main() -> int:
     if not (ROOT / "presto_tpu_torch").is_dir():
         print(
@@ -1287,6 +1671,9 @@ def main() -> int:
     phase("rest")
     rest_launches, rest_records = rest_phase(card)
 
+    phase("stream")
+    stream_launches, stream_records = stream_phase(card, records=records)
+
     headline = next(r for r in records if r["label"] == "q1 fused")
     kernels_line = {
         "kernels": [
@@ -1296,7 +1683,7 @@ def main() -> int:
                 "source": "presto_tpu_torch/csrc/onehot_reduce.cu",
                 "replaces": "tools/pallas_groupby.py:96",
                 "launches": (counts["onehot_reduce"] + joins_launches
-                             + rest_launches),
+                             + rest_launches + stream_launches),
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
@@ -1309,6 +1696,8 @@ def main() -> int:
     print(json.dumps({"cases": records, "slice": counts,
                       "joins_onehot_reduce": joins_launches,
                       "rest": rest_records, "rest_onehot_reduce": rest_launches,
+                      "stream": stream_records,
+                      "stream_onehot_reduce": stream_launches,
                       "card": card}))
     print(json.dumps(kernels_line))
     print(

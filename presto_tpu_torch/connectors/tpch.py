@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -199,11 +200,20 @@ _CONTAINERS = _LazyCombo(CONTAINER_S1, CONTAINER_S2)
 def _numbered(prefix: str, count: int, keys: np.ndarray) -> DictColumn:
     """'Customer#000000001'-style names: zero-padded => sorted order is
     numeric order, so ids are just key-1 (no string materialisation for
-    the ids; the dictionary itself is built lazily by the page builder)."""
-    values = np.asarray(
+    the ids). Every split of a table shares one dictionary object."""
+    return DictColumn(
+        ids=(keys - 1).astype(np.int32), values=_numbered_values(prefix, count)
+    )
+
+
+@functools.lru_cache(maxsize=4)
+def _numbered_values(prefix: str, count: int) -> np.ndarray:
+    """The dictionary of ``_numbered``, built once per (prefix, count):
+    at SF100 the customer names are 15,000,000 strings, which every
+    split would otherwise format again."""
+    return np.asarray(
         [f"{prefix}#{i + 1:09d}" for i in range(count)], dtype=object
     )
-    return DictColumn(ids=(keys - 1).astype(np.int32), values=values)
 
 
 def _fixed(values: Sequence[str], picks: np.ndarray) -> DictColumn:
@@ -517,35 +527,49 @@ class TpchGenerator:
 
     def _gen_lineitem(self, rows, columns):
         order_idx, linenumber = _lineitem_order(rows)
-        okey = _orderkey(order_idx)
-        odate = STARTDATE + (
-            _stream(601, order_idx) % np.uint64(ENDDATE - 151 - STARTDATE + 1)
-        ).astype(np.int64)
-        shipdate = odate + _uniform(701, rows, 1, 121)
-        partkey = _uniform(702, rows, 1, self.counts["part"])
-        qty = _uniform(703, rows, 1, 50)
+        # the shared streams are made on first use only: a scan of
+        # (l_orderkey, l_quantity) skips the dates and the part keys
+        memo = {}
+
+        def shared(name):
+            if name not in memo:
+                if name == "odate":
+                    memo[name] = STARTDATE + (
+                        _stream(601, order_idx)
+                        % np.uint64(ENDDATE - 151 - STARTDATE + 1)
+                    ).astype(np.int64)
+                elif name == "shipdate":
+                    memo[name] = shared("odate") + _uniform(701, rows, 1, 121)
+                elif name == "partkey":
+                    memo[name] = _uniform(702, rows, 1, self.counts["part"])
+                else:  # qty
+                    memo[name] = _uniform(703, rows, 1, 50)
+            return memo[name]
+
         out = {}
         for c in columns:
             if c == "l_orderkey":
-                out[c] = okey
+                out[c] = _orderkey(order_idx)
             elif c == "l_partkey":
-                out[c] = partkey
+                out[c] = shared("partkey")
             elif c == "l_suppkey":
                 out[c] = _ps_suppkey(
-                    partkey, _uniform(704, rows, 0, 3), self.counts["supplier"]
+                    shared("partkey"),
+                    _uniform(704, rows, 0, 3),
+                    self.counts["supplier"],
                 )
             elif c == "l_linenumber":
                 out[c] = linenumber
             elif c == "l_quantity":
-                out[c] = qty * 100  # unscaled decimal(12,2)
+                out[c] = shared("qty") * 100  # unscaled decimal(12,2)
             elif c == "l_extendedprice":
-                out[c] = qty * _retailprice(partkey)
+                out[c] = shared("qty") * _retailprice(shared("partkey"))
             elif c == "l_discount":
                 out[c] = _uniform(705, rows, 0, 10)  # 0.00..0.10
             elif c == "l_tax":
                 out[c] = _uniform(706, rows, 0, 8)
             elif c == "l_returnflag":
-                receipt = shipdate + _uniform(708, rows, 1, 30)
+                receipt = shared("shipdate") + _uniform(708, rows, 1, 30)
                 ra = _uniform(709, rows, 0, 1)
                 out[c] = _fixed(
                     ["A", "N", "R"],
@@ -553,14 +577,15 @@ class TpchGenerator:
                 )
             elif c == "l_linestatus":
                 out[c] = _fixed(
-                    ["F", "O"], (shipdate > CURRENTDATE).astype(np.int64)
+                    ["F", "O"],
+                    (shared("shipdate") > CURRENTDATE).astype(np.int64),
                 )
             elif c == "l_shipdate":
-                out[c] = shipdate
+                out[c] = shared("shipdate")
             elif c == "l_commitdate":
-                out[c] = odate + _uniform(707, rows, 30, 90)
+                out[c] = shared("odate") + _uniform(707, rows, 30, 90)
             elif c == "l_receiptdate":
-                out[c] = shipdate + _uniform(708, rows, 1, 30)
+                out[c] = shared("shipdate") + _uniform(708, rows, 1, 30)
             elif c == "l_shipinstruct":
                 out[c] = _fixed(INSTRUCTIONS, _uniform(710, rows, 0, 3))
             elif c == "l_shipmode":

@@ -20,27 +20,35 @@ the reference's does: heavy subtrees run as fragments of their own
 their live rows, and an executed join build side pre-filters its probe
 side (``exec/dynfilter.py``).
 
-Not ported yet (they raise): statements other than SELECT, unnest,
-and streaming of tables larger than ``max_device_rows``.
+A plan that scans a table larger than ``max_device_rows`` streams
+(``exec/streaming.py``): split batches staged at a fixed capacity
+(``stage_split``) run through the fragment below the cut, partial states
+or a join side's rows spill to host-RAM buckets, and each bucket runs
+alone on the device.
+
+Not ported yet (they raise): statements other than SELECT, unnest, and
+the device-resident split cache (``stream_split_cache``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Tuple, Union
 
-import numpy as np
 import torch
 
 from presto_tpu_torch import expr as E
 from presto_tpu_torch import types as T
 from presto_tpu_torch.connectors import create_connector
-from presto_tpu_torch.connectors.tpch import DictColumn
-from presto_tpu_torch.exec import dynfilter
+from presto_tpu_torch.connectors.spi import ConnectorSplit
+from presto_tpu_torch.exec import dynfilter, streaming
 from presto_tpu_torch.exec.host_ops import apply_host_ops, peel_host_ops
 from presto_tpu_torch.exec.staging import (
     CatalogManager,
     bucket_capacity,
+    merge_column_chunks,
+    page_nbytes,
     stage_page,
 )
 from presto_tpu_torch.ops import (
@@ -116,6 +124,12 @@ class LocalQueryRunner:
         #: run on their own, and dynamic filters applied to a probe side
         self.fragments_run = 0
         self.dynamic_filters_applied = 0
+        #: plan re-runs at 4x capacities after an overflow, since the
+        #: runner was made
+        self.overflow_retries = 0
+        #: what streamed execution did (batches, buckets, spill, host
+        #: seconds); a caller may replace it to count one query
+        self.stream_stats = streaming.StreamStats()
 
     # ------------------------------------------------------------- public
 
@@ -158,19 +172,14 @@ class LocalQueryRunner:
     # ---------------------------------------------------------- execution
 
     def _run(self, root: N.PlanNode) -> Page:
-        scans = [n for n in N.walk(root) if isinstance(n, N.TableScanNode)]
-        max_rows = int(self.session.get("max_device_rows"))
-        for s in scans:
-            stats = self.catalogs.get(s.handle.catalog).metadata()
-            rows = int(stats.get_table_stats(s.handle).row_count or 0)
-            if rows > max_rows:
-                raise ExecutionError(
-                    f"{s.handle.table} has {rows} rows > max_device_rows "
-                    f"{max_rows}: streamed execution is a later slice"
-                )
+        if streaming.needs_streaming(root, self.catalogs, self.session):
+            # larger-than-device input: split-streamed partial
+            # aggregation with hash-bucketed host spill
+            return streaming.run_streamed(self, root)
         budget = int(self.session.get("max_fragment_weight"))
         if budget > 0 and _plan_weight(root) > budget:
             return self._run_fragmented(root, budget)
+        scans = [n for n in N.walk(root) if isinstance(n, N.TableScanNode)]
         pages = [self._load_table(s) for s in scans]
         return self._run_with_pages(root, scans, pages)
 
@@ -315,6 +324,7 @@ class LocalQueryRunner:
                     return pad_capacity(out, bucket_capacity(n))
                 return materialize_page(out, n)
             tries += 1
+            self.overflow_retries += 1
             if tries >= self.MAX_RETRIES:
                 raise ExecutionError(
                     "capacity overflow persisted after retries "
@@ -334,6 +344,41 @@ class LocalQueryRunner:
             merged = self._load_merged_payload(scan)
             page = stage_page(merged, dict(scan.schema), device=self.device)
             self._tables[key] = page
+        return page
+
+    def _load_split(
+        self, scan: N.TableScanNode, lo: int, hi: int, capacity: int
+    ) -> Page:
+        """Stage ONE split batch (see :meth:`stage_split`)."""
+        return self.stage_split(scan, lo, hi, capacity)
+
+    def stage_split(
+        self, scan: N.TableScanNode, lo: int, hi: int, capacity: int
+    ) -> Page:
+        """Stage ONE split batch [lo, hi) of a scan at a fixed capacity
+        on the runner's device. The pushed constraint is not applied:
+        a split reads its raw row range, and the plan's filter runs over
+        it. The reference's device-resident split cache
+        (``stream_split_cache``) is not ported yet and raises."""
+        if self.session.get("stream_split_cache"):
+            raise NotImplementedError(
+                "stream_split_cache: the device-resident SplitCache is "
+                "a later slice of the port"
+            )
+        stats = self.stream_stats
+        t0 = time.perf_counter()
+        payload = self.catalogs.get(scan.handle.catalog).create_page_source(
+            ConnectorSplit(scan.handle, lo, hi), list(scan.columns)
+        )
+        t1 = time.perf_counter()
+        page = stage_page(
+            payload, dict(scan.schema), capacity=capacity, device=self.device
+        )
+        # the prefetch thread adds here too; a lost update of a float
+        # total only blurs a timing
+        stats.generate_s += t1 - t0
+        stats.stage_s += time.perf_counter() - t1
+        stats.staged_bytes += page_nbytes(page)
         return page
 
     def _load_merged_payload(self, scan: N.TableScanNode) -> Dict:
@@ -599,29 +644,11 @@ def _scale_capacities(node: N.PlanNode, factor: int) -> N.PlanNode:
 
 
 def _merge_split_payloads(datas: List[Dict], columns: List[str]) -> Dict:
-    """Concatenate per-split payloads. The tpch generator gives every
-    split of a column the same dictionary; payloads that disagree
-    (file connectors) need the reference's union-and-remap merge, a
-    later slice."""
+    """Merge per-split payloads column by column
+    (``staging.merge_column_chunks``): dictionaries that differ across
+    splits (file connectors) merge into their sorted union with the ids
+    remapped; splits sharing one dictionary object (the tpch generator)
+    keep it; masked chunks merge with their validity."""
     if len(datas) == 1:
         return datas[0]
-    merged = {}
-    for c in columns:
-        parts = [d[c] for d in datas]
-        first = parts[0]
-        if isinstance(first, DictColumn):
-            if any(not np.array_equal(p.values, first.values) for p in parts):
-                raise NotImplementedError(
-                    f"merging differing dictionaries of {c}: later slice"
-                )
-            merged[c] = DictColumn(
-                ids=np.concatenate([p.ids for p in parts]),
-                values=first.values,
-            )
-        elif isinstance(first, np.ndarray):
-            merged[c] = np.concatenate(parts)
-        else:
-            raise NotImplementedError(
-                f"merging {type(first).__name__} payloads: later slice"
-            )
-    return merged
+    return {c: merge_column_chunks([d[c] for d in datas]) for c in columns}

@@ -38,7 +38,7 @@ class Dictionary:
     they encode (within a single dictionary). Immutable and hashable
     (content digest)."""
 
-    __slots__ = ("values", "_str_values", "_index", "_digest")
+    __slots__ = ("values", "_str_values", "_index", "_digest", "__weakref__")
 
     def __init__(self, sorted_values: np.ndarray):
         self.values = np.asarray(sorted_values)

@@ -267,3 +267,47 @@ def test_tpch_join_queries_on_the_card_equal_the_cpu(cuda, q):
     if q in (3, 5):
         assert gpu.fragments_run > 0 and gpu.dynamic_filters_applied > 0
     assert got == gpu.execute(sql).rows()  # a warm run repeats
+
+
+# ------------------------------------------------ streamed on the card
+
+
+@pytest.mark.parametrize("q", ["q1", "q18_250"])
+def test_streamed_queries_on_the_card_equal_the_cpu(cuda, q):
+    # lineitem (~60k rows at tiny) over a 16,384-row budget streams in
+    # 4,096-row batches with host spill buckets; the partial and final
+    # one-hot GROUP BYs of Q1 launch the kernel on the card. Q18's
+    # HAVING keeps no order at tiny at 300, so it runs at 250
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.session import Session
+    from tpch_queries import QUERIES
+
+    from presto_tpu_torch.ops import aggregation as PA
+
+    sql = QUERIES[1] if q == "q1" else QUERIES[18].replace("> 300", "> 250")
+    props = {"max_device_rows": 16_384, "page_capacity": 4_096}
+    gpu = LocalQueryRunner(device="cuda", session=Session(properties=props))
+    cpu = LocalQueryRunner(device="cpu", session=Session(properties=props))
+    calls = []
+    real = PA.onehot_reduce_many
+
+    def spy(gid, requests, nseg):
+        calls.append(len(requests))
+        return real(gid, requests, nseg)
+
+    before = onehot_reduce.launches
+    PA.onehot_reduce_many = spy
+    try:
+        got = gpu.execute(sql).rows()
+    finally:
+        PA.onehot_reduce_many = real
+    launches = onehot_reduce.launches - before
+    stats = gpu.stream_stats
+    assert stats.batches > 0 and stats.buckets > 0
+    assert len(got) > 0 and _rows_agree(got, cpu.execute(sql).rows())
+    if q == "q1":
+        # one one-hot call per batch and per bucket merge, one launch
+        # per K_MAX of its requests
+        assert len(calls) == stats.batches + stats.buckets
+        assert launches == sum(-(-k // K_MAX) for k in calls) > 0
+    assert got == gpu.execute(sql).rows()  # a warm run repeats
