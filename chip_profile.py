@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of a warm TPC-H query goes in the PyTorch/CUDA port.
+"""Where the time of a warm TPC-H or TPC-DS query goes in the PyTorch/CUDA port.
 
     python3 chip_profile.py [--runs 5] [--queries q1,q6,q3,q5] [--out FILE]
 
@@ -7,11 +7,14 @@ For Q1 and then Q6 on tpch.sf1, then Q3 and Q5 on tpch.sf10 with
 ``max_device_rows`` 2^26 (the texts and session of chip_smoke.py; or
 the ``--queries`` named, out of those and ``window`` (BASELINE.json's
 window query over tpch.sf10.orders, default session), ``q9`` and
-``q22`` (on tpch.sf10 in the joins session), and the streamed
+``q22`` (on tpch.sf10 in the joins session), the streamed
 ``q1_stream`` and ``q18_stream`` (Q1 and Q18 on tpch.sf10 under the
 default session: lineitem streams in 2^20-row batches with host-RAM
-spill)), each on one ``LocalQueryRunner(device="cuda")``: one cold run
-and two warm runs (one for a streamed query), then ``--runs`` warm runs
+spill), ``q64_sf10`` (TPC-DS Q64 on tpcds.sf10 in the joins session)
+and ``q95_sf100`` (TPC-DS Q95 on tpcds.sf100 in chip_smoke.py's SF100
+streaming session: web_sales streams in 2^24-row batches)), each on one
+``LocalQueryRunner(device="cuda")``: one cold run and two warm runs
+(one for a streamed query at SF10, none at SF100), then ``--runs`` warm runs
 under ``torch.profiler`` (CPU and CUDA activities). A streamed query also
 reports its stream counters over the profiled runs: batches, buckets,
 spilled bytes, host seconds in connector generation, staging,
@@ -105,7 +108,7 @@ def profile_query(runner, sql: str, runs: int, warm: int = 2):
             runner.execute(sql)
         torch.cuda.synchronize()
         wall_s = (time.perf_counter() - t0) / runs
-    stream = {k: v / runs
+    stream = {k: v if k == "largest_merge_rows" else v / runs
               for k, v in dataclasses.asdict(runner.stream_stats).items()}
 
     # unprofiled warm runs: the profiler's own cost stays out of warm_s
@@ -170,7 +173,8 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--queries", default="q1,q6,q3,q5",
                     help="comma-separated subset of "
-                    "q1,q6,q3,q5,window,q9,q22,q1_stream,q18_stream")
+                    "q1,q6,q3,q5,window,q9,q22,q1_stream,q18_stream,"
+                    "q64_sf10,q95_sf100")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -181,8 +185,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (
-        JOINS_MAX_DEVICE_ROWS, JOINS_SCHEMA, Q1, Q3, Q5, Q6, WINDOW,
-        WINDOW_SCHEMA, card_line, stream_q1, stream_q18, tpch_queries,
+        JOINS_MAX_DEVICE_ROWS, JOINS_SCHEMA, Q1, Q3, Q5, Q6,
+        STREAM_SF100_PROPS, TPCDS_SF10, TPCDS_SF100, WINDOW, WINDOW_SCHEMA,
+        card_line, stream_q1, stream_q18, tpcds_queries, tpch_queries,
     )
     from presto_tpu_torch.exec.local_runner import LocalQueryRunner
     from presto_tpu_torch.session import Session
@@ -199,6 +204,10 @@ def main() -> int:
     stream = LocalQueryRunner(
         device="cuda", session=Session(schema=JOINS_SCHEMA)
     )
+    sf100_stream = LocalQueryRunner(
+        device="cuda",
+        session=Session(schema=TPCDS_SF100, properties=STREAM_SF100_PROPS),
+    )
     report = {"card": card, "runs": args.runs}
     wanted = args.queries.split(",")
     tpch = tpch_queries()
@@ -210,11 +219,14 @@ def main() -> int:
         ("q22", JOINS_SCHEMA, joins, tpch["Q22"]),
         ("q1_stream", JOINS_SCHEMA, stream, stream_q1()),
         ("q18_stream", JOINS_SCHEMA, stream, stream_q18()[0]),
+        ("q64_sf10", TPCDS_SF10, joins, tpcds_queries(TPCDS_SF10)[0]),
+        ("q95_sf100", TPCDS_SF100, sf100_stream,
+         tpcds_queries(TPCDS_SF100)[1]),
     ):
         if name not in wanted:
             continue
-        rec = profile_query(runner, sql, args.runs,
-                            warm=1 if runner is stream else 2)
+        warm = {stream: 1, sf100_stream: 0}.get(runner, 2)
+        rec = profile_query(runner, sql, args.runs, warm=warm)
         rec["schema"] = schema
         report[name] = rec
         share = rec["device_busy_share"]

@@ -10,7 +10,10 @@ non-zero, and only a run where every phase passed prints the final
 1. device   - the card's name and power limit (nvidia-smi).
 2. build    - the port's CUDA kernel, compiled with nvcc into
               presto_tpu_torch/build/ when its library is missing or
-              older than its source, and loaded.
+              older than its source, and loaded; then the host C++
+              loops (the generator's fused stream, the string codec),
+              compiled with g++ the same way. The ``native:`` line says
+              which path the host runs; anything but ``native`` fails.
 3. kernels  - each kernel against its plain PyTorch version on the card,
               at the shapes the main path gives it, timed beside its
               computed bound and one PyTorch library call computing the
@@ -64,8 +67,21 @@ non-zero, and only a run where every phase passed prints the final
               partitioned build-side spill), once. Every run is exact
               against numpy over the generator's own columns and prints
               its batches, buckets, spilled bytes, retries, host syncs,
-              peak device memory and peak RSS.
-8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+              native generator calls (at least one on the card), peak
+              device memory and peak RSS.
+8. tpcds    - the fifth slice, TPC-DS through a CUDA runner: Q64 and Q95
+              at SF1 in the joins phase's session, each cold then twice
+              warm and equal to the port's CPU runner on the same SQL
+              (decimals, integers and strings exact, doubles within rel
+              1e-9); Q64 at SF10 whole-table (store_sales 28,800,000
+              rows), warm runs bit-identical and equal to the CPU
+              runner; Q95 at SF10 whole-table, then streamed under
+              ``max_device_rows`` 2^22 (web_sales 7,200,000 rows), then
+              at SF100 streamed in the stream phase's SF100 session
+              (web_sales 72,000,000 rows over the 2^26 budget: the ws_wh
+              self-join takes the partitioned spill), each exact against
+              a numpy evaluation over the generator's own columns.
+9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -973,23 +989,26 @@ def results_differ(a, b, rel: float = 0.0):
     return None
 
 
-def syncs_per_run(runner, sql, dev):
-    """``cudaStreamSynchronize`` calls of one warm run under
-    torch.profiler (None on the CPU: nothing to count)."""
+def warm_profile(runner, sql, dev):
+    """(``cudaStreamSynchronize`` calls, device ms of its kernels) of one
+    warm run under torch.profiler; (None, None) on the CPU: nothing to
+    count."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if dev.type != "cuda":
-        return None
+        return None, None
     with profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
     ) as prof:
         runner.execute(sql)
         torch.cuda.synchronize(dev)
-    return sum(
-        e.count for e in prof.key_averages()
-        if e.key == "cudaStreamSynchronize"
-    )
+    events = prof.key_averages()
+    syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA)
+    return syncs, device_us / 1e3
 
 
 def run_three(runner, name, sql, dev, card, scanned: Optional[int] = None):
@@ -1018,9 +1037,10 @@ def run_three(runner, name, sql, dev, card, scanned: Optional[int] = None):
         "warm_s": [w1_s, w2_s],
         "rows_per_s": scanned and scanned / min(w1_s, w2_s),
         "peak_gib": peak,
-        "syncs_per_warm_run": syncs_per_run(runner, sql, dev),
         "onehot_reduce_launches": per_run,
     }
+    rec["syncs_per_warm_run"], rec["device_ms"] = warm_profile(
+        runner, sql, dev)
     rate = (f", {rec['rows_per_s']:.1f} rows/s of {scanned} scanned"
             if scanned else "")
     print(
@@ -1028,7 +1048,8 @@ def run_three(runner, name, sql, dev, card, scanned: Optional[int] = None):
         f"{w1_s:.4f} / {w2_s:.4f}{rate}, peak memory "
         f"{'not measured (no card)' if peak is None else f'{peak:.3f} GiB'}"
         f", cudaStreamSynchronize per warm run "
-        f"{rec['syncs_per_warm_run']}, onehot_reduce launches per run "
+        f"{rec['syncs_per_warm_run']}, device ms of a warm run "
+        f"{rec['device_ms']}, onehot_reduce launches per run "
         f"{per_run} [{card}]",
         flush=True,
     )
@@ -1434,10 +1455,14 @@ def counting_syncs(dev):
 
 
 def stream_run(runner, sql, dev, label, card, scanned, batches_expected):
-    """One streamed run with the launch counts and stream counters reset
-    just before and read just after; returns (result, record)."""
+    """One streamed run with the launch counts, the native generator's
+    calls and the stream counters reset just before and read just after;
+    returns (result, record). ``batches_expected`` None: any number of
+    batches but at least one. On the card the generator must have run
+    its C++ loop."""
     import torch
 
+    from presto_tpu_torch import native
     from presto_tpu_torch.exec.streaming import StreamStats
     from presto_tpu_torch.ops import aggregation as PA
 
@@ -1446,13 +1471,20 @@ def stream_run(runner, sql, dev, label, card, scanned, batches_expected):
     runner.stream_stats = StreamStats()
     retries = runner.overflow_retries
     PA.onehot_reduce.launches = 0
+    native.gen_uniform.calls = 0
     with counting_syncs(dev) as syncs:
         res, secs = run_timed(runner, sql, dev)
     launches = PA.onehot_reduce.launches
+    gen_calls = native.gen_uniform.calls
     st = runner.stream_stats
-    check(st.batches == batches_expected,
-          f"{label}: {st.batches} batches, expected {batches_expected}")
+    if batches_expected is None:
+        check(st.batches > 0, f"{label}: nothing streamed")
+    else:
+        check(st.batches == batches_expected,
+              f"{label}: {st.batches} batches, expected {batches_expected}")
     check(st.buckets > 0, f"{label}: no spill bucket ran")
+    check(dev.type != "cuda" or gen_calls > 0,
+          f"{label}: the generator never ran its native loop")
     rec = {
         "query": label, "rows": int(res.page.num_valid), "s": secs,
         "rows_per_s": scanned / secs, "batches": st.batches,
@@ -1462,6 +1494,8 @@ def stream_run(runner, sql, dev, label, card, scanned, batches_expected):
         "syncs": syncs[0],
         "syncs_per_batch": None if syncs[0] is None else syncs[0] / st.batches,
         "onehot_reduce_launches": launches,
+        "native_gen_calls": gen_calls,
+        "largest_merge_rows": st.largest_merge_rows,
         "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                      if dev.type == "cuda" else None),
         "peak_rss_gib": resource.getrusage(
@@ -1472,11 +1506,14 @@ def stream_run(runner, sql, dev, label, card, scanned, batches_expected):
     peak = ("not measured (no card)" if rec["peak_gib"] is None
             else f"{rec['peak_gib']:.3f} GiB")
     print(f"{label}: {rec['rows']} rows in {secs:.4f} s, "
-          f"{rec['rows_per_s']:.1f} lineitem rows/s; batches {st.batches} "
+          f"{rec['rows_per_s']:.1f} rows/s of the {scanned} scanned; batches "
+          f"{st.batches} "
           f"({st.empty_batches} empty), buckets {st.buckets}, spilled "
           f"{st.spilled_rows} rows / {st.spilled_bytes} bytes, retries "
           f"{rec['retries']}, host syncs {syncs[0]}, onehot_reduce launches "
-          f"{launches}, peak memory {peak}, peak RSS "
+          f"{launches}, native generator calls {gen_calls}, largest merged "
+          f"join result {st.largest_merge_rows} rows, peak memory {peak}, "
+          f"peak RSS "
           f"{rec['peak_rss_gib']:.3f} GiB; host s {rec['host_s']} [{card}]",
           flush=True)
     return res, rec
@@ -1628,6 +1665,190 @@ def stream_phase(card: str, dev=None, records=None, sf100: str = "sf100"):
     return launches, out
 
 
+# ------------------------------------------------------------- tpcds phase
+
+#: the tpcds phase's scales (a CPU rehearsal passes smaller ones)
+TPCDS_SF1, TPCDS_SF10, TPCDS_SF100 = "sf1", "sf10", "sf100"
+#: web_sales has 7.2 M rows at SF10: this budget streams it
+Q95_STREAM_SF10_PROPS = {"max_device_rows": 1 << 22}
+#: Q95's ship-date window: date '1999-02-01' and 60 days on, epoch days
+Q95_FROM = 10623
+Q95_TO = Q95_FROM + 60
+Q95_COLUMNS = ("order_count", "total_shipping_cost", "total_net_profit")
+
+
+def tpcds_queries(schema: str):
+    """(Q64, Q95) of the port's TPC-DS corpus over tpcds.``schema``."""
+    from presto_tpu_torch.queries_tpcds import queries_for
+
+    q64, q95, _ = queries_for(schema)
+    return q64, q95
+
+
+def numpy_q95(schema: str):
+    """Q95 over tpcds.``schema`` in numpy, from the generator's own
+    columns: (count of distinct orders, sum of ws_ext_ship_cost, sum of
+    ws_net_profit), the sums as unscaled int64. An order is in ws_wh
+    when its lines carry two different warehouses; the generator keeps
+    an order's lines in neighbouring rows, 1..4 lines per order in
+    cycles of 10 rows, so each chunk of whole cycles holds whole orders.
+    Every column read here is NULL-free (checked), so NULL never
+    decides a comparison."""
+    import numpy as np
+
+    from presto_tpu_torch.connectors.tpcds import SCHEMAS, TpcdsGenerator
+
+    gen = TpcdsGenerator(SCHEMAS[schema])
+    cnt = gen.counts
+
+    def table(name, cols):
+        d = gen.generate(name, 0, cnt[name], cols)
+        check(all(isinstance(v, np.ndarray) or v.ids.min() >= 0
+                  for v in d.values()), f"{name}: a NULL in {cols}")
+        return d
+
+    def decoded(col):
+        return col.values[col.ids].astype(str)
+
+    dd = table("date_dim", ["d_date_sk", "d_date"])
+    in_window = _lookup(dd["d_date_sk"], (dd["d_date"] >= Q95_FROM)
+                        & (dd["d_date"] <= Q95_TO), False)
+    ca = table("customer_address", ["ca_address_sk", "ca_state"])
+    il = _lookup(ca["ca_address_sk"], decoded(ca["ca_state"]) == "IL", False)
+    ws = table("web_site", ["web_site_sk", "web_company_name"])
+    pri = _lookup(ws["web_site_sk"], decoded(ws["web_company_name"]) == "pri",
+                  False)
+    cols = ["ws_order_number", "ws_warehouse_sk", "ws_ship_date_sk",
+            "ws_ship_addr_sk", "ws_web_site_sk", "ws_ext_ship_cost",
+            "ws_net_profit"]
+
+    def part(lo, hi):
+        d = gen.generate("web_sales", lo, hi, cols)
+        check(all(isinstance(v, np.ndarray) for v in d.values()),
+              "web_sales: a column with NULLs")
+        order, wh = d["ws_order_number"], d["ws_warehouse_sk"]
+        starts = np.flatnonzero(np.r_[True, order[1:] != order[:-1]])
+        lines = np.diff(np.r_[starts, len(order)])
+        mixed = np.repeat(np.maximum.reduceat(wh, starts)
+                          != np.minimum.reduceat(wh, starts), lines)
+        keep = (mixed & in_window[d["ws_ship_date_sk"]]
+                & il[d["ws_ship_addr_sk"]] & pri[d["ws_web_site_sk"]])
+        return (order[keep], d["ws_ext_ship_cost"][keep].astype(np.int64),
+                d["ws_net_profit"][keep].astype(np.int64))
+
+    def returned(lo, hi):
+        wr = gen.generate("web_returns", lo, hi, ["wr_order_number"])
+        check(isinstance(wr["wr_order_number"], np.ndarray),
+              "web_returns: wr_order_number with NULLs")
+        return np.unique(wr["wr_order_number"])
+
+    chunk = 10 * 400_000  # whole cycles of 10 rows
+    order, cost, profit = (np.concatenate(a) for a in zip(*parallel_chunks(
+        cnt["web_sales"], chunk, part)))
+    wr = np.unique(np.concatenate(parallel_chunks(
+        cnt["web_returns"], chunk, returned)))
+    keep = np.isin(order, wr)
+    return (len(np.unique(order[keep])), int(cost[keep].sum()),
+            int(profit[keep].sum()))
+
+
+def check_q95(label, res, want):
+    got = result_rows(res, Q95_COLUMNS)
+    check(got == [want], f"{label}: {got} != numpy {[want]}")
+    check(want[0] > 0, f"{label}: numpy selects no order")
+
+
+def tpcds_phase(card: str, dev=None, sf1: str = TPCDS_SF1,
+                sf10: str = TPCDS_SF10, sf100: str = TPCDS_SF100):
+    """The fifth slice's path on ``dev`` (the card unless a CPU
+    rehearsal passes another): TPC-DS Q64 and Q95 at ``sf1`` against
+    the port's CPU runner; Q64 at ``sf10`` whole-table, against the CPU
+    runner too; Q95 at ``sf10`` whole-table and streamed, and at
+    ``sf100`` streamed, each exact against numpy. Returns (the
+    onehot_reduce launches of the counted runs, the records)."""
+    import torch
+
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.session import Session
+
+    dev = torch.device("cuda") if dev is None else dev
+    joins = {"max_device_rows": JOINS_MAX_DEVICE_ROWS}
+    out, launches = [], 0
+
+    def against_cpu(label, res, schema, sql):
+        cpu = LocalQueryRunner(device="cpu", session=Session(
+            schema=schema, properties=joins))
+        t0 = time.perf_counter()
+        want = cpu.execute(sql)
+        cpu_s = time.perf_counter() - t0
+        diff = results_differ(res, want, rel=1e-9)
+        check(diff is None, f"{label}: the card and the CPU runner differ "
+              f"({diff})")
+        print(f"{label}: equal to the CPU runner ({int(want.page.num_valid)} "
+              f"rows; the CPU run took {cpu_s:.2f} s)", flush=True)
+        return cpu_s
+
+    # SF1: Q64 and Q95 in the joins session, against the CPU runner
+    runner = LocalQueryRunner(device=dev, session=Session(
+        schema=sf1, properties=joins))
+    for name, sql in zip(("Q64", "Q95"), tpcds_queries(sf1)):
+        res, rec = run_three(runner, f"{name} {sf1}", sql, dev, card)
+        check(rec["rows"] > 0, f"{name} {sf1}: no row")
+        rec["cpu_s"] = against_cpu(f"{name} {sf1}", res, sf1, sql)
+        launches += sum(rec["onehot_reduce_launches"])
+        out.append(rec)
+    del runner
+
+    # SF10, whole tables in the joins session: Q64, then Q95
+    q64, q95 = tpcds_queries(sf10)
+    runner = LocalQueryRunner(device=dev, session=Session(
+        schema=sf10, properties=joins))
+    res, rec = run_three(runner, f"Q64 {sf10}", q64, dev, card)
+    check(rec["rows"] > 0, f"Q64 {sf10}: no row")
+    rec["cpu_s"] = against_cpu(f"Q64 {sf10}", res, sf10, q64)
+    launches += sum(rec["onehot_reduce_launches"])
+    out.append(rec)
+    t0 = time.perf_counter()
+    want = numpy_q95(sf10)
+    print(f"numpy evaluation of Q95 at {sf10}: {want} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    res, rec = run_three(runner, f"Q95 {sf10}", q95, dev, card)
+    check_q95(f"Q95 {sf10}", res, want)
+    launches += sum(rec["onehot_reduce_launches"])
+    out.append(rec)
+    del runner, res
+
+    # Q95 at SF10 streamed: web_sales over a 2^22-row budget
+    from presto_tpu_torch.connectors.tpcds import SCHEMAS, TpcdsGenerator
+
+    streamed = LocalQueryRunner(device=dev, session=Session(
+        schema=sf10, properties=Q95_STREAM_SF10_PROPS))
+    n_ws = TpcdsGenerator(SCHEMAS[sf10]).counts["web_sales"]
+    res, rec = stream_run(streamed, q95, dev, f"Q95 stream {sf10}", card,
+                          n_ws, None)
+    check_q95(f"Q95 stream {sf10}", res, want)
+    launches += rec["onehot_reduce_launches"]
+    out.append(rec)
+    del streamed, res
+
+    # Q95 at SF100 streamed, in the stream phase's SF100 session
+    t0 = time.perf_counter()
+    want = numpy_q95(sf100)
+    print(f"numpy evaluation of Q95 at {sf100}: {want} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    streamed = LocalQueryRunner(device=dev, session=Session(
+        schema=sf100, properties=STREAM_SF100_PROPS))
+    n_ws = TpcdsGenerator(SCHEMAS[sf100]).counts["web_sales"]
+    res, rec = stream_run(streamed, tpcds_queries(sf100)[1], dev,
+                          f"Q95 stream {sf100}", card, n_ws, None)
+    check_q95(f"Q95 stream {sf100}", res, want)
+    launches += rec["onehot_reduce_launches"]
+    out.append(rec)
+    print(f"Q95 {sf10} (whole and streamed) and {sf100} (streamed) equal "
+          f"numpy's", flush=True)
+    return launches, out
+
+
 def main() -> int:
     if not (ROOT / "presto_tpu_torch").is_dir():
         print(
@@ -1658,6 +1879,14 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s",
         flush=True,
     )
+    from presto_tpu_torch import native
+
+    t0 = time.perf_counter()
+    status = native.status()
+    print(f"native: {status} (host libraries loaded, compiled if stale, in "
+          f"{time.perf_counter() - t0:.2f} s)", flush=True)
+    check(status == "native", "the host C++ loops did not build: the "
+          "generator and the string codec would run in numpy")
 
     phase("kernels")
     records = kernel_phase(card)
@@ -1674,6 +1903,9 @@ def main() -> int:
     phase("stream")
     stream_launches, stream_records = stream_phase(card, records=records)
 
+    phase("tpcds")
+    tpcds_launches, tpcds_records = tpcds_phase(card)
+
     headline = next(r for r in records if r["label"] == "q1 fused")
     kernels_line = {
         "kernels": [
@@ -1683,7 +1915,8 @@ def main() -> int:
                 "source": "presto_tpu_torch/csrc/onehot_reduce.cu",
                 "replaces": "tools/pallas_groupby.py:96",
                 "launches": (counts["onehot_reduce"] + joins_launches
-                             + rest_launches + stream_launches),
+                             + rest_launches + stream_launches
+                             + tpcds_launches),
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
@@ -1698,7 +1931,9 @@ def main() -> int:
                       "rest": rest_records, "rest_onehot_reduce": rest_launches,
                       "stream": stream_records,
                       "stream_onehot_reduce": stream_launches,
-                      "card": card}))
+                      "tpcds": tpcds_records,
+                      "tpcds_onehot_reduce": tpcds_launches,
+                      "native": status, "card": card}))
     print(json.dumps(kernels_line))
     print(
         json.dumps(

@@ -1,6 +1,6 @@
-"""Connector SPI + the built-in ``tpch`` connector.
+"""Connector SPI + the built-in ``tpch`` and ``tpcds`` connectors.
 
-The SPI and the tpch generator are copies of the reference's
+The SPI and the tpch and tpcds generators are copies of the reference's
 (``presto_tpu/connectors``); the other connectors come in later slices.
 """
 
@@ -11,10 +11,12 @@ from presto_tpu_torch.connectors.spi import (  # noqa: F401
     SplitSource,
     TableHandle,
 )
+from presto_tpu_torch.connectors.tpcds import TpcdsConnector  # noqa: F401
 from presto_tpu_torch.connectors.tpch import TpchConnector  # noqa: F401
 
 CONNECTOR_FACTORIES = {
     "tpch": TpchConnector,
+    "tpcds": TpcdsConnector,
 }
 
 

@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from presto_tpu_torch import native
 from presto_tpu_torch import types as T
 from presto_tpu_torch.connectors.spi import (
     ColumnStats,
@@ -86,7 +87,13 @@ def _stream(tag: int, idx: np.ndarray) -> np.ndarray:
 
 
 def _uniform(tag: int, idx: np.ndarray, lo: int, hi: int) -> np.ndarray:
-    """Uniform integers in [lo, hi] (inclusive), vectorized in numpy."""
+    """Uniform integers in [lo, hi] (inclusive). Affine index runs of
+    ``native.GEN_MIN_ROWS`` rows or more go through the fused C++ loop
+    (bit-equal); everything else, and a host without a compiler, takes
+    the vectorized numpy path."""
+    out = native.gen_uniform(tag, idx, lo, hi)
+    if out is not None:
+        return out
     span = (_stream(tag, idx) % np.uint64(hi - lo + 1)).astype(np.int64)
     return lo + span
 

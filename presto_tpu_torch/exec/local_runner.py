@@ -116,6 +116,7 @@ class LocalQueryRunner:
         if catalogs is None:
             catalogs = CatalogManager()
             catalogs.register("tpch", create_connector("tpch"))
+            catalogs.register("tpcds", create_connector("tpcds"))
         self.catalogs = catalogs
         self.session = session or Session()
         #: staged whole-table pages, keyed by scan identity

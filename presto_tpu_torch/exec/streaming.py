@@ -71,9 +71,10 @@ class StreamStats:
     the caller last replaced it): split batches run, the batches among
     them that produced no row, bucket runs on the device (final merges
     and bucket joins with rows in them), the bytes of staged split
-    pages, the rows and bytes spilled to host buckets, and host seconds
-    in connector generation, staging, bucket hashing and payload merges
-    (the prefetch thread's included)."""
+    pages, the rows and bytes spilled to host buckets, the rows of the
+    largest partitioned-join result merged and staged whole for the plan
+    above it, and host seconds in connector generation, staging, bucket
+    hashing and payload merges (the prefetch thread's included)."""
 
     batches: int = 0
     empty_batches: int = 0
@@ -81,6 +82,7 @@ class StreamStats:
     staged_bytes: int = 0
     spilled_rows: int = 0
     spilled_bytes: int = 0
+    largest_merge_rows: int = 0
     generate_s: float = 0.0
     stage_s: float = 0.0
     hash_s: float = 0.0
@@ -532,6 +534,10 @@ def _try_partitioned_join(
             _empty_payload(out_schema)
         )
         chain_page = stage_page(merged, out_schema, device=runner.device)
+        runner.stream_stats.largest_merge_rows = max(
+            runner.stream_stats.largest_merge_rows,
+            sum(n for _, _, n in outs),
+        )
         if chain is frag_root:
             return chain_page
         remote = N.RemoteSourceNode(fragment_root=chain)

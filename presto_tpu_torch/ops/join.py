@@ -24,10 +24,14 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from presto_tpu_torch.exec.staging import bucket_capacity
 from presto_tpu_torch.ops.common import orderable_i64
 from presto_tpu_torch.page import Block, Page, compact_page
 
 _I64_MAX = torch.iinfo(torch.int64).max
+#: planned fan-out capacities above this many rows are checked against
+#: the exact output count (``_expand``)
+EXACT_FANOUT_ROWS = 1 << 20
 
 
 def pack_keys(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -216,8 +220,18 @@ def _expand(
     """The static-shape layout of a fan-out where input row i yields
     ``counts[i]`` output rows: output row j is copy ``offset[j]`` of
     input row ``p_idx[j]`` (prefix sum + inverse searchsorted). Returns
-    (p_idx, offset, out_count); rows past ``out_count`` are padding."""
+    (p_idx, offset, out_count); rows past ``out_count`` are padding.
+
+    A planned ``out_capacity`` over ``EXACT_FANOUT_ROWS`` is cut to the
+    bucket of the exact output count, read once on the host: the
+    planner's fan-out estimate for a composite key of which only some
+    columns have statistics runs far over (TPC-DS Q64's store_sales x
+    store_returns on (item, ticket) plans 2^29 rows at SF1 and 2^32 at
+    SF10 for about 1.4 M and 14 M). The result is the same; only the
+    padding shrinks."""
     total = torch.cumsum(counts, dim=0)
+    if out_capacity > EXACT_FANOUT_ROWS:
+        out_capacity = min(out_capacity, bucket_capacity(int(total[-1])))
     j = torch.arange(out_capacity, dtype=torch.int64, device=counts.device)
     p_idx = torch.clamp(
         torch.searchsorted(total, j, right=True), max=counts.shape[0] - 1

@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from presto_tpu_torch import native
 from presto_tpu_torch import types as T
 
 
@@ -88,10 +89,21 @@ class Dictionary:
         return np.asarray([bool(fn(v)) for v in self.values], dtype=bool)
 
 
+#: columns of this many rows or more go through the C++ codec
+NATIVE_ENCODE_MIN_ROWS = 4096
+
+
 def encode_strings(values: Sequence) -> tuple:
     """Encode strings -> (int32 ids, valid mask, order-preserving dict).
-    None values get id -1 and valid=False."""
+    None values get id -1 and valid=False. Columns of
+    ``NATIVE_ENCODE_MIN_ROWS`` rows or more go through the C++ codec
+    (``native.encode_strings``, the same output) where it builds."""
     arr = np.asarray(values, dtype=object)
+    if len(arr) >= NATIVE_ENCODE_MIN_ROWS:
+        out = native.encode_strings(arr)
+        if out is not None:
+            ids, valid, uniq = out
+            return ids, valid, Dictionary(uniq)
     isnull = np.array([v is None for v in arr], dtype=bool)
     present = arr[~isnull].astype(str) if (~isnull).any() else np.array([], str)
     dictionary = Dictionary(np.unique(present))
@@ -390,9 +402,13 @@ def to_host(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 
 def _bytes_of(t: torch.Tensor) -> torch.Tensor:
-    if t.numel() == 0:  # an empty view may carry a zero stride
-        return torch.empty((0,), dtype=torch.uint8, device=t.device)
-    return t.contiguous().reshape(-1).view(torch.uint8)
+    """The bytes of ``t`` as a flat uint8 tensor of a dense copy.
+    ``.contiguous()`` is not enough: torch counts a one-row slice of a
+    ``broadcast_to`` block (stride 0) as contiguous and keeps the zero
+    stride, which ``.view(torch.uint8)`` refuses."""
+    if not t.is_contiguous() or 0 in t.stride():
+        t = torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+    return t.reshape(-1).view(torch.uint8)
 
 
 def _gather_block(blk: Block, sel: torch.Tensor) -> Block:

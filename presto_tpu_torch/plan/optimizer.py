@@ -451,6 +451,21 @@ def prune_columns(node: N.PlanNode, required: Optional[Set[str]] = None):
             right=prune_columns(node.right, rneed),
             payload=payload,
         )
+    if isinstance(node, N.CrossJoinNode):
+        # each side keeps the required columns it outputs (the
+        # reference stops pruning here, so every scan under a cross
+        # join, such as a global count(distinct) beside other
+        # aggregates, would read all of its columns); a side left with
+        # none keeps its fallback column, and with it its row count
+        return dataclasses.replace(
+            node,
+            left=prune_columns(
+                node.left, set(required) & set(node.left.output_schema())
+            ),
+            right=prune_columns(
+                node.right, set(required) & set(node.right.output_schema())
+            ),
+        )
     if isinstance(node, N.SortNode):
         need = set(required)
         for k in node.keys:

@@ -311,3 +311,24 @@ def test_streamed_queries_on_the_card_equal_the_cpu(cuda, q):
         assert len(calls) == stats.batches + stats.buckets
         assert launches == sum(-(-k // K_MAX) for k in calls) > 0
     assert got == gpu.execute(sql).rows()  # a warm run repeats
+
+
+# --------------------------------- one-row results with a broadcast column
+
+
+@pytest.mark.parametrize("streamed", [False, True], ids=["default", "streamed"])
+def test_broadcast_one_row_results_on_the_card_equal_the_cpu(cuda, streamed):
+    # a literal beside a global aggregate, two count(distinct) joined by
+    # the single-row cross join, and a ROLLUP grand total: each result
+    # holds a stride-0 block that page.to_host copies to the host
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.session import Session
+    from broadcast_queries import QUERIES
+
+    props = {"max_device_rows": 8_192} if streamed else {}
+    gpu = LocalQueryRunner(device="cuda", session=Session(properties=props))
+    cpu = LocalQueryRunner(device="cpu", session=Session(properties=props))
+    for name, (sql, pinned) in QUERIES.items():
+        got = gpu.execute(sql).rows()
+        assert _rows_agree(got, cpu.execute(sql).rows()), name
+        assert pinned is None or got == pinned, name

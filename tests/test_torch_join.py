@@ -146,6 +146,33 @@ def test_wide_two_column_keys_raise():
         PJ.hash_join(page, page, ["a", "b"], ["a", "b"], "semi")
 
 
+@pytest.mark.parametrize("join_type", ["inner", "left", "full"])
+@pytest.mark.parametrize("two_keys", [False, True])
+def test_an_oversized_fanout_capacity_shrinks_to_the_exact_count(
+    join_type, two_keys
+):
+    # a planned capacity far over the output (the planner's estimate
+    # for a composite key it has partial statistics for) is cut to the
+    # bucket of the exact count: the same rows in 1,024 padded rows
+    # instead of an allocation of 2^40
+    want, _ = _join_both(join_type, False, two_keys, False)
+    probe = both_pages(_probe(0), P_LIVE)[1]
+    build = both_pages(_build(0, False), B_LIVE)[1]
+    keys = (["pk", "pk2"], ["bk", "bk2"]) if two_keys else (["pk"], ["bk"])
+    got, overflow = PJ.hash_join(
+        probe, build, *keys, join_type=join_type,
+        build_payload=["bk", "bv", "bs"], build_unique=False,
+        out_capacity=1 << 40, payload_rename={"bv": "bv_out"},
+    )
+    assert not bool(overflow)
+    assert int(got.num_valid) == int(want.num_valid)
+    assert got.capacity == (1024 if join_type != "full" else 1024 + B_CAP)
+    assert_columns_equal(convert.page_to_numpy(want),
+                         convert.page_to_numpy(got))
+    cross, overflow = PJ.cross_join(probe, build, 1 << 40)
+    assert not bool(overflow) and cross.capacity == 1024 * 16
+
+
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("out_capacity", [8192, 100])
 def test_cross_join_matches_reference(masked, out_capacity):
