@@ -10,7 +10,10 @@ window query over tpch.sf10.orders, default session), ``q9`` and
 ``q22`` (on tpch.sf10 in the joins session), the streamed
 ``q1_stream`` and ``q18_stream`` (Q1 and Q18 on tpch.sf10 under the
 default session: lineitem streams in 2^20-row batches with host-RAM
-spill), ``q64_sf10`` (TPC-DS Q64 on tpcds.sf10 in the joins session)
+spill), ``q1_stream_cached`` (the same streamed Q1 with
+``stream_split_cache`` on: after its cold pass fills the split cache,
+every profiled pass is served from it), ``q64_sf10`` (TPC-DS Q64 on
+tpcds.sf10 in the joins session)
 and ``q95_sf100`` (TPC-DS Q95 on tpcds.sf100 in chip_smoke.py's SF100
 streaming session: web_sales streams in 2^24-row batches)), each on one
 ``LocalQueryRunner(device="cuda")``: one cold run and two warm runs
@@ -19,9 +22,12 @@ under ``torch.profiler`` (CPU and CUDA activities). A streamed query also
 reports its stream counters over the profiled runs: batches, buckets,
 spilled bytes, host seconds in connector generation, staging,
 ``_bucket_of`` and ``merge_payloads``, and cudaStreamSynchronize per
-batch. Prints, per query, the host wall time of a warm run, the
-device time of its kernels, the device's busy share of the wall time,
-the host time of parsing and planning alone, the device time by kind of
+batch, and the split cache's hits and misses over the profiled runs.
+Prints, per query, the host wall time of a warm run, the device time of
+its kernels, the device's busy share of the wall time, the host time of
+parsing and planning alone (``plan_s``, no plan cache) and of parsing
+and planning as a warm run does it (``plan_cached_s``: through the plan
+cache, a hit after the first run), the device time by kind of
 kernel (sort passes, searchsorted, gathers and scatters, scans,
 onehot_reduce, the rest), the CUDA runtime calls per query
 (``cudaLaunchKernel``, ``cudaStreamSynchronize``, ...), the host's
@@ -100,6 +106,7 @@ def profile_query(runner, sql: str, runs: int, warm: int = 2):
     torch.cuda.synchronize()
 
     runner.stream_stats = StreamStats()
+    cache_before = runner.split_cache.stats()
     with profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
     ) as prof:
@@ -110,6 +117,9 @@ def profile_query(runner, sql: str, runs: int, warm: int = 2):
         wall_s = (time.perf_counter() - t0) / runs
     stream = {k: v if k == "largest_merge_rows" else v / runs
               for k, v in dataclasses.asdict(runner.stream_stats).items()}
+    cache_after = runner.split_cache.stats()
+    split_cache = {k: (cache_after[k] - cache_before[k]) / runs
+                   for k in ("hits", "misses", "evictions")}
 
     # unprofiled warm runs: the profiler's own cost stays out of warm_s
     t0 = time.perf_counter()
@@ -123,6 +133,11 @@ def profile_query(runner, sql: str, runs: int, warm: int = 2):
     for _ in range(runs):
         plan_statement(parse_statement(sql), runner.catalogs, runner.session)
     plan_s = (time.perf_counter() - t0) / runs
+    # parse and plan as a warm run does: through the plan cache
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        runner.plan_cached(parse_statement(sql))
+    plan_cached_s = (time.perf_counter() - t0) / runs
 
     kernels, host = [], []
     for evt in prof.key_averages():
@@ -158,6 +173,8 @@ def profile_query(runner, sql: str, runs: int, warm: int = 2):
         "cold_s": cold_s,
         "warm_s": warm_s,
         "plan_s": plan_s,
+        "plan_cached_s": plan_cached_s,
+        "split_cache_per_query": split_cache,
         "profiled_wall_s": wall_s,
         "device_s": device_s,
         "device_busy_share": device_s / wall_s if device_s else None,
@@ -174,7 +191,7 @@ def main() -> int:
     ap.add_argument("--queries", default="q1,q6,q3,q5",
                     help="comma-separated subset of "
                     "q1,q6,q3,q5,window,q9,q22,q1_stream,q18_stream,"
-                    "q64_sf10,q95_sf100")
+                    "q1_stream_cached,q64_sf10,q95_sf100")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -187,26 +204,37 @@ def main() -> int:
     from chip_smoke import (
         JOINS_MAX_DEVICE_ROWS, JOINS_SCHEMA, Q1, Q3, Q5, Q6,
         STREAM_SF100_PROPS, TPCDS_SF10, TPCDS_SF100, WINDOW, WINDOW_SCHEMA,
-        card_line, stream_q1, stream_q18, tpcds_queries, tpch_queries,
+        cache_budget, card_line, stream_q1, stream_q18, tpcds_queries,
+        tpch_queries,
     )
     from presto_tpu_torch.exec.local_runner import LocalQueryRunner
     from presto_tpu_torch.session import Session
 
     card = card_line()
-    sf1 = LocalQueryRunner(device="cuda")
+    budget = cache_budget(torch.device("cuda"))
+    sf1 = LocalQueryRunner(device="cuda", staging_cache_bytes=budget)
     joins = LocalQueryRunner(
         device="cuda",
         session=Session(
             schema=JOINS_SCHEMA,
             properties={"max_device_rows": JOINS_MAX_DEVICE_ROWS},
         ),
+        staging_cache_bytes=budget,
     )
     stream = LocalQueryRunner(
-        device="cuda", session=Session(schema=JOINS_SCHEMA)
+        device="cuda", session=Session(schema=JOINS_SCHEMA),
+        staging_cache_bytes=budget,
+    )
+    stream_cached = LocalQueryRunner(
+        device="cuda",
+        session=Session(schema=JOINS_SCHEMA,
+                        properties={"stream_split_cache": True}),
+        staging_cache_bytes=budget,
     )
     sf100_stream = LocalQueryRunner(
         device="cuda",
         session=Session(schema=TPCDS_SF100, properties=STREAM_SF100_PROPS),
+        staging_cache_bytes=budget,
     )
     report = {"card": card, "runs": args.runs}
     wanted = args.queries.split(",")
@@ -219,20 +247,22 @@ def main() -> int:
         ("q22", JOINS_SCHEMA, joins, tpch["Q22"]),
         ("q1_stream", JOINS_SCHEMA, stream, stream_q1()),
         ("q18_stream", JOINS_SCHEMA, stream, stream_q18()[0]),
+        ("q1_stream_cached", JOINS_SCHEMA, stream_cached, stream_q1()),
         ("q64_sf10", TPCDS_SF10, joins, tpcds_queries(TPCDS_SF10)[0]),
         ("q95_sf100", TPCDS_SF100, sf100_stream,
          tpcds_queries(TPCDS_SF100)[1]),
     ):
         if name not in wanted:
             continue
-        warm = {stream: 1, sf100_stream: 0}.get(runner, 2)
+        warm = {stream: 1, stream_cached: 1, sf100_stream: 0}.get(runner, 2)
         rec = profile_query(runner, sql, args.runs, warm=warm)
         rec["schema"] = schema
         report[name] = rec
         share = rec["device_busy_share"]
         print(
             f"{name} {schema}: cold_s {rec['cold_s']:.4f}, warm_s "
-            f"{rec['warm_s']:.6f} (parse+plan {rec['plan_s']:.6f}), "
+            f"{rec['warm_s']:.6f} (parse+plan {rec['plan_s']:.6f}, through "
+            f"the plan cache {rec['plan_cached_s']:.6f}), "
             f"device_s {rec['device_s']:.6f}, busy "
             f"share {'not measured' if share is None else f'{share:.4f}'} "
             f"[{card}]",
@@ -245,6 +275,8 @@ def main() -> int:
         if rec["stream"]:
             print("  stream per query: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in rec["stream"].items()))
+        print("  split cache per query: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in rec["split_cache_per_query"].items()))
         print("  runtime calls per query: " + ", ".join(
             f"{k} {v}" for k, v in sorted(rec["cuda_runtime_calls"].items())))
         for f in rec["host_functions"][:6]:

@@ -81,7 +81,27 @@ non-zero, and only a run where every phase passed prints the final
               (web_sales 72,000,000 rows over the 2^26 budget: the ws_wh
               self-join takes the partitioned spill), each exact against
               a numpy evaluation over the generator's own columns.
-9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+9. cache    - the sixth slice, the runner's caches, through CUDA
+              runners: streamed Q1 and Q18 at SF10 in the stream phase's
+              default session with ``stream_split_cache`` on and a
+              split-cache budget sized from the stream phase's staged
+              bytes, each run twice (the first fills the cache, the
+              second must make no generator call and no cache miss),
+              both bit-identical to the stream phase's uncached runs and
+              exact against its numpy evaluations; then Q1, Q18 and Q1
+              again under a budget of half Q1's batches with the
+              host-spill lane on (evictions, spills and restages, the
+              same rows); then the plan cache: Q6 at SF1 with two literal
+              variants (a miss, then a hit) and a PREPAREd Q6 EXECUTEd
+              with three argument sets (all hits), each exact against
+              numpy, on a runner with a MemoryPool that holds no
+              query-owned byte after any query and whose table-cache
+              owner equals the cache's bytes; then TPC-DS Q64 at SF10,
+              warm with the plan cache on and off (planning ms, warm s,
+              the same rows). Every runner at SF10 and SF100 in every
+              phase takes a split-cache budget of half the card's memory
+              (printed), and every warm run must make zero cache misses.
+10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -168,6 +188,26 @@ JOINS_MAX_DEVICE_ROWS = 1 << 26
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def cache_budget(dev) -> int:
+    """The split-cache budget (``staging_cache_bytes``) of the smoke's
+    SF10 and SF100 runners: half the card's memory. The reference's
+    4 GiB default holds neither SF10 lineitem's columns in their
+    2^26-row bucket nor Q64's tables, so warm runs would restage; the
+    whole-table phases check that every warm run makes zero cache
+    misses."""
+    import torch
+
+    from presto_tpu_torch.exec.staging import DEFAULT_CACHE_BYTES
+
+    if dev.type != "cuda":
+        return DEFAULT_CACHE_BYTES
+    return torch.cuda.get_device_properties(dev).total_memory // 2
+
+
+def cache_misses(runner) -> int:
+    return runner.split_cache.stats()["misses"]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -611,18 +651,24 @@ def slice_phase(card: str):
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     per_q1 = onehot_reduce.launches
+    misses = cache_misses(runner)
     t0 = time.perf_counter()
     warm = runner.execute(Q1)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    # Q6 scans other columns under another constraint: its first run
-    # stages them (cold), the second reuses them (warm)
+    check(cache_misses(runner) == misses,
+          "Q1's warm run missed the split cache")
+    # Q6 scans other columns: its first run stages them (cold), the
+    # second reuses them (warm)
     q6_s = []
     for _ in range(2):
+        misses = cache_misses(runner)
         t0 = time.perf_counter()
         q6 = runner.execute(Q6)
         torch.cuda.synchronize()
         q6_s.append(time.perf_counter() - t0)
+    check(cache_misses(runner) == misses,
+          "Q6's warm run missed the split cache")
     launches = onehot_reduce.launches
     check(
         per_q1 == 1,
@@ -793,6 +839,7 @@ def joins_phase(card: str, dev=None, records=None):
             schema=JOINS_SCHEMA,
             properties={"max_device_rows": JOINS_MAX_DEVICE_ROWS},
         ),
+        staging_cache_bytes=cache_budget(dev),
     )
     t0 = time.perf_counter()
     n_lineitem, cols = joins_columns()
@@ -810,11 +857,14 @@ def joins_phase(card: str, dev=None, records=None):
         frags = runner.fragments_run
         dyn = runner.dynamic_filters_applied
         runs, per_run = [], []
-        for _ in range(3):  # cold, warm, warm
+        for i in range(3):  # cold, warm, warm
             PA.onehot_reduce.launches = 0
+            misses = cache_misses(runner)
             res, secs = run_timed(runner, sql, dev)
             per_run.append(PA.onehot_reduce.launches)
             runs.append((res, secs))
+            check(i == 0 or cache_misses(runner) == misses,
+                  f"{name}: a warm run missed the split cache")
         launches += sum(per_run)
         peak = (
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB"
@@ -1022,11 +1072,15 @@ def run_three(runner, name, sql, dev, card, scanned: Optional[int] = None):
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    runs, per_run = [], []
+    runs, per_run, misses = [], [], []
     for _ in range(3):
         PA.onehot_reduce.launches = 0
+        before = cache_misses(runner)
         runs.append(run_timed(runner, sql, dev))
         per_run.append(PA.onehot_reduce.launches)
+        misses.append(cache_misses(runner) - before)
+    check(misses[1:] == [0, 0],
+          f"{name}: warm runs missed the split cache ({misses})")
     (cold, cold_s), (w1, w1_s), (w2, w2_s) = runs
     diff = results_differ(w1, w2)
     check(diff is None, f"{name}: two warm runs differ ({diff})")
@@ -1038,6 +1092,7 @@ def run_three(runner, name, sql, dev, card, scanned: Optional[int] = None):
         "rows_per_s": scanned and scanned / min(w1_s, w2_s),
         "peak_gib": peak,
         "onehot_reduce_launches": per_run,
+        "cache_misses": misses,
     }
     rec["syncs_per_warm_run"], rec["device_ms"] = warm_profile(
         runner, sql, dev)
@@ -1050,7 +1105,7 @@ def run_three(runner, name, sql, dev, card, scanned: Optional[int] = None):
         f", cudaStreamSynchronize per warm run "
         f"{rec['syncs_per_warm_run']}, device ms of a warm run "
         f"{rec['device_ms']}, onehot_reduce launches per run "
-        f"{per_run} [{card}]",
+        f"{per_run}, split-cache misses per run {misses} [{card}]",
         flush=True,
     )
     return w1, rec
@@ -1215,7 +1270,8 @@ def rest_phase(card: str, dev=None):
     launches, records = 0, []
 
     # the window configuration, default session
-    runner = LocalQueryRunner(device=dev)
+    runner = LocalQueryRunner(device=dev,
+                              staging_cache_bytes=cache_budget(dev))
     res, rec = run_three(runner, "window", WINDOW, dev, card, n_orders)
     launches += sum(rec["onehot_reduce_launches"])
     t0 = time.perf_counter()
@@ -1232,6 +1288,7 @@ def rest_phase(card: str, dev=None):
             schema=JOINS_SCHEMA,
             properties={"max_device_rows": JOINS_MAX_DEVICE_ROWS},
         ),
+        staging_cache_bytes=cache_budget(dev),
     )
     res, rec = run_three(runner, "Q9", queries["Q9"], dev, card, n_lineitem)
     launches += sum(rec["onehot_reduce_launches"])
@@ -1454,12 +1511,15 @@ def counting_syncs(dev):
             torch.cuda.set_sync_debug_mode(0)
 
 
-def stream_run(runner, sql, dev, label, card, scanned, batches_expected):
+def stream_run(runner, sql, dev, label, card, scanned, batches_expected,
+               served_from_cache: bool = False):
     """One streamed run with the launch counts, the native generator's
     calls and the stream counters reset just before and read just after;
     returns (result, record). ``batches_expected`` None: any number of
     batches but at least one. On the card the generator must have run
-    its C++ loop."""
+    its C++ loop, unless the split cache serves the run
+    (``served_from_cache``: the caller checks that it made no call). A
+    run labelled warm must make no split-cache miss."""
     import torch
 
     from presto_tpu_torch import native
@@ -1470,12 +1530,14 @@ def stream_run(runner, sql, dev, label, card, scanned, batches_expected):
         torch.cuda.reset_peak_memory_stats(dev)
     runner.stream_stats = StreamStats()
     retries = runner.overflow_retries
+    misses = cache_misses(runner)
     PA.onehot_reduce.launches = 0
     native.gen_uniform.calls = 0
     with counting_syncs(dev) as syncs:
         res, secs = run_timed(runner, sql, dev)
     launches = PA.onehot_reduce.launches
     gen_calls = native.gen_uniform.calls
+    misses = cache_misses(runner) - misses
     st = runner.stream_stats
     if batches_expected is None:
         check(st.batches > 0, f"{label}: nothing streamed")
@@ -1483,8 +1545,11 @@ def stream_run(runner, sql, dev, label, card, scanned, batches_expected):
         check(st.batches == batches_expected,
               f"{label}: {st.batches} batches, expected {batches_expected}")
     check(st.buckets > 0, f"{label}: no spill bucket ran")
-    check(dev.type != "cuda" or gen_calls > 0,
-          f"{label}: the generator never ran its native loop")
+    if not served_from_cache:
+        check(dev.type != "cuda" or gen_calls > 0,
+              f"{label}: the generator never ran its native loop")
+    check("warm" not in label or misses == 0,
+          f"{label}: the warm run missed the split cache {misses} times")
     rec = {
         "query": label, "rows": int(res.page.num_valid), "s": secs,
         "rows_per_s": scanned / secs, "batches": st.batches,
@@ -1495,6 +1560,8 @@ def stream_run(runner, sql, dev, label, card, scanned, batches_expected):
         "syncs_per_batch": None if syncs[0] is None else syncs[0] / st.batches,
         "onehot_reduce_launches": launches,
         "native_gen_calls": gen_calls,
+        "cache_misses": misses,
+        "staged_bytes": st.staged_bytes,
         "largest_merge_rows": st.largest_merge_rows,
         "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                      if dev.type == "cuda" else None),
@@ -1511,12 +1578,31 @@ def stream_run(runner, sql, dev, label, card, scanned, batches_expected):
           f"({st.empty_batches} empty), buckets {st.buckets}, spilled "
           f"{st.spilled_rows} rows / {st.spilled_bytes} bytes, retries "
           f"{rec['retries']}, host syncs {syncs[0]}, onehot_reduce launches "
-          f"{launches}, native generator calls {gen_calls}, largest merged "
+          f"{launches}, native generator calls {gen_calls}, split-cache "
+          f"misses {misses}, staged {st.staged_bytes} bytes, largest merged "
           f"join result {st.largest_merge_rows} rows, peak memory {peak}, "
           f"peak RSS "
           f"{rec['peak_rss_gib']:.3f} GiB; host s {rec['host_s']} [{card}]",
           flush=True)
     return res, rec
+
+
+def check_q1_stream(label, res, want_q1):
+    """Q1's groups against numpy's: sums and counts exact, the averages
+    within rel 1e-12."""
+    n, cols = result_columns(res)
+    check(n == len(want_q1), f"{label}: {n} groups, numpy {len(want_q1)}")
+    for i in range(n):
+        key = (cols["l_returnflag"][i], cols["l_linestatus"][i])
+        exp = want_q1[key]
+        for name in ("sum_qty", "sum_base_price", "sum_disc_price",
+                     "sum_charge", "count_order"):
+            check(int(cols[name][i]) == exp[name],
+                  f"{label} {key} {name}: {cols[name][i]} != {exp[name]}")
+        for name in ("avg_qty", "avg_price", "avg_disc"):
+            got = float(cols[name][i])
+            check(abs(got - exp[name]) <= 1e-12 * abs(exp[name]),
+                  f"{label} {key} {name}: {got} vs {exp[name]}")
 
 
 def stream_phase(card: str, dev=None, records=None, sf100: str = "sf100"):
@@ -1547,7 +1633,8 @@ def stream_phase(card: str, dev=None, records=None, sf100: str = "sf100"):
     print(f"numpy evaluation of Q1 at {JOINS_SCHEMA}: "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     runner = LocalQueryRunner(device=dev, session=Session(
-        schema=JOINS_SCHEMA, properties=STREAM_SF10_PROPS))
+        schema=JOINS_SCHEMA, properties=STREAM_SF10_PROPS),
+        staging_cache_bytes=cache_budget(dev))
     batch = int(runner.session.get("page_capacity"))
     seen, calls = [], []
     real = PA.onehot_reduce_many
@@ -1585,23 +1672,13 @@ def stream_phase(card: str, dev=None, records=None, sf100: str = "sf100"):
         rec["onehot_calls"] = len(calls)
         rec["onehot_requests"] = sorted(set(calls))
         launches += rec["onehot_reduce_launches"]
-        n, cols = result_columns(res)
-        check(n == len(want_q1), f"{label}: {n} groups, numpy {len(want_q1)}")
-        for i in range(n):
-            key = (cols["l_returnflag"][i], cols["l_linestatus"][i])
-            exp = want_q1[key]
-            for name in ("sum_qty", "sum_base_price", "sum_disc_price",
-                         "sum_charge", "count_order"):
-                check(int(cols[name][i]) == exp[name],
-                      f"{label} {key} {name}: {cols[name][i]} != {exp[name]}")
-            for name in ("avg_qty", "avg_price", "avg_disc"):
-                got = float(cols[name][i])
-                check(abs(got - exp[name]) <= 1e-12 * abs(exp[name]),
-                      f"{label} {key} {name}: {got} vs {exp[name]}")
+        check_q1_stream(label, res, want_q1)
         q1_runs.append(res)
         out.append(rec)
     diff = results_differ(*q1_runs)
     check(diff is None, f"Q1 stream: cold and warm differ ({diff})")
+    # what the cache phase holds its cached runs to
+    baseline = {"Q1": (want_q1, q1_runs[1], out[-1]["staged_bytes"])}
     if records is not None and on_card:
         # the one-hot reduction at the first streamed batch's inputs
         records.append(fused_case("q1 stream batch fused", *seen[0], card))
@@ -1613,7 +1690,8 @@ def stream_phase(card: str, dev=None, records=None, sf100: str = "sf100"):
     print(f"numpy evaluation of Q18 at {JOINS_SCHEMA}: {len(want18)} orders "
           f"over 300 ({time.perf_counter() - t0:.2f} s)", flush=True)
     runner = LocalQueryRunner(device=dev, session=Session(
-        schema=JOINS_SCHEMA, properties=STREAM_SF10_PROPS))
+        schema=JOINS_SCHEMA, properties=STREAM_SF10_PROPS),
+        staging_cache_bytes=cache_budget(dev))
     q18_runs = []
     # each run streams lineitem twice: the subquery, then the outer join
     for label, sql, limit in (("Q18 stream cold", q18, 100),
@@ -1625,11 +1703,16 @@ def stream_phase(card: str, dev=None, records=None, sf100: str = "sf100"):
         check_q18(label, res, want18, limit)
         if limit:
             q18_runs.append(res)
+        if label == "Q18 stream warm":
+            # its whole tables (orders, customer) stay in the cache
+            baseline["Q18"] = (want18, res, rec["staged_bytes"],
+                               runner.split_cache.used_bytes())
         out.append(rec)
     # the serial loop (no prefetch thread) gives the same bits
     serial = LocalQueryRunner(device=dev, session=Session(
         schema=JOINS_SCHEMA,
-        properties={**STREAM_SF10_PROPS, "staging_prefetch_depth": 0}))
+        properties={**STREAM_SF10_PROPS, "staging_prefetch_depth": 0}),
+        staging_cache_bytes=cache_budget(dev))
     res, rec = stream_run(serial, q18, dev,
                           f"Q18 stream prefetch depth 0 {JOINS_SCHEMA}",
                           card, n_li, 2 * n_batches(n_li, batch))
@@ -1650,7 +1733,8 @@ def stream_phase(card: str, dev=None, records=None, sf100: str = "sf100"):
     print(f"numpy evaluation of Q18 at {sf100}: {len(want18)} orders over "
           f"300 ({time.perf_counter() - t0:.2f} s)", flush=True)
     runner = LocalQueryRunner(device=dev, session=Session(
-        schema=sf100, properties=STREAM_SF100_PROPS))
+        schema=sf100, properties=STREAM_SF100_PROPS),
+        staging_cache_bytes=cache_budget(dev))
     n_orders = TpchGenerator(SCHEMAS[sf100]).counts["orders"]
     batch = STREAM_SF100_PROPS["page_capacity"]
     # the subquery's pass over lineitem, then both join sides' passes
@@ -1662,7 +1746,7 @@ def stream_phase(card: str, dev=None, records=None, sf100: str = "sf100"):
     out.append(rec)
     print(f"Q18 {sf100}: the top 100 of {len(want18)} orders equal numpy's",
           flush=True)
-    return launches, out
+    return launches, out, baseline
 
 
 # ------------------------------------------------------------- tpcds phase
@@ -1802,7 +1886,7 @@ def tpcds_phase(card: str, dev=None, sf1: str = TPCDS_SF1,
     # SF10, whole tables in the joins session: Q64, then Q95
     q64, q95 = tpcds_queries(sf10)
     runner = LocalQueryRunner(device=dev, session=Session(
-        schema=sf10, properties=joins))
+        schema=sf10, properties=joins), staging_cache_bytes=cache_budget(dev))
     res, rec = run_three(runner, f"Q64 {sf10}", q64, dev, card)
     check(rec["rows"] > 0, f"Q64 {sf10}: no row")
     rec["cpu_s"] = against_cpu(f"Q64 {sf10}", res, sf10, q64)
@@ -1822,7 +1906,8 @@ def tpcds_phase(card: str, dev=None, sf1: str = TPCDS_SF1,
     from presto_tpu_torch.connectors.tpcds import SCHEMAS, TpcdsGenerator
 
     streamed = LocalQueryRunner(device=dev, session=Session(
-        schema=sf10, properties=Q95_STREAM_SF10_PROPS))
+        schema=sf10, properties=Q95_STREAM_SF10_PROPS),
+        staging_cache_bytes=cache_budget(dev))
     n_ws = TpcdsGenerator(SCHEMAS[sf10]).counts["web_sales"]
     res, rec = stream_run(streamed, q95, dev, f"Q95 stream {sf10}", card,
                           n_ws, None)
@@ -1837,7 +1922,8 @@ def tpcds_phase(card: str, dev=None, sf1: str = TPCDS_SF1,
     print(f"numpy evaluation of Q95 at {sf100}: {want} "
           f"({time.perf_counter() - t0:.2f} s)", flush=True)
     streamed = LocalQueryRunner(device=dev, session=Session(
-        schema=sf100, properties=STREAM_SF100_PROPS))
+        schema=sf100, properties=STREAM_SF100_PROPS),
+        staging_cache_bytes=cache_budget(dev))
     n_ws = TpcdsGenerator(SCHEMAS[sf100]).counts["web_sales"]
     res, rec = stream_run(streamed, tpcds_queries(sf100)[1], dev,
                           f"Q95 stream {sf100}", card, n_ws, None)
@@ -1846,6 +1932,263 @@ def tpcds_phase(card: str, dev=None, sf1: str = TPCDS_SF1,
     out.append(rec)
     print(f"Q95 {sf10} (whole and streamed) and {sf100} (streamed) equal "
           f"numpy's", flush=True)
+    return launches, out
+
+
+# ------------------------------------------------------------- cache phase
+
+#: TPC-H Q6 with every comparison operand a bare literal, so the plan
+#: cache hoists them all: (shipdate from, shipdate to, discount low,
+#: discount high, quantity below)
+Q6_SHAPE = """
+select sum(l_extendedprice * l_discount) as revenue
+from tpch.{schema}.lineitem
+where l_shipdate >= {} and l_shipdate < {}
+  and l_discount between {} and {} and l_quantity < {}
+"""
+Q6_VARIANTS = [
+    ("1994-01-01", "1995-01-01", "0.05", "0.07", "24"),
+    ("1995-01-01", "1996-01-01", "0.04", "0.06", "25"),
+]
+Q6_EXECUTE = [
+    ("1993-01-01", "1994-01-01", "0.06", "0.08", "20"),
+    ("1996-01-01", "1997-01-01", "0.02", "0.04", "30"),
+    ("1997-06-01", "1998-06-01", "0.01", "0.09", "12"),
+]
+
+
+def q6_sql(schema, args):
+    d0, d1, lo, hi, q = args
+    return Q6_SHAPE.format(f"date '{d0}'", f"date '{d1}'", lo, hi, q,
+                           schema=schema)
+
+
+def numpy_q6(args) -> int:
+    """Q6's revenue for one argument set over the SF1 columns the slice
+    phase checks, as the unscaled decimal(?, 4) the port returns."""
+    import datetime
+
+    import numpy as np
+
+    d0, d1, lo, hi, q = args
+    epoch = datetime.date(1970, 1, 1)
+
+    def days(s):
+        return (datetime.date.fromisoformat(s) - epoch).days
+
+    d = sf1_lineitem()
+    qty = d["l_quantity"].astype(np.int64)
+    price = d["l_extendedprice"].astype(np.int64)
+    disc = d["l_discount"].astype(np.int64)
+    ship = d["l_shipdate"].astype(np.int64)
+    m = ((ship >= days(d0)) & (ship < days(d1))
+         & (disc >= round(float(lo) * 100)) & (disc <= round(float(hi) * 100))
+         & (qty < int(q) * 100))
+    return int((price[m] * disc[m]).sum())
+
+
+def check_pool(label, runner, pool):
+    """No query-owned bytes outlive a query, and the pool's table-cache
+    owner holds exactly the cache's bytes."""
+    used = pool.snapshot()["used"]
+    check(set(used) <= {"table-cache"},
+          f"{label}: query-owned bytes remain in the pool: {used}")
+    check(used.get("table-cache", 0) == runner.split_cache.used_bytes(),
+          f"{label}: the pool's table-cache owner holds "
+          f"{used.get('table-cache', 0)}, the cache "
+          f"{runner.split_cache.used_bytes()}")
+
+
+def cache_phase(card: str, baseline, dev=None, schema: str = JOINS_SCHEMA,
+                q6_schema: str = "sf1", tpcds_schema: str = TPCDS_SF10):
+    """The sixth slice's path on ``dev`` (the card unless a CPU rehearsal
+    passes another): the split cache under streamed Q1 and Q18 at
+    ``schema`` (filled, then warm; then under a budget smaller than the
+    working set with the host-spill lane on), the plan cache on Q6 at
+    ``q6_schema`` (literal variants, PREPARE/EXECUTE) and on Q64 at
+    ``tpcds_schema`` (warm with the cache on and off), and the memory
+    pool's accounting. ``baseline``: the stream phase's uncached Q1 and
+    Q18 (numpy's rows, the result, its staged bytes). Returns (the
+    onehot_reduce launches of the counted runs, the records)."""
+    import torch
+
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.session import Session
+    from presto_tpu_torch.utils.memory import MemoryPool
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    out, launches = [], 0
+    want_q1, plain_q1, q1_staged = baseline["Q1"]
+    want18, plain_q18, q18_staged, q18_tables = baseline["Q18"]
+    q18, _ = stream_q18()
+    n_li = TpchGenerator(SCHEMAS[schema]).counts["lineitem"]
+    props = {**STREAM_SF10_PROPS, "stream_split_cache": True}
+    batch = int(Session(properties=props).get("page_capacity"))
+    per_pass = -(-n_li // batch)
+    queries = (
+        ("Q1", stream_q1(), per_pass, plain_q1,
+         lambda label, res: check_q1_stream(label, res, want_q1)),
+        ("Q18", q18, 2 * per_pass, plain_q18,
+         lambda label, res: check_q18(label, res, want18, 100)),
+    )
+
+    def cached_run(runner, name, sql, batches, plain, check_rows, run):
+        before = runner.split_cache.stats()
+        res, rec = stream_run(runner, sql, dev,
+                              f"{name} stream cached {run} {schema}", card,
+                              n_li, batches,
+                              served_from_cache=(run == "warm"))
+        st = runner.split_cache.stats()
+        rec["cache"] = {k: st[k] - before[k] for k in (
+            "hits", "misses", "evictions", "spills", "restages")}
+        rec["cache"]["bytes"] = st["bytes"]
+        rec["cache"]["spill_bytes"] = st["spill_bytes"]
+        diff = results_differ(res, plain)
+        check(diff is None, f"{name} cached {run}: not bit-identical to the "
+              f"uncached run ({diff})")
+        check_rows(f"{name} cached {run}", res)
+        print(f"cache: {name} {schema} {run}: wall s {rec['s']:.4f}, "
+              f"generation s {rec['host_s']['generate']:.4f}, staging s "
+              f"{rec['host_s']['stage']:.4f}, native generator calls "
+              f"{rec['native_gen_calls']}, cache {rec['cache']} [{card}]",
+              flush=True)
+        out.append(rec)
+        return rec
+
+    # (1) the split cache holds both queries' batches: fill, then warm
+    budget = q1_staged + q18_staged + q18_tables
+    print(f"cache: streamed split-cache budget {budget} bytes = Q1's "
+          f"{q1_staged} + Q18's {q18_staged} staged split bytes + Q18's "
+          f"{q18_tables} whole-table bytes (the stream phase's uncached "
+          f"runs) [{card}]", flush=True)
+    runner = LocalQueryRunner(device=dev, session=Session(
+        schema=schema, properties=props), staging_cache_bytes=budget)
+    for name, sql, batches, plain, check_rows in queries:
+        fill = cached_run(runner, name, sql, batches, plain, check_rows,
+                          "fill")
+        warm = cached_run(runner, name, sql, batches, plain, check_rows,
+                          "warm")
+        launches += fill["onehot_reduce_launches"]
+        launches += warm["onehot_reduce_launches"]
+        check(warm["native_gen_calls"] == 0,
+              f"{name} cached warm: {warm['native_gen_calls']} generator "
+              "calls")
+        check(warm["cache"]["misses"] == 0 and warm["cache"]["hits"] > 0,
+              f"{name} cached warm: {warm['cache']}")
+        check(fill["cache"]["evictions"] == 0,
+              f"{name}: the budget did not hold the batches")
+    del runner
+
+    # (2) a budget smaller than the working set, the host-spill lane on:
+    # Q18's batches push Q1's out to host RAM, Q1 again restages them
+    total = (torch.cuda.get_device_properties(dev).total_memory
+             if on_card else 1 << 40)
+    pool = MemoryPool(total)
+    small = q1_staged // 2
+    runner = LocalQueryRunner(device=dev, session=Session(
+        schema=schema, properties=props), memory_pool=pool,
+        staging_cache_bytes=small)
+    runner.split_cache.set_spill_budget(q1_staged + q18_staged)
+    print(f"cache: spill runs under a {small}-byte budget with a "
+          f"{q1_staged + q18_staged}-byte host spill store [{card}]",
+          flush=True)
+    for (name, sql, batches, plain, check_rows), run in (
+        (queries[0], "over budget"), (queries[1], "over budget"),
+        (queries[0], "restaged"),
+    ):
+        rec = cached_run(runner, name, sql, batches, plain, check_rows, run)
+        launches += rec["onehot_reduce_launches"]
+        check_pool(f"{name} {run}", runner, pool)
+        check(runner.split_cache.used_bytes() <= small,
+              f"{name} {run}: the cache holds more than its budget")
+    st = runner.split_cache.stats()
+    check(st["evictions"] > 0 and st["spills"] > 0 and st["restages"] > 0,
+          f"the spill runs showed no eviction, spill or restage: {st}")
+    spilled = runner.history.snapshot()[-1].spilled_bytes
+    check(spilled > 0, "the restaged run paid no restage bytes")
+    print(f"cache: spill lane {st}, the last run restaged {spilled} bytes "
+          f"[{card}]", flush=True)
+    del runner
+
+    # (3) the plan cache on Q6: two literal variants (a miss, then a
+    # hit), then PREPARE and three EXECUTEs (all hits), each exact
+    # against numpy; the runner's pool holds no query-owned byte after
+    # any query
+    pool = MemoryPool(total)
+    runner = LocalQueryRunner(device=dev, memory_pool=pool)
+    plan_rec = {"q6_planning_ms": [], "execute_ms": [],
+                "execute_planning_ms": []}
+    for i, args in enumerate(Q6_VARIANTS):
+        hits = runner.plan_cache.stats()["hits"]
+        res, secs = run_timed(runner, q6_sql(q6_schema, args), dev)
+        qs = runner.history.snapshot()[-1]
+        check(qs.plan_cache_hit == (i > 0) and
+              runner.plan_cache.stats()["hits"] == hits + (i > 0),
+              f"Q6 variant {i}: plan-cache hit {qs.plan_cache_hit}")
+        _, cols = result_columns(res)
+        check(int(cols["revenue"][0]) == numpy_q6(args),
+              f"Q6 variant {args}: {cols['revenue']} != numpy")
+        check_pool(f"Q6 variant {i}", runner, pool)
+        plan_rec["q6_planning_ms"].append(qs.planning_ms + qs.optimization_ms)
+        print(f"cache: Q6 {q6_schema} {args}: plan-cache "
+              f"{'hit' if i else 'miss'}, planning ms "
+              f"{qs.planning_ms + qs.optimization_ms:.3f}, wall s "
+              f"{secs:.4f} [{card}]", flush=True)
+    prepare = "prepare q6p from " + Q6_SHAPE.format(
+        "?", "?", "?", "?", "?", schema=q6_schema)
+    check(runner.execute(prepare).rows() == [("PREPARE",)], "PREPARE")
+    for args in Q6_EXECUTE:
+        d0, d1, lo, hi, q = args
+        hits = runner.plan_cache.stats()["hits"]
+        res, secs = run_timed(
+            runner, f"execute q6p using date '{d0}', date '{d1}', {lo}, "
+            f"{hi}, {q}", dev)
+        qs = runner.history.snapshot()[-1]
+        check(runner.plan_cache.stats()["hits"] == hits + 1
+              and qs.plan_cache_hit,
+              f"EXECUTE {args} was not a plan-cache hit")
+        _, cols = result_columns(res)
+        check(int(cols["revenue"][0]) == numpy_q6(args),
+              f"EXECUTE {args}: {cols['revenue']} != numpy")
+        check_pool(f"EXECUTE {args}", runner, pool)
+        plan_rec["execute_ms"].append(secs * 1e3)
+        plan_rec["execute_planning_ms"].append(qs.planning_ms)
+        print(f"cache: EXECUTE q6p {args}: plan-cache hit, planning ms "
+              f"{qs.planning_ms:.3f}, wall s {secs:.4f} [{card}]",
+              flush=True)
+    check(runner.literal_form_reruns == 0, "a literal-form re-run")
+    del runner
+
+    # (4) Q64 warm with the plan cache on and off
+    q64, _ = tpcds_queries(tpcds_schema)
+    runner = LocalQueryRunner(device=dev, session=Session(
+        schema=tpcds_schema,
+        properties={"max_device_rows": JOINS_MAX_DEVICE_ROWS}),
+        staging_cache_bytes=cache_budget(dev))
+    first, cold_s = run_timed(runner, q64, dev)
+    q64_rec = {"cold_s": cold_s}
+    for mode in ("on", "off", "on", "off"):
+        runner.session.set("enable_plan_cache", mode == "on")
+        misses = cache_misses(runner)
+        res, secs = run_timed(runner, q64, dev)
+        qs = runner.history.snapshot()[-1]
+        check(cache_misses(runner) == misses, "Q64 warm: a split-cache miss")
+        check(qs.plan_cache_hit == (mode == "on"),
+              f"Q64 cache {mode}: plan-cache hit {qs.plan_cache_hit}")
+        diff = results_differ(res, first)
+        check(diff is None, f"Q64 cache {mode}: the result differs ({diff})")
+        plan_ms = qs.planning_ms + qs.optimization_ms
+        q64_rec.setdefault(mode, []).append(
+            {"plan_ms": plan_ms, "warm_s": secs})
+        print(f"cache: Q64 {tpcds_schema} warm, plan cache {mode}: "
+              f"planning ms {plan_ms:.3f} (plan {qs.planning_ms:.3f} + "
+              f"optimize {qs.optimization_ms:.3f}), warm s {secs:.4f} "
+              f"[{card}]", flush=True)
+    check(runner.literal_form_reruns == 0, "a literal-form re-run")
+    plan_rec["q64"] = q64_rec
+    out.append(plan_rec)
     return launches, out
 
 
@@ -1887,6 +2230,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s)", flush=True)
     check(status == "native", "the host C++ loops did not build: the "
           "generator and the string codec would run in numpy")
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"split-cache budget of the SF10 and SF100 runners: "
+          f"{cache_budget(torch.device('cuda'))} bytes, half the card's "
+          f"{total} [{card}]", flush=True)
 
     phase("kernels")
     records = kernel_phase(card)
@@ -1901,10 +2248,14 @@ def main() -> int:
     rest_launches, rest_records = rest_phase(card)
 
     phase("stream")
-    stream_launches, stream_records = stream_phase(card, records=records)
+    stream_launches, stream_records, baseline = stream_phase(
+        card, records=records)
 
     phase("tpcds")
     tpcds_launches, tpcds_records = tpcds_phase(card)
+
+    phase("cache")
+    cache_launches, cache_records = cache_phase(card, baseline)
 
     headline = next(r for r in records if r["label"] == "q1 fused")
     kernels_line = {
@@ -1916,7 +2267,7 @@ def main() -> int:
                 "replaces": "tools/pallas_groupby.py:96",
                 "launches": (counts["onehot_reduce"] + joins_launches
                              + rest_launches + stream_launches
-                             + tpcds_launches),
+                             + tpcds_launches + cache_launches),
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
@@ -1933,6 +2284,8 @@ def main() -> int:
                       "stream_onehot_reduce": stream_launches,
                       "tpcds": tpcds_records,
                       "tpcds_onehot_reduce": tpcds_launches,
+                      "cache": cache_records,
+                      "cache_onehot_reduce": cache_launches,
                       "native": status, "card": card}))
     print(json.dumps(kernels_line))
     print(

@@ -1,13 +1,24 @@
 """Local query runner: SQL in, rows out, on one device.
 
 The PyTorch counterpart of ``presto_tpu/exec/local_runner.py``'s
-``LocalQueryRunner``, for the plans this slice of the port runs: a
-SELECT is parsed, planned and optimized exactly as the reference does
-(``prune_columns`` + ``push_scan_constraints``), scalar subqueries run
-first and bind as literals, the root Output/Sort/Limit is peeled to the
-host (``exec/host_ops.py``), and the rest runs as eager torch operators
-over whole-table pages staged on the runner's device. There is no jit
-and no plan cache: PyTorch runs eagerly.
+``LocalQueryRunner``. A SELECT is parsed, then planned through the
+statement-level plan cache (``plan/canonical.py``): its comparison
+literals become ``RuntimeParam`` slots, so a repeated query shape (or a
+warm ``EXECUTE`` of a prepared statement) binds new values into a plan
+it has already planned and optimized. Scalar subqueries run first and
+bind as literals, the root Output/Sort/Limit is peeled to the host
+(``exec/host_ops.py``), and the rest runs as eager torch operators over
+pages staged on the runner's device. ``SET SESSION``, ``SHOW
+SESSION/SCHEMAS/TABLES/COLUMNS``, ``PREPARE``, ``EXECUTE`` and
+``DEALLOCATE`` run as in the reference; statements that need a writable
+connector (INSERT, CTAS, CREATE/DROP TABLE, DELETE, UPDATE), EXPLAIN and
+the materialized views raise ``ExecutionError`` with their names.
+
+Staged pages live in the runner's ``SplitCache`` (``exec/staging.py``):
+whole tables always, split batches of a streamed scan when
+``stream_split_cache`` is on, under one LRU byte budget
+(``staging_cache_bytes``) reserved in the runner's ``MemoryPool`` when
+it has one. A query pins the cached pages it reads until it ends.
 
 Static shapes are kept: an aggregation that finds more groups than its
 planned ``max_groups``, or a join whose output exceeds its
@@ -25,14 +36,12 @@ A plan that scans a table larger than ``max_device_rows`` streams
 (``stage_split``) run through the fragment below the cut, partial states
 or a join side's rows spill to host-RAM buckets, and each bucket runs
 alone on the device.
-
-Not ported yet (they raise): statements other than SELECT, unnest, and
-the device-resident split cache (``stream_split_cache``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -41,16 +50,19 @@ import torch
 from presto_tpu_torch import expr as E
 from presto_tpu_torch import types as T
 from presto_tpu_torch.connectors import create_connector
-from presto_tpu_torch.connectors.spi import ConnectorSplit
+from presto_tpu_torch.connectors.spi import ConnectorSplit, payload_len
 from presto_tpu_torch.exec import dynfilter, streaming
 from presto_tpu_torch.exec.host_ops import apply_host_ops, peel_host_ops
 from presto_tpu_torch.exec.staging import (
+    DEFAULT_CACHE_BYTES,
     CatalogManager,
+    SplitCache,
     bucket_capacity,
     merge_column_chunks,
     page_nbytes,
     stage_page,
 )
+from presto_tpu_torch.exec.stats import QueryHistory
 from presto_tpu_torch.ops import (
     distinct,
     filter_project,
@@ -71,18 +83,40 @@ from presto_tpu_torch.page import (
     resolve_device,
     to_host,
 )
+from presto_tpu_torch.plan import canonical
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.optimizer import (
     prune_columns,
     push_scan_constraints,
 )
 from presto_tpu_torch.plan.planner import Plan, plan_statement
-from presto_tpu_torch.session import Session
+from presto_tpu_torch.session import SYSTEM_SESSION_PROPERTIES, Session
 from presto_tpu_torch.sql import ast, parse_statement
+from presto_tpu_torch.utils.metrics import REGISTRY
 
 
 class ExecutionError(RuntimeError):
     pass
+
+
+def _noop() -> None:
+    """No-op release handle (stage_split callers without an owner)."""
+
+
+#: statements that need a writable connector, EXPLAIN, or the
+#: materialized views: later slices of the port
+_LATER_STATEMENTS = (
+    ast.Explain,
+    ast.Insert,
+    ast.CreateTableAs,
+    ast.CreateTable,
+    ast.DropTable,
+    ast.Delete,
+    ast.Update,
+    ast.CreateMaterializedView,
+    ast.RefreshMaterializedView,
+    ast.DropMaterializedView,
+)
 
 
 class QueryResult:
@@ -100,7 +134,8 @@ class QueryResult:
 
 
 class LocalQueryRunner:
-    """Parse -> plan -> optimize -> eager execution on one device."""
+    """Parse -> plan (cached) -> optimize -> eager execution on one
+    device."""
 
     # each retry scales capacity buckets 4x, so 6 tries = up to 1024x
     # over the initial estimate
@@ -111,6 +146,9 @@ class LocalQueryRunner:
         catalogs: Optional[CatalogManager] = None,
         session: Optional[Session] = None,
         device: Union[None, str, torch.device] = None,
+        memory_pool=None,
+        staging_cache_bytes: Optional[int] = None,
+        plan_cache_entries: int = 256,
     ):
         self.device = resolve_device(device)
         if catalogs is None:
@@ -119,8 +157,35 @@ class LocalQueryRunner:
             catalogs.register("tpcds", create_connector("tpcds"))
         self.catalogs = catalogs
         self.session = session or Session()
-        #: staged whole-table pages, keyed by scan identity
-        self._tables: Dict[tuple, Page] = {}
+        self.history = QueryHistory()
+        #: optional utils.memory.MemoryPool: cached pages reserve under
+        #: the shared "table-cache" owner, uncached ones under the query
+        self.memory_pool = memory_pool
+        #: statement-level parameterized plan cache (plan/canonical.py)
+        self.plan_cache = canonical.PlanCache(plan_cache_entries)
+        #: per-execution RuntimeParam ordinal -> E.Literal bound values
+        self._bound_local = threading.local()
+        self._prepared: Dict[str, object] = {}
+        #: device-resident staged-page cache: whole-table entries
+        #: always, split-batch entries when stream_split_cache is on,
+        #: under one LRU byte budget reserved in the memory pool
+        self.split_cache = SplitCache(
+            DEFAULT_CACHE_BYTES
+            if staging_cache_bytes is None
+            else staging_cache_bytes,
+            pool=memory_pool,
+        )
+        #: restage traffic a query pays lands on its stats
+        self.split_cache.on_restage = self._note_spilled
+        #: host row counts of staged pages by cache key: a cache hit
+        #: counts its input rows without reading num_valid back from
+        #: the device
+        self._staged_rows: Dict[tuple, int] = {}
+        # QueryStats while a query is in flight, per thread
+        self._qs_local = threading.local()
+        # guards read-modify-write on a stats sink shared with the
+        # prefetch thread
+        self._qs_mu = threading.Lock()
         #: stage-at-a-time counters since the runner was made: fragments
         #: run on their own, and dynamic filters applied to a probe side
         self.fragments_run = 0
@@ -128,30 +193,314 @@ class LocalQueryRunner:
         #: plan re-runs at 4x capacities after an overflow, since the
         #: runner was made
         self.overflow_retries = 0
+        #: runs of a parameterized plan that failed and re-ran in
+        #: literal form (canonical.bind_literal_root), since the runner
+        #: was made
+        self.literal_form_reruns = 0
         #: what streamed execution did (batches, buckets, spill, host
         #: seconds); a caller may replace it to count one query
         self.stream_stats = streaming.StreamStats()
+
+    @property
+    def _active_qs(self):
+        return getattr(self._qs_local, "value", None)
+
+    @_active_qs.setter
+    def _active_qs(self, qs) -> None:
+        self._qs_local.value = qs
 
     # ------------------------------------------------------------- public
 
     def execute(self, sql: str) -> QueryResult:
         stmt = parse_statement(sql)
-        if not isinstance(stmt, ast.Select):
-            raise ExecutionError(
-                f"{type(stmt).__name__} statements: later slice of the port"
+        if isinstance(stmt, ast.SetSession):
+            self.session.set(stmt.name, stmt.value)
+            return QueryResult(("result",), _message_page("SET SESSION"))
+        if isinstance(stmt, ast.ShowSession):
+            lines = [
+                f"{k}={self.session.get(k)}"
+                for k in sorted(SYSTEM_SESSION_PROPERTIES)
+            ]
+            return QueryResult(
+                ("Session",), _lines_page("\n".join(lines), "Session")
             )
-        return self.execute_plan(
-            plan_statement(stmt, self.catalogs, self.session)
+        if isinstance(stmt, ast.ShowColumns):
+            return self._execute_show_columns(stmt)
+        if isinstance(stmt, ast.Prepare):
+            self._prepared[stmt.name] = stmt.statement
+            return QueryResult(("result",), _message_page("PREPARE"))
+        if isinstance(stmt, ast.Deallocate):
+            if stmt.name not in self._prepared:
+                raise ExecutionError(
+                    f"prepared statement {stmt.name!r} not found"
+                )
+            del self._prepared[stmt.name]
+            return QueryResult(("result",), _message_page("DEALLOCATE"))
+        if isinstance(stmt, ast.Execute):
+            return self._execute_prepared(stmt, sql)
+        if isinstance(stmt, ast.ShowSchemas):
+            conn = self.catalogs.get(stmt.catalog or self.session.catalog)
+            return QueryResult(
+                ("Schema",),
+                _lines_page(
+                    "\n".join(conn.metadata().list_schemas()), "Schema"
+                ),
+            )
+        if isinstance(stmt, ast.ShowTables):
+            conn = self.catalogs.get(self.session.catalog)
+            return QueryResult(
+                ("Table",),
+                _lines_page(
+                    "\n".join(
+                        conn.metadata().list_tables(
+                            stmt.schema or self.session.schema
+                        )
+                    ),
+                    "Table",
+                ),
+            )
+        _refuse_later_statement(stmt)
+        return self._run_query(sql, stmt)
+
+    def _run_query(self, sql: str, stmt) -> QueryResult:
+        """One query's lifecycle: its QueryStats, planning (a SELECT
+        through the plan cache, with the stats live so a hit is
+        attributed), execution, then the query's pins and pool bytes
+        released, on success and on failure."""
+        qs = self.history.begin(sql)
+        REGISTRY.counter("queries.submitted").update()
+        t0 = time.perf_counter()
+        try:
+            with REGISTRY.timer("query.wall_time").time():
+                if isinstance(stmt, ast.Select):
+                    # the stats sink is live DURING planning, so a plan
+                    # cache hit is attributed to this query
+                    prev_qs = self._active_qs
+                    self._active_qs = qs
+                    try:
+                        plan, qs.plan_cache_hit = self.plan_cached(stmt)
+                    finally:
+                        self._active_qs = prev_qs
+                else:
+                    plan = self._plan_statement(stmt)
+                qs.planning_ms = (time.perf_counter() - t0) * 1000.0
+                REGISTRY.distribution("plan.planning_ms").add(
+                    qs.planning_ms
+                )
+                qs.state = "RUNNING"
+                result = self.execute_plan(plan, qs=qs)
+        except Exception as e:
+            REGISTRY.counter("queries.failed").update()
+            self.history.finish(qs, error=f"{type(e).__name__}: {e}")
+            self.release_pins(qs)
+            if self.memory_pool is not None:
+                self.memory_pool.release(qs.query_id)
+            raise
+        self.release_pins(qs)
+        if self.memory_pool is not None:
+            self.memory_pool.release(qs.query_id)
+        self.history.finish(qs)
+        REGISTRY.counter("queries.finished").update()
+        REGISTRY.distribution("query.output_rows").add(qs.output_rows)
+        return result
+
+    def _execute_show_columns(self, stmt) -> QueryResult:
+        """SHOW COLUMNS FROM t / DESCRIBE t."""
+        from presto_tpu_torch.connectors.spi import TableHandle
+
+        parts = stmt.target
+        catalog, schema_name = self.session.catalog, self.session.schema
+        if len(parts) == 3:
+            catalog, schema_name, table = parts
+        elif len(parts) == 2:
+            schema_name, table = parts
+        else:
+            (table,) = parts
+        conn = self.catalogs.get(catalog)
+        tschema = conn.metadata().get_table_schema(
+            TableHandle(catalog, schema_name, table)
+        )
+        page = Page.from_pydict(
+            {
+                "Column": list(tschema),
+                "Type": [str(t) for t in tschema.values()],
+            },
+            {"Column": T.VARCHAR, "Type": T.VARCHAR},
+            device="cpu",
+        )
+        return QueryResult(("Column", "Type"), page)
+
+    def _execute_prepared(self, stmt, sql: str = "") -> QueryResult:
+        """EXECUTE name [USING v, ...]: substitute the ? markers of the
+        prepared AST with the literal arguments, then run the statement
+        through the plan-cached path. A warm EXECUTE (its canonical
+        shape already planned) parses nothing and plans nothing."""
+        inner = self._prepared.get(stmt.name)
+        if inner is None:
+            raise ExecutionError(
+                f"prepared statement {stmt.name!r} not found"
+            )
+        n_markers = _count_param_markers(inner)
+        if n_markers != len(stmt.params):
+            raise ExecutionError(
+                f"EXECUTE {stmt.name}: statement has {n_markers} "
+                f"parameter(s), {len(stmt.params)} given"
+            )
+        bound = _bind_param_markers(inner, stmt.params)
+        return self.execute_bound(bound, sql)
+
+    def execute_bound(self, bound, sql: str = "") -> QueryResult:
+        """Run an already-bound statement AST (EXECUTE after marker
+        substitution) with the lifecycle of any query. The reference
+        runs it without one, so there the pool bytes of a table larger
+        than the cache budget stay reserved under "adhoc" after every
+        EXECUTE (ROADMAP §3)."""
+        _refuse_later_statement(bound)
+        return self._run_query(sql, bound)
+
+    def _plan_statement(self, stmt) -> Plan:
+        return plan_statement(stmt, self.catalogs, self.session)
+
+    def plan_cached(self, stmt) -> Tuple[Plan, bool]:
+        plan, hit, _key = self.plan_cached_keyed(stmt)
+        return plan, hit
+
+    def plan_cached_keyed(self, stmt) -> Tuple[Plan, bool, Optional[str]]:
+        """plan_cached plus the canonical statement key (None when the
+        statement bypassed the cache)."""
+        plan, hit, key = self._plan_cached(stmt)
+        if hit:
+            qs = self._active_qs
+            if qs is not None:
+                with self._qs_mu:
+                    qs.plan_cache_hit = True
+        return plan, hit, key
+
+    def _plan_cached(self, stmt) -> Tuple[Plan, bool, Optional[str]]:
+        """Statement-level parameterized plan cache -> (plan, hit, key).
+
+        The statement canonicalizes (comparison-operand literals become
+        BoundParam placeholders); the canonical AST keys a bounded LRU
+        of planned and optimized plans whose RuntimeParam slots the
+        current literal values bind into. A shape whose canonical form
+        cannot plan is marked BYPASS and planned with literals in place
+        from then on, as is a statement over a connector that prunes
+        splits by its scan constraints: the cache degrades to classic
+        planning, never to a failed query."""
+        if not self.session.get("enable_plan_cache"):
+            return self._plan_statement(stmt), False, None
+        t0 = time.perf_counter()
+        try:
+            key, canon, lits = canonical.canonicalize_statement(
+                stmt, self.session
+            )
+        except Exception:
+            # canonicalization must never fail a query
+            return self._plan_statement(stmt), False, None
+        finally:
+            REGISTRY.distribution("plan.canonicalize_ms").add(
+                (time.perf_counter() - t0) * 1000.0
+            )
+        bound = {i: lit for i, lit in enumerate(lits)}
+        entry = self.plan_cache.get(key)
+        if isinstance(entry, canonical.PlanCacheEntry):
+            return (
+                Plan(
+                    root=entry.root,
+                    params=entry.params,
+                    output_names=entry.output_names,
+                    bound_values=bound,
+                    preoptimized=entry.preoptimized,
+                ),
+                True,
+                key,
+            )
+        if entry is canonical.BYPASS:
+            return self._plan_statement(stmt), False, None
+        try:
+            plan = self._plan_statement(canon)
+        except Exception:
+            # parameterized planning failed (a hoisted literal in a
+            # structural position): permanent literal-form lane
+            self.plan_cache.put(key, canonical.BYPASS)
+            return self._plan_statement(stmt), False, None
+        handles = canonical.plan_handles(plan)
+        if any(
+            self.catalogs.get(h.catalog).prunes_splits() for h in handles
+        ):
+            # split-pruning connectors read equality/IN literals as scan
+            # constraints; a parameterized plan would silently cost them
+            # their pruning
+            self.plan_cache.put(key, canonical.BYPASS)
+            return self._plan_statement(stmt), False, None
+        return self._store_canonical_entry(
+            key, plan, bound, handles, len(lits)
         )
 
-    def execute_plan(self, plan: Plan) -> QueryResult:
-        root = push_scan_constraints(prune_columns(self._bind_params(plan)))
-        host_ops: List[N.PlanNode] = []
-        if self.session.get("host_root_stage"):
-            root, host_ops = peel_host_ops(root)
-        page = self._run(root)
-        if host_ops:
-            page = apply_host_ops(page, host_ops)
+    def _store_canonical_entry(self, key, plan, bound, handles, n_slots):
+        """Build and store the cache entry of a planned canonical
+        statement; -> its bound ``(plan, False, key)``."""
+        root, preopt = plan.root, False
+        if not plan.params:
+            # value-independent over a canonical root: optimize ONCE at
+            # store time so hits skip it (plans with scalar-subquery
+            # params keep the execute-time order: binding substitutes
+            # Params first)
+            root = push_scan_constraints(prune_columns(root))
+            preopt = True
+        self.plan_cache.put(
+            key,
+            canonical.PlanCacheEntry(
+                root=root,
+                params=plan.params,
+                output_names=plan.output_names,
+                preoptimized=preopt,
+                handles=handles,
+                n_slots=n_slots,
+            ),
+        )
+        return (
+            Plan(
+                root=root,
+                params=plan.params,
+                output_names=plan.output_names,
+                bound_values=bound,
+                preoptimized=preopt,
+            ),
+            False,
+            key,
+        )
+
+    def execute_plan(self, plan: Plan, qs=None) -> QueryResult:
+        prev, self._active_qs = self._active_qs, qs
+        prev_bound = getattr(self._bound_local, "value", None)
+        if plan.bound_values is not None:
+            # a cached canonical plan: the execution's literal values
+            # ride thread-local to _run_with_pages, which installs them
+            # as the active parameter vector
+            self._bound_local.value = plan.bound_values
+        try:
+            root = self._bind_params(plan)
+            if not plan.preoptimized:
+                t_opt = time.perf_counter()
+                root = push_scan_constraints(prune_columns(root))
+                if qs is not None:
+                    qs.optimization_ms += (
+                        time.perf_counter() - t_opt
+                    ) * 1000.0
+            host_ops: List[N.PlanNode] = []
+            if self.session.get("host_root_stage"):
+                root, host_ops = peel_host_ops(root)
+            t0 = time.perf_counter()
+            page = self._run(root)
+            if host_ops:
+                page = apply_host_ops(page, host_ops)
+            if qs is not None:
+                qs.execution_ms += (time.perf_counter() - t0) * 1000.0
+                qs.output_rows = int(page.num_valid)
+        finally:
+            self._active_qs = prev
+            self._bound_local.value = prev_bound
         return QueryResult(plan.output_names, page)
 
     # ------------------------------------------------- params (subqueries)
@@ -306,10 +655,25 @@ class LocalQueryRunner:
         (a stage-at-a-time fragment) the page stays on the device,
         compacted and re-bucketed to its live rows."""
         scan_ids = {id(s): i for i, s in enumerate(scans)}
+        bound = getattr(self._bound_local, "value", None)
         tries = 0
         while True:
             ctx = _ExecContext(pages, scan_ids, self.device)
-            out = compact_page(_execute_node(root, ctx))
+            try:
+                with canonical.active_params(bound):
+                    out = compact_page(_execute_node(root, ctx))
+            except Exception:
+                if not bound:
+                    raise
+                # the parameterized form failed (a RuntimeParam fed an
+                # operator that needs its value on the host): re-run
+                # with the values bound back as Literals, as the
+                # reference's literal-form lane does. The literal form
+                # has no parameter vector, so this cannot loop.
+                root, scan_ids = _literal_form(root, scan_ids, bound)
+                bound = None
+                self.literal_form_reruns += 1
+                continue
             control = torch.stack(
                 [f.reshape(()).to(torch.int64) for f in ctx.flags]
                 + [e.reshape(()).to(torch.int64) for _, e in ctx.errors]
@@ -335,52 +699,193 @@ class LocalQueryRunner:
             # scan_ids stays valid
             root = _scale_capacities(root, 4)
 
+    # ------------------------------------------------------------- caches
+
+    def _note_spilled(self, nbytes: int) -> None:
+        """Attribute host-spill restage bytes to the active stats sink
+        (the split cache's ``on_restage`` hook)."""
+        qs = self._active_qs
+        if qs is None:
+            return
+        with self._qs_mu:
+            qs.spilled_bytes += int(nbytes)
+
+    def _note_cache_hit(self) -> None:
+        """Attribute one split-cache hit to the active stats sink."""
+        qs = self._active_qs
+        if qs is not None:
+            with self._qs_mu:
+                qs.staging_cache_hits += 1
+
+    def _note_pinned_key(self, key) -> None:
+        """Record a cache key pinned on behalf of the active query, for
+        :meth:`release_pins` when the query ends."""
+        qs = self._active_qs
+        if qs is None:
+            return
+        with self._qs_mu:
+            qs._pinned_keys.append(key)
+
+    def release_pins(self, qs) -> None:
+        """Unpin every cache entry ``qs`` pinned. Idempotent."""
+        if qs is None:
+            return
+        with self._qs_mu:
+            keys = qs._pinned_keys
+            qs._pinned_keys = []
+        for k in keys:
+            self.split_cache.unpin(k)
+
+    def _note_input(self, key, page: Page) -> None:
+        qs = self._active_qs
+        if qs is None:
+            return
+        with self._qs_mu:
+            qs.input_rows += self._staged_rows.get(key, 0)
+            qs.input_bytes += sum(int(b.data.nbytes) for b in page.blocks)
+
     def _load_table(self, scan: N.TableScanNode) -> Page:
-        """Stage a whole table onto the device once per scan identity
-        (the constraint is part of it: a pruned page must never serve a
-        differently constrained scan)."""
-        key = (scan.handle, scan.columns, scan.constraint)
-        page = self._tables.get(key)
-        if page is None:
+        """A whole table's page, through the split cache. The constraint
+        is part of the identity (a pruned page must never serve a
+        differently constrained scan); the "table" tag keeps whole-table
+        entries apart from split batches."""
+        key = (
+            scan.handle,
+            scan.columns,
+            scan.constraint,
+            self.session.get("tpu_offload"),
+            "table",
+        )
+        cacheable = self.catalogs.get(scan.handle.catalog).cacheable()
+        # pinned for the active query's lifetime: eviction must not drop
+        # the page's pool accounting while a plan runs over it
+        pin = cacheable and self._active_qs is not None
+        page = self.split_cache.get(key, pin=pin) if cacheable else None
+        if page is not None:
+            self._note_cache_hit()
+            if pin:
+                self._note_pinned_key(key)
+        else:
+            t0 = time.perf_counter()
             merged = self._load_merged_payload(scan)
+            self._staged_rows[key] = _payload_rows(merged, scan.columns)
             page = stage_page(merged, dict(scan.schema), device=self.device)
-            self._tables[key] = page
+            nbytes = page_nbytes(page)
+            REGISTRY.distribution("staging.bytes").add(nbytes)
+            cached = cacheable and self.split_cache.put(
+                key, page, nbytes, reserve_required=True, pin=pin
+            )
+            if cached and pin:
+                self._note_pinned_key(key)
+            if not cached and self.memory_pool is not None:
+                # not cache-owned (non-cacheable connector, or bigger
+                # than the budget): accounted under the query
+                owner = (
+                    self._active_qs.query_id
+                    if self._active_qs is not None
+                    else "adhoc"
+                )
+                self.memory_pool.reserve(owner, nbytes)
+            if self._active_qs is not None:
+                self._active_qs.staging_ms += (
+                    time.perf_counter() - t0
+                ) * 1000.0
+        self._note_input(key, page)
         return page
 
     def _load_split(
         self, scan: N.TableScanNode, lo: int, hi: int, capacity: int
     ) -> Page:
-        """Stage ONE split batch (see :meth:`stage_split`)."""
-        return self.stage_split(scan, lo, hi, capacity)
+        """Stage ONE split batch (see :meth:`stage_split`), without the
+        per-batch release handle."""
+        return self.stage_split(scan, lo, hi, capacity)[0]
 
     def stage_split(
-        self, scan: N.TableScanNode, lo: int, hi: int, capacity: int
-    ) -> Page:
+        self,
+        scan: N.TableScanNode,
+        lo: int,
+        hi: int,
+        capacity: int,
+        owner: Optional[str] = None,
+        page_source=None,
+    ) -> Tuple[Page, object]:
         """Stage ONE split batch [lo, hi) of a scan at a fixed capacity
-        on the runner's device. The pushed constraint is not applied:
-        a split reads its raw row range, and the plan's filter runs over
-        it. The reference's device-resident split cache
-        (``stream_split_cache``) is not ported yet and raises."""
-        if self.session.get("stream_split_cache"):
-            raise NotImplementedError(
-                "stream_split_cache: the device-resident SplitCache is "
-                "a later slice of the port"
-            )
+        on the runner's device, through the split cache when
+        ``stream_split_cache`` is on: a repeated pass over the same
+        splits skips the connector read AND the host-to-device copy.
+
+        Returns ``(page, release)``; the caller calls ``release()`` once
+        the batch's device work is done. With an ``owner``, a cached
+        page is pinned for that window and release unpins it; an
+        uncached page reserves its bytes under ``owner`` and release
+        returns them. Without an owner an active query still pins
+        (released at query end by :meth:`release_pins`) and release is a
+        no-op.
+
+        The pushed constraint is not part of the identity: a split reads
+        its raw row range, and the plan's filter runs over it.
+        ``page_source()`` overrides the connector read on a miss."""
         stats = self.stream_stats
+        cache_on = bool(self.session.get("stream_split_cache"))
+        conn = self.catalogs.get(scan.handle.catalog)
+        key = (
+            scan.handle,
+            scan.columns,
+            lo,
+            hi,
+            capacity,
+            self.session.get("tpu_offload"),
+        )
+        per_batch = owner is not None
+        pin = per_batch or self._active_qs is not None
+        unpin = (
+            (lambda: self.split_cache.unpin(key)) if per_batch else _noop
+        )
+        if cache_on and conn.cacheable():
+            page = self.split_cache.get(key, pin=pin)
+            if page is not None:
+                self._note_cache_hit()
+                if pin and not per_batch:
+                    self._note_pinned_key(key)
+                return page, unpin
         t0 = time.perf_counter()
-        payload = self.catalogs.get(scan.handle.catalog).create_page_source(
-            ConnectorSplit(scan.handle, lo, hi), list(scan.columns)
+        payload = (
+            page_source()
+            if page_source is not None
+            else conn.create_page_source(
+                ConnectorSplit(scan.handle, lo, hi), list(scan.columns)
+            )
         )
         t1 = time.perf_counter()
         page = stage_page(
             payload, dict(scan.schema), capacity=capacity, device=self.device
         )
+        nbytes = page_nbytes(page)
+        REGISTRY.distribution("staging.bytes").add(nbytes)
         # the prefetch thread adds here too; a lost update of a float
         # total only blurs a timing
         stats.generate_s += t1 - t0
         stats.stage_s += time.perf_counter() - t1
-        stats.staged_bytes += page_nbytes(page)
-        return page
+        stats.staged_bytes += nbytes
+        if self._active_qs is not None:
+            with self._qs_mu:
+                self._active_qs.staging_ms += (
+                    time.perf_counter() - t0
+                ) * 1000.0
+        if cache_on and conn.cacheable() and self.split_cache.put(
+            key, page, nbytes, pin=pin
+        ):
+            # cache-owned: put() reserved the bytes under the shared
+            # owner through try_reserve (a full pool just means the
+            # split is not cached)
+            if pin and not per_batch:
+                self._note_pinned_key(key)
+            return page, unpin
+        if owner is not None and self.memory_pool is not None:
+            # a live uncached batch is accounted to the query
+            self.memory_pool.reserve(owner, nbytes)
+            return page, (lambda: self.memory_pool.release(owner, nbytes))
+        return page, _noop
 
     def _load_merged_payload(self, scan: N.TableScanNode) -> Dict:
         """Fetch all splits of a scan and merge their column payloads."""
@@ -653,3 +1158,102 @@ def _merge_split_payloads(datas: List[Dict], columns: List[str]) -> Dict:
     if len(datas) == 1:
         return datas[0]
     return {c: merge_column_chunks([d[c] for d in datas]) for c in columns}
+
+
+def _literal_form(root: N.PlanNode, scan_ids: Dict[int, int], bound):
+    """``root`` with its RuntimeParams bound back as Literals, and the
+    leaf-identity index remapped onto the rebuilt tree: the rewrite keeps
+    the tree's shape, so leaves correspond by walk position."""
+    lroot = canonical.bind_literal_root(root, bound)
+    leaf_types = (N.TableScanNode, N.RemoteSourceNode)
+    remapped = dict(scan_ids)
+    for old, new in zip(
+        (n for n in N.walk(root) if isinstance(n, leaf_types)),
+        (n for n in N.walk(lroot) if isinstance(n, leaf_types)),
+    ):
+        if id(old) in scan_ids:
+            remapped[id(new)] = scan_ids[id(old)]
+    return lroot, remapped
+
+
+def _refuse_later_statement(stmt) -> None:
+    if isinstance(stmt, _LATER_STATEMENTS):
+        raise ExecutionError(
+            f"{type(stmt).__name__} statements: later slice of the port"
+        )
+
+
+def _payload_rows(payload: Dict, columns) -> int:
+    for c in columns:
+        return payload_len(payload[c])
+    return 0
+
+
+def _count_param_markers(node) -> int:
+    n = 0
+    if isinstance(node, ast.ParamMarker):
+        return 1
+    if not isinstance(node, ast.Node):
+        return 0
+    for f in dataclasses.fields(node):
+        v = getattr(node, f.name)
+        if isinstance(v, ast.Node):
+            n += _count_param_markers(v)
+        elif isinstance(v, tuple):
+            for x in v:
+                if isinstance(x, ast.Node):
+                    n += _count_param_markers(x)
+                elif isinstance(x, tuple):
+                    for y in x:
+                        if isinstance(y, ast.Node):
+                            n += _count_param_markers(y)
+    return n
+
+
+def _bind_param_markers(node, params):
+    """Replace ? markers (by index) with the EXECUTE arguments."""
+    if isinstance(node, ast.ParamMarker):
+        return params[node.index]
+    if not isinstance(node, ast.Node):
+        return node
+    kwargs = {}
+    changed = False
+    for f in dataclasses.fields(node):
+        v = getattr(node, f.name)
+        if isinstance(v, ast.Node):
+            nv = _bind_param_markers(v, params)
+        elif isinstance(v, tuple):
+            nv = tuple(
+                _bind_param_markers(x, params)
+                if isinstance(x, ast.Node)
+                else (
+                    tuple(
+                        _bind_param_markers(y, params)
+                        if isinstance(y, ast.Node)
+                        else y
+                        for y in x
+                    )
+                    if isinstance(x, tuple)
+                    else x
+                )
+                for x in v
+            )
+        else:
+            nv = v
+        kwargs[f.name] = nv
+        changed |= nv is not v
+    return dataclasses.replace(node, **kwargs) if changed else node
+
+
+def _message_page(msg: str) -> Page:
+    return Page.from_pydict(
+        {"result": [msg]}, {"result": T.VARCHAR}, capacity=1, device="cpu"
+    )
+
+
+def _lines_page(text: str, column: str = "Query Plan") -> Page:
+    lines = text.split("\n")
+    return Page.from_pydict(
+        {column: lines}, {column: T.VARCHAR}, capacity=len(lines),
+        device="cpu",
+    )

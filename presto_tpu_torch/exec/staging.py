@@ -15,11 +15,17 @@ of similar size presents the same shapes to the operators.
 
 Split-streamed execution (``exec/streaming.py``) also uses
 ``merge_column_chunks``, ``page_nbytes`` and ``prefetch_iter`` from
-here. The reference's device-resident ``SplitCache`` is not ported yet.
+here.
+
+``SplitCache`` keeps staged pages on the device across queries under an
+LRU byte budget, reserved in a ``utils.memory.MemoryPool`` when the
+runner has one; an evicted page may move to a host-RAM spill store
+(``page_to_host``) and come back on its next hit (``host_to_page``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import queue
 import threading
@@ -31,9 +37,21 @@ import torch
 
 from presto_tpu_torch import types as T
 from presto_tpu_torch.connectors.tpch import DictColumn
-from presto_tpu_torch.page import Block, Dictionary, Page, resolve_device
+from presto_tpu_torch.page import (
+    Block,
+    Dictionary,
+    Page,
+    _bytes_of,
+    resolve_device,
+    to_host,
+)
 
 MIN_BUCKET = 1 << 10
+
+#: default device-resident split-cache budget, the reference's value
+#: (its tier-1 key ``staging.cache-bytes``); a runner takes another
+#: through ``staging_cache_bytes``
+DEFAULT_CACHE_BYTES = 4 << 30
 
 
 @dataclasses.dataclass
@@ -175,6 +193,480 @@ def page_nbytes(page: Page) -> int:
         int(b.data.nbytes) + (0 if b.valid is None else int(b.valid.nbytes))
         for b in page.blocks
     )
+
+
+@dataclasses.dataclass
+class HostPage:
+    """A staged page's host copy (CPU tensors, dictionaries and names
+    kept) and the device it was staged on."""
+
+    page: Page
+    device: torch.device
+
+
+def _page_tensors(page: Page) -> List[torch.Tensor]:
+    out = [page.num_valid]
+    for blk in page.blocks:
+        if blk.dtype.is_nested:
+            raise NotImplementedError(
+                f"spilling {blk.dtype} blocks: later slice of the port"
+            )
+        out.append(blk.data)
+        if blk.valid is not None:
+            out.append(blk.valid)
+    if page.live is not None:
+        out.append(page.live)
+    return out
+
+
+def _rebuild(page: Page, tensors: List[torch.Tensor]) -> Page:
+    it = iter(tensors)
+    num_valid = next(it)
+    blocks = []
+    for blk in page.blocks:
+        data = next(it)
+        valid = None if blk.valid is None else next(it)
+        blocks.append(dataclasses.replace(blk, data=data, valid=valid))
+    live = None if page.live is None else next(it)
+    return Page(
+        blocks=tuple(blocks), num_valid=num_valid, names=page.names,
+        live=live,
+    )
+
+
+def page_to_host(page: Page) -> HostPage:
+    """Copy a staged page to host RAM (the spill write of the split
+    cache's host-spill lane) in ONE transfer (``page.to_host``):
+    ``capacity``, ``num_valid``, the ``live`` mask, the validity masks
+    and the dictionaries all come along."""
+    return HostPage(
+        page=_rebuild(page, to_host(_page_tensors(page))),
+        device=page.device,
+    )
+
+
+def host_to_page(host: HostPage) -> Page:
+    """Restage a spilled host copy onto the device it came from: the
+    tensors' bytes are packed into one host buffer, copied once and cut
+    apart on the device (widest element type first, so every piece
+    starts aligned for its type)."""
+    tensors = _page_tensors(host.page)
+    order = sorted(
+        range(len(tensors)), key=lambda i: -tensors[i].element_size()
+    )
+    flat = [_bytes_of(tensors[i]) for i in order]
+    buf = torch.cat(flat).to(host.device)
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    offset = 0
+    for i, piece in zip(order, flat):
+        t = tensors[i]
+        out[i] = (
+            buf[offset: offset + piece.numel()].view(t.dtype).reshape(t.shape)
+        )
+        offset += piece.numel()
+    return _rebuild(host.page, out)
+
+
+class SplitCache:
+    """Device-resident staged-``Page`` cache with an LRU byte budget
+    (reference: ``presto_tpu/exec/staging.py::SplitCache``, the same
+    keys, accounting and eviction order).
+
+    Entries are staged pages keyed by ``(table handle, columns, lo, hi,
+    capacity, ...)`` for a split batch, or ``(handle, columns,
+    constraint, ..., "table")`` for a whole table; a hit skips both the
+    connector read and the host-to-device copy.
+
+    Budget discipline: entries charge the byte budget (LRU eviction at
+    the boundary) AND reserve against the :class:`MemoryPool` under the
+    shared ``table-cache`` owner, through ``try_reserve``: a cache fill
+    never kills a running query to make room, and a full pool just
+    means the page is not cached. ``reserve_required=True`` (whole-table
+    loads) uses the raising ``reserve`` instead, so a table that cannot
+    fit fails the query.
+
+    Pins: an entry serving an executing query is pinned until
+    :meth:`unpin`; eviction skips pinned entries (their pages are live
+    on the device), a write invalidation still drops them.
+
+    Host-spill lane: with a non-zero ``spill_bytes`` budget, an evicted
+    entry (LRU budget pressure, or a running query's pool-pressure
+    reclaim through :meth:`evict_bytes`) moves its page to a host-RAM
+    spill store (``page_to_host``) instead of being dropped: its device
+    bytes and reservation are released at once, and a later ``get``
+    restages the host copy (``host_to_page``) and re-admits it under the
+    normal budget and pool discipline. Restages are counted
+    (``restages``, and the ``on_restage`` hook the runner points at the
+    query's ``spilled_bytes``).
+
+    Metrics (``utils.metrics.REGISTRY``): ``staging.cache_hit`` /
+    ``staging.cache_miss`` / ``staging.cache_evict``, the
+    ``staging.cache_bytes`` occupancy distribution, and ``spill.*``.
+    """
+
+    #: pool owner shared by every cached page
+    OWNER = "table-cache"
+
+    def __init__(self, budget_bytes: int = DEFAULT_CACHE_BYTES,
+                 pool=None, spill_bytes: int = 0):
+        self.budget = int(budget_bytes)
+        self.pool = pool
+        self._lock = threading.RLock()
+        self._entries: "collections.OrderedDict" = collections.OrderedDict()
+        #: key -> pin count
+        self._pins: Dict = {}
+        self._bytes = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        #: host-RAM spill store: key -> (HostPage, nbytes); a 0 budget
+        #: turns the lane off and eviction drops pages
+        self.spill_budget = int(spill_bytes)
+        self._spill: "collections.OrderedDict" = collections.OrderedDict()
+        self._spill_bytes = 0
+        #: bumped by invalidate()/clear(): a restage that started before
+        #: a write must not re-admit (or re-spill) its pre-write copy
+        #: after the invalidation; the copies run outside the lock
+        self._epoch = 0
+        self.spills = 0
+        self.restages = 0
+        #: optional ``(nbytes) -> None`` hook attributing restage
+        #: traffic to the active query
+        self.on_restage = None
+        if pool is not None and hasattr(pool, "add_pressure_hook"):
+            # yield cached bytes to running queries on pool pressure:
+            # a query's raising reserve evicts LRU cache entries before
+            # the kill-largest policy fires
+            pool.add_pressure_hook(self.evict_bytes)
+
+    def set_spill_budget(self, nbytes: int) -> None:
+        """(Re)size the host-spill budget."""
+        with self._lock:
+            self.spill_budget = int(nbytes)
+            while self._spill_bytes > self.spill_budget:
+                if not self._drop_one_spilled():
+                    break
+
+    # ------------------------------------------------------------ access
+
+    def get(self, key, pin: bool = False) -> Optional[Page]:
+        """Cached page for ``key`` (refreshes LRU order), or None.
+        Counts hit/miss: call once per staging decision. ``pin=True``
+        marks the entry in use until :meth:`unpin`."""
+        from presto_tpu_torch.utils.metrics import REGISTRY
+
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                self._entries.move_to_end(key)
+                if pin:
+                    self._pins[key] = self._pins.get(key, 0) + 1
+                self.hits += 1
+                REGISTRY.counter("staging.cache_hit").update()
+                return entry[0]
+            # leave the spill store BEFORE re-admission: put() may
+            # evict (and re-spill) other entries to make room, and that
+            # must not pop THIS key from under the accounting below
+            got = self._spill.pop(key, None)
+            if got is not None:
+                self._spill_bytes -= got[1]
+                epoch = self._epoch
+            else:
+                self.misses += 1
+                REGISTRY.counter("staging.cache_miss").update()
+                return None
+        page = self._restage_spilled(key, got, pin, epoch)
+        if page is not None:
+            # the host copy saved the connector read: a (slower) hit
+            with self._lock:
+                self.hits += 1
+            REGISTRY.counter("staging.cache_hit").update()
+            return page
+        with self._lock:
+            self.misses += 1
+        REGISTRY.counter("staging.cache_miss").update()
+        return None
+
+    def _restage_spilled(self, key, got, pin: bool,
+                         epoch: int) -> Optional[Page]:
+        """Restage a popped spill entry and re-admit it under the budget
+        and pool. Runs with no cache lock held (the copy is a whole
+        page). Returns None when re-admission does not fit (the host
+        copy goes back to the spill store and the caller stages afresh)
+        or when a write invalidated the table meanwhile (``epoch``).
+        A copy that fails raises."""
+        from presto_tpu_torch.utils.metrics import REGISTRY
+
+        host, nbytes = got
+        page = host_to_page(host)
+        if not self.put(key, page, nbytes, pin=pin, expect_epoch=epoch):
+            with self._lock:
+                if self._epoch != epoch:
+                    return None
+                # no device room: the host copy stays spilled, as the
+                # newest entry (pop-subtract any copy that landed under
+                # this key while the lock was dropped)
+                prev = self._spill.pop(key, None)
+                if prev is not None:
+                    self._spill_bytes -= prev[1]
+                self._spill[key] = (host, nbytes)
+                self._spill_bytes += nbytes
+                while self._spill_bytes > self.spill_budget:
+                    if not self._drop_one_spilled():
+                        break
+            return None
+        with self._lock:
+            self.restages += 1
+            spill_now = self._spill_bytes
+        REGISTRY.counter("spill.pages_restaged").update()
+        REGISTRY.counter("spill.bytes_restaged").update(nbytes)
+        REGISTRY.distribution("spill.pool_bytes").add(spill_now)
+        if self.on_restage is not None:
+            try:
+                self.on_restage(nbytes)
+            except Exception:
+                pass  # attribution must never fail the staging path
+        return page
+
+    def _spill_insert(self, key, host, nbytes: int) -> bool:
+        """Admit an already-copied host page into the spill store,
+        trimming older entries under the budget (caller holds the
+        lock)."""
+        from presto_tpu_torch.utils.metrics import REGISTRY
+
+        while self._spill_bytes + nbytes > self.spill_budget:
+            if not self._drop_one_spilled():
+                return False
+        old = self._spill.pop(key, None)
+        if old is not None:
+            self._spill_bytes -= old[1]
+        self._spill[key] = (host, nbytes)
+        self._spill_bytes += nbytes
+        self.spills += 1
+        REGISTRY.counter("spill.pages_spilled").update()
+        REGISTRY.counter("spill.bytes_spilled").update(nbytes)
+        REGISTRY.distribution("spill.pool_bytes").add(self._spill_bytes)
+        return True
+
+    def _drop_one_spilled(self) -> bool:
+        """Drop the oldest spilled entry (caller holds the lock)."""
+        from presto_tpu_torch.utils.metrics import REGISTRY
+
+        if not self._spill:
+            return False
+        _key, (_host, nbytes) = self._spill.popitem(last=False)
+        self._spill_bytes -= nbytes
+        REGISTRY.counter("spill.pages_dropped").update()
+        return True
+
+    def unpin(self, key) -> None:
+        """Drop one pin (no-op for unknown or invalidated keys)."""
+        with self._lock:
+            n = self._pins.get(key, 0) - 1
+            if n > 0:
+                self._pins[key] = n
+            else:
+                self._pins.pop(key, None)
+
+    def put(self, key, page: Page, nbytes: Optional[int] = None,
+            reserve_required: bool = False, pin: bool = False,
+            expect_epoch: Optional[int] = None) -> bool:
+        """Insert a staged page, evicting unpinned LRU entries past the
+        budget. Returns True when the page is now cache-owned (its bytes
+        reserved under :attr:`OWNER`), False when it did not fit (the
+        page still serves the caller). ``pin=True`` marks the new entry
+        in use until :meth:`unpin`. ``expect_epoch`` (the restage path)
+        refuses the insert when an invalidation landed since the caller
+        read the epoch."""
+        from presto_tpu_torch.utils.metrics import REGISTRY
+
+        nbytes = page_nbytes(page) if nbytes is None else int(nbytes)
+        with self._lock:
+            if nbytes > self.budget:
+                return False
+            if self._pins.get(key):
+                # a duplicate staging of an entry that is executing:
+                # replacing it would release its accounting mid-flight
+                return False
+        # reserve OUTSIDE the cache lock and BEFORE the budget eviction:
+        # a raising reserve can run pressure hooks (this cache's own
+        # evict_bytes among them), and a failed reservation must not
+        # have emptied the cache for nothing
+        if self.pool is not None:
+            if reserve_required:
+                self.pool.reserve(self.OWNER, nbytes)
+            elif not self.pool.try_reserve(self.OWNER, nbytes):
+                return False
+        dropped: list = []
+        epoch = -1
+        try:
+            with self._lock:
+                epoch = self._epoch
+                if (
+                    expect_epoch is not None
+                    and self._epoch != expect_epoch
+                ):
+                    if self.pool is not None:
+                        self.pool.release(self.OWNER, nbytes)
+                    return False
+                if self._pins.get(key):
+                    if self.pool is not None:
+                        self.pool.release(self.OWNER, nbytes)
+                    return False
+                old = self._entries.pop(key, None)
+                if old is not None:
+                    self._release(old[1])
+                while self._bytes + nbytes > self.budget:
+                    if not self._evict_one_unpinned(dropped):
+                        # every resident entry is pinned: undo the
+                        # reservation and don't cache
+                        if self.pool is not None:
+                            self.pool.release(self.OWNER, nbytes)
+                        return False
+                self._entries[key] = (page, nbytes)
+                if pin:
+                    self._pins[key] = self._pins.get(key, 0) + 1
+                self._bytes += nbytes
+                REGISTRY.distribution("staging.cache_bytes").add(
+                    self._bytes
+                )
+                return True
+        finally:
+            # evicted pages go to the spill store with no lock held, on
+            # success and on the all-pinned failure path alike
+            self._spill_dropped(dropped, epoch)
+
+    # -------------------------------------------------------- maintenance
+
+    def _release(self, nbytes: int) -> None:
+        self._bytes -= nbytes
+        if self.pool is not None:
+            self.pool.release(self.OWNER, nbytes)
+
+    def _evict_one_unpinned(self, dropped: list) -> bool:
+        """Evict the least recently used UNPINNED entry (caller holds
+        the lock), appending it to ``dropped`` for
+        :meth:`_spill_dropped`. False when none is evictable."""
+        from presto_tpu_torch.utils.metrics import REGISTRY
+
+        key = next(
+            (k for k in self._entries if not self._pins.get(k)), None
+        )
+        if key is None:
+            return False
+        page, nbytes = self._entries.pop(key)
+        dropped.append((key, page, nbytes))
+        self._release(nbytes)
+        self.evictions += 1
+        REGISTRY.counter("staging.cache_evict").update()
+        return True
+
+    def _spill_dropped(self, dropped: list, epoch: int) -> None:
+        """Move evicted pages to the host spill store, with no cache
+        lock held. Lane off, or a page larger than the spill budget:
+        plain drop. ``epoch`` was read while the caller popped these
+        entries: a write that invalidates mid-copy keeps its table's
+        pre-write pages out of the spill store."""
+        for key, page, nbytes in dropped:
+            if self.spill_budget <= 0 or nbytes > self.spill_budget:
+                continue
+            host = page_to_host(page)
+            with self._lock:
+                if self._epoch != epoch:
+                    return
+                self._spill_insert(key, host, nbytes)
+
+    def evict_bytes(self, needed: int) -> int:
+        """Evict unpinned LRU entries until at least ``needed`` bytes
+        are freed, or none remain evictable: the MemoryPool pressure
+        hook (cached pages are droppable, so a running query's
+        reservation reclaims them before any query is killed). Returns
+        the bytes freed."""
+        from presto_tpu_torch.utils.metrics import REGISTRY
+
+        freed = 0
+        evicted = 0
+        dropped = []
+        with self._lock:
+            epoch = self._epoch
+            while freed < needed:
+                key = next(
+                    (k for k in self._entries if not self._pins.get(k)),
+                    None,
+                )
+                if key is None:
+                    break
+                page, nbytes = self._entries.pop(key)
+                dropped.append((key, page, nbytes))
+                self._release(nbytes)
+                freed += nbytes
+                evicted += 1
+            self.evictions += evicted
+        self._spill_dropped(dropped, epoch)
+        if evicted:
+            REGISTRY.counter("staging.cache_evict").update(evicted)
+            REGISTRY.distribution("staging.cache_bytes").add(
+                self._bytes
+            )
+        return freed
+
+    def invalidate(self, handle) -> int:
+        """Drop every entry of a written or dropped table (keys lead
+        with the table handle, matched version-blind by ``table_key``),
+        releasing their reservations. Returns the entries dropped."""
+        tk = handle.table_key
+
+        def _stale(k) -> bool:
+            return getattr(k[0], "table_key", k[0]) == tk
+
+        with self._lock:
+            self._epoch += 1
+            stale = [k for k in self._entries if _stale(k)]
+            for k in stale:
+                _page, nbytes = self._entries.pop(k)
+                self._release(nbytes)
+                self._pins.pop(k, None)
+            for k in [k for k in self._spill if _stale(k)]:
+                _host, nbytes = self._spill.pop(k)
+                self._spill_bytes -= nbytes
+            return len(stale)
+
+    def clear(self) -> None:
+        with self._lock:
+            for _page, nbytes in self._entries.values():
+                self._release(nbytes)
+            self._entries.clear()
+            self._pins.clear()
+            self._spill.clear()
+            self._spill_bytes = 0
+            self._epoch += 1
+
+    # ------------------------------------------------------------- stats
+
+    def used_bytes(self) -> int:
+        with self._lock:
+            return self._bytes
+
+    def spill_used_bytes(self) -> int:
+        """Host-RAM bytes the spill store holds."""
+        with self._lock:
+            return self._spill_bytes
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "entries": len(self._entries),
+                "bytes": self._bytes,
+                "budget_bytes": self.budget,
+                "hits": self.hits,
+                "misses": self.misses,
+                "evictions": self.evictions,
+                "spill_entries": len(self._spill),
+                "spill_bytes": self._spill_bytes,
+                "spill_budget_bytes": self.spill_budget,
+                "spills": self.spills,
+                "restages": self.restages,
+            }
 
 
 def prefetch_iter(items, load_fn, depth: int, on_drop=None):

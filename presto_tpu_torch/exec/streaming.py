@@ -92,13 +92,17 @@ class StreamStats:
 def _prefetch_splits(runner, scan, ranges, capacity):
     """Staged split pages of ``ranges``, staged ahead on a host thread
     (``staging.prefetch_iter``; depth ``staging_prefetch_depth``, 0 is
-    the serial loop)."""
+    the serial loop). The prefetch thread inherits the caller's query
+    stats, so the split cache's pins and hits land on the query."""
     depth = int(runner.session.get("staging_prefetch_depth"))
-    return prefetch_iter(
-        ranges,
-        lambda rng: runner._load_split(scan, rng[0], rng[1], capacity),
-        depth,
-    )
+    qs = runner._active_qs
+
+    def load(rng):
+        # runner thread-locals do not cross threads
+        runner._qs_local.value = qs
+        return runner._load_split(scan, rng[0], rng[1], capacity)
+
+    return prefetch_iter(ranges, load, depth)
 
 
 def _scan_rows(catalogs, scan: N.TableScanNode) -> int:

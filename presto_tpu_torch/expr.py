@@ -20,9 +20,11 @@ BETWEEN, IS NULL, CAST, CASE, COALESCE, IN lists of literals, the
 dictionary functions (LIKE, DictPredicate/Transform/Combine/IntFunc,
 IntToDict: a host LUT over the dictionary, gathered on the device), the
 civil-calendar date functions (EXTRACT, date_trunc, date_add), scalar
-math and ValueHash. Nodes over array/map/row columns, RuntimeParam (the
-plan cache) and long decimals (int128 limb pairs) are not ported yet:
-they raise ``NotImplementedError`` with their names; none is evaluated
+math and ValueHash, and RuntimeParam (a plan-cache slot: it evaluates
+exactly as its bound Literal, read from ``plan/canonical.py``'s active
+parameter vector). Nodes over array/map/row columns and long decimals
+(int128 limb pairs) are not ported yet: they raise
+``NotImplementedError`` with their names; none is evaluated
 approximately.
 """
 
@@ -1457,17 +1459,17 @@ class ExprLowerer:
         return (~d if e.negate else d), v
 
     def _eval_inlist(self, e: InList):
-        """Literal members only (a RuntimeParam member needs the plan
-        cache, a later slice). A string argument gathers a membership LUT
-        over its dictionary; a numeric one ORs one compare per member,
-        each member cast to the argument's type as the reference does."""
-        if not all(isinstance(lit, Literal) for lit in e.values):
-            raise NotImplementedError(
-                "IN list with non-literal members: later slice of the port"
-            )
+        """A string argument gathers a membership LUT over its
+        dictionary (Literal members: strings are never hoisted); a
+        numeric one ORs one compare per member, each member cast to the
+        argument's type as the reference does. Hoisted members
+        (RuntimeParam) evaluate to 0-d tensors on the device, already
+        coerced by the planner into the argument's type domain."""
         data, valid = self.eval(e.arg)
         if e.arg.dtype.is_string:
-            members = {lit.value for lit in e.values}
+            members = {
+                lit.value for lit in e.values if isinstance(lit, Literal)
+            }
             lut = self.dictionary_of(e.arg).predicate_lut(
                 lambda s: s in members
             )
@@ -1475,12 +1477,17 @@ class ExprLowerer:
                 res = self._zeros(torch.bool)
             else:
                 res = self._lut(lut)[torch.clamp(data, 0, len(lut) - 1).long()]
-        else:
+        elif all(isinstance(lit, Literal) for lit in e.values):
             vals = np.asarray(
                 [lit.value for lit in e.values], dtype=e.arg.dtype.np_dtype
             )
             res = self._zeros(torch.bool)
             for x in vals.tolist():
+                res = res | (data == x)
+        else:
+            res = self._zeros(torch.bool)
+            for m in e.values:
+                x = self.eval(m)[0].to(e.arg.dtype.torch_dtype).reshape(())
                 res = res | (data == x)
         return (~res if e.negate else res), valid
 
@@ -1489,6 +1496,17 @@ class ExprLowerer:
             f"unbound scalar-subquery parameter ${e.param_id}: the executor "
             "must substitute Params before execution"
         )
+
+    def _eval_runtimeparam(self, e: RuntimeParam):
+        """A plan-cache slot: exactly what ``_eval_literal`` gives for
+        the bound Literal of this ordinal (a fill on the device, no host
+        read). Non-null by eligibility: NULL literals are never
+        hoisted."""
+        from presto_tpu_torch.plan import canonical
+
+        v = canonical.active_param(e.index)
+        value = v.value if isinstance(v, Literal) else np.asarray(v).item()
+        return self._eval_literal(Literal(value, e.dtype))
 
     # -- dictionary functions (host LUT over the dictionary, device gather)
 

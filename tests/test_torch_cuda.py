@@ -332,3 +332,101 @@ def test_broadcast_one_row_results_on_the_card_equal_the_cpu(cuda, streamed):
         got = gpu.execute(sql).rows()
         assert _rows_agree(got, cpu.execute(sql).rows()), name
         assert pinned is None or got == pinned, name
+
+
+# ------------------------------------------------ the caches on the card
+
+
+def _spy_tpch(runner):
+    conn = runner.catalogs.get("tpch")
+    calls = []
+    orig = conn.create_page_source
+
+    def spy(split, columns):
+        calls.append(split.row_start)
+        return orig(split, columns)
+
+    conn.create_page_source = spy
+    return calls
+
+
+def test_split_cache_hit_on_the_card_skips_the_connector(cuda):
+    # a streamed Q1 with stream_split_cache on: the second pass is all
+    # hits, stages nothing and equals the first and the CPU runner;
+    # then a whole table, pooled: nothing query-owned outlives a query
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.session import Session
+    from presto_tpu_torch.utils.memory import MemoryPool
+    from tpch_queries import QUERIES
+
+    props = {"max_device_rows": 16_384, "page_capacity": 4_096,
+             "stream_split_cache": True}
+    pool = MemoryPool(1 << 34)
+    gpu = LocalQueryRunner(device="cuda", memory_pool=pool,
+                           session=Session(properties=props))
+    calls = _spy_tpch(gpu)
+    first = gpu.execute(QUERIES[1]).rows()
+    n = len(calls)
+    assert n > 1 and gpu.split_cache.stats()["misses"] == n
+    calls.clear()
+    second = gpu.execute(QUERIES[1]).rows()
+    assert calls == [] and gpu.split_cache.stats()["hits"] == n
+    assert first == second
+    cpu = LocalQueryRunner(device="cpu", session=Session(properties=props))
+    assert _rows_agree(second, cpu.execute(QUERIES[1]).rows())
+    gpu.execute("select count(*) from tpch.tiny.orders")
+    snap = pool.snapshot()
+    assert snap["used"] == {"table-cache": gpu.split_cache.used_bytes()}
+    page = next(iter(gpu.split_cache._entries.values()))[0]
+    assert page.device.type == "cuda"
+
+
+def test_split_cache_restage_on_the_card_is_bit_identical(cuda):
+    # pool pressure pushes every cached batch to host RAM (one batched
+    # copy per page); the next pass restages them onto the card
+    from presto_tpu_torch.exec import staging
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.session import Session
+    from tpch_queries import QUERIES
+
+    props = {"max_device_rows": 16_384, "page_capacity": 4_096,
+             "stream_split_cache": True}
+    gpu = LocalQueryRunner(device="cuda", session=Session(properties=props))
+    gpu.split_cache.set_spill_budget(1 << 30)
+    first = gpu.execute(QUERIES[1]).rows()
+    key, (page, _) = next(iter(gpu.split_cache._entries.items()))
+    host = staging.page_to_host(page)
+    assert all(b.data.device.type == "cpu" for b in host.page.blocks)
+    back = staging.host_to_page(host)
+    assert back.device.type == "cuda"
+    for a, b in zip(back.blocks, page.blocks):
+        assert torch.equal(a.data, b.data)
+    assert gpu.split_cache.evict_bytes(1 << 40) > 0
+    assert gpu.split_cache.stats()["bytes"] == 0
+    again = gpu.execute(QUERIES[1]).rows()
+    st = gpu.split_cache.stats()
+    assert st["restages"] > 0 and st["spills"] > 0
+    assert again == first
+    assert gpu.history.snapshot()[-1].spilled_bytes > 0
+
+
+def test_prepared_execute_on_the_card_hits_the_plan_cache(cuda):
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+
+    gpu = LocalQueryRunner(device="cuda")
+    cpu = LocalQueryRunner(device="cpu")
+    gpu.execute(
+        "prepare p6 from select sum(l_extendedprice * l_discount) as r "
+        "from tpch.tiny.lineitem where l_shipdate >= ? and l_quantity < ?"
+    )
+    for i, (d, q) in enumerate((("1994-01-01", 24), ("1995-01-01", 30),
+                                ("1996-01-01", 10))):
+        hits = gpu.plan_cache.stats()["hits"]
+        got = gpu.execute(f"execute p6 using date '{d}', {q}").rows()
+        assert gpu.plan_cache.stats()["hits"] == hits + (i > 0)
+        want = cpu.execute(
+            "select sum(l_extendedprice * l_discount) as r from "
+            f"tpch.tiny.lineitem where l_shipdate >= date '{d}' and "
+            f"l_quantity < {q}").rows()
+        assert got == want
+    assert gpu.literal_form_reruns == 0

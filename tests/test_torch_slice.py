@@ -80,9 +80,13 @@ def test_query_matches_reference(runners, name):
 def test_q1_result_is_host_resident_and_reuses_staged_table(runners):
     _, port_runner = runners
     port_runner.execute(SLICE_QUERIES["q1"])
-    staged = dict(port_runner._tables)
+    before = port_runner.split_cache.stats()
     res = port_runner.execute(SLICE_QUERIES["q1"])
-    assert port_runner._tables == staged  # the warm run staged nothing
+    after = port_runner.split_cache.stats()
+    # the warm run staged nothing: no miss, no new entry, a hit per scan
+    assert after["misses"] == before["misses"]
+    assert after["entries"] == before["entries"]
+    assert after["hits"] > before["hits"]
     assert all(b.data.device.type == "cpu" for b in res.page.blocks)
     assert [r[:2] for r in res.rows()] == [
         ("A", "F"), ("N", "F"), ("N", "O"), ("R", "F")
@@ -122,9 +126,10 @@ def test_overflow_retry_rescales_max_groups(runners):
         "group by o_custkey",
         "select n_name, x from tpch.tiny.nation "
         "cross join unnest(array[1, 2]) as t(x)",
-        "show tables",
+        # statements that need a writable connector
+        "insert into tpch.tiny.region values (9, 'X', 'y')",
     ],
-    ids=["array_agg", "unnest", "show tables"],
+    ids=["array_agg", "unnest", "insert"],
 )
 def test_unported_plans_raise(runners, sql):
     _, port_runner = runners

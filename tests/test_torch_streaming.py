@@ -215,14 +215,22 @@ def test_spill_disabled_raises_streaming_error():
 
 
 def test_split_cache_raises_not_implemented():
+    """``stream_split_cache`` used to raise NotImplementedError here;
+    the split cache is ported now, so the same streamed query runs, and
+    its second pass is served from the cache with the same answer."""
     r = LocalQueryRunner(
         device="cpu",
         session=Session(
             properties={**_props(MAX_DEVICE_ROWS), "stream_split_cache": True}
         ),
     )
-    with pytest.raises(NotImplementedError, match="SplitCache"):
-        r.execute("select count(*) as c from tpch.tiny.lineitem")
+    sql = "select count(*) as c from tpch.tiny.lineitem"
+    first = r.execute(sql).rows()
+    misses = r.split_cache.stats()["misses"]
+    assert misses > 1 and r.stream_stats.batches > 1
+    assert r.execute(sql).rows() == first == [(59997,)]
+    assert r.split_cache.stats()["misses"] == misses
+    assert r.split_cache.stats()["hits"] == misses
 
 
 def test_whole_tables_still_stage_whole():
