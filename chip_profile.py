@@ -14,8 +14,13 @@ spill), ``q1_stream_cached`` (the same streamed Q1 with
 ``stream_split_cache`` on: after its cold pass fills the split cache,
 every profiled pass is served from it), ``q64_sf10`` (TPC-DS Q64 on
 tpcds.sf10 in the joins session)
-and ``q95_sf100`` (TPC-DS Q95 on tpcds.sf100 in chip_smoke.py's SF100
-streaming session: web_sales streams in 2^24-row batches)), each on one
+``q95_sf100`` (TPC-DS Q95 on tpcds.sf100 in chip_smoke.py's SF100
+streaming session: web_sales streams in 2^24-row batches), and the
+nested slice's ``n1_unnest_sf10`` (a static UNNEST into the one-hot
+GROUP BY), ``n2_array_agg_sf10`` (array_agg by order, unnested again)
+and ``n3_order_stats_sf10`` (global approx_percentile/min_by/max_by),
+chip_smoke.py's N1-N3 over tpch.sf10.lineitem in the joins session),
+each on one
 ``LocalQueryRunner(device="cuda")``: one cold run and two warm runs
 (one for a streamed query at SF10, none at SF100), then ``--runs`` warm runs
 under ``torch.profiler`` (CPU and CUDA activities). A streamed query also
@@ -191,7 +196,8 @@ def main() -> int:
     ap.add_argument("--queries", default="q1,q6,q3,q5",
                     help="comma-separated subset of "
                     "q1,q6,q3,q5,window,q9,q22,q1_stream,q18_stream,"
-                    "q1_stream_cached,q64_sf10,q95_sf100")
+                    "q1_stream_cached,q64_sf10,q95_sf100,n1_unnest_sf10,"
+                    "n2_array_agg_sf10,n3_order_stats_sf10")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -202,7 +208,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (
-        JOINS_MAX_DEVICE_ROWS, JOINS_SCHEMA, Q1, Q3, Q5, Q6,
+        JOINS_MAX_DEVICE_ROWS, JOINS_SCHEMA, N1, N2_UNNEST, N3, Q1, Q3, Q5, Q6,
         STREAM_SF100_PROPS, TPCDS_SF10, TPCDS_SF100, WINDOW, WINDOW_SCHEMA,
         cache_budget, card_line, stream_q1, stream_q18, tpcds_queries,
         tpch_queries,
@@ -251,6 +257,9 @@ def main() -> int:
         ("q64_sf10", TPCDS_SF10, joins, tpcds_queries(TPCDS_SF10)[0]),
         ("q95_sf100", TPCDS_SF100, sf100_stream,
          tpcds_queries(TPCDS_SF100)[1]),
+        ("n1_unnest_sf10", JOINS_SCHEMA, joins, N1),
+        ("n2_array_agg_sf10", JOINS_SCHEMA, joins, N2_UNNEST),
+        ("n3_order_stats_sf10", JOINS_SCHEMA, joins, N3),
     ):
         if name not in wanted:
             continue

@@ -101,7 +101,26 @@ non-zero, and only a run where every phase passed prints the final
               the same rows). Every runner at SF10 and SF100 in every
               phase takes a split-cache budget of half the card's memory
               (printed), and every warm run must make zero cache misses.
-10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+10. nested   - the seventh slice, through CUDA runners: N1, a static
+              UNNEST of three lineitem columns into the one-hot GROUP BY
+              at SF10 in the joins phase's session (179,999,991 expanded
+              rows in a 3 x 2^26-row page, exactly one onehot_reduce
+              launch per run), then streamed in the stream phase's
+              default session (launches equal batches plus bucket merges,
+              bit-identical to the whole-table run); N2, array_agg over
+              SF10 lineitem grouped by order, unnested again and read by
+              cardinality/element_at, and a materialized array_agg over
+              SF1 orders; N3, global approx_percentile/min_by/max_by over
+              SF10 lineitem; N4, long-decimal filter, GROUP BY and ORDER
+              BY at SF10 (decimal(25..30, 2) casts); all exact against
+              numpy over the generator's own columns. Then N5: a memory
+              table of 1,048,576 rows (arrays, string arrays, maps, rows
+              with NULLs) made with numpy from a fixed seed, six queries
+              each equal to a Python evaluation and to the CPU runner.
+              Every query runs cold then twice warm (bit-identical) and
+              prints its warm s, device ms, syncs, peak memory and
+              onehot_reduce launches.
+11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -1015,6 +1034,9 @@ def results_differ(a, b, rel: float = 0.0):
 
     if a.columns != b.columns:
         return f"columns {a.columns} != {b.columns}"
+    if any(blk.dtype.is_nested for blk in a.page.blocks):
+        # arrays, maps and rows: their decoded rows, doubles exactly
+        return None if a.rows() == b.rows() else "nested rows differ"
     na, ca = host_columns(a)
     nb, cb = host_columns(b)
     if na != nb:
@@ -2192,6 +2214,498 @@ def cache_phase(card: str, baseline, dev=None, schema: str = JOINS_SCHEMA,
     return launches, out
 
 
+# ------------------------------------------------------------- nested phase
+
+#: the nested phase's scales (a CPU rehearsal passes smaller ones): the
+#: SF10 queries run in the joins phase's session, N2's materialized
+#: arrays over SF1 orders, N5 over a memory table of this many rows
+NESTED_SF10 = JOINS_SCHEMA
+NESTED_SF1 = "sf1"
+N5_ROWS = 1 << 20
+N5_SEED = 7
+#: N5's string vocabulary: 16 words
+N5_WORDS = [f"w{i:02d}" for i in range(16)]
+
+N1 = """
+select l_returnflag, l_linestatus, count(*) as n, sum(u.v) as s
+from lineitem cross join unnest(array[l_quantity, l_discount, l_tax]) as u(v)
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus
+"""
+N2_UNNEST = """
+select count(*) as n, sum(e) as s
+from (select l_orderkey, array_agg(l_partkey) as a from lineitem
+      group by l_orderkey) t
+cross join unnest(a) as u(e)
+"""
+N2_CARDINALITY = """
+select count(*) as n, sum(cardinality(a)) as c, sum(element_at(a, 1)) as f,
+  max(cardinality(a)) as m
+from (select l_orderkey, array_agg(l_linenumber) as a from lineitem
+      group by l_orderkey) t
+"""
+N2_ORDERS = """
+select o_custkey, array_agg(o_orderkey) as a from tpch.{sf1}.orders
+group by o_custkey
+"""
+N3 = """
+select approx_percentile(l_extendedprice, 0.5) as p50,
+  approx_percentile(l_quantity, 0.9) as q90,
+  min_by(l_orderkey, l_extendedprice) as lo,
+  max_by(l_orderkey, l_extendedprice) as hi
+from lineitem
+"""
+#: N4's filter threshold, 50000.05 unscaled at scale 2
+N4_THRESHOLD = 5_000_005
+N4_FILTER = """
+select count(*) as n from lineitem
+where cast(l_extendedprice as decimal(30,2))
+  + cast(l_tax as decimal(30,2)) > 50000.05
+"""
+# the TopNs sit in subqueries, so the sort runs on the card and the host
+# stage orders only their 100 rows
+N4_GROUP = """
+select p, n from (
+  select cast(l_extendedprice as decimal(25,2)) as p, count(*) as n
+  from lineitem group by 1 order by n desc, p limit 100) s
+order by n desc, p
+"""
+N4_ORDER = """
+select l_orderkey, l_linenumber, v from (
+  select l_orderkey, l_linenumber,
+    cast(l_extendedprice as decimal(30,2))
+      - cast(l_discount as decimal(30,2)) as v
+  from lineitem order by v desc, l_orderkey, l_linenumber limit 100) s
+order by v desc, l_orderkey, l_linenumber
+"""
+N5_QUERIES = {
+    "N5 arrays": (
+        "select count(*) as n, sum(cardinality(arr)) as c, "
+        "sum(element_at(arr, 1)) as first, sum(arr[2]) as second, "
+        "sum(element_at(arr, -1)) as last from mem.n5.t"
+    ),
+    "N5 maps": (
+        "select count(*) as n, sum(m['w03']) as s, "
+        "sum(cardinality(m)) as c, count(element_at(m, 'w11')) as k "
+        "from mem.n5.t"
+    ),
+    "N5 rows": (
+        "select count(*) as n, sum(r.x) as sx, sum(r.y) as sy "
+        "from mem.n5.t where r.x > 0"
+    ),
+    "N5 unnest group": (
+        "select e, count(*) as n, sum(id) as s from mem.n5.t "
+        "cross join unnest(arr) as u(e) group by e order by e"
+    ),
+    "N5 unnest tags": (
+        "select t, count(*) as n from mem.n5.t "
+        "cross join unnest(tags) as u(t) group by t order by t"
+    ),
+    "N5 materialized": (
+        "select id, arr, tags, m, r from mem.n5.t "
+        "where id % 65536 = 7 order by id"
+    ),
+}
+
+
+def numpy_nested(schema: str):
+    """The generator's own lineitem columns at ``schema`` and the N1-N4
+    answers over them, in numpy: exact int64 at scale 2, order
+    statistics at rank ceil(p * n) - 1 of a stable sort."""
+    import math
+
+    import numpy as np
+
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+
+    gen = TpchGenerator(SCHEMAS[schema])
+    n = gen.counts["lineitem"]
+    cols = ["l_orderkey", "l_partkey", "l_linenumber", "l_quantity",
+            "l_discount", "l_tax", "l_extendedprice", "l_returnflag",
+            "l_linestatus"]
+    ints = cols[:7]
+
+    def part(lo, hi):
+        g = gen.generate("lineitem", lo, hi, cols)
+        rf, ls = g["l_returnflag"], g["l_linestatus"]
+        s = sum(g[c].astype(np.int64) for c in ("l_quantity", "l_discount",
+                                               "l_tax"))
+        n1 = {}
+        for i, f in enumerate(rf.values):
+            for j, st in enumerate(ls.values):
+                m = (rf.ids == i) & (ls.ids == j)
+                if m.any():
+                    n1[(str(f), str(st))] = (3 * int(m.sum()), int(s[m].sum()))
+        return n1, {c: g[c].astype(np.int64) for c in ints}
+
+    parts = parallel_chunks(n, 1 << 22, part)
+    n1 = {}
+    for p, _ in parts:
+        for k, (c, v) in p.items():
+            c0, v0 = n1.get(k, (0, 0))
+            n1[k] = (c0 + c, v0 + v)
+    d = {c: np.concatenate([q[c] for _, q in parts]) for c in ints}
+    del parts
+    ok, ln = d["l_orderkey"], d["l_linenumber"]
+    disc, tax, ep = d["l_discount"], d["l_tax"], d["l_extendedprice"]
+    qty = d["l_quantity"]
+    # N2: the generator lays out each order's lines together, in
+    # linenumber order
+    first = np.concatenate([[True], ok[1:] != ok[:-1]])
+    check(bool((ln[first] == 1).all()), "an order's first line is not 1")
+    check(bool((ln[~first] == ln[np.flatnonzero(~first) - 1] + 1).all()),
+          "an order's lines are not in linenumber order")
+    n_orders = int(first.sum())
+    n2 = {
+        "unnest": (n, int(d["l_partkey"].sum())),
+        "cardinality": (n_orders, n, n_orders, int(np.diff(
+            np.append(np.flatnonzero(first), n)).max())),
+    }
+    # N3: the value at a rank of the sorted column (np.partition puts
+    # it in place); min_by/max_by read the first / last row, in row
+    # order, holding the least / greatest price
+    def rank(x, p):
+        k = min(max(math.ceil(p * len(x)) - 1, 0), len(x) - 1)
+        return int(np.partition(x, k)[k])
+
+    lo = int(ok[int(np.argmin(ep))])
+    hi = int(ok[n - 1 - int(np.argmax(ep[::-1]))])
+    n3 = (rank(ep, 0.5), rank(qty, 0.9), lo, hi)
+    # N4: prices are non-negative and below 2^31 unscaled, so a bincount
+    # counts each distinct one; the ORDER BY's top 100 come from the rows
+    # at or above the 100th largest value, ties included
+    n4_filter = int(((ep + tax) > N4_THRESHOLD).sum())
+    counts = np.bincount(ep)
+    up = np.flatnonzero(counts)
+    top = np.lexsort((up, -counts[up]))[:100]
+    n4_group = [(int(up[i]), int(counts[up[i]])) for i in top]
+    v = ep - disc
+    cut = np.partition(v, n - 100)[n - 100]
+    cand = np.flatnonzero(v >= cut)
+    top = cand[np.lexsort((ln[cand], ok[cand], -v[cand]))][:100]
+    n4_order = [(int(ok[i]), int(ln[i]), int(v[i])) for i in top]
+    return n, n1, n2, n3, (n4_filter, n4_group, n4_order)
+
+
+def numpy_n2_orders(schema: str):
+    """{custkey: [orderkeys in row order]} over ``schema``'s orders."""
+    import numpy as np
+
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+
+    gen = TpchGenerator(SCHEMAS[schema])
+    o = gen.generate("orders", 0, gen.counts["orders"],
+                     ["o_orderkey", "o_custkey"])
+    ck, okeys = o["o_custkey"].astype(np.int64), o["o_orderkey"]
+    order = np.argsort(ck, kind="stable")
+    ck, okeys = ck[order], okeys[order].astype(np.int64)
+    starts = np.flatnonzero(np.concatenate([[True], ck[1:] != ck[:-1]]))
+    ends = np.append(starts[1:], len(ck))
+    return {int(ck[s]): okeys[s:e].tolist() for s, e in zip(starts, ends)}
+
+
+def n5_values(rows: int):
+    """N5's table as Python values, from numpy with a fixed seed: ids,
+    bigint arrays of 0..8 elements (about 10 % NULL rows), arrays over
+    a 16-word vocabulary, maps of 0..4 of those words to bigints (some
+    NULL values), and row(x bigint, y double) with NULL fields."""
+    import numpy as np
+
+    rng = np.random.default_rng(N5_SEED)
+
+    def lists(lens, flat):
+        ends = np.cumsum(lens).tolist()
+        return [flat[e - n: e] for n, e in zip(lens.tolist(), ends)]
+
+    lens = rng.integers(0, 9, rows)
+    arr = lists(lens, rng.integers(0, 1000, int(lens.sum())).tolist())
+    arr = [None if z else a
+           for a, z in zip(arr, (rng.random(rows) < 0.1).tolist())]
+    tlens = rng.integers(0, 4, rows)
+    tags = lists(tlens, np.asarray(N5_WORDS, object)[
+        rng.integers(0, 16, int(tlens.sum()))].tolist())
+    mlens = rng.integers(0, 5, rows)
+    keys = np.argsort(rng.random((rows, 16)), axis=1)[:, :4]
+    vals = rng.integers(-100, 100, (rows, 4)).tolist()
+    vnull = (rng.random((rows, 4)) < 0.1).tolist()
+    m = [
+        {N5_WORDS[k]: (None if vn[j] else vs[j])
+         for j, k in enumerate(ks[:ml])}
+        for ks, vs, vn, ml in zip(keys.tolist(), vals, vnull, mlens.tolist())
+    ]
+    xs = rng.integers(-50, 50, rows).tolist()
+    ys = (rng.standard_normal(rows) * 10).tolist()
+    xnull = (rng.random(rows) < 0.1).tolist()
+    ynull = (rng.random(rows) < 0.1).tolist()
+    rnull = (rng.random(rows) < 0.05).tolist()
+    r = [
+        None if rn else {"x": None if xn else x, "y": None if yn else y}
+        for x, y, xn, yn, rn in zip(xs, ys, xnull, ynull, rnull)
+    ]
+    return {"id": list(range(rows)), "arr": arr, "tags": tags, "m": m,
+            "r": r}
+
+
+def python_n5(v):
+    """N5's answers in plain Python over the same lists (SQL semantics:
+    NULL rows skip, an out-of-range subscript is NULL)."""
+    import collections
+
+    arrs = [a for a in v["arr"] if a is not None]
+    def opt_sum(xs):
+        xs = [x for x in xs if x is not None]
+        return sum(xs) if xs else None
+
+    out = {"N5 arrays": [(len(v["id"]), opt_sum(len(a) for a in arrs),
+                          opt_sum(a[0] for a in arrs if a),
+                          opt_sum(a[1] for a in arrs if len(a) > 1),
+                          opt_sum(a[-1] for a in arrs if a))]}
+    maps = [m for m in v["m"] if m is not None]
+    out["N5 maps"] = [(len(v["id"]), opt_sum(m.get("w03") for m in maps),
+                       opt_sum(len(m) for m in maps),
+                       sum(1 for m in maps if m.get("w11") is not None))]
+    rows = [r for r in v["r"] if r is not None and r["x"] is not None
+            and r["x"] > 0]
+    out["N5 rows"] = [(len(rows), opt_sum(r["x"] for r in rows),
+                       opt_sum(r["y"] for r in rows))]
+    cnt, ids = collections.Counter(), collections.Counter()
+    for i, a in zip(v["id"], v["arr"]):
+        for e in a or ():
+            cnt[e] += 1
+            ids[e] += i
+    out["N5 unnest group"] = [(e, cnt[e], ids[e]) for e in sorted(cnt)]
+    tc = collections.Counter(t for ts in v["tags"] for t in ts)
+    out["N5 unnest tags"] = [(t, tc[t]) for t in sorted(tc)]
+    out["N5 materialized"] = [
+        (i, v["arr"][i], v["tags"][i], v["m"][i], v["r"][i])
+        for i in v["id"] if i % 65536 == 7
+    ]
+    return out
+
+
+def same_rows(got, want, rel: float = 0.0) -> bool:
+    """Row lists equal, doubles within ``rel`` (0: exactly)."""
+    def same(a, b):
+        if isinstance(a, float) and isinstance(b, float):
+            return a == b or abs(a - b) <= rel * max(abs(a), abs(b))
+        if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        if isinstance(a, dict) and isinstance(b, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        return a == b
+    return len(got) == len(want) and all(map(same, got, want))
+
+
+def nested_phase(card: str, dev=None, records=None):
+    """The seventh slice's path on ``dev`` (the card unless a CPU
+    rehearsal passes another): N1-N4 over SF10 lineitem in the joins
+    phase's session, N1 again streamed in the stream phase's default
+    session, N2's materialized arrays over SF1 orders, and N5 over a
+    memory table of nested columns against Python and the CPU runner.
+    Every query runs cold then twice warm (bit-identical). With
+    ``records`` (on the card), N1's one-hot reduction is held against its
+    plain version at N1's own inputs, the expanded page. Returns (the
+    onehot_reduce launches of the counted runs, the records)."""
+    import decimal
+
+    import torch
+
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.connectors import create_connector
+    from presto_tpu_torch.connectors.spi import TableHandle
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.exec.staging import CatalogManager, obj_array
+    from presto_tpu_torch.ops import aggregation as PA
+    from presto_tpu_torch.session import Session
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    out, launches = [], 0
+    phase_t0 = time.perf_counter()
+
+    t0 = time.perf_counter()
+    n_li, want1, want2, want3, want4 = numpy_nested(NESTED_SF10)
+    print(f"numpy evaluation of N1-N4 at {NESTED_SF10} ({n_li} lineitem "
+          f"rows): {time.perf_counter() - t0:.2f} s", flush=True)
+    runner = LocalQueryRunner(
+        device=dev,
+        session=Session(schema=NESTED_SF10, properties={
+            "max_device_rows": JOINS_MAX_DEVICE_ROWS}),
+        staging_cache_bytes=cache_budget(dev),
+    )
+
+    def run(name, sql, scanned=None):
+        nonlocal launches
+        res, rec = run_three(runner, f"{name} {NESTED_SF10}", sql, dev, card,
+                             scanned)
+        launches += sum(rec["onehot_reduce_launches"])
+        out.append(rec)
+        return res, rec
+
+    # N1: a static UNNEST into the one-hot GROUP BY, one K1 launch a run
+    res, rec = run("N1 unnest into one-hot group by", N1, n_li)
+    want = [1] * 3 if on_card else [0] * 3
+    check(rec["onehot_reduce_launches"] == want,
+          f"N1 made {rec['onehot_reduce_launches']} onehot_reduce launches "
+          f"per run, expected {want}")
+    got1 = {(f, s): (n, v) for f, s, n, v in result_rows(
+        res, ("l_returnflag", "l_linestatus", "n", "s"))}
+    check(got1 == want1, f"N1 {got1} != numpy {want1}")
+    n1_whole = res
+    expanded = 3 * bucket_of(n_li)
+    print(f"N1: {sum(n for n, _ in got1.values())} expanded rows in a "
+          f"{expanded}-row page equal numpy's [{card}]", flush=True)
+    if records is not None and on_card:
+        # the one-hot reduction at N1's own inputs (a run not counted)
+        seen = []
+        real = PA.onehot_reduce_many
+
+        def spy(gid, requests, nseg):
+            seen.append((gid, list(requests), nseg))
+            return real(gid, requests, nseg)
+
+        PA.onehot_reduce_many = spy
+        try:
+            runner.execute(N1)
+        finally:
+            PA.onehot_reduce_many = real
+        check(len(seen) == 1 and seen[0][0].numel() == expanded,
+              "N1 made no single one-hot call over its expanded page")
+        records.append(fused_case("n1 fused", *seen[0], card))
+        del seen
+
+    # N2: array_agg and the array-column UNNEST
+    res, _ = run("N2 array_agg then unnest", N2_UNNEST, n_li)
+    got = result_rows(res, ("n", "s"))
+    check(got == [want2["unnest"]], f"N2 {got} != {want2['unnest']}")
+    res, _ = run("N2 array_agg cardinality", N2_CARDINALITY, n_li)
+    got = result_rows(res, ("n", "c", "f", "m"))
+    check(got == [want2["cardinality"]],
+          f"N2 cardinality {got} != {want2['cardinality']}")
+    want_orders = numpy_n2_orders(NESTED_SF1)
+    res, rec = run("N2 materialized arrays",
+                   N2_ORDERS.format(sf1=NESTED_SF1))
+    got = dict(res.rows())
+    check(got == want_orders,
+          f"N2 materialized: {len(got)} customers, numpy "
+          f"{len(want_orders)}, or an array differs")
+    print(f"N2: {len(got)} customers' arrays of "
+          f"{sum(map(len, got.values()))} orderkeys equal numpy's "
+          f"[{card}]", flush=True)
+
+    # N3: global order statistics
+    res, _ = run("N3 global order statistics", N3, n_li)
+    got = result_rows(res, ("p50", "q90", "lo", "hi"))
+    check(got == [want3], f"N3 {got} != numpy {want3}")
+
+    # N4: long decimals
+    n4_filter, n4_group, n4_order = want4
+    res, _ = run("N4 long-decimal filter", N4_FILTER, n_li)
+    check(result_rows(res, ("n",)) == [(n4_filter,)],
+          f"N4 filter {result_rows(res, ('n',))} != {n4_filter}")
+
+    def unscaled(x):
+        return int(x.scaleb(2))
+
+    res, _ = run("N4 long-decimal group by", N4_GROUP, n_li)
+    got = [(unscaled(p), n) for p, n in res.rows()]
+    check(got == n4_group, "N4 group by: not numpy's top 100")
+    res, _ = run("N4 long-decimal order by", N4_ORDER, n_li)
+    got = [(k, ln, unscaled(v)) for k, ln, v in res.rows()]
+    check(got == n4_order, "N4 order by: not numpy's top 100")
+    check(all(isinstance(v, decimal.Decimal) for *_, v in res.rows()),
+          "N4: long decimals must come out as decimal.Decimal")
+    del runner
+
+    # N1 streamed in the stream phase's default session
+    runner = LocalQueryRunner(device=dev, session=Session(
+        schema=NESTED_SF10, properties=STREAM_SF10_PROPS),
+        staging_cache_bytes=cache_budget(dev))
+    batch = int(runner.session.get("page_capacity"))
+    calls = []
+    real = PA.onehot_reduce_many
+
+    def record(gid, requests, nseg):
+        calls.append(len(requests))
+        return real(gid, requests, nseg)
+
+    runs = []
+    for label in ("cold", "warm", "warm"):
+        calls.clear()
+        PA.onehot_reduce_many = record
+        try:
+            res, rec = stream_run(runner, N1, dev,
+                                  f"N1 stream {label} {NESTED_SF10}", card,
+                                  n_li, -(-n_li // batch))
+        finally:
+            PA.onehot_reduce_many = real
+        check(len(calls) == rec["batches"] + rec["buckets"],
+              f"N1 stream: {len(calls)} one-hot calls, expected one per "
+              f"batch and per bucket merge")
+        want = sum(-(-k // PA.K_MAX) for k in calls) if on_card else 0
+        check(rec["onehot_reduce_launches"] == want,
+              f"N1 stream: {rec['onehot_reduce_launches']} launches, "
+              f"expected {want}")
+        launches += rec["onehot_reduce_launches"]
+        out.append(rec)
+        runs.append(res)
+    for other in runs[1:] + [n1_whole]:
+        diff = results_differ(runs[0], other)
+        check(diff is None, f"N1 stream: runs differ ({diff})")
+    print("N1 streamed: three runs bit-identical to the whole-table run",
+          flush=True)
+    del runner, runs
+
+    # N5: maps, rows and arrays from the memory connector
+    t0 = time.perf_counter()
+    values = n5_values(N5_ROWS)
+    want5 = python_n5(values)
+    python_s = time.perf_counter() - t0
+    types = {"id": T.BIGINT, "arr": T.array(T.BIGINT),
+             "tags": T.array(T.VARCHAR), "m": T.map_(T.VARCHAR, T.BIGINT),
+             "r": T.row(("x", T.BIGINT), ("y", T.DOUBLE))}
+
+    def mem_runner(device):
+        catalogs = CatalogManager()
+        mem = create_connector("memory")
+        catalogs.register("mem", mem)
+        h = TableHandle("mem", "n5", "t")
+        mem.create_table(h, types)
+        mem.append_rows(h, {c: obj_array(v) for c, v in values.items()})
+        return LocalQueryRunner(catalogs=catalogs, device=device)
+
+    card_runner, cpu_runner = mem_runner(dev), mem_runner("cpu")
+    print(f"N5: {N5_ROWS} rows made and evaluated in Python in "
+          f"{python_s:.2f} s", flush=True)
+    for name, sql in N5_QUERIES.items():
+        res, rec = run_three(card_runner, name, sql, dev, card, N5_ROWS)
+        launches += sum(rec["onehot_reduce_launches"])
+        if name == "N5 arrays":
+            staging_ms = card_runner.history.snapshot()[0].staging_ms
+            rec["staging_s"] = staging_ms / 1e3
+            print(f"N5 staging from object arrays: {staging_ms / 1e3:.2f} s "
+                  f"[{card}]", flush=True)
+        out.append(rec)
+        got = res.rows()
+        cpu = cpu_runner.execute(sql).rows()
+        check(same_rows(got, want5[name], 1e-9),
+              f"{name}: {str(got)[:300]} != Python {str(want5[name])[:300]}")
+        check(same_rows(got, cpu, 1e-9), f"{name}: card and CPU runner differ")
+    print(f"N5: {len(N5_QUERIES)} queries equal Python and the CPU runner "
+          f"[{card}]", flush=True)
+    print(f"nested phase: {time.perf_counter() - phase_t0:.2f} s [{card}]",
+          flush=True)
+    return launches, out
+
+
+def bucket_of(n: int) -> int:
+    """The staging bucket of ``n`` rows (a power of two, at least 1024)."""
+    cap = 1024
+    while cap < n:
+        cap <<= 1
+    return cap
+
+
 def main() -> int:
     if not (ROOT / "presto_tpu_torch").is_dir():
         print(
@@ -2257,6 +2771,9 @@ def main() -> int:
     phase("cache")
     cache_launches, cache_records = cache_phase(card, baseline)
 
+    phase("nested")
+    nested_launches, nested_records = nested_phase(card, records=records)
+
     headline = next(r for r in records if r["label"] == "q1 fused")
     kernels_line = {
         "kernels": [
@@ -2267,7 +2784,8 @@ def main() -> int:
                 "replaces": "tools/pallas_groupby.py:96",
                 "launches": (counts["onehot_reduce"] + joins_launches
                              + rest_launches + stream_launches
-                             + tpcds_launches + cache_launches),
+                             + tpcds_launches + cache_launches
+                             + nested_launches),
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
@@ -2286,6 +2804,8 @@ def main() -> int:
                       "tpcds_onehot_reduce": tpcds_launches,
                       "cache": cache_records,
                       "cache_onehot_reduce": cache_launches,
+                      "nested": nested_records,
+                      "nested_onehot_reduce": nested_launches,
                       "native": status, "card": card}))
     print(json.dumps(kernels_line))
     print(

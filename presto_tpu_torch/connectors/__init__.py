@@ -1,7 +1,9 @@
-"""Connector SPI + the built-in ``tpch`` and ``tpcds`` connectors.
+"""Connector SPI + the built-in ``tpch``, ``tpcds`` and ``memory``
+connectors.
 
-The SPI and the tpch and tpcds generators are copies of the reference's
-(``presto_tpu/connectors``); the other connectors come in later slices.
+The SPI, the tpch and tpcds generators and the memory connector are
+copies of the reference's (``presto_tpu/connectors``); the other
+connectors come in later slices.
 """
 
 from presto_tpu_torch.connectors.spi import (  # noqa: F401
@@ -11,12 +13,14 @@ from presto_tpu_torch.connectors.spi import (  # noqa: F401
     SplitSource,
     TableHandle,
 )
+from presto_tpu_torch.connectors.memory import MemoryConnector  # noqa: F401
 from presto_tpu_torch.connectors.tpcds import TpcdsConnector  # noqa: F401
 from presto_tpu_torch.connectors.tpch import TpchConnector  # noqa: F401
 
 CONNECTOR_FACTORIES = {
     "tpch": TpchConnector,
     "tpcds": TpcdsConnector,
+    "memory": MemoryConnector,
 }
 
 

@@ -2,8 +2,10 @@
 
 A copy of ``presto_tpu/exec/host_ops.py``: the same peel and the same
 numpy sort/limit/output, with one batched copy of the result's prefix
-tensors (``page.to_host``) in place of ``jax.device_get``. Array/map/row
-columns are not ported yet.
+tensors (``page.to_host``) in place of ``jax.device_get``. A nested
+(array/map/row) column does not become Python objects here: the host
+stage carries its row numbers through the sort and limit, and gathers
+the block once at the end (``page.gather_block``).
 
 
 Reference parity: the single-partition ROOT STAGE — presto executes the
@@ -34,7 +36,7 @@ import torch
 
 from presto_tpu_torch import types as T
 from presto_tpu_torch.expr import ColumnRef
-from presto_tpu_torch.page import Block, Page, to_host
+from presto_tpu_torch.page import Block, Page, gather_block, to_host
 from presto_tpu_torch.plan import nodes as N
 
 
@@ -99,16 +101,30 @@ def apply_host_ops(
     entirely in numpy; returns a dense result page on the CPU.
     ``rows_out``, when given, records the row count after each applied
     op (innermost first)."""
-    # one read of the live count, then ONE copy of the n-row prefixes
+    # one read of the live count, then ONE copy of the n-row prefixes of
+    # the flat columns and the validity of the nested ones
     n = int(page.num_valid)
-    fetched = [t.numpy() for t in to_host(page.prefix_leaves(n))]
-    cols = {}  # name -> (np_data, np_valid, dtype, dictionary)
+    leaves = []
+    for blk in page.blocks:
+        if not blk.dtype.is_nested:
+            leaves.append(blk.data[:n])
+        if blk.valid is not None:
+            leaves.append(blk.valid[:n])
+    fetched = [t.numpy() for t in to_host(leaves)]
+    # name -> (np_data, np_valid, dtype, dictionary); a nested column's
+    # np_data is its row numbers and its "dictionary" the block itself
+    cols = {}
     i = 0
     for name, blk in zip(page.names, page.blocks):
         if blk.dtype.is_nested:
-            raise NotImplementedError(
-                f"{blk.dtype} columns at the root stage: later slice"
-            )
+            data = np.arange(n, dtype=np.int64)
+            if blk.valid is not None:
+                valid = fetched[i]
+                i += 1
+            else:
+                valid = np.ones(n, dtype=bool)
+            cols[name] = (data, valid, blk.dtype, blk)
+            continue
         data = fetched[i]
         i += 1
         if blk.valid is not None:
@@ -145,6 +161,13 @@ def apply_host_ops(
     blocks = []
     names = []
     for name, (d, v, t, dic) in cols.items():
+        if t.is_nested:
+            sel = torch.zeros((cap,), dtype=torch.int64)
+            sel[:n] = torch.from_numpy(d)
+            sel = sel.to(dic.data.device)
+            blocks.append(gather_block(dic, sel, n))
+            names.append(name)
+            continue
         pad = cap - len(d)
         if pad:
             # long-decimal columns are (n, 2) limb pairs — pad rows only

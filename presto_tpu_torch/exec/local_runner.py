@@ -72,6 +72,8 @@ from presto_tpu_torch.ops import (
     order_by,
     project,
     union_all,
+    unnest,
+    unnest_column,
     window,
 )
 from presto_tpu_torch.ops.join import cross_join
@@ -911,21 +913,56 @@ def materialize_page(page: Page, n: int) -> Page:
     power-of-two bucket. The result page holds CPU tensors."""
     cap = bucket_capacity(n)
     fetched = iter(to_host(page.prefix_leaves(n)))
-    blocks = []
-    for blk in page.blocks:
-        data = torch.zeros(
-            (cap,) + tuple(blk.data.shape[1:]), dtype=blk.data.dtype
-        )
-        data[:n] = next(fetched)
-        valid = None
-        if blk.valid is not None:
-            valid = torch.zeros((cap,), dtype=torch.bool)
-            valid[:n] = next(fetched)
-        blocks.append(dataclasses.replace(blk, data=data, valid=valid))
+    blocks = [_host_block(blk, fetched, n, cap) for blk in page.blocks]
     return Page(
         blocks=tuple(blocks),
         num_valid=torch.tensor(n, dtype=torch.int32),
         names=page.names,
+    )
+
+
+def _host_block(blk: Block, fetched, n: int, cap: int) -> Block:
+    """One block of a materialized page, rebuilt from its fetched
+    prefix leaves (``Page.prefix_leaves`` order) and re-padded to
+    ``cap`` rows; an array or map block's offsets edge-pad (padding rows
+    read as empty) and its flat values keep their fetched capacity."""
+
+    def rows(t: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype)
+        out[:n] = t
+        return out
+
+    offsets = None
+    if blk.offsets is not None:
+        offsets = torch.empty((cap + 1,), dtype=torch.int32)
+        offsets[: n + 1] = next(fetched)
+        offsets[n + 1:] = offsets[n]
+    children = None
+    if blk.dtype.is_map:
+        children = []
+        for ch in blk.children:
+            data = next(fetched)
+            valid = None if ch.valid is None else next(fetched)
+            children.append(dataclasses.replace(ch, data=data, valid=valid))
+        data = Block.placeholder_data(cap, "cpu")
+    elif blk.dtype.is_row:
+        children = []
+        for ch in blk.children:
+            data = rows(next(fetched))
+            valid = None if ch.valid is None else rows(next(fetched))
+            children.append(dataclasses.replace(ch, data=data, valid=valid))
+        data = Block.placeholder_data(cap, "cpu")
+    elif blk.offsets is not None:
+        data = next(fetched)
+    else:
+        data = rows(next(fetched))
+    valid = None if blk.valid is None else rows(next(fetched))
+    return dataclasses.replace(
+        blk,
+        data=data,
+        valid=valid,
+        offsets=offsets,
+        children=None if children is None else tuple(children),
     )
 
 
@@ -1045,6 +1082,27 @@ def _execute_node(node: N.PlanNode, ctx: _ExecContext) -> Page:
         return window(
             run(node.source), node.partition_by, node.order_by, node.calls
         )
+    if isinstance(node, N.UnnestNode):
+        if node.array_column is not None:
+            # exact-capacity expansion of a physical array column: an
+            # overflow re-runs at a bigger bucket like any capacity
+            out, overflow = unnest_column(
+                run(node.source),
+                node.array_column,
+                node.out_name,
+                node.out_type,
+                node.ordinality_name,
+                node.out_capacity,
+            )
+            ctx.flags.append(overflow)
+            return out
+        return unnest(
+            run(node.source),
+            node.elements,
+            node.out_name,
+            node.out_type,
+            node.ordinality_name,
+        )
     if isinstance(node, N.UnionAllNode):
         return union_all([run(s) for s in node.sources])
     if isinstance(node, N.OutputNode):
@@ -1067,7 +1125,14 @@ def cross_join_single_row(left: Page, right: Page) -> Page:
     blocks = list(left.blocks)
     names = list(left.names)
     for bname, blk in zip(right.names, right.blocks):
-        data = torch.broadcast_to(blk.data[0], (left.capacity,))
+        if blk.dtype.is_nested:
+            raise NotImplementedError(
+                f"nested column {bname} ({blk.dtype}) cannot ride "
+                "through a single-row cross join"
+            )
+        data = torch.broadcast_to(
+            blk.data[0], (left.capacity,) + tuple(blk.data.shape[1:])
+        )
         valid = None
         if blk.valid is not None:
             valid = torch.broadcast_to(blk.valid[0], (left.capacity,))

@@ -8,7 +8,10 @@ payloads (see ``connectors.spi.Connector.create_page_source``):
 - ``MaskedColumn`` (native data + validity) -> copy with a null mask
 - ``DictColumn`` (pre-encoded ids + sorted dictionary) -> ids copied,
   dictionary kept host-side
-- object numpy array of Python values (None = NULL) -> logical ingest
+- ``ArrayColumn`` (int32 offsets over flat values) -> an array block
+  whose value axis is bucketed like the row axis
+- object numpy array of Python values (None = NULL; lists, dicts and
+  row dicts for nested types) -> logical ingest
 
 Capacities round up to power-of-two buckets (min 1024), so every table
 of similar size presents the same shapes to the operators.
@@ -52,6 +55,64 @@ MIN_BUCKET = 1 << 10
 #: (its tier-1 key ``staging.cache-bytes``); a runner takes another
 #: through ``staging_cache_bytes``
 DEFAULT_CACHE_BYTES = 4 << 30
+
+
+@dataclasses.dataclass
+class ArrayColumn:
+    """Array-column staging payload: int32 offsets (n+1) over flat
+    values (+ optional per-ROW validity and element dictionary values):
+    the host twin of ``Block.offsets``."""
+
+    offsets: np.ndarray
+    values: np.ndarray
+    valid: Optional[np.ndarray] = None
+    dict_values: Optional[tuple] = None
+
+    def __len__(self) -> int:
+        return max(len(self.offsets) - 1, 0)
+
+    def __getitem__(self, sl: slice) -> "ArrayColumn":
+        """Row slice: offsets rebase to the slice."""
+        lo = sl.start or 0
+        n = len(self)
+        hi = min(sl.stop if sl.stop is not None else n, n)
+        off = np.asarray(self.offsets[lo: hi + 1], np.int32)
+        base = int(off[0]) if len(off) else 0
+        end = int(off[-1]) if len(off) else base
+        return ArrayColumn(
+            offsets=off - base,
+            values=np.asarray(self.values)[base:end],
+            valid=None if self.valid is None else self.valid[lo:hi],
+            dict_values=self.dict_values,
+        )
+
+    def take(self, idx: np.ndarray) -> "ArrayColumn":
+        """Rows ``idx`` (int positions), vectorised: one gather index
+        built from the rows' lengths, their cumsum and ``np.repeat``."""
+        off = np.asarray(self.offsets, np.int64)
+        idx = np.asarray(idx, np.int64)
+        lens = off[1:][idx] - off[:-1][idx]
+        new_off = np.zeros(len(idx) + 1, np.int32)
+        np.cumsum(lens, out=new_off[1:])
+        total = int(new_off[-1])
+        src = np.repeat(off[:-1][idx] - new_off[:-1], lens) + np.arange(
+            total, dtype=np.int64
+        )
+        return ArrayColumn(
+            offsets=new_off,
+            values=np.asarray(self.values)[src],
+            valid=None if self.valid is None else np.asarray(self.valid)[idx],
+            dict_values=self.dict_values,
+        )
+
+
+def obj_array(values) -> np.ndarray:
+    """Element-wise object ndarray (``np.asarray`` would collapse
+    equal-length list values, array columns, into a 2-D array)."""
+    arr = np.empty(len(values), dtype=object)
+    for i, v in enumerate(values):
+        arr[i] = v
+    return arr
 
 
 @dataclasses.dataclass
@@ -125,11 +186,9 @@ def stage_page(
     for name in names:
         t = schema[name]
         v = data[name]
-        if t.is_nested:
-            raise NotImplementedError(
-                f"staging {t} columns: later slice of the port"
-            )
-        if isinstance(v, MaskedColumn):
+        if isinstance(v, ArrayColumn):
+            blocks.append(_stage_array(v, t, cap, device))
+        elif isinstance(v, MaskedColumn):
             arr = v.data.astype(t.np_dtype, copy=False)
             blocks.append(
                 Block(
@@ -172,6 +231,65 @@ def stage_page(
     )
 
 
+def _stage_array(
+    col: ArrayColumn, t: T.DataType, cap: int, device
+) -> Block:
+    """An ArrayColumn -> an array block: offsets edge-padded to ``cap``
+    rows (padding rows are empty), the values padded to their own
+    power-of-two bucket."""
+    off = np.asarray(col.offsets, np.int32)
+    offsets = np.full(cap + 1, off[-1] if len(off) else 0, np.int32)
+    offsets[: len(off)] = off
+    valid = None
+    if col.valid is not None:
+        valid = _to_device(_padded(np.asarray(col.valid, bool), cap, bool), device)
+    vals = np.asarray(col.values, t.element.np_dtype)
+    return Block(
+        data=_to_device(
+            _padded(vals, bucket_capacity(len(vals)), t.element.np_dtype),
+            device,
+        ),
+        valid=valid,
+        dtype=t,
+        dictionary=(
+            dictionary_of(col.dict_values)
+            if col.dict_values is not None
+            else None
+        ),
+        offsets=_to_device(offsets, device),
+    )
+
+
+def block_tensors(blk: Block) -> List[torch.Tensor]:
+    """Every tensor of a block, children included, in a fixed order:
+    data, valid?, offsets?, then each child's (``rebuild_block`` reads
+    them back in the same order)."""
+    out = [blk.data]
+    if blk.valid is not None:
+        out.append(blk.valid)
+    if blk.offsets is not None:
+        out.append(blk.offsets)
+    for ch in blk.children or ():
+        out.extend(block_tensors(ch))
+    return out
+
+
+def rebuild_block(blk: Block, it) -> Block:
+    """``blk`` with its tensors taken, in ``block_tensors`` order, from
+    the iterator ``it``."""
+    data = next(it)
+    valid = None if blk.valid is None else next(it)
+    offsets = None if blk.offsets is None else next(it)
+    children = (
+        None
+        if blk.children is None
+        else tuple(rebuild_block(ch, it) for ch in blk.children)
+    )
+    return dataclasses.replace(
+        blk, data=data, valid=valid, offsets=offsets, children=children
+    )
+
+
 def merge_column_chunks(parts: List[object], dtype=None):
     """Concatenate one column's per-split payload chunks: a
     single-column view over ``server.pages_wire.merge_payloads`` (union
@@ -188,10 +306,10 @@ def merge_column_chunks(parts: List[object], dtype=None):
 
 
 def page_nbytes(page: Page) -> int:
-    """Bytes a staged page's data and validity tensors hold."""
+    """Bytes a staged page's tensors hold (data, validity, offsets,
+    children)."""
     return sum(
-        int(b.data.nbytes) + (0 if b.valid is None else int(b.valid.nbytes))
-        for b in page.blocks
+        int(t.nbytes) for b in page.blocks for t in block_tensors(b)
     )
 
 
@@ -207,13 +325,7 @@ class HostPage:
 def _page_tensors(page: Page) -> List[torch.Tensor]:
     out = [page.num_valid]
     for blk in page.blocks:
-        if blk.dtype.is_nested:
-            raise NotImplementedError(
-                f"spilling {blk.dtype} blocks: later slice of the port"
-            )
-        out.append(blk.data)
-        if blk.valid is not None:
-            out.append(blk.valid)
+        out.extend(block_tensors(blk))
     if page.live is not None:
         out.append(page.live)
     return out
@@ -222,11 +334,7 @@ def _page_tensors(page: Page) -> List[torch.Tensor]:
 def _rebuild(page: Page, tensors: List[torch.Tensor]) -> Page:
     it = iter(tensors)
     num_valid = next(it)
-    blocks = []
-    for blk in page.blocks:
-        data = next(it)
-        valid = None if blk.valid is None else next(it)
-        blocks.append(dataclasses.replace(blk, data=data, valid=valid))
+    blocks = [rebuild_block(blk, it) for blk in page.blocks]
     live = None if page.live is None else next(it)
     return Page(
         blocks=tuple(blocks), num_valid=num_valid, names=page.names,

@@ -45,6 +45,7 @@ import numpy as np
 
 from presto_tpu_torch.connectors.tpch import DictColumn
 from presto_tpu_torch.exec.staging import (
+    ArrayColumn,
     MaskedColumn,
     bucket_capacity,
     prefetch_iter,
@@ -608,7 +609,9 @@ def _page_to_payload(page) -> Tuple[Dict, Dict, int]:
     schema: Dict = {}
     for name, data, valid, dtype, dict_values in cols:
         schema[name] = dtype
-        if valid is not None:
+        if isinstance(data, ArrayColumn):
+            payload[name] = data
+        elif valid is not None:
             payload[name] = MaskedColumn(data=data, valid=valid, values=dict_values)
         elif dict_values is not None:
             payload[name] = DictColumn(
@@ -656,6 +659,8 @@ def _col_hash_input(col, nrows: int) -> np.ndarray:
     """uint64 image of a column for bucket hashing. Dictionary ids map
     through a per-VALUE crc, so the hash is stable across batches whose
     dictionaries differ; NULLs hash to 0 (one bucket)."""
+    if isinstance(col, ArrayColumn):
+        raise NotImplementedError("array columns cannot be bucket-hash keys")
     if isinstance(col, MaskedColumn):
         base = _col_hash_input(
             DictColumn(ids=np.asarray(col.data, np.int64), values=col.values)
@@ -694,7 +699,9 @@ def _bucket_of(payload, key_names, nrows, n_buckets) -> np.ndarray:
 
 
 def _take(col, idx: np.ndarray):
-    """Rows ``idx`` of one payload column."""
+    """Rows ``idx`` (int positions or a slice) of one payload column."""
+    if isinstance(col, ArrayColumn):
+        return col[idx] if isinstance(idx, slice) else col.take(idx)
     if isinstance(col, MaskedColumn):
         return MaskedColumn(
             data=np.asarray(col.data)[idx],
@@ -716,7 +723,11 @@ def _slice_payload(payload, schema, mask) -> Dict:
 def _payload_nbytes(payload) -> int:
     total = 0
     for col in payload.values():
-        if isinstance(col, MaskedColumn):
+        if isinstance(col, ArrayColumn):
+            total += col.offsets.nbytes + col.values.nbytes + (
+                0 if col.valid is None else col.valid.nbytes
+            )
+        elif isinstance(col, MaskedColumn):
             total += col.data.nbytes + col.valid.nbytes
         elif isinstance(col, DictColumn):
             total += col.ids.nbytes

@@ -22,10 +22,12 @@ IntToDict: a host LUT over the dictionary, gathered on the device), the
 civil-calendar date functions (EXTRACT, date_trunc, date_add), scalar
 math and ValueHash, and RuntimeParam (a plan-cache slot: it evaluates
 exactly as its bound Literal, read from ``plan/canonical.py``'s active
-parameter vector). Nodes over array/map/row columns and long decimals
-(int128 limb pairs) are not ported yet: they raise
-``NotImplementedError`` with their names; none is evaluated
-approximately.
+parameter vector), the nested lowerings (cardinality, array and map
+subscripts, row field access over physical array/map/row columns) and
+long decimals: (capacity, 2) int128 limb pairs (``int128.py``) through
+literals, negate, + and -, * by a small integer literal, compares,
+CASE/COALESCE and the casts; / and mixed double arithmetic go through
+float64, as in the reference.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from presto_tpu_torch import int128
 from presto_tpu_torch import types as T
 from presto_tpu_torch.page import Page
 
@@ -949,9 +952,10 @@ def lut_to_device(lut: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _long_unsupported():
+def _long_math_unsupported():
     return NotImplementedError(
-        "long decimals (int128 limb pairs): later slice of the port"
+        "math functions over long decimals: cast to "
+        "decimal(18,s) or double first (documented deviation)"
     )
 
 
@@ -1005,6 +1009,14 @@ class ExprLowerer:
         if isinstance(expr, Literal):
             vals = [] if expr.value is None else [str(expr.value)]
             return Dictionary(np.asarray(vals, object))
+        if isinstance(expr, ArraySubscript):
+            # elements share the array block's dictionary
+            return self._array_block(expr.arg).dictionary
+        if isinstance(expr, MapSubscript):
+            return self._map_block(expr.arg).children[1].dictionary
+        if isinstance(expr, RowFieldAccess):
+            blk = self.page.block(expr.arg.name)
+            return blk.children[blk.dtype.field_index(expr.field)].dictionary
         raise NotImplementedError(
             f"no dictionary for string expression {type(expr).__name__}"
         )
@@ -1077,13 +1089,21 @@ class ExprLowerer:
         return blk.data, blk.valid
 
     def _eval_literal(self, e: Literal):
-        if e.dtype.is_long_decimal:
-            raise _long_unsupported()
         if e.value is None:
+            shape = (self.page.capacity,) + (
+                (2,) if e.dtype.is_long_decimal else ()
+            )
             return (
-                self._zeros(e.dtype.torch_dtype),
+                torch.zeros(shape, dtype=e.dtype.torch_dtype, device=self.device),
                 self._zeros(torch.bool),
             )
+        if e.dtype.is_long_decimal:
+            # a (1, 2) limb row: broadcasts against (cap, 2) columns
+            hi, lo = (int(x) for x in T.int128_limbs([e.value])[0])
+            return int128.join(
+                torch.full((1,), hi, dtype=torch.int64, device=self.device),
+                torch.full((1,), lo, dtype=torch.int64, device=self.device),
+            ), None
         if e.dtype.is_string:
             # one-entry dictionary, all ids 0 (dictionary_of pairs it)
             return self._zeros(torch.int32), None
@@ -1104,7 +1124,7 @@ class ExprLowerer:
         valid = _and_valid(lv, rv)
         lt, rt = e.left.dtype, e.right.dtype
         if lt.is_long_decimal or rt.is_long_decimal:
-            raise _long_unsupported()
+            return self._long_decimal_arith(e, ld, rd, valid)
         if e.op == "/" and (lt.is_decimal or rt.is_decimal):
             ls = 10.0 ** -(lt.scale if lt.is_decimal else 0)
             rs = 10.0 ** -(rt.scale if rt.is_decimal else 0)
@@ -1150,10 +1170,78 @@ class ExprLowerer:
         raise ValueError(f"unknown arithmetic op {e.op}")
 
     def _eval_negate(self, e: Negate):
-        if e.arg.dtype.is_long_decimal:
-            raise _long_unsupported()
         d, v = self.eval(e.arg)
+        if e.arg.dtype.is_long_decimal:
+            return int128.join(*int128.neg(*int128.split(d))), v
         return -d, v
+
+    # -- long decimal (int128 limb pairs; int128.py) -----------------------
+
+    def _long_limbs(self, expr: Expr, data, to_scale: int):
+        """Any numeric operand -> (hi, lo) limbs at ``to_scale``."""
+        t = expr.dtype
+        if t.is_long_decimal:
+            h, l = int128.split(data)
+            from_scale = t.scale
+        else:
+            h, l = int128.from_i64(data)
+            from_scale = t.scale if t.is_decimal else 0
+        if to_scale < from_scale:  # the planner upscales
+            raise NotImplementedError(
+                "long-decimal downscale requires int128 division"
+            )
+        return int128.mul_pow10(h, l, to_scale - from_scale)
+
+    def _long_decimal_arith(self, e: Arithmetic, ld, rd, valid):
+        lt, rt = e.left.dtype, e.right.dtype
+        if e.dtype.name in ("double", "real") or e.op == "/":
+            # long decimal op double -> double (arith() typed it so);
+            # / falls to DOUBLE like the short-decimal / (documented
+            # deviation)
+            lf = self._long_f64(e.left, ld)
+            rf = self._long_f64(e.right, rd)
+            if e.op == "+":
+                return lf + rf, valid
+            if e.op == "-":
+                return lf - rf, valid
+            if e.op == "*":
+                return lf * rf, valid
+            if e.op == "/":
+                return lf / torch.where(rf == 0, 1.0, rf), (
+                    valid
+                    if not _maybe_zero(e.right)
+                    else _and_valid(valid, rf != 0)
+                )
+        if e.op in ("+", "-"):
+            scale = e.dtype.scale
+            lh, ll = self._long_limbs(e.left, ld, scale)
+            rh, rl = self._long_limbs(e.right, rd, scale)
+            fn = int128.add if e.op == "+" else int128.sub
+            return int128.join(*fn(lh, ll, rh, rl)), valid
+        if e.op == "*" and not (lt.is_long_decimal and rt.is_long_decimal):
+            # long * small integer literal: exact via the limb multiply
+            lit = e.right if rt.is_integer else e.left
+            if (
+                isinstance(lit, Literal)
+                and lit.value is not None
+                and 0 <= int(lit.value) < (1 << 31)
+            ):
+                big = ld if lt.is_long_decimal else rd
+                h, l = int128.mul_u32(*int128.split(big), int(lit.value))
+                return int128.join(h, l), valid
+        raise NotImplementedError(
+            f"long-decimal {e.op} between {lt} and {rt} (supported: "
+            "+, -, negate, compare, / (->double), * by a small integer "
+            "literal; full 128x128 multiply is a documented deviation)"
+        )
+
+    def _long_f64(self, expr: Expr, data):
+        t = expr.dtype
+        if t.is_long_decimal:
+            return int128.to_f64(*int128.split(data)) * (10.0 ** -t.scale)
+        if t.is_decimal:
+            return data.to(torch.float64) * (10.0 ** -t.scale)
+        return data.to(torch.float64)
 
     # -- comparisons -------------------------------------------------------
 
@@ -1214,10 +1302,10 @@ class ExprLowerer:
             return self._string_literal_compare(
                 flip[e.op], e.right, e.left.value
             )
-        if lt.is_long_decimal or rt.is_long_decimal:
-            raise _long_unsupported()
         ld, lv = self.eval(e.left)
         rd, rv = self.eval(e.right)
+        if lt.is_long_decimal or rt.is_long_decimal:
+            return self._long_compare(e, ld, rd), _and_valid(lv, rv)
         if lt.is_string and rt.is_string:
             # ids compare only within ONE dictionary: re-encode both
             # sides into the sorted union when they differ
@@ -1230,6 +1318,32 @@ class ExprLowerer:
             return self._cmp(e.op, ld, rd), _and_valid(lv, rv)
         l, r, _ = _numeric_pair(e.left, e.right, ld, rd)
         return self._cmp(e.op, l, r), _and_valid(lv, rv)
+
+    def _long_compare(self, e: Compare, ld, rd):
+        lt, rt = e.left.dtype, e.right.dtype
+        if "double" in (lt.name, rt.name) or "real" in (lt.name, rt.name):
+            return self._cmp(
+                e.op, self._long_f64(e.left, ld), self._long_f64(e.right, rd)
+            )
+        scale = max(
+            lt.scale if lt.is_decimal else 0,
+            rt.scale if rt.is_decimal else 0,
+        )
+        lh, ll = self._long_limbs(e.left, ld, scale)
+        rh, rl = self._long_limbs(e.right, rd, scale)
+        if e.op == "=":
+            return int128.eq(lh, ll, rh, rl)
+        if e.op in ("<>", "!="):
+            return ~int128.eq(lh, ll, rh, rl)
+        if e.op == "<":
+            return int128.lt(lh, ll, rh, rl)
+        if e.op == "<=":
+            return ~int128.lt(rh, rl, lh, ll)
+        if e.op == ">":
+            return int128.lt(rh, rl, lh, ll)
+        if e.op == ">=":
+            return ~int128.lt(lh, ll, rh, rl)
+        raise ValueError(f"unknown comparison {e.op}")
 
     # -- boolean (Kleene three-valued) -------------------------------------
 
@@ -1321,8 +1435,6 @@ class ExprLowerer:
     def _eval_case(self, e: Case):
         if e.dtype.is_string:
             return self._eval_case_string(e)
-        if e.dtype.is_long_decimal:
-            raise _long_unsupported()
         # evaluate all branches, select first matching WHEN (SQL order)
         conds = []
         vals = []
@@ -1332,11 +1444,15 @@ class ExprLowerer:
             vd, vv = self.eval(v)
             conds.append(cd)
             vals.append((vd, vv))
+        long = e.dtype.is_long_decimal  # (cap, 2) limb branches
         if e.default is not None:
             dd, dv = self.eval(e.default)
             dd = _coerce_to(dd, e.default.dtype, e.dtype)
         else:
-            dd = self._zeros(e.dtype.torch_dtype)
+            dd = torch.zeros(
+                (self.page.capacity,) + ((2,) if long else ()),
+                dtype=e.dtype.torch_dtype, device=self.device,
+            )
             dv = self._zeros(torch.bool)
         out_d, out_v = dd, dv
         needs_valid = dv is not None or any(vv is not None for _, vv in vals)
@@ -1347,7 +1463,7 @@ class ExprLowerer:
             reversed(conds), reversed(vals), reversed(branch_types)
         ):
             vd = _coerce_to(vd, bt, e.dtype)
-            out_d = torch.where(cd, vd, out_d)
+            out_d = torch.where(cd[..., None] if long else cd, vd, out_d)
             if needs_valid:
                 branch_v = vv if vv is not None else torch.ones(
                     cd.shape, dtype=torch.bool, device=self.device
@@ -1410,8 +1526,7 @@ class ExprLowerer:
                 out_d = torch.where(out_v, out_d, d)
                 out_v = out_v | (v if v is not None else True)
             return out_d, out_v
-        if e.dtype.is_long_decimal:
-            raise _long_unsupported()
+        long = e.dtype.is_long_decimal
         out_d, out_v = self.eval(e.args[0])
         out_d = _coerce_to(out_d, e.args[0].dtype, e.dtype)
         for a in e.args[1:]:
@@ -1419,7 +1534,7 @@ class ExprLowerer:
                 return out_d, None
             d, v = self.eval(a)
             d = _coerce_to(d, a.dtype, e.dtype)
-            out_d = torch.where(out_v, out_d, d)
+            out_d = torch.where(out_v[..., None] if long else out_v, out_d, d)
             out_v = out_v | (v if v is not None else True)
         return out_d, out_v
 
@@ -1429,7 +1544,7 @@ class ExprLowerer:
         if src == dst:
             return d, v
         if src.is_long_decimal or dst.is_long_decimal:
-            raise _long_unsupported()
+            return self._cast_long(d, src, dst), v
         if dst.is_decimal:
             if src.is_decimal:
                 return _rescale(d, src.scale, dst.scale), v
@@ -1449,6 +1564,41 @@ class ExprLowerer:
             if dst.is_integer:
                 return _rescale(d, src.scale, 0).to(dst.torch_dtype), v
         return d.to(dst.torch_dtype), v
+
+    def _cast_long(self, d, src: T.DataType, dst: T.DataType):
+        """Casts in and out of the int128 limb representation."""
+        if dst.is_long_decimal:
+            if src.name in ("double", "real"):
+                raise NotImplementedError(
+                    "double -> long decimal cast (use a decimal literal)"
+                )
+            if src.is_long_decimal:
+                h, l = int128.split(d)
+                from_scale = src.scale
+            else:
+                h, l = int128.from_i64(d)
+                from_scale = src.scale if src.is_decimal else 0
+            if dst.scale < from_scale:
+                h, l = int128.div_pow10_half_up(h, l, from_scale - dst.scale)
+            else:
+                h, l = int128.mul_pow10(h, l, dst.scale - from_scale)
+            return int128.join(h, l)
+        # src is a long decimal
+        if dst.name in ("double", "real"):
+            f = int128.to_f64(*int128.split(d)) * (10.0 ** -src.scale)
+            return f.to(dst.torch_dtype)
+        if dst.is_decimal or dst.is_integer:
+            # narrowing: rescale in int128 (half-up on downscale), then
+            # take the low limb; values beyond int64 wrap (the
+            # reference's documented deviation)
+            to_scale = dst.scale if dst.is_decimal else 0
+            h, l = int128.split(d)
+            if to_scale > src.scale:
+                h, l = int128.mul_pow10(h, l, to_scale - src.scale)
+            elif to_scale < src.scale:
+                h, l = int128.div_pow10_half_up(h, l, src.scale - to_scale)
+            return l.to(dst.torch_dtype)
+        raise NotImplementedError(f"cast {src} -> {dst}")
 
     # -- predicates --------------------------------------------------------
 
@@ -1563,7 +1713,7 @@ class ExprLowerer:
         d, v = self.eval(e.arg)
         at = e.arg.dtype
         if at.is_long_decimal:
-            raise _long_unsupported()
+            raise _long_math_unsupported()
         if e.func == "abs":
             return torch.abs(d), v
         if e.func == "sign":
@@ -1624,7 +1774,7 @@ class ExprLowerer:
     def _eval_mathfunc2(self, e: MathFunc2):
         lt, rt = e.left.dtype, e.right.dtype
         if lt.is_long_decimal or rt.is_long_decimal:
-            raise _long_unsupported()
+            raise _long_math_unsupported()
         ld, lv = self.eval(e.left)
         rd, rv = self.eval(e.right)
         valid = _and_valid(lv, rv)
@@ -1670,8 +1820,11 @@ class ExprLowerer:
         d, v = self.eval(e.arg)
         at = e.arg.dtype
         if at.is_long_decimal:
-            raise _long_unsupported()
-        if at.name in ("double", "real"):
+            # uint64 hi * constant ^ lo: the int64 product wraps to the
+            # same bits
+            h, l = int128.split(d)
+            x = (h * _i64(0x9E3779B97F4A7C15)) ^ l
+        elif at.name in ("double", "real"):
             f = d.to(torch.float64)
             f = torch.where(f == 0, 0.0, f)  # +0.0 and -0.0 are SQL-equal
             x = f.view(torch.int64)
@@ -1685,6 +1838,122 @@ class ExprLowerer:
         if v is not None:
             h = torch.where(v, h, 0x9E3779B9)
         return h, None
+
+    # -- nested columns (physical array/map/row blocks) ----------------------
+
+    def _array_block(self, e: Expr):
+        if not isinstance(e, ColumnRef):
+            raise NotImplementedError(
+                "array operations require a physical array column"
+            )
+        blk = self.page.block(e.name)
+        if blk.offsets is None:
+            raise NotImplementedError(
+                f"{e.name} is not a physical array column"
+            )
+        return blk
+
+    def _eval_arraylength(self, e: ArrayLength):
+        blk = self._array_block(e.arg)
+        off = blk.offsets.to(torch.int64)
+        return off[1:] - off[:-1], blk.valid
+
+    def _eval_arraysubscript(self, e: ArraySubscript):
+        blk = self._array_block(e.arg)
+        cap = blk.capacity
+        idx_d, idx_v = self.eval(e.index)
+        idx = torch.broadcast_to(idx_d.to(torch.int64), (cap,))
+        off = blk.offsets.to(torch.int64)
+        lengths = off[1:] - off[:-1]
+        # 1-based; a negative index counts from the end (element_at)
+        pos = torch.where(idx < 0, lengths + idx, idx - 1)
+        valid = (pos >= 0) & (pos < lengths)
+        src = torch.clamp(off[:-1] + pos, 0, max(blk.data.shape[0] - 1, 0))
+        if blk.valid is not None:
+            valid = valid & blk.valid
+        if idx_v is not None:
+            valid = valid & torch.broadcast_to(idx_v, (cap,))
+        return blk.data[src], valid
+
+    def _map_block(self, e: Expr):
+        if not isinstance(e, ColumnRef):
+            raise NotImplementedError(
+                "map operations require a physical map column"
+            )
+        blk = self.page.block(e.name)
+        if not blk.dtype.is_map:
+            raise NotImplementedError(f"{e.name} is not a map column")
+        return blk
+
+    def _eval_mapsubscript(self, e: MapSubscript):
+        """The value of the row's LAST entry whose key equals the
+        subscript (the reference's segmented running max of matching
+        slots, read at each row's last slot), as a max-scatter of the
+        matching slot numbers onto their rows."""
+        blk = self._map_block(e.arg)
+        kc, vc = blk.children
+        cap = blk.capacity
+        vcap = kc.data.shape[0]
+        off = blk.offsets.to(torch.int64)
+        kv = None
+        if e.key.dtype.is_string:
+            if isinstance(e.key, Literal):
+                kid = (
+                    -1
+                    if kc.dictionary is None or e.key.value is None
+                    else kc.dictionary.id_of(str(e.key.value))
+                )
+                key_rows = torch.full(
+                    (cap,), kid, dtype=torch.int32, device=self.device
+                )
+            else:
+                kd, kv = self.eval(e.key)
+                if self.dictionary_of(e.key) != kc.dictionary:
+                    raise NotImplementedError(
+                        "map subscript with a different-dictionary "
+                        "string key requires re-encode"
+                    )
+                key_rows = torch.broadcast_to(kd, (cap,))
+        else:
+            kd, kv = self.eval(e.key)
+            key_rows = torch.broadcast_to(kd, (cap,))
+        flat_keys = kc.data
+        if not e.key.dtype.is_string and not flat_keys.is_floating_point():
+            # compare in the WIDER domain: narrowing the key to the
+            # child's dtype would wrap and fabricate matches (a bigint
+            # subscript of 2^32+5 must miss integer key 5)
+            flat_keys = flat_keys.to(torch.int64)
+            key_rows = key_rows.to(torch.int64)
+        j = torch.arange(vcap, dtype=torch.int64, device=self.device)
+        row_of_j = torch.clamp(
+            torch.searchsorted(off[1:], j, right=True), max=cap - 1
+        )
+        match = (j < off[cap]) & (flat_keys == key_rows[row_of_j])
+        idx = torch.full((cap,), -1, dtype=torch.int64, device=self.device)
+        idx.scatter_reduce_(
+            0, row_of_j, torch.where(match, j, -1), reduce="amax"
+        )
+        found = idx >= 0
+        safe = torch.clamp(idx, 0, max(vcap - 1, 0))
+        valid = found
+        if vc.valid is not None:
+            valid = valid & vc.valid[safe]
+        if blk.valid is not None:
+            valid = valid & blk.valid
+        if kv is not None:
+            valid = valid & torch.broadcast_to(kv, (cap,))
+        return vc.data[safe], valid
+
+    def _eval_rowfieldaccess(self, e: RowFieldAccess):
+        if not isinstance(e.arg, ColumnRef):
+            raise NotImplementedError(
+                "row field access requires a physical row column"
+            )
+        blk = self.page.block(e.arg.name)
+        if not blk.dtype.is_row:
+            raise NotImplementedError(f"{e.arg.name} is not a row column")
+        ch = blk.children[blk.dtype.field_index(e.field)]
+        return ch.data, _and_valid(blk.valid, ch.valid)
 
     # -- dates ---------------------------------------------------------------
 
@@ -1801,8 +2070,22 @@ def _tv_or_valid(ld, lv, rd, rv):
 def _coerce_to(data, from_t: T.DataType, to_t: T.DataType):
     if from_t == to_t:
         return data
-    if to_t.is_long_decimal or from_t.is_long_decimal:
-        raise _long_unsupported()
+    if to_t.is_long_decimal:
+        if from_t.is_long_decimal:
+            h, l = int128.split(data)
+            from_scale = from_t.scale
+        else:
+            h, l = int128.from_i64(data)
+            from_scale = from_t.scale if from_t.is_decimal else 0
+        if to_t.scale < from_scale:
+            raise NotImplementedError(
+                "long-decimal downscale requires int128 division"
+            )
+        return int128.join(*int128.mul_pow10(h, l, to_t.scale - from_scale))
+    if from_t.is_long_decimal:
+        raise NotImplementedError(
+            f"implicit narrowing of {from_t} to {to_t}; cast explicitly"
+        )
     if to_t.is_decimal and from_t.is_decimal:
         return _rescale(data, from_t.scale, to_t.scale)
     if to_t.is_decimal and from_t.is_integer:

@@ -655,7 +655,8 @@ def _sorted_aggregate(
 ) -> Tuple[Page, torch.Tensor]:
     cap = page.capacity
     keys = [
-        (name, torch.broadcast_to(d, (cap,)), v, e) for name, d, v, e in keys
+        (name, torch.broadcast_to(d, _col_shape(cap, e.dtype)), v, e)
+        for name, d, v, e in keys
     ]
     order = sort_order([(d, v, e.dtype) for _, d, v, e in keys], live)
     live_s = live[order]
@@ -786,12 +787,12 @@ def _sorted_one_agg(
         data = _cumsum_span(live_s.to(torch.int64), starts, ends)
         return Block(data=data, valid=None, dtype=T.BIGINT)
 
+    cap = page.capacity
     if agg.func == "array_agg":
-        raise NotImplementedError(
-            "array_agg: array blocks are a later slice of the port"
+        return _sorted_array_agg(
+            agg, cap, order, live_s, bnd, starts, lowerer
         )
 
-    cap = page.capacity
     d, v = lowerer.eval(agg.arg)
     d = torch.broadcast_to(d, (cap,))[order]
     valid_s = live_s if v is None else (
@@ -863,6 +864,60 @@ def _sorted_one_agg(
     raise NotImplementedError(f"aggregate {agg.func}")
 
 
+def _col_shape(cap: int, dtype) -> tuple:
+    """A column's data shape: long decimals are (cap, 2) limb pairs."""
+    return (cap, 2) if dtype.is_long_decimal else (cap,)
+
+
+def _sorted_array_agg(
+    agg: AggCall,
+    cap: int,
+    order: torch.Tensor,
+    live_s: torch.Tensor,
+    bnd: torch.Tensor,
+    starts: torch.Tensor,
+    lowerer: ExprLowerer,
+) -> Block:
+    """array_agg on the sorted path: the sorted layout IS the
+    concatenation of the per-group arrays (groups are contiguous spans,
+    in the stable sort's order of equal keys). NULL inputs are skipped
+    (the reference's documented deviation: its arrays carry no element
+    validity), so each valid value scatters to its rank among the valid
+    rows, and a group's offset is the valid count before its start."""
+    d, v = lowerer.eval(agg.arg)
+    d_s = torch.broadcast_to(d, (cap,))[order]
+    valid_s = live_s if v is None else (
+        live_s & torch.broadcast_to(v, (cap,))[order]
+    )
+    cum = torch.cumsum(valid_s.to(torch.int64), dim=0)
+    total = cum[-1]
+    pos = torch.where(valid_s, cum - 1, cap)  # cap = the dump slot
+    out_vals = torch.zeros((cap + 1,), dtype=d_s.dtype, device=d_s.device)
+    out_vals.scatter_(0, pos, d_s)
+    # padding group slots (past the group count) read offset == total;
+    # the clamped start of a padding slot (cap - 1) would read total - 1
+    # on a full page and drop the last group's last element
+    num_groups = torch.sum(bnd)
+    slot = torch.arange(starts.shape[0], device=d_s.device)
+    start_off = torch.where(
+        slot >= num_groups,
+        total,
+        cum[starts] - valid_s[starts].to(torch.int64),
+    )
+    offsets = torch.cat([
+        torch.minimum(start_off, total), total.reshape(1)
+    ]).to(torch.int32)
+    return Block(
+        data=out_vals[:cap],
+        valid=None,
+        dtype=agg.result_type(),
+        dictionary=(
+            lowerer.dictionary_of(agg.arg) if agg.arg.dtype.is_string else None
+        ),
+        offsets=offsets,
+    )
+
+
 # ---------------------------------------------------------- global path
 
 
@@ -900,10 +955,10 @@ def _global_one_agg(
             valid=None,
             dtype=T.BIGINT,
         )
+    if agg.func == "array_agg":
+        return _global_array_agg(agg, page, live, lowerer)
     if agg.func in _ORDER_FUNCS:
-        raise NotImplementedError(
-            f"global {agg.func} (needs a sort): later slice"
-        )
+        return _global_order_stat(agg, page, live, lowerer)
 
     d, v = lowerer.eval(agg.arg)
     d = torch.broadcast_to(d, (page.capacity,))
@@ -954,3 +1009,65 @@ def _global_one_agg(
         )
 
     raise NotImplementedError(f"aggregate {agg.func}")
+
+
+def _global_array_agg(
+    agg: AggCall, page: Page, live: torch.Tensor, lowerer: ExprLowerer
+) -> Block:
+    """One array of every kept value, in row order: a stable sort moves
+    the kept values to the front (NULL inputs are skipped, as on the
+    sorted path)."""
+    d, v = lowerer.eval(agg.arg)
+    d = torch.broadcast_to(d, (page.capacity,))
+    keep = live if v is None else (live & torch.broadcast_to(v, live.shape))
+    order = torch.argsort((~keep).to(torch.int8), stable=True)
+    n = torch.sum(keep).to(torch.int32)
+    return Block(
+        data=d[order],
+        valid=None,
+        dtype=agg.result_type(),
+        dictionary=(
+            lowerer.dictionary_of(agg.arg) if agg.arg.dtype.is_string else None
+        ),
+        offsets=torch.stack([torch.zeros_like(n), n]),
+    )
+
+
+def _global_order_stat(
+    agg: AggCall, page: Page, live: torch.Tensor, lowerer: ExprLowerer
+) -> Block:
+    """Global approx_percentile / min_by / max_by: one sort of the
+    ordering value (valid values first, ascending), then the element at
+    nearest rank ceil(p*n) - 1, or x at the first / last valid
+    position."""
+    cap = page.capacity
+    is_by = agg.func in ("min_by", "max_by")
+    val = agg.arg2 if is_by else agg.arg
+    vd, vv = lowerer.eval(val)
+    vd = torch.broadcast_to(vd, (cap,))
+    vvb = None if vv is None else torch.broadcast_to(vv, (cap,))
+    order = sort_order([(vd, vvb, val.dtype)], live)
+    valid_s = live[order] if vvb is None else (live & vvb)[order]
+    cntv = torch.sum(valid_s, dtype=torch.int64)
+    last = torch.clamp(cntv - 1, min=0)
+    has = (cntv > 0).reshape(1)
+    if agg.func == "approx_percentile":
+        p = float(agg.param if agg.param is not None else 0.5)
+        k = torch.ceil(p * cntv.to(torch.float64)).to(torch.int64) - 1
+        k = torch.clamp(torch.minimum(torch.clamp(k, min=0), last), max=cap - 1)
+        return Block(
+            data=vd[order][k].reshape(1), valid=has, dtype=agg.arg.dtype
+        )
+    xd, xv = lowerer.eval(agg.arg)
+    idx = order[0 if agg.func == "min_by" else torch.clamp(last, max=cap - 1)]
+    valid = has
+    if xv is not None:
+        valid = valid & torch.broadcast_to(xv, (cap,))[idx].reshape(1)
+    return Block(
+        data=torch.broadcast_to(xd, (cap,))[idx].reshape(1),
+        valid=valid,
+        dtype=agg.arg.dtype,
+        dictionary=(
+            lowerer.dictionary_of(agg.arg) if agg.arg.dtype.is_string else None
+        ),
+    )

@@ -4,8 +4,8 @@ The PyTorch counterpart of ``presto_tpu/ops/common.py``. Every SQL type
 maps to an *order-preserving* int64 image (``orderable_i64``), so one
 code path serves sort, group-by boundary detection and the join's key.
 A multi-column order is a sequence of stable int64 sorts, least
-significant lane first (torch has no ``lexsort``). Long decimals
-(int128 limb pairs) are not ported yet: they raise.
+significant lane first (torch has no ``lexsort``). A long decimal
+((capacity, 2) int128 limb pairs) is two lanes (``key_lanes``).
 """
 
 from __future__ import annotations
@@ -19,12 +19,6 @@ from presto_tpu_torch import types as T
 _I64_MIN = -(2 ** 63)
 
 
-def _long_unsupported() -> NotImplementedError:
-    return NotImplementedError(
-        "long decimals (int128 limb pairs): later slice of the port"
-    )
-
-
 def orderable_i64(data: torch.Tensor, dtype: T.DataType) -> torch.Tensor:
     """Map a column to int64 such that int comparison == SQL comparison.
 
@@ -34,7 +28,12 @@ def orderable_i64(data: torch.Tensor, dtype: T.DataType) -> torch.Tensor:
       non-NaN; a positive NaN sorts last), with -0.0 equal to +0.0
     """
     if dtype.is_long_decimal:
-        raise _long_unsupported()
+        # a (cap, 2) limb pair does not fit ONE orderable int64: the
+        # multi-lane callers go through key_lanes
+        raise NotImplementedError(
+            "long decimals (p>18) do not reduce to a single orderable "
+            "int64 lane — use key_lanes()"
+        )
     if dtype.name in ("double", "real"):
         f = data.to(torch.float64)
         f = torch.where(f == 0, 0.0, f)  # -0.0 and +0.0 are SQL-equal
@@ -47,8 +46,12 @@ def orderable_i64(data: torch.Tensor, dtype: T.DataType) -> torch.Tensor:
 
 def key_lanes(data: torch.Tensor, dtype: T.DataType) -> List[torch.Tensor]:
     """A key column as order-preserving int64 lanes, most significant
-    first: one ``orderable_i64`` lane (long decimals, two lanes in the
-    reference, raise)."""
+    first. A long decimal expands to [hi, lo with its sign bit flipped]:
+    the lexicographic order of the pair is the int128 order (the flip
+    makes the signed order of lo its unsigned order). Every other type
+    is the single ``orderable_i64`` lane."""
+    if dtype.is_long_decimal:
+        return [data[..., 0], data[..., 1] ^ _I64_MIN]
     return [orderable_i64(data, dtype)]
 
 
@@ -99,9 +102,9 @@ def boundaries(
     change = first
     head = torch.ones((1,), dtype=torch.bool, device=live_sorted.device)
     for data, valid in sorted_keys:
-        if data.dim() != 1:
-            raise _long_unsupported()
         neq = data[1:] != data[:-1]
+        if data.dim() == 2:  # long-decimal limb pairs: any limb differs
+            neq = torch.any(neq, dim=-1)
         if data.is_floating_point():
             neq = neq & ~(torch.isnan(data[1:]) & torch.isnan(data[:-1]))
         diff = torch.cat([head, neq])

@@ -12,8 +12,11 @@ operator reports overflow (the runner re-runs at a bigger bucket).
 Keys are single int64 columns; two 32-bit key columns pack bijectively
 via ``pack_keys``. NULL keys never match; anti join keeps unmatched
 probe rows (NOT EXISTS semantics). A join key of exactly int64-max is
-unsupported (the sentinel), as in the reference. Long-decimal keys are
-not ported yet: they raise. The match count and the overflow flag stay
+unsupported (the sentinel), as in the reference. A long-decimal key
+folds its two limbs into one int64 through splitmix64, which is not
+injective: the planner emits one only on an inner join with a residual
+limb-equality filter, so a collision costs capacity, never a wrong row.
+The match count and the overflow flag stay
 0-d device tensors: no operator here makes the host wait for the card.
 """
 
@@ -25,8 +28,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from presto_tpu_torch.exec.staging import bucket_capacity
+from presto_tpu_torch.expr import _i64, _lsr
 from presto_tpu_torch.ops.common import orderable_i64
-from presto_tpu_torch.page import Block, Page, compact_page
+from presto_tpu_torch.page import Block, Page, compact_page, gather_block
 
 _I64_MAX = torch.iinfo(torch.int64).max
 #: planned fan-out capacities above this many rows are checked against
@@ -49,10 +53,9 @@ def _key_of(
     for name in key_cols:
         blk = page.block(name)
         if blk.dtype.is_long_decimal:
-            raise NotImplementedError(
-                f"long-decimal join key {name}: later slice of the port"
-            )
-        datas.append(orderable_i64(blk.data, blk.dtype))
+            datas.append(_fold_limbs(blk.data))
+        else:
+            datas.append(orderable_i64(blk.data, blk.dtype))
         widths.append(blk.dtype.np_dtype.itemsize)
         if blk.valid is not None:
             ok = ok & blk.valid
@@ -72,6 +75,15 @@ def _key_of(
             ">2 join key columns (pack wider composites in the planner)"
         )
     return key, ok
+
+
+def _fold_limbs(d: torch.Tensor) -> torch.Tensor:
+    """An int128 limb pair -> one int64: splitmix64 of the hi limb,
+    xor the lo limb (the reference's uint64 fold, in wrapping int64)."""
+    z = d[..., 0] + _i64(0x9E3779B97F4A7C15)
+    z = (z ^ _lsr(z, 30)) * _i64(0xBF58476D1CE4E5B9)
+    z = (z ^ _lsr(z, 27)) * _i64(0x94D049BB133111EB)
+    return (z ^ _lsr(z, 31)) ^ d[..., 1]
 
 
 def _mask_out(page: Page, keep: torch.Tensor) -> Page:
@@ -200,8 +212,9 @@ def cross_join(
     overflow = out_count > out_capacity
     b_idx = torch.clamp(offset, 0, right_c.capacity - 1)
 
-    blocks = [_gather(blk, p_idx) for blk in left.blocks]
-    blocks += [_gather(blk, b_idx) for blk in right_c.blocks]
+    n_out = torch.clamp(out_count, max=out_capacity)
+    blocks = [gather_block(blk, p_idx, n_out) for blk in left.blocks]
+    blocks += [gather_block(blk, b_idx, n_out) for blk in right_c.blocks]
     return (
         Page(
             blocks=tuple(blocks),
@@ -326,9 +339,14 @@ def _join_output(
     outer join an unmatched row's payload is NULL."""
     for name in list(probe.names) + list(build_payload):
         src = probe if name in probe.names else build
-        if src.block(name).dtype.is_nested:
+        blk = src.block(name)
+        if blk.dtype.is_nested:
+            # the reference raises here too: its row-index gather would
+            # corrupt nested columns (stale offsets, unpermuted children)
             raise NotImplementedError(
-                f"nested column {name}: later slice of the port"
+                f"nested column {name} ({blk.dtype}) cannot ride "
+                "through a join output; select it before the join or "
+                "join on its parent rows and access fields/unnest after"
             )
     names: List[str] = list(probe.names)
     if p_idx is None:

@@ -18,7 +18,7 @@ from presto_tpu_torch.exec.staging import bucket_capacity
 from presto_tpu_torch.expr import ColumnRef, Expr, eval_expr
 from presto_tpu_torch.ops.aggregation import hash_aggregate
 from presto_tpu_torch.ops.common import sort_order
-from presto_tpu_torch.page import Page, compact_page
+from presto_tpu_torch.page import Page, compact_page, gather_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +37,13 @@ def order_by(
     case the output page is cut to capacity ``limit``."""
     cap = page.capacity
     evaluated = [
-        (torch.broadcast_to(d, (cap,)), v, k.expr.dtype)
+        (
+            torch.broadcast_to(
+                d, (cap, 2) if k.expr.dtype.is_long_decimal else (cap,)
+            ),
+            v,
+            k.expr.dtype,
+        )
         for k, (d, v) in ((k, eval_expr(k.expr, page)) for k in keys)
     ]
     order = sort_order(
@@ -51,19 +57,9 @@ def order_by(
     )
     if limit is not None:
         order = order[:limit]
-    blocks = []
-    for blk in page.blocks:
-        if blk.dtype.is_nested:
-            raise NotImplementedError(
-                f"{blk.dtype} columns: later slice of the port"
-            )
-        blocks.append(
-            dataclasses.replace(
-                blk,
-                data=blk.data[order],
-                valid=None if blk.valid is None else blk.valid[order],
-            )
-        )
+    # nested columns follow their rows (gather_block re-lays out the
+    # values of array and map blocks and gathers row children)
+    blocks = [gather_block(blk, order, page.num_valid) for blk in page.blocks]
     num = page.num_valid
     if limit is not None:
         num = torch.clamp(num, max=limit).to(torch.int32)

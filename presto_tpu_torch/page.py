@@ -14,8 +14,19 @@ static-shape protocol:
 - Capacity (the tensor length) is a power-of-two bucket chosen at
   staging, so the shapes an operator sees repeat across queries.
 
-Every tensor constructor names its dtype and device. Array, map and row
-blocks (offsets / children) are not ported yet.
+Nested columns, one level deep, as in the reference:
+
+- An array block's ``data`` is the flat VALUES tensor, with a value
+  capacity of its own (a power-of-two bucket), and ``offsets`` is an
+  int32 (capacity + 1,) tensor: row i holds ``data[offsets[i]:
+  offsets[i+1]]``. ``valid`` stays per row; padding rows are empty
+  (offsets edge-pad).
+- A map block shares the offsets between two flat child blocks
+  ``children = (keys, values)``; a row block has one child per field at
+  row capacity and no offsets. Both keep a zero-width ``data``
+  placeholder, so ``data.shape[0]`` is the row capacity.
+
+Every tensor constructor names its dtype and device.
 """
 
 from __future__ import annotations
@@ -128,24 +139,58 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _nested_unsupported(dtype: T.DataType):
-    return NotImplementedError(
-        f"{dtype} blocks (array/map/row): later slice of the port"
+def _pad_flat_child(child: "Block", vcap: int) -> "Block":
+    """Pad a flat child block (map keys or values) to the bucketed value
+    capacity."""
+    n = child.data.shape[0]
+    if n >= vcap:
+        return child
+    return dataclasses.replace(
+        child,
+        data=_pad_rows(child.data, vcap - n),
+        valid=None if child.valid is None else _pad_rows(child.valid, vcap - n),
     )
+
+
+def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` with ``n`` zero rows appended (trailing dims kept: long
+    decimals are (rows, 2) limb pairs)."""
+    return torch.cat([
+        t,
+        torch.zeros((n,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device),
+    ])
+
+
+def _edge_pad(offsets: torch.Tensor, n: int) -> torch.Tensor:
+    """Offsets with ``n`` more rows that read as empty."""
+    return torch.cat([offsets, offsets[-1:].expand(n)])
 
 
 @dataclasses.dataclass
 class Block:
-    """One column: fixed-width tensor + optional bool null mask."""
+    """One column: fixed-width tensor + optional bool null mask; array
+    and map blocks add ``offsets``, map and row blocks ``children`` (see
+    the module docstring)."""
 
     data: torch.Tensor
     valid: Optional[torch.Tensor]  # bool, True = non-null; None = all valid
     dtype: T.DataType
     dictionary: Optional[Dictionary] = None
+    offsets: Optional[torch.Tensor] = None  # int32 (capacity + 1,)
+    children: Optional[tuple] = None  # map: (keys, values); row: fields
 
     @property
     def capacity(self) -> int:
+        if self.offsets is not None:
+            return self.offsets.shape[0] - 1
         return self.data.shape[0]
+
+    @staticmethod
+    def placeholder_data(cap: int, device) -> torch.Tensor:
+        """Zero-byte per-row stand-in for blocks whose payload lives in
+        ``children`` (map/row): ``data.shape[0] == capacity`` with no
+        device memory."""
+        return torch.zeros((cap, 0), dtype=torch.int8, device=device)
 
     @classmethod
     def from_numpy(
@@ -176,10 +221,39 @@ class Block:
         device=None,
     ) -> "Block":
         """Build from Python values (None = NULL): dictionary encoding
-        for varchar, exact half-up scaling for decimals. ``device=None``
-        means CUDA (``resolve_device``)."""
-        if dtype.is_nested:
-            raise _nested_unsupported(dtype)
+        for varchar, exact half-up scaling for decimals, offsets and
+        flat children for arrays and maps (elements recurse through this
+        builder), one child per field for rows. ``device=None`` means
+        CUDA (``resolve_device``)."""
+        device = resolve_device(device)
+        if dtype.is_array or dtype.is_map:
+            return cls._from_pylist_offsets(values, dtype, device)
+        if dtype.is_row:
+            # python dicts (by field name) or sequences (positional)
+            if any(t.is_nested for _, t in dtype.fields):
+                raise NotImplementedError(
+                    "nested row field types are not supported "
+                    "(one nesting level; documented deviation)"
+                )
+            children = tuple(
+                cls.from_pylist(
+                    [
+                        None
+                        if v is None
+                        else (v[fname] if isinstance(v, dict) else v[i])
+                        for v in values
+                    ],
+                    ftype,
+                    device,
+                )
+                for i, (fname, ftype) in enumerate(dtype.fields)
+            )
+            return cls(
+                data=cls.placeholder_data(len(values), device),
+                valid=_row_valid(values, device),
+                dtype=dtype,
+                children=children,
+            )
         if dtype.is_string:
             ids, valid, dictionary = encode_strings(values)
             v = None if valid.all() else valid
@@ -211,6 +285,51 @@ class Block:
             arr = np.asarray(filled).astype(dtype.np_dtype)
         v = None if not isnull.any() else ~isnull
         return cls.from_numpy(arr, dtype, v, None, device)
+
+    @classmethod
+    def _from_pylist_offsets(cls, values, dtype, device) -> "Block":
+        """Array (lists) or map (dicts) values -> offsets over flat
+        children, the value axis padded to its power-of-two bucket."""
+        from presto_tpu_torch.exec.staging import bucket_capacity
+
+        lengths = [0 if v is None else len(v) for v in values]
+        offsets = np.zeros(len(values) + 1, np.int32)
+        np.cumsum(lengths, out=offsets[1:])
+        offsets = torch.from_numpy(offsets).to(device)
+        valid = _row_valid(values, device)
+        vcap = bucket_capacity(int(sum(lengths)))
+        if dtype.is_array:
+            flat = [x for v in values if v is not None for x in v]
+            if any(x is None for x in flat):
+                raise NotImplementedError(
+                    "NULL array elements are not supported (documented "
+                    "deviation; NULL rows are)"
+                )
+            child = _pad_flat_child(
+                cls.from_pylist(flat, dtype.element, device), vcap
+            )
+            return cls(
+                data=child.data, valid=valid, dtype=dtype,
+                dictionary=child.dictionary, offsets=offsets,
+            )
+        if dtype.key.is_nested or dtype.value.is_nested:
+            raise NotImplementedError(
+                "nested map key/value types are not supported "
+                "(one nesting level; documented deviation)"
+            )
+        items = [kv for v in values if v is not None for kv in v.items()]
+        if any(k is None for k, _ in items):
+            raise NotImplementedError("NULL map keys are invalid")
+        children = tuple(
+            _pad_flat_child(
+                cls.from_pylist([kv[i] for kv in items], t, device), vcap
+            )
+            for i, t in enumerate((dtype.key, dtype.value))
+        )
+        return cls(
+            data=cls.placeholder_data(len(values), device),
+            valid=valid, dtype=dtype, offsets=offsets, children=children,
+        )
 
     def to_numpy(self, n: Optional[int] = None):
         """First n rows host-side as a (values, valid) numpy pair; ids
@@ -265,11 +384,31 @@ class Page:
         )
 
     def prefix_leaves(self, k: int) -> list:
-        """Flat [data[:k], valid[:k]?, ...] tensor list: the one shape
-        every materialization path fetches to the host."""
+        """Flat tensor list of the first ``k`` rows: the one shape every
+        materialization path fetches to the host. Per block: a flat
+        block's data[:k]; an array block's offsets[:k+1] and its FULL
+        values tensor (the live extent depends on the data); a map
+        block's offsets[:k+1] and each child's full data (+ valid); a
+        row block's children's data[:k] (+ valid[:k]); then the block's
+        own valid[:k] when it has one."""
         leaves = []
         for blk in self.blocks:
-            leaves.append(blk.data[:k])
+            if blk.dtype.is_map:
+                leaves.append(blk.offsets[: k + 1])
+                for ch in blk.children:
+                    leaves.append(ch.data)
+                    if ch.valid is not None:
+                        leaves.append(ch.valid)
+            elif blk.dtype.is_row:
+                for ch in blk.children:
+                    leaves.append(ch.data[:k])
+                    if ch.valid is not None:
+                        leaves.append(ch.valid[:k])
+            elif blk.offsets is not None:
+                leaves.append(blk.offsets[: k + 1])
+                leaves.append(blk.data)
+            else:
+                leaves.append(blk.data[:k])
             if blk.valid is not None:
                 leaves.append(blk.valid[:k])
         return leaves
@@ -305,28 +444,91 @@ class Page:
         )
 
     def to_pylist(self) -> List[dict]:
-        """Decode live rows to a list of {name: python value} dicts."""
+        """Decode live rows to a list of {name: python value} dicts
+        (arrays as lists, maps as dicts, rows as dicts by field name)."""
         if self.live is not None:
             idx = np.nonzero(self.live.cpu().numpy())[0]
         else:
             idx = np.arange(int(self.num_valid))
-        n = len(idx)
-        out_cols = {}
-        for name, blk in zip(self.names, self.blocks):
-            data, valid = blk.to_numpy(None)
-            data, valid = data[idx], valid[idx]
-            out_cols[name] = [
-                _decode_value(data[i], blk.dtype, blk.dictionary)
-                if valid[i]
-                else None
-                for i in range(n)
-            ]
+        out_cols = {
+            name: _decode_column(blk, idx)
+            for name, blk in zip(self.names, self.blocks)
+        }
         return [
-            {name: out_cols[name][i] for name in self.names} for i in range(n)
+            {name: out_cols[name][i] for name in self.names}
+            for i in range(len(idx))
         ]
 
     def schema(self) -> Dict[str, T.DataType]:
         return {n: b.dtype for n, b in zip(self.names, self.blocks)}
+
+
+def _np(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    return None if t is None else t.cpu().numpy()
+
+
+def _decode_column(blk: Block, idx: np.ndarray) -> list:
+    """Rows ``idx`` of one block as Python values (None = NULL)."""
+    rvalid = _np(blk.valid)
+    if rvalid is None:
+        rvalid = np.ones(blk.capacity, bool)
+    if blk.dtype.is_row:
+        fields = [
+            (fname, ftype, ch.data.cpu().numpy(), _np(ch.valid), ch.dictionary)
+            for (fname, ftype), ch in zip(blk.dtype.fields, blk.children)
+        ]
+        return [
+            {
+                fname: (
+                    None
+                    if fvalid is not None and not fvalid[i]
+                    else _decode_value(fd[i], ftype, fdic)
+                )
+                for fname, ftype, fd, fvalid, fdic in fields
+            }
+            if rvalid[i]
+            else None
+            for i in idx
+        ]
+    if blk.offsets is not None:
+        off = blk.offsets.cpu().numpy()
+        if blk.dtype.is_map:
+            kc, vc = blk.children
+            kd, vd, vv = kc.data.cpu().numpy(), vc.data.cpu().numpy(), _np(vc.valid)
+            return [
+                {
+                    _decode_value(kd[j], blk.dtype.key, kc.dictionary): (
+                        None
+                        if vv is not None and not vv[j]
+                        else _decode_value(vd[j], blk.dtype.value, vc.dictionary)
+                    )
+                    for j in range(int(off[i]), int(off[i + 1]))
+                }
+                if rvalid[i]
+                else None
+                for i in idx
+            ]
+        vals = blk.data.cpu().numpy()
+        et = blk.dtype.element
+        return [
+            [_decode_value(v, et, blk.dictionary) for v in vals[off[i]: off[i + 1]]]
+            if rvalid[i]
+            else None
+            for i in idx
+        ]
+    data = blk.data.cpu().numpy()
+    return [
+        _decode_value(data[i], blk.dtype, blk.dictionary) if rvalid[i] else None
+        for i in idx
+    ]
+
+
+def _row_valid(values: Sequence, device) -> Optional[torch.Tensor]:
+    """Per-row validity of Python values: None when no value is None."""
+    isnull = np.array([v is None for v in values], dtype=bool)
+    if not isnull.any():
+        return None
+    return torch.from_numpy(~isnull).to(device)
 
 
 def _decode_value(v, t: T.DataType, dictionary: Optional[Dictionary]):
@@ -411,14 +613,126 @@ def _bytes_of(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).view(torch.uint8)
 
 
-def _gather_block(blk: Block, sel: torch.Tensor) -> Block:
-    if blk.dtype.is_nested:
-        raise _nested_unsupported(blk.dtype)
+def gather_block(blk: Block, sel: torch.Tensor, num_live) -> Block:
+    """Rows ``sel`` of a block, nested or flat. ``num_live`` (a 0-d
+    tensor or int) marks the entries of ``sel`` past it as padding: in
+    an array or map block they read as empty rows."""
+    if blk.dtype.is_row:
+        return _gather_row_block(blk, sel, num_live)
+    if blk.offsets is not None:
+        return _gather_array_block(blk, sel, num_live)
     return dataclasses.replace(
         blk,
         data=blk.data[sel],
         valid=None if blk.valid is None else blk.valid[sel],
     )
+
+
+def _gather_array_block(blk: Block, sel: torch.Tensor, num_live) -> Block:
+    """Row-gather an array or map block: new offsets from the selected
+    rows' lengths, and the values laid out again by the prefix-sum +
+    inverse-searchsorted expansion (value slot j belongs to the row p
+    with new_off[p] <= j < new_off[p+1]). A map block applies the same
+    value-axis gather to both children."""
+    cap = sel.shape[0]
+    dev = sel.device
+    off = blk.offsets.to(torch.int64)
+    lengths = off[1:] - off[:-1]
+    sel_len = torch.where(
+        torch.arange(cap, device=dev) < num_live, lengths[sel], 0
+    )
+    new_off = torch.cat([
+        torch.zeros((1,), dtype=torch.int64, device=dev),
+        torch.cumsum(sel_len, dim=0),
+    ])
+    flat = blk.children[0] if blk.dtype.is_map else blk
+    vcap = flat.data.shape[0]
+    valid = None if blk.valid is None else blk.valid[sel]
+    if vcap == 0:
+        src = None
+    else:
+        j = torch.arange(vcap, dtype=torch.int64, device=dev)
+        p = torch.clamp(
+            torch.searchsorted(new_off[1:], j, right=True), max=cap - 1
+        )
+        src = torch.clamp(off[sel[p]] + (j - new_off[p]), 0, vcap - 1)
+
+    def values(ch: Block) -> Block:
+        if src is None:
+            return ch
+        return dataclasses.replace(
+            ch,
+            data=ch.data[src],
+            valid=None if ch.valid is None else ch.valid[src],
+        )
+
+    new_off = new_off.to(torch.int32)
+    if blk.dtype.is_map:
+        return dataclasses.replace(
+            blk,
+            data=Block.placeholder_data(cap, dev),
+            valid=valid,
+            offsets=new_off,
+            children=tuple(values(ch) for ch in blk.children),
+        )
+    return dataclasses.replace(
+        blk,
+        data=blk.data if src is None else blk.data[src],
+        valid=valid,
+        offsets=new_off,
+    )
+
+
+def _gather_row_block(blk: Block, sel: torch.Tensor, num_live) -> Block:
+    """Row-gather a row (struct) block: its children gather with it."""
+    return dataclasses.replace(
+        blk,
+        data=Block.placeholder_data(sel.shape[0], sel.device),
+        valid=None if blk.valid is None else blk.valid[sel],
+        children=tuple(
+            gather_block(ch, sel, num_live) for ch in blk.children
+        ),
+    )
+
+
+def _rebucket_block(blk: Block, capacity: int) -> Block:
+    """Row-axis pad or slice of one block to ``capacity`` rows: flat
+    data zero-pads, offsets edge-pad (padding rows read as empty; the
+    value axis keeps its own capacity), row children follow their
+    parent, validity pads with NULL."""
+    cap = blk.capacity
+    if capacity == cap:
+        return blk
+    grow = capacity - cap
+
+    def fit(t: torch.Tensor) -> torch.Tensor:
+        return _pad_rows(t, grow) if grow > 0 else t[:capacity]
+
+    valid = None if blk.valid is None else fit(blk.valid)
+    if blk.offsets is not None:
+        offsets = (
+            _edge_pad(blk.offsets, grow)
+            if grow > 0
+            else blk.offsets[: capacity + 1]
+        )
+        data = (
+            Block.placeholder_data(capacity, blk.data.device)
+            if blk.dtype.is_map
+            else blk.data
+        )
+        return dataclasses.replace(
+            blk, data=data, valid=valid, offsets=offsets
+        )
+    if blk.dtype.is_row:
+        return dataclasses.replace(
+            blk,
+            data=Block.placeholder_data(capacity, blk.data.device),
+            valid=valid,
+            children=tuple(
+                _rebucket_block(ch, capacity) for ch in blk.children
+            ),
+        )
+    return dataclasses.replace(blk, data=fit(blk.data), valid=valid)
 
 
 def compact_page(page: Page, out_capacity: Optional[int] = None) -> Page:
@@ -432,7 +746,9 @@ def compact_page(page: Page, out_capacity: Optional[int] = None) -> Page:
     cap = out_capacity if out_capacity is not None else page.capacity
     sel = nonzero_static(page.live, cap, fill_value=0)
     return Page(
-        blocks=tuple(_gather_block(blk, sel) for blk in page.blocks),
+        blocks=tuple(
+            gather_block(blk, sel, page.num_valid) for blk in page.blocks
+        ),
         num_valid=torch.clamp(page.num_valid, max=cap).to(torch.int32),
         names=page.names,
     )
@@ -444,44 +760,8 @@ def pad_capacity(page: Page, capacity: int) -> Page:
     compact_page."""
     if page.live is not None:
         return compact_page(page, capacity)
-    blocks = []
-    for blk in page.blocks:
-        if blk.dtype.is_nested:
-            raise _nested_unsupported(blk.dtype)
-        cap = blk.capacity
-        if capacity == cap:
-            blocks.append(blk)
-        elif capacity > cap:
-            # row-axis pad only (long decimals are (cap, 2) limb pairs)
-            pad = torch.zeros(
-                (capacity - cap,) + tuple(blk.data.shape[1:]),
-                dtype=blk.data.dtype,
-                device=blk.data.device,
-            )
-            valid = None
-            if blk.valid is not None:
-                valid = torch.cat([
-                    blk.valid,
-                    torch.zeros(
-                        capacity - cap, dtype=torch.bool,
-                        device=blk.valid.device,
-                    ),
-                ])
-            blocks.append(
-                dataclasses.replace(
-                    blk, data=torch.cat([blk.data, pad]), valid=valid
-                )
-            )
-        else:
-            blocks.append(
-                dataclasses.replace(
-                    blk,
-                    data=blk.data[:capacity],
-                    valid=None if blk.valid is None else blk.valid[:capacity],
-                )
-            )
     return Page(
-        blocks=tuple(blocks),
+        blocks=tuple(_rebucket_block(blk, capacity) for blk in page.blocks),
         num_valid=torch.clamp(page.num_valid, max=capacity).to(torch.int32),
         names=page.names,
     )

@@ -12,7 +12,9 @@ from __future__ import annotations
 from presto_tpu_torch.plan import nodes as N
 
 #: node types a split fragment may hold; Sort/Limit/Window/Output/Values
-#: run in the root fragment
+#: run in the root fragment. UNNEST expands each row on its own, so it
+#: may run per split; the reference keeps it in the root fragment, which
+#: gathers every scanned row before the expansion
 _DISTRIBUTABLE = (
     N.TableScanNode,
     N.FilterNode,
@@ -21,6 +23,7 @@ _DISTRIBUTABLE = (
     N.DistinctNode,
     N.JoinNode,
     N.CrossJoinNode,
+    N.UnnestNode,
 )
 
 

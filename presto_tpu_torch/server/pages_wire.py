@@ -4,8 +4,9 @@ The PyTorch counterpart of the payload part of
 ``presto_tpu/server/pages_wire.py``: ``merge_payloads`` merges many
 ``(payload, schema, nrows)`` parts into one staging payload, and
 ``page_to_wire_columns`` reads a host result page's live rows as host
-columns. Serialization and the array-column merge belong to later
-slices; array columns raise.
+columns, array columns as ``ArrayColumn`` payloads. Serialization
+belongs to a later slice; map and row columns do not go on the wire
+(the reference's wire has no form for them either).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 
 from presto_tpu_torch import types as T
 from presto_tpu_torch.connectors.tpch import DictColumn
-from presto_tpu_torch.exec.staging import MaskedColumn
+from presto_tpu_torch.exec.staging import ArrayColumn, MaskedColumn
 from presto_tpu_torch.page import Page
 
 
@@ -38,9 +39,8 @@ def merge_payloads(
     out: Dict[str, object] = {}
     for name in schema:
         if schema[name].is_array:
-            raise NotImplementedError(
-                f"merging array column {name}: later slice of the port"
-            )
+            out[name] = _merge_array_parts([p[name] for p, _s, _n in payloads])
+            continue
         parts = []  # (data, valid|None, dict_values|None) per payload
         for payload, _schema, _nrows in payloads:
             col = payload[name]
@@ -111,6 +111,48 @@ def _merge_dict_ids(parts):
     return uarr, datas
 
 
+def _merge_array_parts(parts: List[ArrayColumn]) -> ArrayColumn:
+    """Concatenate ArrayColumn chunks: values concatenate, offsets
+    rebase. String-element dictionaries must agree across chunks (a
+    cross-dictionary array remap is a gap the reference shares)."""
+    dicts = {
+        tuple(p.dict_values) for p in parts if p.dict_values is not None
+    }
+    if len(dicts) > 1:
+        raise NotImplementedError(
+            "merging array columns with differing element "
+            "dictionaries is not supported"
+        )
+    offsets = [np.zeros(1, np.int32)]
+    values = []
+    base = 0
+    for p in parts:
+        off = np.asarray(p.offsets, np.int32)
+        end = int(off[-1]) if len(off) else 0
+        offsets.append(off[1:] + base)
+        values.append(np.asarray(p.values)[:end])
+        base += end
+    any_valid = any(p.valid is not None for p in parts)
+    return ArrayColumn(
+        offsets=np.concatenate(offsets),
+        values=np.concatenate(values) if values else np.zeros(0),
+        valid=(
+            np.concatenate([
+                np.ones(len(p), bool)
+                if p.valid is None
+                else np.asarray(p.valid, bool)
+                for p in parts
+            ])
+            if any_valid
+            else None
+        ),
+        dict_values=next(
+            (p.dict_values for p in parts if p.dict_values is not None),
+            None,
+        ),
+    )
+
+
 def page_to_wire_columns(page: Page):
     """A host result page's live prefix as host columns ``[(name, data,
     valid|None, dtype, dictionary values|None)]`` and the row count,
@@ -121,14 +163,32 @@ def page_to_wire_columns(page: Page):
     if page.live is not None or page.device.type != "cpu":
         raise ValueError("page_to_wire_columns takes a prefix-form host page")
     for blk in page.blocks:
-        if blk.dtype.is_nested:
+        if blk.dtype.is_map or blk.dtype.is_row:
             raise NotImplementedError(
-                f"{blk.dtype} columns on the wire: later slice of the port"
+                f"{blk.dtype} columns have no wire form"
             )
     n = int(page.num_valid)
     fetched = iter(page.prefix_leaves(n))
     cols = []
     for name, blk in zip(page.names, page.blocks):
+        if blk.offsets is not None:
+            offsets = next(fetched).numpy()
+            values = next(fetched).numpy()
+            valid = next(fetched).numpy() if blk.valid is not None else None
+            dict_values = (
+                None if blk.dictionary is None else blk.dictionary.values
+            )
+            cols.append((
+                name,
+                ArrayColumn(
+                    offsets=offsets, values=values, valid=valid,
+                    dict_values=dict_values,
+                ),
+                valid,
+                blk.dtype,
+                dict_values,
+            ))
+            continue
         data = next(fetched).numpy()
         valid = next(fetched).numpy() if blk.valid is not None else None
         dict_values = None if blk.dictionary is None else blk.dictionary.values

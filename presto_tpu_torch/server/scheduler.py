@@ -92,6 +92,8 @@ def _edge_distributive(parent: N.PlanNode, child: N.PlanNode) -> bool:
     ``parent``'s per-split outputs equals running ``parent`` whole."""
     if isinstance(parent, (N.FilterNode, N.ProjectNode)):
         return True
+    if isinstance(parent, N.UnnestNode):
+        return True  # each input row expands on its own
     if isinstance(parent, N.JoinNode):
         if parent.join_type == "inner":
             return True  # an inner join distributes over either side

@@ -430,3 +430,113 @@ def test_prepared_execute_on_the_card_hits_the_plan_cache(cuda):
             f"l_quantity < {q}").rows()
         assert got == want
     assert gpu.literal_form_reruns == 0
+
+
+# ------------------------------------------------ nested and long decimals
+
+
+def _nested_runner(device):
+    """A runner over tpch and a memory catalog holding arrays, string
+    arrays, maps, rows and long decimals (the values of the CPU parity
+    files tests/test_torch_{arrays,map_row,long_decimal}.py)."""
+    import decimal
+
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.connectors import create_connector
+    from presto_tpu_torch.connectors.spi import TableHandle
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.exec.staging import CatalogManager, obj_array
+
+    rng = np.random.RandomState(17)
+    base = rng.randint(-(1 << 62), 1 << 62, 3000)
+    mult = rng.choice([1, 1 << 20, (1 << 33) + 3], 3000)
+    amts = [decimal.Decimal(int(x) * int(m)).scaleb(-3)
+            for x, m in zip(base, mult)]
+    tables = {
+        "t": ({"id": T.INTEGER, "arr": T.array(T.BIGINT),
+               "tags": T.array(T.VARCHAR)},
+              {"id": [1, 2, 3, 4], "arr": [[10, 20, 30], [5], None, []],
+               "tags": [["x", "y"], ["y"], [], None]}),
+        "mr": ({"id": T.BIGINT, "m": T.map_(T.VARCHAR, T.BIGINT),
+                "im": T.map_(T.INTEGER, T.DOUBLE),
+                "r": T.row(("x", T.DOUBLE), ("y", T.VARCHAR))},
+               {"id": list(range(5)),
+                "m": [{"a": 1, "b": 2}, {}, None, {"c": 30, "a": 10},
+                      {"z": None, "q": 7}],
+                "im": [{1: 0.5}, {2: 1.5, 3: -2.5}, {}, None, {1: 9.0}],
+                "r": [{"x": 1.5, "y": "one"}, {"x": -2.0, "y": "two"}, None,
+                      {"x": 0.25, "y": None}, {"x": 9.0, "y": "nine"}]}),
+        "ld": ({"id": T.BIGINT, "amt": T.decimal(30, 3)},
+               {"id": list(range(3000)), "amt": amts}),
+    }
+    catalogs = CatalogManager()
+    catalogs.register("tpch", create_connector("tpch"))
+    mem = create_connector("memory")
+    catalogs.register("mem", mem)
+    for name, (types, cols) in tables.items():
+        h = TableHandle("mem", "s", name)
+        mem.create_table(h, types)
+        mem.append_rows(h, {c: obj_array(v) for c, v in cols.items()})
+    return LocalQueryRunner(catalogs=catalogs, device=device)
+
+
+NESTED_CARD_SQL = {
+    "arrays": "select id, arr, cardinality(arr), arr[1], element_at(arr, -1)"
+              ", tags, tags[2] from mem.s.t order by id",
+    "unnest_column": "select id, e, o from mem.s.t cross join unnest(arr) "
+                     "with ordinality as u(e, o) order by id, o",
+    "unnest_static_over_nested": "select id, arr, u.v from mem.s.t cross "
+                                 "join unnest(array[1, 2]) as u(v) "
+                                 "order by id, v",
+    "array_agg": "select o_orderstatus, array_agg(o_orderkey) from "
+                 "tpch.tiny.orders where o_orderkey < 300 group by 1 "
+                 "order by 1",
+    "array_agg_unnest": "select count(*), sum(e) from (select l_orderkey, "
+                        "array_agg(l_partkey) as a from tpch.tiny.lineitem "
+                        "group by l_orderkey) t cross join unnest(a) as u(e)",
+    "maps_rows": "select id, m, m['a'], element_at(im, 1), cardinality(m), "
+                 "r, r.x, r.y from mem.s.mr order by id",
+    "row_filter_topn": "select id, r from (select id, r from mem.s.mr "
+                       "where r.x > 0 order by id desc limit 2) s "
+                       "order by id",
+    "long_decimals": "select id, amt, amt + amt, -amt, cast(amt as double) "
+                     "from mem.s.ld where amt > 0 and id < 60 order by id",
+    "long_group_order": "select amt, count(*) from (select amt from "
+                        "mem.s.ld order by amt desc, id limit 40) s "
+                        "group by amt order by amt",
+    "order_statistics": "select approx_percentile(l_quantity, 0.5), "
+                        "min_by(l_orderkey, l_extendedprice), "
+                        "max_by(l_orderkey, l_extendedprice) "
+                        "from tpch.tiny.lineitem",
+}
+
+
+@pytest.mark.parametrize(
+    "q", list(NESTED_CARD_SQL), ids=list(NESTED_CARD_SQL)
+)
+def test_nested_queries_on_the_card_equal_the_cpu(cuda, q):
+    # array/map/row blocks, both UNNEST forms, array_agg, long decimals
+    # and global order statistics on the card against the CPU runner; a
+    # warm run repeats
+    sql = NESTED_CARD_SQL[q]
+    gpu = _nested_runner("cuda")
+    got = gpu.execute(sql).rows()
+    assert _rows_agree(got, _nested_runner("cpu").execute(sql).rows())
+    assert len(got) > 0
+    assert got == gpu.execute(sql).rows()
+
+
+def test_static_unnest_group_by_is_one_launch_on_the_card(cuda):
+    # the expanded page (3 x its capacity rows, not a power of two)
+    # reduces in exactly one onehot_reduce launch
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+
+    sql = ("select l_returnflag, l_linestatus, count(*), sum(u.v) from "
+           "tpch.tiny.lineitem cross join unnest(array[l_quantity, "
+           "l_discount, l_tax]) as u(v) group by l_returnflag, l_linestatus "
+           "order by l_returnflag, l_linestatus")
+    gpu = LocalQueryRunner(device="cuda")
+    before = onehot_reduce.launches
+    got = gpu.execute(sql).rows()
+    assert onehot_reduce.launches == before + 1
+    assert got == LocalQueryRunner(device="cpu").execute(sql).rows()

@@ -333,10 +333,22 @@ def test_civil_date_math_matches_reference():
 
 
 def test_unported_node_raises_with_its_name():
-    _, port_page = both_pages(_columns(), LIVE)
-    e = PE.ArrayLength(_col(PE, PT, "i"))
-    with pytest.raises(NotImplementedError, match="ArrayLength"):
-        PE.ExprLowerer(port_page).eval(e)
-    e = PE.Literal(10**20, PT.decimal(38, 2))
-    with pytest.raises(NotImplementedError, match="long decimals"):
-        PE.ExprLowerer(port_page).eval(e)
+    """The nested lowerings and long decimals are ported: an array
+    operation over a flat column raises in both packages, with the
+    column's name, and a long-decimal literal lowers to the reference's
+    limb pair."""
+    ref_page, port_page = both_pages(_columns(), LIVE)
+    for E, T, page in ((RE, RT, ref_page), (PE, PT, port_page)):
+        e = E.ArrayLength(_col(E, T, "i"))
+        with pytest.raises(
+            NotImplementedError, match="i is not a physical array column"
+        ):
+            E.ExprLowerer(page).eval(e)
+    want, _ = RE.ExprLowerer(ref_page).eval(
+        RE.Literal(-(10**20) - 7, RT.decimal(38, 2))
+    )
+    got, valid = PE.ExprLowerer(port_page).eval(
+        PE.Literal(-(10**20) - 7, PT.decimal(38, 2))
+    )
+    assert valid is None
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -10,11 +10,11 @@ with the reference's ``verifier.diff_results`` at rel 1e-9.
 The seeds are pinned: a contiguous range under the default draw, plus
 the seeds that found the broadcast-column fault (a one-row result
 holding a stride-0 block: 1130, and under streaming 24, 26, 58, 70,
-125, 157, 158, 263, 264, 292, 376 and 432). Queries that unnest an
-array plan an ``UnnestNode``, which the port does not execute yet: for
-those the port must raise with that name while the reference answers.
-The seed count is kept small because the reference's XLA compiles
-dominate the run time."""
+125, 157, 158, 263, 264, 292, 376 and 432), and the seeds whose queries
+unnest an array (an ``UnnestNode``: 17, 34, 35, 81 and 94, and 209
+streamed, which expands a streamed lineitem scan under a TopN). The seed
+count is kept small because the reference's XLA compiles dominate the
+run time."""
 
 from __future__ import annotations
 
@@ -25,16 +25,17 @@ from presto_tpu.fuzz import generate_query, session_draw
 from presto_tpu.session import Session as RefSession
 from presto_tpu.sql import parse_statement
 from presto_tpu.verifier import diff_results
-from presto_tpu_torch.exec.local_runner import ExecutionError, LocalQueryRunner
+from presto_tpu_torch.exec.local_runner import LocalQueryRunner
 from presto_tpu_torch.session import Session
 
 REL = 1e-9
 STREAM_ROWS = 8_192
 
-DEFAULT_SEEDS = list(range(12)) + [17, 1130]
-STREAMED_SEEDS = [24, 26, 58, 70, 125, 157, 158, 263, 264, 292, 376, 432]
-#: seeds whose query unnests an array (the port raises on UnnestNode)
-UNNEST_SEEDS = {17}
+#: seeds whose query unnests an array
+UNNEST_SEEDS = [17, 34, 35, 81, 94]
+DEFAULT_SEEDS = list(range(12)) + UNNEST_SEEDS + [1130]
+STREAMED_SEEDS = [24, 26, 58, 70, 125, 157, 158, 209, 263, 264, 292, 376,
+                  432]
 
 
 @pytest.fixture(scope="module")
@@ -58,11 +59,8 @@ def _check(runners, seed, props):
     sql = generate_query(seed)
     ref, port = runners(props)
     want = ref.execute(sql).rows()
-    if seed in UNNEST_SEEDS:
+    if seed in UNNEST_SEEDS or seed == 209:
         assert "unnest" in sql.lower()
-        with pytest.raises(ExecutionError, match="UnnestNode"):
-            port.execute(sql)
-        return
     got = port.execute(sql).rows()
     ordered = bool(parse_statement(sql).order_by)
     diff = diff_results(got, want, ordered, REL)

@@ -121,9 +121,30 @@ def test_boundaries_group_nans_and_nulls_together():
 
 
 def test_long_decimal_keys_raise():
+    """A long decimal has no single orderable lane in either package;
+    its two ``key_lanes`` equal the reference's, and they order and
+    group int128 values as Python ints do."""
+    vals = [0, -1, 1, 2**63, -(2**63), 2**64 + 3, -(2**64) - 3, 2**100,
+            -(2**100), 5, 2**63, -1]
+    limbs = RT.int128_limbs(vals)
+    t_ref, t_port = RT.decimal(30, 2), PT.decimal(30, 2)
     with pytest.raises(NotImplementedError, match="long decimals"):
-        PC.orderable_i64(torch.zeros(4, 2, dtype=torch.int64),
-                         PT.parse_type("decimal(30,2)"))
+        RC.orderable_i64(jnp.asarray(limbs), t_ref)
+    with pytest.raises(NotImplementedError, match="long decimals"):
+        PC.orderable_i64(torch.from_numpy(limbs), t_port)
+    want = RC.key_lanes(jnp.asarray(limbs), t_ref)
+    got = PC.key_lanes(torch.from_numpy(limbs), t_port)
+    for w, g in zip(want, got, strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    live = torch.ones(len(vals), dtype=torch.bool)
+    order = PC.sort_order([(torch.from_numpy(limbs), None, t_port)], live)
+    assert order.tolist() == sorted(range(len(vals)), key=lambda i: vals[i])
+    sorted_limbs = torch.from_numpy(limbs)[order]
+    bnd = PC.boundaries([(sorted_limbs, None)], live)
+    svals = sorted(vals)
+    assert bnd.tolist() == [
+        i == 0 or svals[i] != svals[i - 1] for i in range(len(vals))
+    ]
 
 
 def _sort_keys(spec, E, S, T):
