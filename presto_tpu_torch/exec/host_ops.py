@@ -5,7 +5,8 @@ numpy sort/limit/output, with one batched copy of the result's prefix
 tensors (``page.to_host``) in place of ``jax.device_get``. A nested
 (array/map/row) column does not become Python objects here: the host
 stage carries its row numbers through the sort and limit, and gathers
-the block once at the end (``page.gather_block``).
+the block's host copy once at the end (``page.gather_block``).
+``materialize_page`` is the same copy for a result with no host op.
 
 
 Reference parity: the single-partition ROOT STAGE — presto executes the
@@ -29,12 +30,14 @@ the expression engine lives.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
+from presto_tpu_torch.exec.staging import bucket_capacity
 from presto_tpu_torch.expr import ColumnRef
 from presto_tpu_torch.page import Block, Page, gather_block, to_host
 from presto_tpu_torch.plan import nodes as N
@@ -101,38 +104,26 @@ def apply_host_ops(
     entirely in numpy; returns a dense result page on the CPU.
     ``rows_out``, when given, records the row count after each applied
     op (innermost first)."""
-    # one read of the live count, then ONE copy of the n-row prefixes of
-    # the flat columns and the validity of the nested ones
+    # one read of the live count, then ONE copy of every block's n-row
+    # prefix (a nested block's whole value axis), rebuilt on the host
     n = int(page.num_valid)
-    leaves = []
-    for blk in page.blocks:
-        if not blk.dtype.is_nested:
-            leaves.append(blk.data[:n])
-        if blk.valid is not None:
-            leaves.append(blk.valid[:n])
-    fetched = [t.numpy() for t in to_host(leaves)]
+    fetched = iter(to_host(page.prefix_leaves(n)))
     # name -> (np_data, np_valid, dtype, dictionary); a nested column's
-    # np_data is its row numbers and its "dictionary" the block itself
+    # np_data is its row numbers and its "dictionary" the host block
     cols = {}
-    i = 0
     for name, blk in zip(page.names, page.blocks):
+        blk = _host_block(blk, fetched, n, max(n, 1))
+        valid = (
+            np.ones(n, dtype=bool)
+            if blk.valid is None
+            else blk.valid[:n].numpy()
+        )
         if blk.dtype.is_nested:
-            data = np.arange(n, dtype=np.int64)
-            if blk.valid is not None:
-                valid = fetched[i]
-                i += 1
-            else:
-                valid = np.ones(n, dtype=bool)
-            cols[name] = (data, valid, blk.dtype, blk)
-            continue
-        data = fetched[i]
-        i += 1
-        if blk.valid is not None:
-            valid = fetched[i]
-            i += 1
+            cols[name] = (np.arange(n, dtype=np.int64), valid, blk.dtype, blk)
         else:
-            valid = np.ones(n, dtype=bool)
-        cols[name] = (data, valid, blk.dtype, blk.dictionary)
+            cols[name] = (
+                blk.data[:n].numpy(), valid, blk.dtype, blk.dictionary
+            )
 
     for node in reversed(host_ops):
         if isinstance(node, N.SortNode):
@@ -164,7 +155,6 @@ def apply_host_ops(
         if t.is_nested:
             sel = torch.zeros((cap,), dtype=torch.int64)
             sel[:n] = torch.from_numpy(d)
-            sel = sel.to(dic.data.device)
             blocks.append(gather_block(dic, sel, n))
             names.append(name)
             continue
@@ -193,6 +183,66 @@ def apply_host_ops(
         blocks=tuple(blocks),
         num_valid=torch.tensor(n, dtype=torch.int32),
         names=tuple(names),
+    )
+
+
+def materialize_page(page: Page, n: int) -> Page:
+    """Copy the live prefix of a prefix-form page to the host in ONE
+    transfer: slice every block to ``n`` rows on the device, copy them
+    together (``page.to_host``), and re-pad on the host to the
+    power-of-two bucket. The result page holds CPU tensors."""
+    cap = bucket_capacity(n)
+    fetched = iter(to_host(page.prefix_leaves(n)))
+    blocks = [_host_block(blk, fetched, n, cap) for blk in page.blocks]
+    return Page(
+        blocks=tuple(blocks),
+        num_valid=torch.tensor(n, dtype=torch.int32),
+        names=page.names,
+    )
+
+
+def _host_block(blk: Block, fetched, n: int, cap: int) -> Block:
+    """One block of a materialized page, rebuilt from its fetched
+    prefix leaves (``Page.prefix_leaves`` order) and re-padded to
+    ``cap`` rows; an array or map block's offsets edge-pad (padding rows
+    read as empty) and its flat values keep their fetched capacity."""
+
+    def rows(t: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype)
+        out[:n] = t
+        return out
+
+    offsets = None
+    if blk.offsets is not None:
+        offsets = torch.empty((cap + 1,), dtype=torch.int32)
+        offsets[: n + 1] = next(fetched)
+        offsets[n + 1:] = offsets[n]
+    children = None
+    if blk.dtype.is_map:
+        children = []
+        for ch in blk.children:
+            data = next(fetched)
+            valid = None if ch.valid is None else next(fetched)
+            children.append(dataclasses.replace(ch, data=data, valid=valid))
+        data = Block.placeholder_data(cap, "cpu")
+    elif blk.dtype.is_row:
+        children = []
+        for ch in blk.children:
+            data = rows(next(fetched))
+            valid = None if ch.valid is None else rows(next(fetched))
+            children.append(dataclasses.replace(ch, data=data, valid=valid))
+        data = Block.placeholder_data(cap, "cpu")
+    elif blk.offsets is not None:
+        data = next(fetched)
+    else:
+        data = rows(next(fetched))
+    valid = None if blk.valid is None else rows(next(fetched))
+    return dataclasses.replace(
+        blk,
+        data=data,
+        valid=valid,
+        offsets=offsets,
+        children=None if children is None else tuple(children),
     )
 
 

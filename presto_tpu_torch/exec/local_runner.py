@@ -52,7 +52,11 @@ from presto_tpu_torch import types as T
 from presto_tpu_torch.connectors import create_connector
 from presto_tpu_torch.connectors.spi import ConnectorSplit, payload_len
 from presto_tpu_torch.exec import dynfilter, streaming
-from presto_tpu_torch.exec.host_ops import apply_host_ops, peel_host_ops
+from presto_tpu_torch.exec.host_ops import (
+    apply_host_ops,
+    materialize_page,
+    peel_host_ops,
+)
 from presto_tpu_torch.exec.staging import (
     DEFAULT_CACHE_BYTES,
     CatalogManager,
@@ -83,7 +87,6 @@ from presto_tpu_torch.page import (
     compact_page,
     pad_capacity,
     resolve_device,
-    to_host,
 )
 from presto_tpu_torch.plan import canonical
 from presto_tpu_torch.plan import nodes as N
@@ -904,66 +907,6 @@ class LocalQueryRunner:
                     conn.create_page_source(split, list(scan.columns))
                 )
         return _merge_split_payloads(datas, list(scan.columns))
-
-
-def materialize_page(page: Page, n: int) -> Page:
-    """Copy the live prefix of a prefix-form page to the host in ONE
-    transfer: slice every block to ``n`` rows on the device, copy them
-    together (``page.to_host``), and re-pad on the host to the
-    power-of-two bucket. The result page holds CPU tensors."""
-    cap = bucket_capacity(n)
-    fetched = iter(to_host(page.prefix_leaves(n)))
-    blocks = [_host_block(blk, fetched, n, cap) for blk in page.blocks]
-    return Page(
-        blocks=tuple(blocks),
-        num_valid=torch.tensor(n, dtype=torch.int32),
-        names=page.names,
-    )
-
-
-def _host_block(blk: Block, fetched, n: int, cap: int) -> Block:
-    """One block of a materialized page, rebuilt from its fetched
-    prefix leaves (``Page.prefix_leaves`` order) and re-padded to
-    ``cap`` rows; an array or map block's offsets edge-pad (padding rows
-    read as empty) and its flat values keep their fetched capacity."""
-
-    def rows(t: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype)
-        out[:n] = t
-        return out
-
-    offsets = None
-    if blk.offsets is not None:
-        offsets = torch.empty((cap + 1,), dtype=torch.int32)
-        offsets[: n + 1] = next(fetched)
-        offsets[n + 1:] = offsets[n]
-    children = None
-    if blk.dtype.is_map:
-        children = []
-        for ch in blk.children:
-            data = next(fetched)
-            valid = None if ch.valid is None else next(fetched)
-            children.append(dataclasses.replace(ch, data=data, valid=valid))
-        data = Block.placeholder_data(cap, "cpu")
-    elif blk.dtype.is_row:
-        children = []
-        for ch in blk.children:
-            data = rows(next(fetched))
-            valid = None if ch.valid is None else rows(next(fetched))
-            children.append(dataclasses.replace(ch, data=data, valid=valid))
-        data = Block.placeholder_data(cap, "cpu")
-    elif blk.offsets is not None:
-        data = next(fetched)
-    else:
-        data = rows(next(fetched))
-    valid = None if blk.valid is None else rows(next(fetched))
-    return dataclasses.replace(
-        blk,
-        data=data,
-        valid=valid,
-        offsets=offsets,
-        children=None if children is None else tuple(children),
-    )
 
 
 #: plan weight per node in the reference (its compile-size proxy and the

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import int128
+from presto_tpu_torch.int128 import _lsr
 from presto_tpu_torch import types as T
 from presto_tpu_torch.page import Page
 
@@ -832,12 +833,6 @@ def _i64(c: int) -> int:
     return c - (1 << 64) if c >= (1 << 63) else c
 
 
-def _lsr(z: torch.Tensor, k: int) -> torch.Tensor:
-    """Logical right shift of int64 bits (``>>`` on int64 is arithmetic:
-    mask off the copies of the sign bit)."""
-    return (z >> k) & ((1 << (64 - k)) - 1)
-
-
 def _sign(x: torch.Tensor) -> torch.Tensor:
     """``jnp.sign``: NaN and -0.0 map to themselves (``torch.sign`` gives
     0 for both)."""
@@ -950,6 +945,44 @@ def lut_to_device(lut: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def union_dictionaries(dicts) -> Tuple["Dictionary", List[np.ndarray]]:
+    """The sorted union of string dictionaries (``None`` counts as
+    empty) and, per input, the int32 LUT from its ids to the union's:
+    sorted union ids preserve value order, so </> stay valid."""
+    from presto_tpu_torch.page import Dictionary
+
+    parts = [
+        np.asarray(d.values, dtype=object)
+        if d is not None
+        else np.empty(0, object)
+        for d in dicts
+    ]
+    nonempty = [p for p in parts if len(p)]
+    uniq = (
+        np.unique(np.concatenate(nonempty).astype(str))
+        if nonempty
+        else np.array([], dtype=str)
+    )
+    luts = [
+        np.searchsorted(uniq, p.astype(str)).astype(np.int32)
+        if len(p)
+        else np.zeros(0, np.int32)
+        for p in parts
+    ]
+    return Dictionary(np.asarray(uniq, dtype=object)), luts
+
+
+def remap_ids(ids: torch.Tensor, lut: np.ndarray) -> torch.Tensor:
+    """Ids of one dictionary -> ids of a union through its LUT
+    (``union_dictionaries``), gathered on the ids' device; the ids of an
+    empty dictionary (NULL or no rows) become zeros."""
+    if not len(lut):
+        return torch.zeros_like(ids)
+    return lut_to_device(lut, ids.device)[
+        torch.clamp(ids, 0, len(lut) - 1).long()
+    ]
 
 
 def _long_math_unsupported():
@@ -1177,21 +1210,6 @@ class ExprLowerer:
 
     # -- long decimal (int128 limb pairs; int128.py) -----------------------
 
-    def _long_limbs(self, expr: Expr, data, to_scale: int):
-        """Any numeric operand -> (hi, lo) limbs at ``to_scale``."""
-        t = expr.dtype
-        if t.is_long_decimal:
-            h, l = int128.split(data)
-            from_scale = t.scale
-        else:
-            h, l = int128.from_i64(data)
-            from_scale = t.scale if t.is_decimal else 0
-        if to_scale < from_scale:  # the planner upscales
-            raise NotImplementedError(
-                "long-decimal downscale requires int128 division"
-            )
-        return int128.mul_pow10(h, l, to_scale - from_scale)
-
     def _long_decimal_arith(self, e: Arithmetic, ld, rd, valid):
         lt, rt = e.left.dtype, e.right.dtype
         if e.dtype.name in ("double", "real") or e.op == "/":
@@ -1214,8 +1232,8 @@ class ExprLowerer:
                 )
         if e.op in ("+", "-"):
             scale = e.dtype.scale
-            lh, ll = self._long_limbs(e.left, ld, scale)
-            rh, rl = self._long_limbs(e.right, rd, scale)
+            lh, ll = _long_limbs(ld, e.left.dtype, scale)
+            rh, rl = _long_limbs(rd, e.right.dtype, scale)
             fn = int128.add if e.op == "+" else int128.sub
             return int128.join(*fn(lh, ll, rh, rl)), valid
         if e.op == "*" and not (lt.is_long_decimal and rt.is_long_decimal):
@@ -1329,8 +1347,8 @@ class ExprLowerer:
             lt.scale if lt.is_decimal else 0,
             rt.scale if rt.is_decimal else 0,
         )
-        lh, ll = self._long_limbs(e.left, ld, scale)
-        rh, rl = self._long_limbs(e.right, rd, scale)
+        lh, ll = _long_limbs(ld, e.left.dtype, scale)
+        rh, rl = _long_limbs(rd, e.right.dtype, scale)
         if e.op == "=":
             return int128.eq(lh, ll, rh, rl)
         if e.op in ("<>", "!="):
@@ -1477,31 +1495,7 @@ class ExprLowerer:
         — sorted union ids preserve value order, so </> stay valid."""
         key = ("union",) + tuple(dicts)
         if key not in self._transform_cache:
-            from presto_tpu_torch.page import Dictionary
-
-            parts = [
-                np.asarray(d.values, dtype=object) for d in dicts
-            ]
-            allv = (
-                np.concatenate([p for p in parts if len(p)])
-                if any(len(p) for p in parts)
-                else np.array([], dtype=object)
-            )
-            uniq = (
-                np.unique(allv.astype(str))
-                if len(allv)
-                else np.array([], dtype=str)
-            )
-            luts = [
-                np.searchsorted(uniq, p.astype(str)).astype(np.int32)
-                if len(p)
-                else np.zeros(0, np.int32)
-                for p in parts
-            ]
-            self._transform_cache[key] = (
-                Dictionary(np.asarray(uniq, dtype=object)),
-                luts,
-            )
+            self._transform_cache[key] = union_dictionaries(dicts)
         return self._transform_cache[key]
 
     def _coalesce_dict(self, e: Coalesce):
@@ -1572,17 +1566,9 @@ class ExprLowerer:
                 raise NotImplementedError(
                     "double -> long decimal cast (use a decimal literal)"
                 )
-            if src.is_long_decimal:
-                h, l = int128.split(d)
-                from_scale = src.scale
-            else:
-                h, l = int128.from_i64(d)
-                from_scale = src.scale if src.is_decimal else 0
-            if dst.scale < from_scale:
-                h, l = int128.div_pow10_half_up(h, l, from_scale - dst.scale)
-            else:
-                h, l = int128.mul_pow10(h, l, dst.scale - from_scale)
-            return int128.join(h, l)
+            return int128.join(
+                *_long_limbs(d, src, dst.scale, half_up=True)
+            )
         # src is a long decimal
         if dst.name in ("double", "real"):
             f = int128.to_f64(*int128.split(d)) * (10.0 ** -src.scale)
@@ -1592,11 +1578,7 @@ class ExprLowerer:
             # take the low limb; values beyond int64 wrap (the
             # reference's documented deviation)
             to_scale = dst.scale if dst.is_decimal else 0
-            h, l = int128.split(d)
-            if to_scale > src.scale:
-                h, l = int128.mul_pow10(h, l, to_scale - src.scale)
-            elif to_scale < src.scale:
-                h, l = int128.div_pow10_half_up(h, l, src.scale - to_scale)
+            _, l = _long_limbs(d, src, to_scale, half_up=True)
             return l.to(dst.torch_dtype)
         raise NotImplementedError(f"cast {src} -> {dst}")
 
@@ -2067,21 +2049,30 @@ def _tv_or_valid(ld, lv, rd, rv):
     return (lk & rk) | known_true
 
 
+def _long_limbs(data, from_t: T.DataType, to_scale: int, half_up=False):
+    """An integer, decimal or long-decimal operand -> (hi, lo) limbs at
+    ``to_scale``. A downscale rounds half up under ``half_up`` (a cast)
+    and raises otherwise (the planner upscales operands)."""
+    if from_t.is_long_decimal:
+        h, l = int128.split(data)
+        from_scale = from_t.scale
+    else:
+        h, l = int128.from_i64(data)
+        from_scale = from_t.scale if from_t.is_decimal else 0
+    if to_scale >= from_scale:
+        return int128.mul_pow10(h, l, to_scale - from_scale)
+    if not half_up:
+        raise NotImplementedError(
+            "long-decimal downscale requires int128 division"
+        )
+    return int128.div_pow10_half_up(h, l, from_scale - to_scale)
+
+
 def _coerce_to(data, from_t: T.DataType, to_t: T.DataType):
     if from_t == to_t:
         return data
     if to_t.is_long_decimal:
-        if from_t.is_long_decimal:
-            h, l = int128.split(data)
-            from_scale = from_t.scale
-        else:
-            h, l = int128.from_i64(data)
-            from_scale = from_t.scale if from_t.is_decimal else 0
-        if to_t.scale < from_scale:
-            raise NotImplementedError(
-                "long-decimal downscale requires int128 division"
-            )
-        return int128.join(*int128.mul_pow10(h, l, to_t.scale - from_scale))
+        return int128.join(*_long_limbs(data, from_t, to_t.scale))
     if from_t.is_long_decimal:
         raise NotImplementedError(
             f"implicit narrowing of {from_t} to {to_t}; cast explicitly"

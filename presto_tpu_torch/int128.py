@@ -33,7 +33,9 @@ def _ult(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _lsr(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Logical right shift of an int64 bit pattern by 0 < k < 64."""
+    """Logical right shift of an int64 bit pattern by 0 < k < 64
+    (``>>`` on int64 is arithmetic: mask off the copies of the sign
+    bit)."""
     return (x >> k) & ((1 << (64 - k)) - 1)
 
 

@@ -22,21 +22,19 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
-from presto_tpu_torch.exec.staging import bucket_capacity
 from presto_tpu_torch.expr import (
     ColumnRef,
     Expr,
     ExprLowerer,
     Literal,
     eval_predicate,
-    lut_to_device,
+    remap_ids,
+    union_dictionaries,
 )
 from presto_tpu_torch.page import (
     Block,
     Dictionary,
     Page,
-    _pad_flat_child,
-    _pad_rows,
     compact_page,
     gather_block,
     nonzero_static,
@@ -149,43 +147,6 @@ def filter_project(
     )
 
 
-def _remap_ids(ids: torch.Tensor, part: np.ndarray, values: np.ndarray):
-    """Ids of dictionary ``part`` -> ids in the sorted union ``values``
-    (a host LUT gathered on the device); an empty part gives zeros."""
-    if not len(part):
-        return torch.zeros_like(ids)
-    lut = np.searchsorted(values, part.astype(str)).astype(np.int32)
-    return lut_to_device(lut, ids.device)[
-        torch.clamp(ids, 0, len(part) - 1).long()
-    ]
-
-
-def _dict_values(d: Optional[Dictionary]) -> np.ndarray:
-    return (
-        np.asarray(d.values, object)
-        if d is not None and len(d.values)
-        else np.empty(0, object)
-    )
-
-
-def _widen_values(blk: Block, k: int) -> Block:
-    """An array or map block with room for its values repeated ``k``
-    times (the flat values zero-padded to the bucket of k times their
-    capacity); other blocks as they are."""
-    if blk.offsets is None:
-        return blk
-    if blk.dtype.is_map:
-        vcap = bucket_capacity(blk.children[0].data.shape[0] * k)
-        return dataclasses.replace(
-            blk,
-            children=tuple(_pad_flat_child(c, vcap) for c in blk.children),
-        )
-    n = blk.data.shape[0]
-    return dataclasses.replace(
-        blk, data=_pad_rows(blk.data, bucket_capacity(n * k) - n)
-    )
-
-
 def unnest(
     page: Page,
     elements: Sequence[Expr],
@@ -228,12 +189,8 @@ def unnest(
 
     out_dict = None
     if out_type.is_string:
-        parts = [_dict_values(d) for d in dicts]
-        values = np.unique(np.concatenate(parts).astype(str))
-        out_dict = Dictionary(values.astype(object))
-        datas = [
-            _remap_ids(ids, part, values) for ids, part in zip(datas, parts)
-        ]
+        out_dict, luts = union_dictionaries(dicts)
+        datas = [remap_ids(ids, lut) for ids, lut in zip(datas, luts)]
 
     def expand(x):
         # repeat ROWS (long decimals are (cap, 2) limb pairs)
@@ -241,12 +198,12 @@ def unnest(
             (cap * k,) + x.shape[1:]
         )
 
-    # a nested column repeats by a row gather, its value axis widened k
-    # times first (the reference repeats the flat tensors and loses the
-    # offsets and children)
+    # a nested column repeats by a row gather, each row k times (the
+    # reference repeats the flat tensors and loses the offsets and
+    # children)
     rep_rows = torch.arange(cap * k, device=dev) // k
     blocks = [
-        gather_block(_widen_values(blk, k), rep_rows, cap * k)
+        gather_block(blk, rep_rows, cap * k, repeats=k)
         if blk.dtype.is_nested
         else dataclasses.replace(
             blk,
@@ -373,25 +330,10 @@ def union_all(pages: Sequence[Page]) -> Page:
         dictionary = None
         datas = [b.data for b in blks]
         if dtype.is_string:
-            parts = [
-                np.asarray(b.dictionary.values, object)
-                if b.dictionary is not None and len(b.dictionary.values)
-                else np.empty(0, object)
-                for b in blks
-            ]
-            values = np.unique(np.concatenate(parts).astype(str))
-            dictionary = Dictionary(values.astype(object))
-            datas = []
-            for b, part in zip(blks, parts):
-                if not len(part):
-                    datas.append(torch.zeros_like(b.data))
-                    continue
-                lut = np.searchsorted(values, part.astype(str))
-                datas.append(
-                    lut_to_device(lut.astype(np.int32), dev)[
-                        torch.clamp(b.data, 0, len(part) - 1).long()
-                    ]
-                )
+            dictionary, luts = union_dictionaries(
+                [b.dictionary for b in blks]
+            )
+            datas = [remap_ids(d, lut) for d, lut in zip(datas, luts)]
         valid = None
         if any(b.valid is not None for b in blks):
             valid = torch.cat([

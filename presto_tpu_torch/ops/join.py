@@ -213,8 +213,13 @@ def cross_join(
     b_idx = torch.clamp(offset, 0, right_c.capacity - 1)
 
     n_out = torch.clamp(out_count, max=out_capacity)
-    blocks = [gather_block(blk, p_idx, n_out) for blk in left.blocks]
-    blocks += [gather_block(blk, b_idx, n_out) for blk in right_c.blocks]
+    # every row repeats as often as the data says: a nested column sizes
+    # its value axis from the gathered total (``gather_block``)
+    blocks = [
+        gather_block(blk, idx, n_out, repeats=None)
+        for idx, page in ((p_idx, left), (b_idx, right_c))
+        for blk in page.blocks
+    ]
     return (
         Page(
             blocks=tuple(blocks),

@@ -613,14 +613,22 @@ def _bytes_of(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).view(torch.uint8)
 
 
-def gather_block(blk: Block, sel: torch.Tensor, num_live) -> Block:
+def gather_block(
+    blk: Block, sel: torch.Tensor, num_live, repeats: Optional[int] = 1
+) -> Block:
     """Rows ``sel`` of a block, nested or flat. ``num_live`` (a 0-d
     tensor or int) marks the entries of ``sel`` past it as padding: in
-    an array or map block they read as empty rows."""
+    an array or map block they read as empty rows.
+
+    ``repeats`` bounds how often ``sel`` names one source row, and so
+    sizes an array or map block's value axis: 1 (a compaction, a sort)
+    keeps its capacity, k > 1 (a static UNNEST) takes the bucket of k
+    times it, and ``None`` (a cross join, whose fan-out is data) the
+    bucket of the gathered values' own total, read once on the host."""
     if blk.dtype.is_row:
-        return _gather_row_block(blk, sel, num_live)
+        return _gather_row_block(blk, sel, num_live, repeats)
     if blk.offsets is not None:
-        return _gather_array_block(blk, sel, num_live)
+        return _gather_array_block(blk, sel, num_live, repeats)
     return dataclasses.replace(
         blk,
         data=blk.data[sel],
@@ -628,12 +636,17 @@ def gather_block(blk: Block, sel: torch.Tensor, num_live) -> Block:
     )
 
 
-def _gather_array_block(blk: Block, sel: torch.Tensor, num_live) -> Block:
+def _gather_array_block(
+    blk: Block, sel: torch.Tensor, num_live, repeats: Optional[int]
+) -> Block:
     """Row-gather an array or map block: new offsets from the selected
     rows' lengths, and the values laid out again by the prefix-sum +
     inverse-searchsorted expansion (value slot j belongs to the row p
-    with new_off[p] <= j < new_off[p+1]). A map block applies the same
+    with new_off[p] <= j < new_off[p+1]) over the value capacity that
+    ``repeats`` sets (``gather_block``). A map block applies the same
     value-axis gather to both children."""
+    from presto_tpu_torch.exec.staging import bucket_capacity
+
     cap = sel.shape[0]
     dev = sel.device
     off = blk.offsets.to(torch.int64)
@@ -647,11 +660,17 @@ def _gather_array_block(blk: Block, sel: torch.Tensor, num_live) -> Block:
     ])
     flat = blk.children[0] if blk.dtype.is_map else blk
     vcap = flat.data.shape[0]
+    if repeats is None:
+        out_vcap = bucket_capacity(int(new_off[-1]))
+    elif repeats > 1:
+        out_vcap = bucket_capacity(vcap * repeats)
+    else:
+        out_vcap = vcap
     valid = None if blk.valid is None else blk.valid[sel]
     if vcap == 0:
-        src = None
+        src = None  # no values to gather: every row is empty
     else:
-        j = torch.arange(vcap, dtype=torch.int64, device=dev)
+        j = torch.arange(out_vcap, dtype=torch.int64, device=dev)
         p = torch.clamp(
             torch.searchsorted(new_off[1:], j, right=True), max=cap - 1
         )
@@ -683,14 +702,16 @@ def _gather_array_block(blk: Block, sel: torch.Tensor, num_live) -> Block:
     )
 
 
-def _gather_row_block(blk: Block, sel: torch.Tensor, num_live) -> Block:
+def _gather_row_block(
+    blk: Block, sel: torch.Tensor, num_live, repeats: Optional[int]
+) -> Block:
     """Row-gather a row (struct) block: its children gather with it."""
     return dataclasses.replace(
         blk,
         data=Block.placeholder_data(sel.shape[0], sel.device),
         valid=None if blk.valid is None else blk.valid[sel],
         children=tuple(
-            gather_block(ch, sel, num_live) for ch in blk.children
+            gather_block(ch, sel, num_live, repeats) for ch in blk.children
         ),
     )
 

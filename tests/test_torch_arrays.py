@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import pytest
 
 from presto_tpu import types as RT
@@ -256,6 +257,75 @@ def test_cross_join_keeps_array_rows(runners):
         (1, [10, 20, 30], 0), (1, [], 1), (2, [5], 0), (2, [], 1),
         (3, None, 0), (3, None, 1), (4, [], 0), (4, [], 1),
     ]
+
+
+WORDS = ["alpha", "beta", "gamma", "delta"]
+
+
+def _big_rows():
+    """500 rows whose arrays and maps hold about 1,000 values each: the
+    value axis fills a 1,024 bucket, so two copies of every row need a
+    larger one."""
+    rng = np.random.default_rng(8)
+    arr, m = [], []
+    for _ in range(500):
+        arr.append(
+            None if rng.random() < 0.1
+            else [int(x) for x in rng.integers(-999, 999, rng.integers(0, 5))]
+        )
+        m.append(
+            None if rng.random() < 0.1
+            else {
+                WORDS[int(k)]: int(rng.integers(-9, 9))
+                for k in rng.choice(4, rng.integers(0, 5), replace=False)
+            }
+        )
+    return {"id": list(range(500)), "arr": arr, "m": m}
+
+
+@pytest.mark.parametrize("array_side", ["left", "right"])
+def test_cross_join_widens_repeated_array_values(runners, array_side):
+    """Every row of a nested column repeats once per row of the other
+    side, so its values outgrow the source's value bucket: the port's
+    cross join sizes the value axis from the gathered total and returns
+    the Python evaluation's rows, whole arrays and maps, cardinality and
+    subscripts, with the nested table on either side. (The reference
+    corrupts these columns: F2, pinned above.)"""
+    cols = _big_rows()
+    assert sum(len(a) for a in cols["arr"] if a is not None) > 512
+    assert sum(len(d) for d in cols["m"] if d is not None) > 512
+    append_both(
+        runners, "default", f"big_{array_side}",
+        lambda T: {
+            "id": T.INTEGER,
+            "arr": T.array(T.BIGINT),
+            "m": T.map_(T.VARCHAR, T.BIGINT),
+        },
+        list(zip(cols["id"], cols["arr"], cols["m"])),
+    )
+    big = f"mem.default.big_{array_side} b"
+    nation = "tpch.tiny.nation n"
+    tables = (
+        f"{big} cross join {nation}"
+        if array_side == "left"
+        else f"{nation} cross join {big}"
+    )
+    sql = (
+        "select b.id, n.n_nationkey, b.arr, b.m, cardinality(b.arr), "
+        "element_at(b.arr, -1), element_at(b.m, 'beta') "
+        f"from {tables} where n.n_nationkey < 2 order by b.id, n.n_nationkey"
+    )
+    want = [
+        (
+            i, k, a, d,
+            None if a is None else len(a),
+            None if not a else a[-1],
+            None if d is None else d.get("beta"),
+        )
+        for i, a, d in zip(cols["id"], cols["arr"], cols["m"])
+        for k in (0, 1)
+    ]
+    assert_same_rows(runners[1].execute(sql).rows(), want)
 
 
 ORDER_STAT_SQL = {

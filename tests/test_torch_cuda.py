@@ -468,6 +468,11 @@ def _nested_runner(device):
                       {"x": 0.25, "y": None}, {"x": 9.0, "y": "nine"}]}),
         "ld": ({"id": T.BIGINT, "amt": T.decimal(30, 3)},
                {"id": list(range(3000)), "amt": amts}),
+        # about 1,000 array values: two copies outgrow the 1,024 bucket
+        "big": ({"id": T.BIGINT, "arr": T.array(T.BIGINT)},
+                {"id": list(range(500)),
+                 "arr": [[int(x) for x in rng.randint(-99, 99, n)]
+                         for n in rng.randint(0, 5, 500)]}),
     }
     catalogs = CatalogManager()
     catalogs.register("tpch", create_connector("tpch"))
@@ -504,6 +509,10 @@ NESTED_CARD_SQL = {
     "long_group_order": "select amt, count(*) from (select amt from "
                         "mem.s.ld order by amt desc, id limit 40) s "
                         "group by amt order by amt",
+    "cross_join_repeats": "select b.id, n.n_nationkey, b.arr, "
+                          "element_at(b.arr, -1) from mem.s.big b cross "
+                          "join tpch.tiny.nation n where n.n_nationkey < 2 "
+                          "order by b.id, n.n_nationkey",
     "order_statistics": "select approx_percentile(l_quantity, 0.5), "
                         "min_by(l_orderkey, l_extendedprice), "
                         "max_by(l_orderkey, l_extendedprice) "
@@ -524,6 +533,24 @@ def test_nested_queries_on_the_card_equal_the_cpu(cuda, q):
     assert _rows_agree(got, _nested_runner("cpu").execute(sql).rows())
     assert len(got) > 0
     assert got == gpu.execute(sql).rows()
+
+
+def _block_tensors(blk):
+    yield from (t for t in (blk.data, blk.valid, blk.offsets) if t is not None)
+    for ch in blk.children or ():
+        yield from _block_tensors(ch)
+
+
+@pytest.mark.parametrize("host_op", [False, True], ids=["none", "order_by"])
+def test_root_results_with_nested_columns_live_on_the_host(cuda, host_op):
+    # a result page is on the host whether or not the root stage ran a
+    # host ORDER BY: nested blocks included
+    sql = "select id, arr, tags from mem.s.t" + (
+        " order by id desc" if host_op else ""
+    )
+    page = _nested_runner("cuda").execute(sql).page
+    devices = {t.device.type for b in page.blocks for t in _block_tensors(b)}
+    assert devices == {"cpu"}
 
 
 def test_static_unnest_group_by_is_one_launch_on_the_card(cuda):

@@ -154,6 +154,32 @@ def test_pad_capacity_rebuckets_nested_blocks(capacity):
     )
 
 
+@pytest.mark.parametrize("repeats", [None, 16])
+@pytest.mark.parametrize("col", ["arr", "tags", "m"])
+def test_gather_block_makes_room_for_repeated_values(col, repeats):
+    """Every row selected 16 times needs more value slots than the
+    source's 1,024 bucket: the gather widens the value axis (by the
+    static bound, or to the bucket of the gathered total) and every copy
+    decodes whole."""
+    k = 16
+    vals = _values(5)[col]
+    page = PP.Page.from_pydict(
+        {col: vals}, {col: _schema(PT)[col]}, capacity=CAP, device="cpu"
+    )
+    blk = page.block(col)
+    vcap = (blk.children[0] if blk.dtype.is_map else blk).data.shape[0]
+    assert sum(len(v) for v in vals if v is not None) * k > vcap
+    out = PP.gather_block(
+        blk, torch.arange(CAP * k) // k, CAP * k, repeats=repeats
+    )
+    got = PP.Page(
+        blocks=(out,),
+        num_valid=torch.tensor(CAP * k, dtype=torch.int32),
+        names=(col,),
+    ).to_pylist()
+    assert [r[col] for r in got] == [v for v in vals for _ in range(k)]
+
+
 def test_nested_in_nested_raises_in_both():
     """One nesting level (the reference's documented deviation)."""
     for P, T in ((RP, RT), (PP, PT)):
