@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of a warm TPC-H or TPC-DS query goes in the PyTorch/CUDA port.
 
-    python3 chip_profile.py [--runs 5] [--queries q1,q6,q3,q5] [--out FILE]
+    python3 chip_profile.py [--runs 5] [--queries q1,q6,q3,q5]
+                            [--stats-on-off] [--out FILE]
 
 For Q1 and then Q6 on tpch.sf1, then Q3 and Q5 on tpch.sf10 with
 ``max_device_rows`` 2^26 (the texts and session of chip_smoke.py; or
@@ -38,7 +39,10 @@ onehot_reduce, the rest), the CUDA runtime calls per query
 (``cudaLaunchKernel``, ``cudaStreamSynchronize``, ...), the host's
 Python functions by own time (cProfile, ``--runs`` more warm runs), the
 kernels by device time and the host operators by CPU time, and writes
-the same as JSON to ``--out``. Needs a CUDA device.
+the same as JSON to ``--out``. With ``--stats-on-off`` each query then
+makes ``--runs`` more warm runs with session ``enable_operator_stats``
+on and as many with it off, alternating run by run, checks that their
+rows are equal, and prints the wall times of each. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -190,6 +194,30 @@ def profile_query(runner, sql: str, runs: int, warm: int = 2):
     }
 
 
+def stats_on_off(runner, sql: str, runs: int):
+    """Warm wall times (s, sorted) with session ``enable_operator_stats``
+    on and off, alternating run by run; every run's rows must equal the
+    first's."""
+    import torch
+
+    times = {"on": [], "off": []}
+    first = None
+    for i in range(2 * runs):
+        mode = ("on", "off")[i % 2]
+        runner.session.set("enable_operator_stats", mode == "on")
+        t0 = time.perf_counter()
+        res = runner.execute(sql)
+        torch.cuda.synchronize()
+        times[mode].append(time.perf_counter() - t0)
+        rows = res.rows()
+        if first is None:
+            first = rows
+        elif rows != first:
+            raise AssertionError(f"operator stats {mode}: the rows differ")
+    runner.session.set("enable_operator_stats", True)
+    return {m: sorted(v) for m, v in times.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=5)
@@ -198,6 +226,7 @@ def main() -> int:
                     "q1,q6,q3,q5,window,q9,q22,q1_stream,q18_stream,"
                     "q1_stream_cached,q64_sf10,q95_sf100,n1_unnest_sf10,"
                     "n2_array_agg_sf10,n3_order_stats_sf10")
+    ap.add_argument("--stats-on-off", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -292,6 +321,12 @@ def main() -> int:
             print(f"  python {f['own_s'] * 1e6:10.1f} us own "
                   f"{f['cum_s'] * 1e6:10.1f} us cum x{f['calls']:<4} "
                   f"{f['function']}")
+        if args.stats_on_off:
+            rec["stats_on_off_s"] = times = stats_on_off(runner, sql, args.runs)
+            for mode, ts in times.items():
+                print(f"  operator stats {mode}: warm s median "
+                      f"{ts[len(ts) // 2]:.6f}, min {ts[0]:.6f}, all "
+                      + " ".join(f"{t:.6f}" for t in ts) + f" [{card}]")
         for k in rec["kernels"][:12]:
             print(f"  kernel {k['device_us']:10.1f} us x{k['calls']:<4} "
                   f"{k['name'][:100]}")

@@ -40,7 +40,25 @@ non-zero, and only a run where every phase passed prints the final
               without its LIMIT, and the top 10; Q5: all 5 nations), the
               two warm runs must be identical, and the one-hot reduction
               is checked against its plain version at Q5's own inputs.
-6. rest     - the third slice: BASELINE.json's window query over SF10
+6. observe  - the eighth slice, over the slice and joins phases'
+              runners and the tables they staged: the device probe
+              (``utils/devicediag.py``: enumerate the card, build K1,
+              one K1 launch against its plain version); EXPLAIN of Q1 and
+              Q5, each equal to the port's CPU runner's text; EXPLAIN
+              ANALYZE of Q1 at SF1 and Q5 at SF10 (whole-table, one K1
+              launch each), the result exact against numpy and each
+              scan's, filter's and aggregation's rows equal to a numpy
+              count over the generator's columns; warm Q1 with operator
+              stats on and off (the same rows, the same host waits) and
+              the warm latency of Q1, Q6 and TPC-DS Q64 at SF1 both ways;
+              a history store and adaptive replanning on Q3 at SF10 (its
+              EXPLAIN then says ``history``; a cached variant whose
+              literals move the lineitem filter's rows past the
+              divergence factor replans, exact against numpy); and the
+              ``system`` tables read by SQL on the card (runtime.queries,
+              metrics, caches, memory, and nodes, whose backend_diag
+              names the card with all three probe phases ok).
+7. rest     - the third slice: BASELINE.json's window query over SF10
               orders (15,000,000 rows, default session), every row's rn
               and rk held exactly against a numpy evaluation; TPC-H Q9
               (LIKE, EXTRACT, a six-way join), Q22 and Q22 without its NOT
@@ -51,7 +69,7 @@ non-zero, and only a run where every phase passed prints the final
               CPU runner (doubles within rel 1e-9). Each query runs cold
               then twice warm with the launch counts reset just before and
               read just after; the warm runs must agree bit for bit.
-7. stream   - the fourth slice, split-streamed execution with host-RAM
+8. stream   - the fourth slice, split-streamed execution with host-RAM
               spill, through a CUDA runner: TPC-H Q1 at SF10 under the
               default session (lineitem's 59,999,997 rows over
               ``max_device_rows`` 2^24 stream in 58 batches of 2^20;
@@ -69,7 +87,7 @@ non-zero, and only a run where every phase passed prints the final
               its batches, buckets, spilled bytes, retries, host syncs,
               native generator calls (at least one on the card), peak
               device memory and peak RSS.
-8. tpcds    - the fifth slice, TPC-DS through a CUDA runner: Q64 and Q95
+9. tpcds    - the fifth slice, TPC-DS through a CUDA runner: Q64 and Q95
               at SF1 in the joins phase's session, each cold then twice
               warm and equal to the port's CPU runner on the same SQL
               (decimals, integers and strings exact, doubles within rel
@@ -81,7 +99,7 @@ non-zero, and only a run where every phase passed prints the final
               (web_sales 72,000,000 rows over the 2^26 budget: the ws_wh
               self-join takes the partitioned spill), each exact against
               a numpy evaluation over the generator's own columns.
-9. cache    - the sixth slice, the runner's caches, through CUDA
+10. cache   - the sixth slice, the runner's caches, through CUDA
               runners: streamed Q1 and Q18 at SF10 in the stream phase's
               default session with ``stream_split_cache`` on and a
               split-cache budget sized from the stream phase's staged
@@ -101,7 +119,7 @@ non-zero, and only a run where every phase passed prints the final
               the same rows). Every runner at SF10 and SF100 in every
               phase takes a split-cache budget of half the card's memory
               (printed), and every warm run must make zero cache misses.
-10. nested   - the seventh slice, through CUDA runners: N1, a static
+11. nested  - the seventh slice, through CUDA runners: N1, a static
               UNNEST of three lineitem columns into the one-hot GROUP BY
               at SF10 in the joins phase's session (179,999,991 expanded
               rows in a 3 x 2^26-row page, exactly one onehot_reduce
@@ -120,7 +138,7 @@ non-zero, and only a run where every phase passed prints the final
               Every query runs cold then twice warm (bit-identical) and
               prints its warm s, device ms, syncs, peak memory and
               onehot_reduce launches.
-11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+12. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -657,7 +675,9 @@ def result_columns(res):
     return n, out
 
 
-def slice_phase(card: str):
+def slice_phase(card: str, keep: Optional[dict] = None):
+    """Q1 and Q6 at SF1, cold then warm. With ``keep``, the runner and
+    the numpy answers stay there for the observe phase."""
     import torch
 
     from presto_tpu_torch.exec.local_runner import LocalQueryRunner
@@ -729,6 +749,8 @@ def slice_phase(card: str):
         f"[{card}]",
         flush=True,
     )
+    if keep is not None:
+        keep.update(slice=runner, want_q1=want_q1, want_q6=want_q6)
     return {
         "onehot_reduce": launches,
         "q1_cold_s": cold_s,
@@ -784,6 +806,12 @@ def numpy_q3_q5(d):
     """Q3 (every group: orderkey -> (revenue, orderdate, shippriority))
     and Q5 (nation name -> revenue) in numpy by key lookup: exact int64
     revenue at scale 4, as the query computes it."""
+    return numpy_q3(d), numpy_q5(d)
+
+
+def numpy_q3(d, order_lt: int = Q3_DATE, ship_gt: int = Q3_DATE):
+    """Q3's groups with ``o_orderdate < order_lt`` and ``l_shipdate >
+    ship_gt`` (epoch days; Q3's own date for both by default)."""
     import numpy as np
 
     li, o, c = d["lineitem"], d["orders"], d["customer"]
@@ -798,8 +826,8 @@ def numpy_q3_q5(d):
     seg = c["c_mktsegment"]
     building = int(np.flatnonzero(seg.values == "BUILDING")[0])
     cust_building = _lookup(c["c_custkey"], seg.ids == building, False)
-    o_ok = (o["o_orderdate"] < Q3_DATE) & cust_building[o["o_custkey"]]
-    m3 = o_ok[orow] & (li["l_shipdate"] > Q3_DATE)
+    o_ok = (o["o_orderdate"] < order_lt) & cust_building[o["o_custkey"]]
+    m3 = o_ok[orow] & (li["l_shipdate"] > ship_gt)
     keys3, inv = np.unique(lk[m3], return_inverse=True)
     rev3 = np.zeros(len(keys3), np.int64)
     np.add.at(rev3, inv, revenue[m3])
@@ -808,7 +836,19 @@ def numpy_q3_q5(d):
                  int(o["o_shippriority"][order_row[k]]))
         for k, r in zip(keys3, rev3)
     }
+    return q3
 
+
+def numpy_q5(d):
+    """Q5's nation name -> revenue."""
+    import numpy as np
+
+    li, o, c = d["lineitem"], d["orders"], d["customer"]
+    revenue = li["l_extendedprice"].astype(np.int64) * (
+        100 - li["l_discount"].astype(np.int64)
+    )
+    order_row = _lookup(o["o_orderkey"], np.arange(len(o["o_orderkey"])), -1)
+    orow = order_row[li["l_orderkey"].astype(np.int64)]
     n, r = d["nation"], d["region"]
     asia_id = int(np.flatnonzero(r["r_name"].values == "ASIA")[0])
     asia = int(r["r_regionkey"][r["r_name"].ids == asia_id][0])
@@ -831,7 +871,7 @@ def numpy_q3_q5(d):
         name_of[int(k)]: int(revenue[m5 & (sn == k)].sum())
         for k in np.unique(sn[m5])
     }
-    return q3, q5
+    return q5
 
 
 def run_timed(runner, sql, dev):
@@ -841,10 +881,12 @@ def run_timed(runner, sql, dev):
     return res, time.perf_counter() - t0
 
 
-def joins_phase(card: str, dev=None, records=None):
+def joins_phase(card: str, dev=None, records=None, keep=None):
     """Q3 and Q5 at the joins phase's scale on ``dev`` (the card unless
     a CPU rehearsal passes another), each cold then twice warm. Returns
-    the onehot_reduce launches counted over the phase's query runs."""
+    the onehot_reduce launches counted over the phase's query runs. With
+    ``keep``, the runner, the generated columns and the numpy answers
+    stay there for the observe phase."""
     import torch
 
     from presto_tpu_torch.exec.local_runner import LocalQueryRunner
@@ -864,6 +906,9 @@ def joins_phase(card: str, dev=None, records=None):
     n_lineitem, cols = joins_columns()
     want_q3, want_q5 = numpy_q3_q5(cols)
     numpy_s = time.perf_counter() - t0
+    if keep is not None:
+        keep.update(joins=runner, joins_cols=cols, want_q3=want_q3,
+                    want_q5=want_q5, n_lineitem=n_lineitem)
     del cols
     print(f"numpy evaluation of Q3/Q5 at {JOINS_SCHEMA} "
           f"({n_lineitem} lineitem rows): {numpy_s:.2f} s", flush=True)
@@ -1515,6 +1560,12 @@ def counting_syncs(dev):
     if dev.type != "cuda":
         yield count
         return
+    with warnings.catch_warnings():
+        # the first switch to the warning mode in a process warns once
+        # by itself: switch once before counting
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode(0)
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         shown = warnings.showwarning
@@ -2698,6 +2749,331 @@ def nested_phase(card: str, dev=None, records=None):
     return launches, out
 
 
+# ------------------------------------------------------------ observe phase
+
+#: Q3's cached variant for the adaptive step: both date literals move,
+#: so the lineitem filter keeps about 3 % of lineitem where Q3 keeps
+#: about 54 %, past the default 4x divergence factor
+Q3_VARIANT_DATES = ("1998-08-01", "1998-06-01")
+Q3_VARIANT = Q3.replace(
+    "o_orderdate < date '1995-03-15'",
+    f"o_orderdate < date '{Q3_VARIANT_DATES[0]}'",
+).replace(
+    "l_shipdate > date '1995-03-15'",
+    f"l_shipdate > date '{Q3_VARIANT_DATES[1]}'",
+)
+
+
+def epoch_days(iso: str) -> int:
+    import datetime
+
+    return (datetime.date.fromisoformat(iso) - datetime.date(1970, 1, 1)).days
+
+
+def q3_top10(want):
+    """Q3's top 10 rows (orderkey, revenue, orderdate, shippriority) from
+    numpy's groups, in the query's order."""
+    ranked = sorted(want.items(), key=lambda kv: (-kv[1][0], kv[1][1], kv[0]))
+    return [(k, r, dt, sp) for k, (r, dt, sp) in ranked[:10]]
+
+
+def q3_rows(res):
+    return [tuple(row) for row in result_rows(
+        res, ("l_orderkey", "revenue", "o_orderdate", "o_shippriority"))]
+
+
+def text_lines(res):
+    return [row[0] for row in res.rows()]
+
+
+def analyze_rows(lines):
+    """EXPLAIN ANALYZE lines -> [(label, rows)] of the plan's nodes."""
+    import re
+
+    out = []
+    for line in lines:
+        m = re.match(r"^ *- (.*?)  \[rows: (\d+)", line)
+        if m:
+            out.append((m.group(1), int(m.group(2))))
+    return out
+
+
+def check_analyze(label, lines, want):
+    """Every node whose label starts with a key of ``want`` (a scan of
+    one table, a filter over one column, the aggregation) reports the
+    rows numpy counted."""
+    nodes = analyze_rows(lines)
+    check(len(nodes) == len(lines) - 2,
+          f"{label}: a node without its row count")
+    for prefix, rows in want.items():
+        got = [r for lbl, r in nodes if lbl.startswith(prefix[0])
+               and prefix[1] in lbl]
+        check(got == [rows], f"{label}: {prefix} rows {got}, numpy {rows}")
+
+
+def median_run_s(runner, sql, dev, runs: int = 3):
+    out = []
+    for _ in range(runs):
+        _, secs = run_timed(runner, sql, dev)
+        out.append(secs)
+    return sorted(out)[len(out) // 2]
+
+
+def observe_phase(card: str, keep: dict, dev=None,
+                  tpcds_schema: str = TPCDS_SF1):
+    """The eighth slice's path on ``dev`` (the card unless a CPU
+    rehearsal passes another), over the slice and joins phases' runners
+    (``keep``) and the tables they staged: the device probe; EXPLAIN of
+    Q1 and Q5 equal to the CPU runner's text; EXPLAIN ANALYZE of Q1 at
+    SF1 and Q5 at the joins scale, each node's rows against numpy; warm
+    Q1, Q6 and TPC-DS Q64 with operator stats on and off; the history
+    store with adaptive replanning on Q3; the system tables. Returns
+    (the onehot_reduce launches of its runs, the record)."""
+    import json
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.ops import aggregation as PA
+    from presto_tpu_torch.plan.history import QueryHistoryStore
+    from presto_tpu_torch.plan.planner import plan_statement
+    from presto_tpu_torch.session import Session
+    from presto_tpu_torch.sql import parse_statement
+    from presto_tpu_torch.utils import devicediag
+    from presto_tpu_torch.utils.memory import MemoryPool
+    from presto_tpu_torch.utils.metrics import REGISTRY
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    s1, sj = keep["slice"], keep["joins"]
+    joins_session = {"max_device_rows": JOINS_MAX_DEVICE_ROWS}
+    times, rec, launches = {}, {}, 0
+
+    def counted(fn, expect):
+        """Run fn with the launch count reset; check it made ``expect``
+        K1 launches on the card (0 on the CPU)."""
+        nonlocal launches
+        PA.onehot_reduce.launches = 0
+        out = fn()
+        n = PA.onehot_reduce.launches
+        launches += n
+        check(n == (expect if on_card else 0),
+              f"{n} onehot_reduce launches, expected {expect}")
+        return out
+
+    # 1. the device probe: enumerate, build K1, one K1 launch checked
+    t0 = time.perf_counter()
+    diag = counted(lambda: devicediag.probe_backend(dev), 1)
+    times["probe"] = time.perf_counter() - t0
+    want_phases = ({"enumerate": "ok", "compile": "ok", "execute": "ok"}
+                   if on_card else
+                   {"enumerate": "ok", "compile": "skipped",
+                    "execute": "skipped"})
+    check(diag.ok and diag.phases == want_phases, f"device probe: {diag}")
+
+    # 2. EXPLAIN on the card equals the CPU runner's text
+    t0 = time.perf_counter()
+    for name, runner, sql, session in (
+        ("Q1", s1, Q1, Session()),
+        ("Q5", sj, Q5, Session(schema=JOINS_SCHEMA,
+                               properties=joins_session)),
+    ):
+        cpu = LocalQueryRunner(device="cpu", session=session)
+        got = text_lines(runner.execute("explain " + sql))
+        check(got == text_lines(cpu.execute("explain " + sql)),
+              f"EXPLAIN {name}: the card's text differs from the CPU's")
+    times["explain"] = time.perf_counter() - t0
+
+    # 3. EXPLAIN ANALYZE of Q1 at SF1 and Q5 at the joins scale: every
+    # node counted, the result and the counts against numpy
+    li = sf1_lineitem()
+    q1_filter = int((li["l_shipdate"].astype(np.int64) <= Q1_DATE).sum())
+    cols = keep["joins_cols"]
+    counts = TpchGenerator(SCHEMAS[JOINS_SCHEMA]).counts
+    od = cols["orders"]["o_orderdate"]
+    q5_orders = int(((od >= Q5_FROM) & (od < Q5_TO)).sum())
+    cases = (
+        ("Q1", s1, Q1, {
+            ("TableScan[tpch.sf1.lineitem", ""): SF1_LINEITEM_ROWS,
+            ("Filter[", "l_shipdate"): q1_filter,
+            ("Aggregate[", ""): len(keep["want_q1"]),
+        }),
+        ("Q5", sj, Q5, {
+            **{(f"TableScan[tpch.{JOINS_SCHEMA}.{t}", ""): counts[t]
+               for t in ("lineitem", "orders", "customer", "supplier",
+                         "nation", "region")},
+            ("Filter[", "r_name"): 1,
+            ("Filter[", "o_orderdate"): q5_orders,
+            ("Aggregate[", ""): len(keep["want_q5"]),
+        }),
+    )
+    for name, runner, sql, want in cases:
+        t0 = time.perf_counter()
+        plan = plan_statement(parse_statement(sql), runner.catalogs,
+                              runner.session)
+        res, stats, *_ = counted(
+            lambda: runner.execute_plan_analyzed(plan, sql), 1)
+        sync(dev)
+        if name == "Q1":
+            check_q1_stream("EXPLAIN ANALYZE Q1", res, keep["want_q1"])
+        else:
+            got5 = dict(result_rows(res, ("n_name", "revenue")))
+            check(got5 == keep["want_q5"], f"EXPLAIN ANALYZE Q5 {got5}")
+        check(all(s.output_rows >= 0 for s in stats), f"{name}: stats")
+        lines = counted(
+            lambda: text_lines(runner.execute("explain analyze " + sql)), 1)
+        check_analyze(f"EXPLAIN ANALYZE {name}", lines, want)
+        times[f"analyze_{name.lower()}"] = time.perf_counter() - t0
+        rec[f"analyze_{name.lower()}_nodes"] = len(stats)
+
+    # 4. warm latency and host waits with operator stats on and off
+    t0 = time.perf_counter()
+    q64 = tpcds_queries(tpcds_schema)[0]
+    ds = LocalQueryRunner(device=dev, session=Session(properties=joins_session))
+    PA.onehot_reduce.launches = 0
+    ds.execute(q64)  # cold: stages the tables
+    for flag in ("true", "false"):
+        for r in (s1, ds):
+            r.session.set("enable_operator_stats", flag)
+        with counting_syncs(dev) as syncs:
+            res = s1.execute(Q1)
+            sync(dev)
+        rec[f"q1_rows_stats_{flag}"] = res.rows()
+        rec[f"q1_syncs_stats_{flag}"] = syncs[0]
+        rec[f"q1_warm_s_stats_{flag}"] = median_run_s(s1, Q1, dev)
+        rec[f"q6_warm_s_stats_{flag}"] = median_run_s(s1, Q6, dev)
+        rec[f"q64_warm_s_stats_{flag}"] = median_run_s(ds, q64, dev)
+        for name, r, sql in (("q1", s1, Q1), ("q64", ds, q64)):
+            syncs_p, device_ms = warm_profile(r, sql, dev)
+            rec[f"{name}_profiled_syncs_stats_{flag}"] = syncs_p
+            rec[f"{name}_device_ms_stats_{flag}"] = device_ms
+        check(bool(s1.history.snapshot()[-1].operators) == (flag == "true"),
+              "operator stats did not follow enable_operator_stats")
+    for r in (s1, ds):
+        r.session.set("enable_operator_stats", "true")
+    del ds
+    check(rec.pop("q1_rows_stats_true") == rec.pop("q1_rows_stats_false"),
+          "warm Q1 differs with operator stats off")
+    check_q1_stream("warm Q1", s1.execute(Q1), keep["want_q1"])
+    launches += PA.onehot_reduce.launches
+    check(rec["q1_syncs_stats_true"] == rec["q1_syncs_stats_false"],
+          f"warm Q1 host waits: {rec['q1_syncs_stats_true']} with operator "
+          f"stats, {rec['q1_syncs_stats_false']} without")
+    check(rec["q64_profiled_syncs_stats_true"]
+          == rec["q64_profiled_syncs_stats_false"],
+          "warm Q64: operator stats changed the cudaStreamSynchronize count")
+    times["stats_on_off"] = time.perf_counter() - t0
+
+    # 5. the history store and adaptive replanning on Q3 at the joins
+    # scale: a fresh canonical entry planned with the plane on
+    t0 = time.perf_counter()
+    hist_dir = tempfile.mkdtemp(prefix="observe-history-")
+    sj.history_store = QueryHistoryStore(hist_dir)
+    sj.history.add_listener(sj.history_store)
+    sj.session.set("adaptive_enabled", "true")
+    sj.plan_cache.clear()
+    replans0 = REGISTRY.counter("plan.replans").total
+    flags = []
+    for sql in (Q3, Q3):
+        check(q3_rows(sj.execute(sql)) == q3_top10(keep["want_q3"]),
+              "Q3 with the history store differs from numpy")
+        flags.append(sj.history.snapshot()[-1].replanned)
+    explain = "\n".join(text_lines(sj.execute("explain " + Q3)))
+    check("(history)" in explain, "EXPLAIN Q3 shows no history estimate")
+    want_v = q3_top10(numpy_q3(
+        cols, epoch_days(Q3_VARIANT_DATES[0]), epoch_days(Q3_VARIANT_DATES[1])
+    ))
+    for _ in range(2):
+        got_v = q3_rows(sj.execute(Q3_VARIANT))
+        qs = sj.history.snapshot()[-1]
+        check(qs.plan_cache_hit or qs.replanned,
+              "Q3's variant missed the plan cache")
+        flags.append(qs.replanned)
+        check(got_v == want_v, "Q3's variant differs from numpy")
+    replans = REGISTRY.counter("plan.replans").total - replans0
+    check(flags[-1], "Q3's variant did not replan after its literal moved "
+          "the lineitem filter's rows past the divergence factor")
+    check(replans == sum(flags), f"plan.replans {replans}, flags {flags}")
+    rec["q3_replanned"] = flags
+    rec["q3_adaptive_note"] = qs.adaptive_notes
+    rec["history"] = sj.history_store.stats()
+    sj.session.set("adaptive_enabled", "false")
+    shutil.rmtree(hist_dir, ignore_errors=True)
+    times["history_adaptive"] = time.perf_counter() - t0
+
+    # 6. the system tables, read by SQL on the card
+    t0 = time.perf_counter()
+    pool = MemoryPool(cache_budget(dev))
+    obs = LocalQueryRunner(device=dev, memory_pool=pool)
+    obs.execute(Q6)
+    queries = obs.execute(
+        "select query_id, state, plan_fingerprint from system.runtime.queries"
+    ).rows()
+    check([q[1] for q in queries] == ["FINISHED", "RUNNING"]
+          and len(queries[0][2]) == 16, f"runtime.queries {queries}")
+    metrics = dict(obs.execute(
+        "select name, value from system.runtime.metrics"
+    ).rows())
+    check(metrics["device.dispatches.total"] >= 1
+          and metrics["queries.finished.total"] >= 1, "runtime.metrics")
+    caches = {r[0]: r[1:] for r in obs.execute(
+        "select cache, entries, hits, misses from system.runtime.caches"
+    ).rows()}
+    split = obs.split_cache.stats()
+    check(caches["staging.split_cache"] == (
+        split["entries"], split["hits"], split["misses"]
+    ) and split["entries"] >= 1, f"runtime.caches {caches}")
+    check("plan.cache" in caches, "runtime.caches has no plan cache row")
+    memory = obs.execute(
+        "select node_id, query_id, state, reserved_bytes "
+        "from system.runtime.memory"
+    ).rows()
+    check(memory[0][:3] == ("local", "", "OK")
+          and memory[0][3] == pool.snapshot()["reserved"] > 0,
+          f"runtime.memory {memory}")
+    (node,) = obs.execute(
+        "select state, backend_diag from system.runtime.nodes"
+    ).rows()
+    diag = json.loads(node[1])
+    want_name = torch.cuda.get_device_name(0) if on_card else "cpu"
+    check(diag["backend"] == ("gpu" if on_card else "cpu")
+          and diag["device_name"] == want_name
+          and diag["phases"] == want_phases,
+          f"runtime.nodes backend_diag {diag}")
+    times["system_tables"] = time.perf_counter() - t0
+    rec["backend_diag"] = diag
+    rec["times_s"] = times
+
+    print(
+        "observe: " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
+        + f"; warm Q1 {rec['q1_warm_s_stats_true']:.4f} / "
+        f"{rec['q1_warm_s_stats_false']:.4f} s, Q6 "
+        f"{rec['q6_warm_s_stats_true']:.4f} / "
+        f"{rec['q6_warm_s_stats_false']:.4f} s, Q64 {tpcds_schema} "
+        f"{rec['q64_warm_s_stats_true']:.4f} / "
+        f"{rec['q64_warm_s_stats_false']:.4f} s with operator stats on / "
+        f"off; warm Q1 host waits {rec['q1_syncs_stats_true']} / "
+        f"{rec['q1_syncs_stats_false']}; device ms of a warm run (profiler) "
+        f"Q1 {rec['q1_device_ms_stats_true']} / "
+        f"{rec['q1_device_ms_stats_false']}, Q64 "
+        f"{rec['q64_device_ms_stats_true']} / "
+        f"{rec['q64_device_ms_stats_false']}, its cudaStreamSynchronize "
+        f"{rec['q64_profiled_syncs_stats_true']} / "
+        f"{rec['q64_profiled_syncs_stats_false']}; Q3 replanned {flags} "
+        f"({rec['q3_adaptive_note']}); onehot_reduce launches {launches} "
+        f"[{card}]",
+        flush=True,
+    )
+    keep.clear()
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, rec
+
+
 def bucket_of(n: int) -> int:
     """The staging bucket of ``n`` rows (a power of two, at least 1024)."""
     cap = 1024
@@ -2753,10 +3129,14 @@ def main() -> int:
     records = kernel_phase(card)
 
     phase("slice")
-    counts = slice_phase(card)
+    keep = {}
+    counts = slice_phase(card, keep=keep)
 
     phase("joins")
-    joins_launches = joins_phase(card, records=records)
+    joins_launches = joins_phase(card, records=records, keep=keep)
+
+    phase("observe")
+    observe_launches, observe_record = observe_phase(card, keep)
 
     phase("rest")
     rest_launches, rest_records = rest_phase(card)
@@ -2785,7 +3165,7 @@ def main() -> int:
                 "launches": (counts["onehot_reduce"] + joins_launches
                              + rest_launches + stream_launches
                              + tpcds_launches + cache_launches
-                             + nested_launches),
+                             + nested_launches + observe_launches),
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
@@ -2806,6 +3186,8 @@ def main() -> int:
                       "cache_onehot_reduce": cache_launches,
                       "nested": nested_records,
                       "nested_onehot_reduce": nested_launches,
+                      "observe": observe_record,
+                      "observe_onehot_reduce": observe_launches,
                       "native": status, "card": card}))
     print(json.dumps(kernels_line))
     print(

@@ -1,0 +1,408 @@
+"""Built-in ``system`` catalog.
+
+The PyTorch port's ``presto_tpu/connectors/system_catalog.py`` (the same
+tables and columns):
+``presto-system``'s runtime tables and the jmx-connector pattern of
+making engine metrics SQL-able, backed live by the runner's own state —
+its QueryHistory, history store, split cache, plan cache, memory pool,
+the process metrics registry and the device probe
+(``utils/devicediag.py``). Zero stored bytes; every runner registers it.
+
+Tables a local runner serves empty, as the reference's does:
+``runtime.tasks``, ``runtime.qos``, ``runtime.snapshots``,
+``runtime.materialized_views`` and ``runtime.metrics_history`` (they
+are fed by the server, the materialized views and the telemetry
+sampler, none of which a local runner has). ``runtime.caches`` has no
+``compile.programs`` row (the port compiles no program per query) and
+no ``exchange.ici`` row yet (the device exchange comes with the
+server).
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, Sequence
+
+import numpy as np
+
+from presto_tpu_torch import types as T
+from presto_tpu_torch.connectors.spi import (
+    Connector,
+    ConnectorMetadata,
+    ConnectorSplit,
+    SplitSource,
+    TableHandle,
+)
+
+_SCHEMAS: Dict[str, Dict[str, Dict[str, T.DataType]]] = {
+    "runtime": {
+        "queries": {
+            "query_id": T.VARCHAR,
+            "state": T.VARCHAR,
+            "query": T.VARCHAR,
+            "trace_id": T.VARCHAR,
+            "plan_fingerprint": T.VARCHAR,
+            "elapsed_ms": T.DOUBLE,
+            "planning_ms": T.DOUBLE,
+            "optimization_ms": T.DOUBLE,
+            "staging_ms": T.DOUBLE,
+            "execution_ms": T.DOUBLE,
+            "compile_cache_hit": T.BOOLEAN,
+            # micro-batched serving: answered by a shared vmapped
+            # dispatch (QueryStats.batched)
+            "batched": T.BOOLEAN,
+            # serving-plane result reuse: answered from the snapshot-
+            # keyed result cache (fresh or bounded-stale serve)
+            "cached": T.BOOLEAN,
+            "retries": T.BIGINT,
+            "input_rows": T.BIGINT,
+            "input_bytes": T.BIGINT,
+            "output_rows": T.BIGINT,
+            "error": T.VARCHAR,
+        },
+        "query_history": {
+            "fingerprint": T.VARCHAR,
+            "query": T.VARCHAR,
+            "node_count": T.BIGINT,
+            "total_rows": T.BIGINT,
+            # adaptive execution: the statement fingerprint's history
+            # epoch (bumped on material cardinality change; the signal
+            # epoch-versioned plan-cache entries are judged by)
+            "epoch": T.BIGINT,
+            "updated": T.DOUBLE,
+        },
+        "nodes": {
+            "node_id": T.VARCHAR,
+            "http_uri": T.VARCHAR,
+            "node_version": T.VARCHAR,
+            "coordinator": T.BOOLEAN,
+            "state": T.VARCHAR,
+            # elastic pools: preemptible capacity flag, the node's pool
+            # lifecycle state, and (coordinator row) the autoscaler's
+            # last decision
+            "preemptible": T.BOOLEAN,
+            "pool_state": T.VARCHAR,
+            "last_decision": T.VARCHAR,
+            # the last device probe (utils/devicediag.py), JSON: the
+            # device, each phase's outcome, the failing phase and its
+            # error class
+            "backend_diag": T.VARCHAR,
+        },
+        "tasks": {
+            "query_id": T.VARCHAR,
+            "stage_id": T.BIGINT,
+            "task_id": T.VARCHAR,
+            "node_id": T.VARCHAR,
+            "state": T.VARCHAR,
+            "wall_ms": T.DOUBLE,
+            "staging_ms": T.DOUBLE,
+            "execute_ms": T.DOUBLE,
+            "input_rows": T.BIGINT,
+            "input_bytes": T.BIGINT,
+            "output_rows": T.BIGINT,
+            "output_bytes": T.BIGINT,
+            "retries": T.BIGINT,
+        },
+        "metrics": {
+            "name": T.VARCHAR,
+            "kind": T.VARCHAR,
+            "value": T.DOUBLE,
+        },
+        # time-series view over the coordinator's telemetry sampler
+        # (utils/telemetry.MetricsSampler; telemetry.sample-interval-s
+        # enables it): one row per retained (node, metric) sample with
+        # the rate against the stream's previous observation
+        "metrics_history": {
+            "node": T.VARCHAR,
+            "ts": T.DOUBLE,
+            "name": T.VARCHAR,
+            "value": T.DOUBLE,
+            "rate": T.DOUBLE,
+        },
+        # materialized views (exec/mview.py): definition, base table,
+        # tip snapshot, and how/when the view was last maintained
+        "materialized_views": {
+            "view": T.VARCHAR,
+            "base_table": T.VARCHAR,
+            "eligible": T.BOOLEAN,
+            "reason": T.VARCHAR,
+            "snapshot_id": T.BIGINT,
+            "last_refresh_mode": T.VARCHAR,
+            "refresh_age_s": T.DOUBLE,
+            "refreshes": T.BIGINT,
+            "incremental_refreshes": T.BIGINT,
+            "rows": T.BIGINT,
+        },
+        "caches": {
+            "cache": T.VARCHAR,
+            "entries": T.BIGINT,
+            "bytes": T.BIGINT,
+            "budget_bytes": T.BIGINT,
+            "hits": T.BIGINT,
+            "misses": T.BIGINT,
+            "evictions": T.BIGINT,
+        },
+        # tail-latency QoS plane (server/qos.py): one row per
+        # admission lane member — priority, SLO target, live
+        # running/queued/suspended occupancy, p50/p99 latency
+        # reservoir, and suspension/resume/SLO-miss counters
+        "qos": {
+            "group": T.VARCHAR,
+            "priority": T.BIGINT,
+            "target_p99_ms": T.DOUBLE,
+            "queries": T.BIGINT,
+            "running": T.BIGINT,
+            "queued": T.BIGINT,
+            "suspended": T.BIGINT,
+            "p50_ms": T.DOUBLE,
+            "p99_ms": T.DOUBLE,
+            "slo_misses": T.BIGINT,
+            "suspensions": T.BIGINT,
+            "resumes": T.BIGINT,
+        },
+        # durable lakehouse (server/manifests.py): one row per
+        # manifest-committed table — tip snapshot id, retained
+        # snapshot count, live file/byte/row footprint, and whether
+        # the tip is a compaction ('compacted'), compaction is due
+        # ('pending'), or neither ('none')
+        "snapshots": {
+            "table": T.VARCHAR,
+            "snapshot_id": T.BIGINT,
+            "snapshots": T.BIGINT,
+            "files": T.BIGINT,
+            "bytes": T.BIGINT,
+            "rows": T.BIGINT,
+            "compaction": T.VARCHAR,
+        },
+        # cluster memory governance (server/memory_arbiter.py): one
+        # row per node (query_id '') + one per (node, query) holder,
+        # plus KILLED rows for the arbiter's victim decisions
+        "memory": {
+            "node_id": T.VARCHAR,
+            "query_id": T.VARCHAR,
+            "state": T.VARCHAR,
+            "reserved_bytes": T.BIGINT,
+            "peak_bytes": T.BIGINT,
+            "blocked_bytes": T.BIGINT,
+            "spilled_bytes": T.BIGINT,
+            "limit_bytes": T.BIGINT,
+        },
+    },
+    "metadata": {
+        "catalogs": {"catalog_name": T.VARCHAR, "connector_id": T.VARCHAR},
+    },
+}
+
+
+#: tables only a server (or the materialized views) feeds
+_SERVER_TABLES = {
+    ("runtime", t)
+    for t in ("tasks", "metrics_history", "materialized_views", "qos",
+              "snapshots")
+}
+
+
+class _SystemMetadata(ConnectorMetadata):
+    def list_schemas(self):
+        return sorted(_SCHEMAS)
+
+    def list_tables(self, schema):
+        return sorted(_SCHEMAS.get(schema, {}))
+
+    def get_table_schema(self, handle: TableHandle):
+        try:
+            return dict(_SCHEMAS[handle.schema][handle.table])
+        except KeyError:
+            raise KeyError(
+                f"table not found: system.{handle.schema}.{handle.table}"
+            )
+
+
+class SystemConnector(Connector):
+    """Catalog ``system``: live engine introspection tables."""
+
+    def __init__(self, runner=None, **config):
+        self._runner = runner
+        self._metadata = _SystemMetadata()
+
+    def metadata(self):
+        return self._metadata
+
+    def cacheable(self):
+        return False  # live data: never reuse staged pages
+
+    def coordinator_only(self):
+        return True  # workers' system tables are empty: never distribute
+
+    def get_splits(self, handle: TableHandle, target_split_rows: int = 1 << 20, constraint=()):
+        return SplitSource([ConnectorSplit(handle, 0, 0)])
+
+    def create_page_source(self, split: ConnectorSplit, columns: Sequence[str]):
+        rows = self._rows(split.table)
+        return {
+            c: np.array([r[c] for r in rows], dtype=object) for c in columns
+        }
+
+    # ------------------------------------------------------------- tables
+
+    def _rows(self, handle: TableHandle):
+        key = (handle.schema, handle.table)
+        if key == ("runtime", "queries"):
+            hist = self._runner.history.snapshot() if self._runner else []
+            return [
+                {
+                    "query_id": q.query_id,
+                    "state": q.state,
+                    "query": q.sql.strip(),
+                    "trace_id": q.trace_id,
+                    "plan_fingerprint": q.plan_fingerprint,
+                    "elapsed_ms": q.elapsed_ms,
+                    "planning_ms": q.planning_ms,
+                    "optimization_ms": q.optimization_ms,
+                    "staging_ms": q.staging_ms,
+                    "execution_ms": q.execution_ms,
+                    "compile_cache_hit": q.compile_cache_hit,
+                    "batched": q.batched,
+                    "cached": q.result_cache in ("hit", "stale"),
+                    "retries": q.retries,
+                    "input_rows": q.input_rows,
+                    "input_bytes": q.input_bytes,
+                    "output_rows": q.output_rows,
+                    "error": q.error,
+                }
+                for q in hist
+            ]
+        if key == ("runtime", "nodes"):
+            return self._node_rows()
+        if key == ("runtime", "metrics"):
+            from presto_tpu_torch.utils.metrics import REGISTRY
+
+            return [
+                {"name": n, "kind": k, "value": v}
+                for n, k, v in REGISTRY.snapshot()
+            ]
+        if key == ("runtime", "caches"):
+            return self._cache_rows()
+        if key == ("runtime", "memory"):
+            return self._memory_rows()
+        if key == ("runtime", "query_history"):
+            store = getattr(self._runner, "history_store", None)
+            return store.snapshot() if store is not None else []
+        if key == ("metadata", "catalogs"):
+            names = self._runner.catalogs.names() if self._runner else []
+            return [
+                {
+                    "catalog_name": n,
+                    "connector_id": type(
+                        self._runner.catalogs.get(n)
+                    ).__name__,
+                }
+                for n in names
+            ]
+        if key in _SERVER_TABLES:
+            # fed by the server, the telemetry sampler or the
+            # materialized views, none of which a local runner has:
+            # an empty view, as the reference's local runner serves
+            return []
+        raise KeyError(f"system table {handle.schema}.{handle.table}")
+
+    def _cache_rows(self):
+        """Live occupancy of the engine caches (reference: the jmx
+        cache-stats beans): the device-resident split cache (staged
+        pages, LRU byte budget), the plan cache and the host-spill
+        pool."""
+        if self._runner is None:
+            return []
+        split = self._runner.split_cache.stats()
+        s = self._runner.plan_cache.stats()
+        return [
+            {
+                "cache": "staging.split_cache",
+                "entries": split["entries"],
+                "bytes": split["bytes"],
+                "budget_bytes": split["budget_bytes"],
+                "hits": split["hits"],
+                "misses": split["misses"],
+                "evictions": split["evictions"],
+            },
+            {
+                "cache": "plan.cache",
+                "entries": s["entries"],
+                "bytes": 0,  # plans are small host objects
+                "budget_bytes": 0,
+                "hits": s["hits"],
+                "misses": s["misses"],
+                "evictions": s["evictions"],
+            },
+            # host-spill pool: device pages offloaded to host RAM under
+            # memory pressure; hits = restages
+            {
+                "cache": "staging.host_spill",
+                "entries": split["spill_entries"],
+                "bytes": split["spill_bytes"],
+                "budget_bytes": split["spill_budget_bytes"],
+                "hits": split["restages"],
+                "misses": 0,
+                "evictions": split["spills"],
+            },
+        ]
+
+    def _memory_rows(self):
+        """The runner's own pool (reference: system.memory's per-node
+        pool occupancy on a local runner): one node row, then one row per
+        owner holding bytes."""
+        pool = getattr(self._runner, "memory_pool", None)
+        if pool is None:
+            return []
+        snap = pool.snapshot()
+        spilled = self._runner.split_cache.spill_used_bytes()
+        rows = [
+            {
+                "node_id": "local",
+                "query_id": "",
+                "state": "BLOCKED" if snap["blocked"] else "OK",
+                "reserved_bytes": snap["reserved"],
+                "peak_bytes": max(snap["peak"].values(), default=0),
+                "blocked_bytes": sum(b["bytes"] for b in snap["blocked"]),
+                "spilled_bytes": spilled,
+                "limit_bytes": snap["limit"],
+            }
+        ]
+        for owner, nbytes in sorted(snap["used"].items()):
+            rows.append(
+                {
+                    "node_id": "local",
+                    "query_id": owner,
+                    "state": "RESERVED",
+                    "reserved_bytes": nbytes,
+                    "peak_bytes": snap["peak"].get(owner, nbytes),
+                    "blocked_bytes": 0,
+                    "spilled_bytes": 0,
+                    "limit_bytes": snap["limit"],
+                }
+            )
+        return rows
+
+    def _node_rows(self):
+        from presto_tpu_torch.utils.devicediag import last_diag_dict
+
+        dev = getattr(self._runner, "device", None)
+        if dev is not None and dev.type == "cuda":
+            import torch
+
+            n_dev = torch.cuda.device_count()
+        else:
+            n_dev = 1
+        return [
+            {
+                "node_id": "local",
+                "http_uri": "local://",
+                "node_version": "presto-tpu-0.1",
+                "coordinator": True,
+                "state": f"ACTIVE ({n_dev} devices)",
+                "preemptible": False,
+                "pool_state": "STABLE",
+                "last_decision": "",
+                "backend_diag": json.dumps(last_diag_dict()),
+            }
+        ]

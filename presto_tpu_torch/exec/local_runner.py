@@ -9,10 +9,22 @@ it has already planned and optimized. Scalar subqueries run first and
 bind as literals, the root Output/Sort/Limit is peeled to the host
 (``exec/host_ops.py``), and the rest runs as eager torch operators over
 pages staged on the runner's device. ``SET SESSION``, ``SHOW
-SESSION/SCHEMAS/TABLES/COLUMNS``, ``PREPARE``, ``EXECUTE`` and
-``DEALLOCATE`` run as in the reference; statements that need a writable
-connector (INSERT, CTAS, CREATE/DROP TABLE, DELETE, UPDATE), EXPLAIN and
-the materialized views raise ``ExecutionError`` with their names.
+SESSION/SCHEMAS/TABLES/COLUMNS``, ``PREPARE``, ``EXECUTE``,
+``DEALLOCATE``, ``EXPLAIN`` and ``EXPLAIN ANALYZE`` run as in the
+reference; statements that need a writable connector (INSERT, CTAS,
+CREATE/DROP TABLE, DELETE, UPDATE) and the materialized views raise
+``ExecutionError`` with their names.
+
+Every query is observed as the reference observes it: a ``Trace``
+(query -> plan -> execute spans), a ``QueryStats`` in the runner's
+``history`` (``system.runtime.queries``), per-operator row counts
+(session ``enable_operator_stats``: each counted node's 0-d live count
+rides the run's one control read), device-plane counters
+(``utils/telemetry.DEVICE``) and the query-completed listeners: the
+JSONL event log, the slow-query log and the history store
+(``plan/history.py``), which feeds learned cardinalities back into
+planning and lets a stale plan-cache entry replan (adaptive
+execution). The ``system`` catalog is registered in every runner.
 
 Staged pages live in the runner's ``SplitCache`` (``exec/staging.py``):
 whole tables always, split batches of a streamed scan when
@@ -40,9 +52,14 @@ alone on the device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
+import os
 import threading
 import time
+import warnings
+from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
@@ -66,7 +83,15 @@ from presto_tpu_torch.exec.staging import (
     page_nbytes,
     stage_page,
 )
-from presto_tpu_torch.exec.stats import QueryHistory
+from presto_tpu_torch.exec.stats import (
+    JsonlQueryEventListener,
+    OperatorStats,
+    QueryHistory,
+    QueryStats,
+    SlowQueryLog,
+    collect_node_stats,
+    node_label,
+)
 from presto_tpu_torch.ops import (
     distinct,
     filter_project,
@@ -89,6 +114,7 @@ from presto_tpu_torch.page import (
     resolve_device,
 )
 from presto_tpu_torch.plan import canonical
+from presto_tpu_torch.plan import history as plan_history
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.optimizer import (
     prune_columns,
@@ -98,6 +124,8 @@ from presto_tpu_torch.plan.planner import Plan, plan_statement
 from presto_tpu_torch.session import SYSTEM_SESSION_PROPERTIES, Session
 from presto_tpu_torch.sql import ast, parse_statement
 from presto_tpu_torch.utils.metrics import REGISTRY
+from presto_tpu_torch.utils.telemetry import DEVICE
+from presto_tpu_torch.utils.tracing import Trace
 
 
 class ExecutionError(RuntimeError):
@@ -108,10 +136,9 @@ def _noop() -> None:
     """No-op release handle (stage_split callers without an owner)."""
 
 
-#: statements that need a writable connector, EXPLAIN, or the
-#: materialized views: later slices of the port
+#: statements that need a writable connector or the materialized
+#: views: later slices of the port
 _LATER_STATEMENTS = (
-    ast.Explain,
     ast.Insert,
     ast.CreateTableAs,
     ast.CreateTable,
@@ -154,6 +181,8 @@ class LocalQueryRunner:
         memory_pool=None,
         staging_cache_bytes: Optional[int] = None,
         plan_cache_entries: int = 256,
+        history_path: Optional[str] = None,
+        history_max_entries: int = 256,
     ):
         self.device = resolve_device(device)
         if catalogs is None:
@@ -163,6 +192,50 @@ class LocalQueryRunner:
         self.catalogs = catalogs
         self.session = session or Session()
         self.history = QueryHistory()
+        if not catalogs.has("system"):
+            from presto_tpu_torch.connectors.system_catalog import (
+                SystemConnector,
+            )
+
+            catalogs.register("system", SystemConnector(runner=self))
+        # query-event sink: one JSONL record per finished/failed query
+        event_log = os.environ.get("PRESTO_TPU_EVENT_LOG")
+        if event_log:
+            self.history.add_listener(JsonlQueryEventListener(event_log))
+        #: history-based statistics store (plan/history.py): per-operator
+        #: actuals keyed by canonical plan fingerprints, written on the
+        #: SAME query-completed path as the event sink; estimate_rows
+        #: consults it (session enable_history_stats). None: planning is
+        #: bit-exact pre-history
+        self.history_store = None
+        hist_path = history_path or os.environ.get(
+            "PRESTO_TPU_HISTORY_PATH"
+        )
+        if hist_path:
+            self.history_store = plan_history.QueryHistoryStore(
+                hist_path, history_max_entries
+            )
+            self.history.add_listener(self.history_store)
+        # slow-query JSONL sidecar (exec/stats.SlowQueryLog)
+        slow_path = os.environ.get("PRESTO_TPU_SLOW_QUERY_LOG")
+        if slow_path:
+            try:
+                slow_ms = float(
+                    os.environ.get("PRESTO_TPU_SLOW_QUERY_MS", "0")
+                )
+            except ValueError:
+                slow_ms = 0.0
+            if slow_ms > 0:
+                self.history.add_listener(SlowQueryLog(slow_path, slow_ms))
+            else:
+                # a path without a positive threshold would register a
+                # listener that can never fire: refuse loudly
+                warnings.warn(
+                    "PRESTO_TPU_SLOW_QUERY_LOG is set but "
+                    "PRESTO_TPU_SLOW_QUERY_MS is missing or <= 0; "
+                    "the slow-query log is disabled",
+                    stacklevel=2,
+                )
         #: optional utils.memory.MemoryPool: cached pages reserve under
         #: the shared "table-cache" owner, uncached ones under the query
         self.memory_pool = memory_pool
@@ -205,6 +278,16 @@ class LocalQueryRunner:
         #: what streamed execution did (batches, buckets, spill, host
         #: seconds); a caller may replace it to count one query
         self.stream_stats = streaming.StreamStats()
+        #: (root, signature memo) of each executed plan root, LRU by
+        #: id (a cached plan's root is the same object on every run, so
+        #: it is signed once)
+        self._plan_sigs: "OrderedDict[int, tuple]" = OrderedDict()
+        self._plan_sigs_mu = threading.Lock()
+        #: the running query's operator metadata, per thread: its
+        #: signature memo and the counted cells by run root
+        self._run_meta = threading.local()
+        #: ids of EXPLAIN ANALYZE runs' own QueryStats (pool owners)
+        self._explain_ids = itertools.count(1)
 
     @property
     def _active_qs(self):
@@ -221,6 +304,8 @@ class LocalQueryRunner:
         if isinstance(stmt, ast.SetSession):
             self.session.set(stmt.name, stmt.value)
             return QueryResult(("result",), _message_page("SET SESSION"))
+        if isinstance(stmt, ast.Explain):
+            return self._execute_explain(stmt, sql)
         if isinstance(stmt, ast.ShowSession):
             lines = [
                 f"{k}={self.session.get(k)}"
@@ -271,29 +356,40 @@ class LocalQueryRunner:
         """One query's lifecycle: its QueryStats, planning (a SELECT
         through the plan cache, with the stats live so a hit is
         attributed), execution, then the query's pins and pool bytes
-        released, on success and on failure."""
+        released, on success and on failure. The query's Trace holds a
+        ``query`` span with ``plan`` and ``execute`` children."""
         qs = self.history.begin(sql)
+        trace = Trace()
+        qs.trace = trace
+        qs.trace_id = trace.trace_id
         REGISTRY.counter("queries.submitted").update()
         t0 = time.perf_counter()
         try:
-            with REGISTRY.timer("query.wall_time").time():
-                if isinstance(stmt, ast.Select):
-                    # the stats sink is live DURING planning, so a plan
-                    # cache hit is attributed to this query
-                    prev_qs = self._active_qs
-                    self._active_qs = qs
-                    try:
-                        plan, qs.plan_cache_hit = self.plan_cached(stmt)
-                    finally:
-                        self._active_qs = prev_qs
-                else:
-                    plan = self._plan_statement(stmt)
+            with REGISTRY.timer("query.wall_time").time(), trace.span(
+                "query", query_id=qs.query_id
+            ):
+                with trace.span("plan"):
+                    if isinstance(stmt, ast.Select):
+                        # the stats sink is live DURING planning, so a
+                        # plan cache hit (or an adaptive replan) is
+                        # attributed to this query
+                        prev_qs = self._active_qs
+                        self._active_qs = qs
+                        try:
+                            plan, qs.plan_cache_hit = self.plan_cached(
+                                stmt
+                            )
+                        finally:
+                            self._active_qs = prev_qs
+                    else:
+                        plan = self._plan_statement(stmt)
                 qs.planning_ms = (time.perf_counter() - t0) * 1000.0
                 REGISTRY.distribution("plan.planning_ms").add(
                     qs.planning_ms
                 )
                 qs.state = "RUNNING"
-                result = self.execute_plan(plan, qs=qs)
+                with trace.span("execute"):
+                    result = self.execute_plan(plan, qs=qs)
         except Exception as e:
             REGISTRY.counter("queries.failed").update()
             self.history.finish(qs, error=f"{type(e).__name__}: {e}")
@@ -308,6 +404,36 @@ class LocalQueryRunner:
         REGISTRY.counter("queries.finished").update()
         REGISTRY.distribution("query.output_rows").add(qs.output_rows)
         return result
+
+    def _execute_explain(self, stmt, sql: str) -> QueryResult:
+        """EXPLAIN [ANALYZE]. ANALYZE's run holds its pins and pool bytes
+        under a QueryStats of its own, released on success and failure.
+        The reference runs it with none, so there every table the split
+        cache does not keep (the ``system`` tables, a table over the
+        budget) stays reserved under "adhoc" after each EXPLAIN ANALYZE
+        (ROADMAP §3). Those stats stay out of the query history, as in
+        the reference: the run's actuals reach the history store
+        through ``_record_history``."""
+        from presto_tpu_torch.exec.explain import explain_text
+
+        qs = None
+        if stmt.analyze:
+            qs = QueryStats(
+                query_id=f"explain_{next(self._explain_ids)}",
+                sql=sql,
+                state="RUNNING",
+                create_time=time.time(),
+            )
+        prev, self._active_qs = self._active_qs, qs
+        try:
+            text = explain_text(self, stmt, sql)
+        finally:
+            self._active_qs = prev
+            if qs is not None:
+                self.release_pins(qs)
+                if self.memory_pool is not None:
+                    self.memory_pool.release(qs.query_id)
+        return QueryResult(("Query Plan",), _lines_page(text))
 
     def _execute_show_columns(self, stmt) -> QueryResult:
         """SHOW COLUMNS FROM t / DESCRIBE t."""
@@ -363,8 +489,22 @@ class LocalQueryRunner:
         _refuse_later_statement(bound)
         return self._run_query(sql, bound)
 
+    def _history_scope(self):
+        """History-based-statistics planning scope: installs the
+        runner's store as the thread-local provider estimate_rows
+        consults (plan/history.py), gated on session
+        ``enable_history_stats``. No store, or the flag off, is a null
+        scope: planning stays bit-exact pre-history."""
+        if self.history_store is None or not self.session.get(
+            "enable_history_stats"
+        ):
+            return contextlib.nullcontext()
+        return plan_history.using(self.history_store)
+
     def _plan_statement(self, stmt) -> Plan:
-        return plan_statement(stmt, self.catalogs, self.session)
+        """plan_statement under the history scope."""
+        with self._history_scope():
+            return plan_statement(stmt, self.catalogs, self.session)
 
     def plan_cached(self, stmt) -> Tuple[Plan, bool]:
         plan, hit, _key = self.plan_cached_keyed(stmt)
@@ -409,6 +549,12 @@ class LocalQueryRunner:
         bound = {i: lit for i, lit in enumerate(lits)}
         entry = self.plan_cache.get(key)
         if isinstance(entry, canonical.PlanCacheEntry):
+            # adaptive execution: an epoch-stale entry replans instead
+            # of serving the plan its worst early estimates built (None:
+            # the entry is still fresh, or the plane is off)
+            replanned = self._adaptive_replan(key, entry, canon, bound)
+            if replanned is not None:
+                return replanned
             return (
                 Plan(
                     root=entry.root,
@@ -423,7 +569,11 @@ class LocalQueryRunner:
         if entry is canonical.BYPASS:
             return self._plan_statement(stmt), False, None
         try:
-            plan = self._plan_statement(canon)
+            # capture which history fingerprints (and which estimates)
+            # this planning consulted: the evidence a later hit is
+            # re-validated against (a null scope with adaptive off)
+            with self._capture_scope() as consulted:
+                plan = self._plan_statement(canon)
         except Exception:
             # parameterized planning failed (a hoisted literal in a
             # structural position): permanent literal-form lane
@@ -439,12 +589,24 @@ class LocalQueryRunner:
             self.plan_cache.put(key, canonical.BYPASS)
             return self._plan_statement(stmt), False, None
         return self._store_canonical_entry(
-            key, plan, bound, handles, len(lits)
+            key, plan, consulted, bound, handles, len(lits)
         )
 
-    def _store_canonical_entry(self, key, plan, bound, handles, n_slots):
+    def _capture_scope(self):
+        """Consult capture around canonical-statement planning, active
+        only when the adaptive plane could read the evidence (session
+        ``adaptive_enabled``). Entries planned with the plane off carry
+        no evidence and are never replanned."""
+        if self.session.get("adaptive_enabled"):
+            return plan_history.capture_consults()
+        return contextlib.nullcontext({})
+
+    def _store_canonical_entry(
+        self, key, plan, consulted, bound, handles, n_slots
+    ):
         """Build and store the cache entry of a planned canonical
-        statement; -> its bound ``(plan, False, key)``."""
+        statement; -> its bound ``(plan, False, key)``. The one entry
+        constructor the miss path and the adaptive replan share."""
         root, preopt = plan.root, False
         if not plan.params:
             # value-independent over a canonical root: optimize ONCE at
@@ -462,6 +624,7 @@ class LocalQueryRunner:
                 preoptimized=preopt,
                 handles=handles,
                 n_slots=n_slots,
+                consulted=dict(consulted),
             ),
         )
         return (
@@ -476,9 +639,57 @@ class LocalQueryRunner:
             key,
         )
 
+    def _adaptive_replan(self, key, entry, canon, bound):
+        """Epoch-versioned plan cache: a statement-cache HIT whose
+        consulted history estimates have materially diverged
+        (``canonical.stale_consults``) replans the canonical statement
+        against today's learned cardinalities and REPLACES the entry.
+        Fail-open: a replan that fails serves the cached plan. Returns
+        the ``(plan, False, key)`` triple, or None when the entry is
+        still fresh or the plane is off."""
+        if not self.session.get("adaptive_enabled"):
+            return None
+        store = self.history_store
+        if (
+            store is None
+            or not self.session.get("enable_history_stats")
+            or not entry.consulted
+        ):
+            return None
+        factor = float(self.session.get("adaptive_divergence_factor"))
+        stale = canonical.stale_consults(entry.consulted, store, factor)
+        if stale is None:
+            return None
+        fp, old_epoch, new_epoch = stale
+        REGISTRY.counter("adaptive.divergence_detected").update()
+        try:
+            with plan_history.capture_consults() as consulted:
+                plan = self._plan_statement(canon)
+            out = self._store_canonical_entry(
+                key, plan, consulted, bound,
+                canonical.plan_handles(plan), entry.n_slots,
+            )
+        except Exception:
+            # the cached plan still answers correctly (its estimates
+            # were stale, not its semantics): serve it
+            REGISTRY.counter("plan.replan_failures").update()
+            return None
+        REGISTRY.counter("plan.replans").update()
+        self.plan_cache.note_replan()
+        qs = self._active_qs
+        if qs is not None:
+            with self._qs_mu:
+                qs.replanned = True
+                qs.adaptive_notes.append(
+                    f"REPLANNED (epoch {old_epoch}→{new_epoch}) "
+                    f"node {fp}"
+                )
+        return out
+
     def execute_plan(self, plan: Plan, qs=None) -> QueryResult:
         prev, self._active_qs = self._active_qs, qs
         prev_bound = getattr(self._bound_local, "value", None)
+        prev_meta = getattr(self._run_meta, "value", None)
         if plan.bound_values is not None:
             # a cached canonical plan: the execution's literal values
             # ride thread-local to _run_with_pages, which installs them
@@ -488,15 +699,30 @@ class LocalQueryRunner:
             root = self._bind_params(plan)
             if not plan.preoptimized:
                 t_opt = time.perf_counter()
-                root = push_scan_constraints(prune_columns(root))
+                with self._history_scope():
+                    root = push_scan_constraints(prune_columns(root))
                 if qs is not None:
                     qs.optimization_ms += (
                         time.perf_counter() - t_opt
                     ) * 1000.0
+            memo = None
+            if self.session.get("enable_operator_stats"):
+                try:
+                    sigs = self._plan_signatures(root)
+                    memo = plan_history.SignatureMemo(sigs)
+                    if qs is not None and not qs.plan_fingerprint:
+                        # canonical statement identity: keys the history-
+                        # store record and enriches the query event
+                        qs.plan_fingerprint = sigs.fingerprints(
+                            root, [root]
+                        )[id(root)]
+                except Exception:
+                    pass
             host_ops: List[N.PlanNode] = []
             if self.session.get("host_root_stage"):
                 root, host_ops = peel_host_ops(root)
             t0 = time.perf_counter()
+            self._run_meta.value = (memo, {})
             page = self._run(root)
             if host_ops:
                 page = apply_host_ops(page, host_ops)
@@ -506,7 +732,106 @@ class LocalQueryRunner:
         finally:
             self._active_qs = prev
             self._bound_local.value = prev_bound
+            self._run_meta.value = prev_meta
         return QueryResult(plan.output_names, page)
+
+    def execute_plan_analyzed(self, plan: Plan, sql: str = ""):
+        """EXPLAIN ANALYZE: run the plan whole-table (``_run_with_pages``
+        over every scan, neither streamed nor fragmented, as the
+        reference's single-device instrumented run) with EVERY node's
+        row count read back in the run's one control read, and the host
+        root stage peeled as ``execute_plan`` peels it. Returns
+        (QueryResult, List[PlanNodeStats] of the device tree, rows after
+        each host op innermost-first, the bound pre-peel root, the device
+        root run, the host ops peeled, id(node) -> (planning-time
+        estimate, provenance)): the trees that ran, so EXPLAIN ANALYZE
+        annotates the exact nodes."""
+        from presto_tpu_torch.exec.explain import _estimate_map
+
+        bound_root = push_scan_constraints(
+            prune_columns(self._bind_params(plan))
+        )
+        root = bound_root
+        host_ops: List[N.PlanNode] = []
+        if self.session.get("host_root_stage"):
+            root, host_ops = peel_host_ops(root)
+        scans = [n for n in N.walk(root) if isinstance(n, N.TableScanNode)]
+        # PLANNING-time estimates, taken BEFORE the run's actuals reach
+        # the history store: a warm run's history-fed estimates shrink
+        # the printed error, a cold run's show the real miss
+        with self._history_scope():
+            est_map = _estimate_map(root, self.catalogs)
+        pages = [self._load_table(s) for s in scans]
+        stats_cell: List = []
+        page = self._run_with_pages(root, scans, pages, stats_out=stats_cell)
+        host_rows: List[int] = []
+        if host_ops:
+            page = apply_host_ops(page, host_ops, rows_out=host_rows)
+        stats = collect_node_stats(stats_cell)
+        self._record_history(root, stats, stmt_root=bound_root, sql=sql)
+        return (
+            QueryResult(plan.output_names, page),
+            stats,
+            host_rows,
+            bound_root,
+            root,
+            host_ops,
+            est_map,
+        )
+
+    def _record_history(
+        self,
+        droot: N.PlanNode,
+        stats,
+        stmt_root: Optional[N.PlanNode] = None,
+        sql: str = "",
+    ) -> None:
+        """Persist an analyzed run's per-node actuals to the history
+        store (EXPLAIN ANALYZE makes no QueryStats, but its run measured
+        the same truth), keyed by the PRE-peel bound root's fingerprint,
+        the tree ``execute_plan`` fingerprints, so the analyzed run
+        updates the normal run's entry."""
+        if self.history_store is None:
+            return
+        try:
+            fps = plan_history.node_fingerprints(droot)
+            by_walk = {i: n for i, n in enumerate(N.walk(droot))}
+            nodes = {}
+            for st in stats:
+                n = by_walk.get(st.node_id)
+                if n is None or st.output_rows < 0:
+                    continue
+                fp = fps.get(id(n), "")
+                if fp:
+                    nodes[fp] = {
+                        "rows": int(st.output_rows),
+                        "label": st.label,
+                    }
+            self.history_store.record_query(
+                plan_history.plan_fingerprint(
+                    droot if stmt_root is None else stmt_root
+                ),
+                sql,
+                nodes,
+            )
+        except Exception:
+            pass  # a broken store must never fail EXPLAIN ANALYZE
+
+    def _plan_signatures(self, root: N.PlanNode):
+        """The signature memo of ``root``'s whole tree, signed once per
+        root object."""
+        with self._plan_sigs_mu:
+            got = self._plan_sigs.get(id(root))
+            if got is not None and got[0] is root:
+                self._plan_sigs.move_to_end(id(root))
+                return got[1]
+        sigs = plan_history.SignatureMemo()
+        sigs.fingerprints(root, [root])
+        with self._plan_sigs_mu:
+            self._plan_sigs[id(root)] = (root, sigs)
+            while len(self._plan_sigs) > 256:
+                self._plan_sigs.popitem(last=False)
+        return sigs
 
     # ------------------------------------------------- params (subqueries)
 
@@ -626,10 +951,15 @@ class LocalQueryRunner:
         if not conjuncts:
             return node
         self.dynamic_filters_applied += n_filters
+        REGISTRY.counter("dynamic_filter.built").update()
+        REGISTRY.counter("dynamic_filter.applied").update(n_filters)
+        self._fold_dyn_stat("dynamic_filters", n_filters)
         pred = conjuncts[0] if len(conjuncts) == 1 else E.And(tuple(conjuncts))
+        # marked dynamic: its pruned-row count rides the probe run's
+        # control read (dynamic_filter.rows_pruned)
         return dataclasses.replace(
             node,
-            left=N.FilterNode(source=node.left, predicate=pred),
+            left=N.FilterNode(source=node.left, predicate=pred, dynamic=True),
         )
 
     def _execute_to_leaf(
@@ -643,6 +973,9 @@ class LocalQueryRunner:
             subtree, leaves, pages, fetch_result=False
         )
         self.fragments_run += 1
+        if self._active_qs is not None:
+            with self._qs_mu:
+                self._active_qs.device_fragments += 1
         return remote
 
     def _run_with_pages(
@@ -651,19 +984,42 @@ class LocalQueryRunner:
         scans: List[N.PlanNode],
         pages: List[Page],
         fetch_result: bool = True,
+        stats_out: Optional[List] = None,
     ) -> Page:
         """Run the plan over its leaf pages, re-running at 4x capacities
         while an operator reports overflow. One host read per attempt
-        fetches the flags, the error bits and the live count.
+        fetches the flags, the error bits, the per-node row counts, the
+        dynamic filters' pruned rows and the live count.
+
+        Per-node row counts (exec/stats.OperatorStats) are taken on
+        every run with session ``enable_operator_stats`` (the counted
+        nodes of ``_COUNTED_NODES``) and folded into the active query's
+        stats; with ``stats_out`` (EXPLAIN ANALYZE) every node is
+        counted and ``stats_out`` receives (walk_id, label, rows,
+        capacity) records. Only the attempt that did not overflow is
+        folded.
 
         Returns the result page on the host; with ``fetch_result=False``
         (a stage-at-a-time fragment) the page stays on the device,
         compacted and re-bucketed to its live rows."""
         scan_ids = {id(s): i for i, s in enumerate(scans)}
         bound = getattr(self._bound_local, "value", None)
+        analyzed = stats_out is not None
+        counted = analyzed or bool(
+            self.session.get("enable_operator_stats")
+        )
+        # program-instance token for operator-stats folding: streamed
+        # batches re-enter with the SAME root object (their folds sum),
+        # while distinct runs of one query (scalar-subquery pre-passes,
+        # sibling fragments) are different objects
+        prog_root = root
         tries = 0
         while True:
-            ctx = _ExecContext(pages, scan_ids, self.device)
+            ctx = _ExecContext(
+                pages, scan_ids, self.device,
+                counters=[] if counted else None, count_all=analyzed,
+            )
+            t_disp = time.perf_counter()
             try:
                 with canonical.active_params(bound):
                     out = compact_page(_execute_node(root, ctx))
@@ -674,27 +1030,84 @@ class LocalQueryRunner:
                 # operator that needs its value on the host): re-run
                 # with the values bound back as Literals, as the
                 # reference's literal-form lane does. The literal form
-                # has no parameter vector, so this cannot loop.
+                # has no parameter vector, so this cannot loop; the
+                # failed attempt's counters are discarded with ctx.
                 root, scan_ids = _literal_form(root, scan_ids, bound)
                 bound = None
                 self.literal_form_reruns += 1
                 continue
-            control = torch.stack(
-                [f.reshape(()).to(torch.int64) for f in ctx.flags]
-                + [e.reshape(()).to(torch.int64) for _, e in ctx.errors]
-                + [out.num_valid.to(torch.int64)]
-            ).cpu().tolist()
-            nf = len(ctx.flags)
-            for (msg, _), bit in zip(ctx.errors, control[nf:-1]):
+            counts = [c for _, c, _, _ in ctx.counters or ()]
+            control_t, order = _control_vector(
+                [f.reshape(()) for f in ctx.flags]
+                + [e.reshape(()) for _, e in ctx.errors]
+                + [c.reshape(()) for c in counts]
+                + [d.reshape(()) for d in ctx.dyn]
+                + [out.num_valid.reshape(())]
+            )
+            t_disped = time.perf_counter()
+            control = _in_order(control_t.cpu().tolist(), order)
+            t_fetched = time.perf_counter()
+            if DEVICE.enabled:
+                # one attempt of the plan's operators (an overflowed one
+                # ran too) and the bytes of its control read
+                d2h = int(control_t.nbytes)
+                DEVICE.count_dispatch()
+                DEVICE.count_d2h(d2h)
+                self._fold_device_stat(
+                    device_dispatches=1, device_d2h_bytes=d2h
+                )
+            nf, ne, nc = len(ctx.flags), len(ctx.errors), len(counts)
+            for (msg, _), bit in zip(ctx.errors, control[nf:nf + ne]):
                 if bit:
                     raise ExecutionError(msg)
             if not any(control[:nf]):
+                cnt = control[nf + ne: nf + ne + nc]
+                dyn = control[nf + ne + nc: -1]
                 n = control[-1]
+                if counted and ctx.counters:
+                    cells = self._counter_cells(root, ctx.counters, analyzed)
+                    if analyzed:
+                        stats_out.clear()
+                        stats_out.extend(
+                            (walk_id, label, int(c), cap)
+                            for (walk_id, label, cap, _nb, _dp, _fp, _ch), c
+                            in zip(cells, cnt)
+                        )
+                    # only the successful attempt counts: an overflowed
+                    # one re-ran the same rows
+                    self._fold_operator_stats(
+                        cells,
+                        cnt,
+                        wall_ms=(t_fetched - t_disp) * 1000.0,
+                        device_ms=(t_fetched - t_disped) * 1000.0,
+                        prog=prog_root,
+                    )
+                pruned = sum(dyn)
+                if pruned:
+                    REGISTRY.counter("dynamic_filter.rows_pruned").update(
+                        pruned
+                    )
+                    self._fold_dyn_stat("dynamic_filter_rows_pruned", pruned)
+                if DEVICE.enabled:
+                    # output bucket padding: the rows this run computed
+                    # over vs the rows anyone will read
+                    DEVICE.count_padding(n, out.capacity)
+                    self._fold_device_stat(
+                        device_pad_rows=out.capacity - n,
+                        device_live_rows=n,
+                    )
                 if not fetch_result:
                     return pad_capacity(out, bucket_capacity(n))
+                if DEVICE.enabled:
+                    d2h = sum(int(t.nbytes) for t in out.prefix_leaves(n))
+                    DEVICE.count_d2h(d2h)
+                    self._fold_device_stat(device_d2h_bytes=d2h)
                 return materialize_page(out, n)
             tries += 1
             self.overflow_retries += 1
+            if self._active_qs is not None:
+                with self._qs_mu:
+                    self._active_qs.retries += 1
             if tries >= self.MAX_RETRIES:
                 raise ExecutionError(
                     "capacity overflow persisted after retries "
@@ -703,6 +1116,156 @@ class LocalQueryRunner:
             # leaves carry no capacity, so they keep their identity and
             # scan_ids stays valid
             root = _scale_capacities(root, 4)
+
+    def _counter_cells(self, root, counters, analyzed: bool) -> List[tuple]:
+        """One (walk_id, label, capacity, page bytes, depth, fingerprint,
+        counted child walk ids) cell per counted node of one run, in
+        counter order. The static part (walk ids, labels, depths,
+        fingerprints, the counted nodes' children) is computed once per
+        run root in a query (streamed batches re-enter with one root),
+        and the fingerprints reuse the signatures of the cached plan's
+        subtrees (``execute_plan``'s signature memo)."""
+        memo, by_root = getattr(self._run_meta, "value", None) or (None, {})
+        got = by_root.get((id(root), analyzed))
+        if got is not None and got[0] is root:
+            meta = got[1]
+        else:
+            meta = self._counter_meta(root, counters, memo)
+            by_root[(id(root), analyzed)] = (root, meta)
+        cells = []
+        for node, _, cap, nbytes in counters:
+            walk_id, label, depth, fp, child_ids = meta[id(node)]
+            cells.append((walk_id, label, cap, nbytes, depth, fp, child_ids))
+        return cells
+
+    @staticmethod
+    def _counter_meta(root, counters, memo) -> Dict[int, tuple]:
+        """id(node) -> (walk id, label, depth, fingerprint, counted child
+        walk ids) for each counted node of one run's tree."""
+        walk_ids = {id(n): i for i, n in enumerate(N.walk(root))}
+        depths = _node_depths(root)
+        counted_ids = {id(node) for node, _, _, _ in counters}
+        try:
+            # canonical sub-fingerprints: the history keys of these
+            # operators
+            fps = (memo or plan_history.SignatureMemo()).fingerprints(
+                root, [n for n, _, _, _ in counters]
+            )
+        except Exception:
+            fps = {}
+
+        def child_walks(n):
+            # nearest COUNTED descendants: with cardinality-preserving
+            # nodes skipped on the always-on path, a join's input_rows
+            # still sums its sides' row sources
+            out_ids = []
+            for c in n.children():
+                if id(c) in counted_ids:
+                    out_ids.append(walk_ids.get(id(c), -1))
+                else:
+                    out_ids.extend(child_walks(c))
+            return out_ids
+
+        return {
+            id(node): (
+                walk_ids.get(id(node), -1),
+                node_label(node),
+                depths.get(id(node), 0),
+                fps.get(id(node), ""),
+                tuple(child_walks(node)),
+            )
+            for node, _, _, _ in counters
+        }
+
+    def _fold_dyn_stat(self, attr: str, n: int) -> None:
+        """Add ``n`` to the active sink's dynamic-filter counter under
+        ``_qs_mu`` (the prefetch thread shares the sink) and the sink's
+        own ``_roll_lock``."""
+        qs = self._active_qs
+        if qs is None:
+            return
+        with self._qs_mu:
+            sink_lock = getattr(qs, "_roll_lock", None)
+            if sink_lock is not None:
+                with sink_lock:
+                    setattr(qs, attr, getattr(qs, attr) + n)
+            else:
+                setattr(qs, attr, getattr(qs, attr) + n)
+
+    def _fold_device_stat(self, **fields) -> None:
+        """Add device-plane quantities (utils/telemetry.py families) to
+        the active sink under the ``_fold_dyn_stat`` locking. No-op when
+        the telemetry plane is disabled, so per-query attribution tracks
+        the process counters exactly."""
+        qs = self._active_qs
+        if qs is None or not DEVICE.enabled:
+            return
+        with self._qs_mu:
+            sink_lock = getattr(qs, "_roll_lock", None)
+            with sink_lock if sink_lock is not None else (
+                contextlib.nullcontext()
+            ):
+                for attr, n in fields.items():
+                    if n:
+                        setattr(qs, attr, getattr(qs, attr) + n)
+
+    def _fold_operator_stats(
+        self,
+        cells,
+        counts,
+        wall_ms: float,
+        device_ms: float,
+        prog=None,
+    ) -> None:
+        """Merge one run's per-node actuals into the active stats sink's
+        ``operators`` list, keyed by node instance (run root identity +
+        walk position + canonical sub-fingerprint): streamed batches of
+        one fragment SUM into the same OperatorStats, while same-shape
+        nodes of DIFFERENT runs of one query (scalar-subquery pre-passes
+        reuse walk positions) stay separate instead of teaching the
+        history store multiplied rows. ``prog`` is pinned on the sink so
+        its id cannot be reused by a later run's tree within the query.
+        The run's dispatch -> control-read window is attributed to its
+        ROOT operator."""
+        qs = self._active_qs
+        if qs is None or not hasattr(qs, "operators"):
+            return
+        rows_by_walk = {cell[0]: int(c) for cell, c in zip(cells, counts)}
+        root_walk = min(rows_by_walk)
+        with self._qs_mu:
+            index = qs.__dict__.get("_op_index")
+            if index is None:
+                index = {}
+                qs.__dict__["_op_index"] = index
+            if prog is not None:
+                qs.__dict__.setdefault("_op_pins", {})[id(prog)] = prog
+            for (
+                walk_id, label, cap, nbytes, depth, fp, child_ids
+            ), c in zip(cells, counts):
+                key = (id(prog), walk_id, fp or label)
+                op = index.get(key)
+                if op is None:
+                    op = OperatorStats(
+                        node_id=walk_id,
+                        label=label,
+                        fingerprint=fp,
+                        depth=depth,
+                    )
+                    index[key] = op
+                    qs.operators.append(op)
+                rows = int(c)
+                op.output_rows += rows
+                op.batches += 1
+                op.output_capacity = max(op.output_capacity, cap)
+                op.peak_page_bytes = max(op.peak_page_bytes, nbytes)
+                op.input_rows += (
+                    sum(rows_by_walk.get(ci, 0) for ci in child_ids)
+                    if child_ids
+                    else rows  # leaves read what they emit
+                )
+                if walk_id == root_walk:
+                    op.wall_ms += wall_ms
+                    op.device_ms += device_ms
 
     # ------------------------------------------------------------- caches
 
@@ -777,6 +1340,9 @@ class LocalQueryRunner:
             page = stage_page(merged, dict(scan.schema), device=self.device)
             nbytes = page_nbytes(page)
             REGISTRY.distribution("staging.bytes").add(nbytes)
+            # per-query h2d attribution (the process counter lives in
+            # staging.stage_page); cache hits copied nothing
+            self._fold_device_stat(device_h2d_bytes=nbytes)
             cached = cacheable and self.split_cache.put(
                 key, page, nbytes, reserve_required=True, pin=pin
             )
@@ -867,6 +1433,7 @@ class LocalQueryRunner:
         )
         nbytes = page_nbytes(page)
         REGISTRY.distribution("staging.bytes").add(nbytes)
+        self._fold_device_stat(device_h2d_bytes=nbytes)
         # the prefetch thread adds here too; a lost update of a float
         # total only blurs a timing
         stats.generate_s += t1 - t0
@@ -932,20 +1499,62 @@ def _plan_weight(root: N.PlanNode) -> int:
 
 class _ExecContext:
     """One run of a plan over its leaf pages, and what it collects: 0-d
-    overflow flags (capacity retries) and (message, 0-d bool) hard
-    errors."""
+    overflow flags (capacity retries), (message, 0-d bool) hard errors,
+    the 0-d pruned-row count of every dynamic filter, and, with
+    ``counters``, one (node, 0-d live count, capacity, page bytes)
+    record per counted node (every node with ``count_all``, else the
+    ``_COUNTED_NODES``). Capacities and bytes are host values; the
+    counts stay on the device until the run's one control read."""
 
-    def __init__(self, pages, scan_ids, device: torch.device):
+    def __init__(
+        self, pages, scan_ids, device: torch.device,
+        counters: Optional[List] = None, count_all: bool = True,
+    ):
         self.pages = pages
         self.scan_ids = scan_ids
         self.device = device
         self.flags: List[torch.Tensor] = []
         self.errors: List[Tuple[str, torch.Tensor]] = []
+        self.dyn: List[torch.Tensor] = []
+        self.counters = counters
+        self.count_all = count_all
+
+
+#: nodes whose output rows carry cardinality signal (scan sizes, filter
+#: selectivity, join fan-out, group counts), as the reference counts
+#: them on its always-on path; cardinality-preserving or structurally
+#: bounded nodes (Project, Output, Window, Sort, Limit) are skipped
+#: there. EXPLAIN ANALYZE counts every node.
+_COUNTED_NODES = (
+    N.TableScanNode,
+    N.RemoteSourceNode,
+    N.FilterNode,
+    N.JoinNode,
+    N.CrossJoinNode,
+    N.AggregationNode,
+    N.DistinctNode,
+    N.UnnestNode,
+    N.UnionAllNode,
+)
 
 
 def _execute_node(node: N.PlanNode, ctx: _ExecContext) -> Page:
-    """Execute one plan node eagerly."""
+    """Execute one plan node eagerly, recording its live count when the
+    run counts it."""
+    out = _execute_node_inner(node, ctx)
+    if ctx.counters is not None and (
+        ctx.count_all or isinstance(node, _COUNTED_NODES)
+    ):
+        nv = out.num_valid
+        if nv._base is not None:
+            # a view (a cumulative sum's last element) would keep its
+            # whole buffer alive until the control read
+            nv = nv.clone()
+        ctx.counters.append((node, nv, out.capacity, page_nbytes(out)))
+    return out
 
+
+def _execute_node_inner(node: N.PlanNode, ctx: _ExecContext) -> Page:
     def run(n):
         return _execute_node(n, ctx)
 
@@ -967,7 +1576,10 @@ def _execute_node(node: N.PlanNode, ctx: _ExecContext) -> Page:
         src = run(node.source)
         schema = node.source.output_schema()
         projs = [(n, E.ColumnRef(n, t)) for n, t in schema.items()]
-        return filter_project(src, node.predicate, projs)
+        out = filter_project(src, node.predicate, projs)
+        if node.dynamic:
+            ctx.dyn.append(src.num_valid - out.num_valid)
+        return out
     if isinstance(node, N.ProjectNode):
         return project(run(node.source), node.projections)
     if isinstance(node, N.AggregationNode):
@@ -1059,6 +1671,43 @@ def _execute_node(node: N.PlanNode, ctx: _ExecContext) -> Page:
     raise ExecutionError(
         f"cannot execute {type(node).__name__}: later slice of the port"
     )
+
+
+def _node_depths(root: N.PlanNode) -> Dict[int, int]:
+    """id(node) -> tree depth under ``root`` (operator-stats rendering)."""
+    out: Dict[int, int] = {}
+
+    def rec(n: N.PlanNode, d: int) -> None:
+        out[id(n)] = d
+        for c in n.children():
+            rec(c, d + 1)
+
+    rec(root, 0)
+    return out
+
+
+def _control_vector(scalars: List[torch.Tensor]):
+    """0-d tensors of one device -> (one int64 vector, ``order``) for
+    the run's one host read: one stack and one cast per dtype, then one
+    concatenation, however many scalars there are. Element k of the
+    vector is ``scalars[order[k]]`` (``_in_order`` undoes it on the
+    host)."""
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(scalars):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    order: List[int] = []
+    parts = []
+    for idx in by_dtype.values():
+        order.extend(idx)
+        parts.append(torch.stack([scalars[i] for i in idx]).to(torch.int64))
+    return (parts[0] if len(parts) == 1 else torch.cat(parts)), order
+
+
+def _in_order(values: List[int], order: List[int]) -> List[int]:
+    out = [0] * len(values)
+    for v, i in zip(values, order):
+        out[i] = v
+    return out
 
 
 def cross_join_single_row(left: Page, right: Page) -> Page:

@@ -48,6 +48,7 @@ from presto_tpu_torch.page import (
     resolve_device,
     to_host,
 )
+from presto_tpu_torch.utils.telemetry import DEVICE
 
 MIN_BUCKET = 1 << 10
 
@@ -224,11 +225,18 @@ def stage_page(
         else:
             vals = list(v) + [None] * (cap - len(v))
             blocks.append(Block.from_pylist(vals, t, device))
-    return Page(
+    page = Page(
         blocks=tuple(blocks),
         num_valid=torch.tensor(n, dtype=torch.int32, device=device),
         names=names,
     )
+    # device-plane accounting (utils/telemetry.py): the bytes this
+    # staging copied and the bucket padding the device will compute
+    # over; guarded so the disabled plane skips even the nbytes walk
+    if DEVICE.enabled:
+        DEVICE.count_h2d(page_nbytes(page))
+        DEVICE.count_padding(n, cap)
+    return page
 
 
 def _stage_array(
@@ -347,6 +355,8 @@ def page_to_host(page: Page) -> HostPage:
     cache's host-spill lane) in ONE transfer (``page.to_host``):
     ``capacity``, ``num_valid``, the ``live`` mask, the validity masks
     and the dictionaries all come along."""
+    if DEVICE.enabled:
+        DEVICE.count_d2h(page_nbytes(page))
     return HostPage(
         page=_rebuild(page, to_host(_page_tensors(page))),
         device=page.device,
@@ -372,6 +382,8 @@ def host_to_page(host: HostPage) -> Page:
             buf[offset: offset + piece.numel()].view(t.dtype).reshape(t.shape)
         )
         offset += piece.numel()
+    if DEVICE.enabled:
+        DEVICE.count_h2d(int(buf.nbytes))
     return _rebuild(host.page, out)
 
 

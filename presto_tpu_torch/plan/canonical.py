@@ -38,9 +38,16 @@ bucketing the cache rather than breaking it):
   plans exist (LIMIT counts, capacity buckets, IN-list LENGTHS: the
   list length is the tuple arity, which stays in the key).
 
+3. **Epoch-versioned entries** (adaptive execution): an entry keeps
+   the history evidence its optimization consulted
+   (``PlanCacheEntry.consulted``), and :func:`stale_consults` judges a
+   later hit stale when a learned cardinality has since diverged from
+   it; the runner's ``_adaptive_replan`` then replans and replaces the
+   entry (``PlanCache.note_replan``).
+
 Not ported: the reference's micro-batch plane (``batch_lanes``,
-``stack_param_vectors``, ``vmap_program``, ``batch_entry_key``) and the
-adaptive replan's ``stale_consults`` (it needs ``plan/history.py``).
+``stack_param_vectors``, ``vmap_program``, ``batch_entry_key``), which
+belongs to the server's micro-batch queue.
 """
 
 from __future__ import annotations
@@ -510,6 +517,52 @@ class PlanCacheEntry:
     preoptimized: bool
     handles: frozenset
     n_slots: int
+    #: adaptive execution (epoch-versioned entries): the history
+    #: evidence this plan's optimization consulted — node fingerprint
+    #: -> {"epoch", "rows", "est"} captured by
+    #: plan/history.capture_consults around planning. A later hit
+    #: re-validates against it (:func:`stale_consults`); empty = the
+    #: entry can never go stale (no history was consulted).
+    consulted: dict = dataclasses.field(default_factory=dict)
+
+
+def stale_consults(consulted: dict, store, factor: float):
+    """The statement-cache REPLAN seam's divergence test (adaptive
+    execution — the one place a cached plan is judged stale; audited
+    consumer: exec/local_runner._adaptive_replan).
+
+    -> ``(fp, captured_epoch, current_epoch)`` of the first consulted
+    node whose learned cardinality has since MATERIALLY diverged from
+    the estimate this plan was built on, else None. The epoch
+    comparison is the cheap pre-filter (epochs bump only on material
+    change — plan/history.record_query) — valid only when the
+    caller's factor is at least the STORE's bump factor; a tighter
+    session factor falls through to the full per-node judgement, so
+    ``adaptive_divergence_factor=2`` still replans on drift the
+    store's 4x epochs never flagged. The captured estimate (the
+    learned rows at consult time, or the classic fallback on a miss)
+    is what the fresh learned value is judged against, so an epoch
+    bump that lands back NEAR the plan's own assumptions keeps the
+    plan. Never raises — staleness checking must not fail a query."""
+    from presto_tpu_torch.plan import history
+
+    epoch_gated = factor >= getattr(store, "divergence_factor", 1.0)
+    for fp, cap in (consulted or {}).items():
+        try:
+            cur_epoch = store.epoch_of(fp)
+            if epoch_gated and cur_epoch == cap.get("epoch", 0):
+                continue
+            learned = store.learned_rows(fp)
+            base = cap.get("rows")
+            if base is None:
+                base = cap.get("est")
+            if learned is None or base is None:
+                continue
+            if history.diverged(base, learned, factor):
+                return fp, cap.get("epoch", 0), cur_epoch
+        except Exception:
+            continue
+    return None
 
 
 #: sentinel: this canonical shape could not be planned in parameterized
@@ -570,6 +623,13 @@ class PlanCache:
             self._od[key] = entry
             self._od.move_to_end(key)
             self._shrink()
+
+    def note_replan(self) -> None:
+        """Count one adaptive replan under the cache lock (like every
+        other counter here — concurrent stale hits must not lose
+        updates against the stats row)."""
+        with self._lock:
+            self.replans += 1
 
     def invalidate(self, handle) -> None:
         # version-blind match: a cached plan pins a SNAPSHOT of its

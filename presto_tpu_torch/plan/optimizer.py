@@ -150,21 +150,42 @@ def predicate_selectivity(
 
 
 def estimate_rows(node: N.PlanNode, catalogs) -> float:
-    """Cardinality estimate for ``node`` from connector stats /
-    heuristics (the port's runner keeps no history store)."""
-    return _estimate_rows_classic(node, catalogs)
+    """Cardinality estimate for ``node``. Consults history-based
+    statistics FIRST (plan/history.py — observed actuals keyed by the
+    node's canonical sub-fingerprint, active only when the runner
+    installed a store under session ``enable_history_stats``), then
+    connector stats / heuristics. With no active store the lookup is
+    one thread-local read and the math is bit-exact pre-history."""
+    from presto_tpu_torch.plan import history
+
+    got = history.lookup_rows(node)
+    if got is not None:
+        return max(float(got), 1.0)
+    rows = _estimate_rows_classic(node, catalogs)
+    # adaptive execution: an active capture scope remembers the classic
+    # estimate a history MISS fell back to — the base the replan seam's
+    # divergence test compares the first learned cardinality against
+    # (no-op outside a capture scope)
+    history.note_estimate(node, rows)
+    return rows
 
 
 def estimate_rows_with_source(
     node: N.PlanNode, catalogs, stats_memo: Optional[dict] = None
 ):
-    """-> (rows, provenance) where provenance is ``stats`` (every
-    scan under the node has connector row counts) or ``heuristic``.
+    """-> (rows, provenance) where provenance is ``history`` (learned
+    from a prior execution of this canonical shape), ``stats`` (every
+    scan under the node has connector row counts), or ``heuristic``.
     EXPLAIN renders the provenance beside each estimate — render-time
     only; the hot planning path uses :func:`estimate_rows`, which
     skips the provenance walk. Callers estimating a whole tree pass
     one ``stats_memo`` dict so each table's connector stats are
     fetched once, not once per ancestor node."""
+    from presto_tpu_torch.plan import history
+
+    got = history.lookup_rows(node)
+    if got is not None:
+        return max(float(got), 1.0), "history"
     rows = _estimate_rows_classic(node, catalogs)
     return rows, (
         "stats"

@@ -1,0 +1,226 @@
+"""Query-lifecycle tracing: per-query span trees + traceparent headers.
+
+Reference parity: presto attributes every query's wall time to a tree
+of runtime objects (QueryStats -> StageStats -> TaskStats ->
+OperatorStats) and exposes it at ``GET /v1/query/{id}`` (SURVEY.md
+§5.1). Here the same attribution is a span tree: each phase of the
+lifecycle (plan -> fragment -> schedule -> task -> staging/execute ->
+gather) opens a :class:`Span`, and the coordinator propagates a
+W3C-``traceparent``-style header on every worker call so worker-side
+spans join the query's tree under one trace id — the id that appears
+in both coordinator and worker logs.
+
+The tree is servable WHILE the query runs (an open span has
+``end == 0``), which is what makes "what is query q_7 doing right now"
+answerable from ``/v1/query/{id}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import threading
+import time
+import uuid
+from typing import Dict, List, Optional
+
+log = logging.getLogger("presto_tpu_torch.trace")
+
+#: traceparent version field (only 00 exists; parsed leniently)
+_TP_VERSION = "00"
+
+
+def new_trace_id() -> str:
+    return uuid.uuid4().hex  # 32 lowercase hex chars, W3C width
+
+
+def new_span_id() -> str:
+    return uuid.uuid4().hex[:16]  # 16 hex chars, W3C width
+
+
+def format_traceparent(trace_id: str, span_id: str) -> str:
+    """``00-{trace}-{span}-01`` (sampled flag always on)."""
+    return f"{_TP_VERSION}-{trace_id}-{span_id}-01"
+
+
+def parse_traceparent(header: Optional[str]):
+    """Header -> (trace_id, parent_span_id), or None when absent or
+    malformed (a bad header must never fail the task carrying it)."""
+    if not header:
+        return None
+    parts = header.strip().split("-")
+    if len(parts) != 4:
+        return None
+    _, trace_id, span_id, _ = parts
+    if len(trace_id) != 32 or len(span_id) != 16:
+        return None
+    return trace_id, span_id
+
+
+@dataclasses.dataclass
+class Span:
+    """One timed phase of a query. ``end == 0`` means still open."""
+
+    trace_id: str
+    span_id: str
+    parent_id: Optional[str]
+    name: str
+    start: float
+    end: float = 0.0
+    attrs: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+    @property
+    def duration_ms(self) -> float:
+        end = self.end or time.time()
+        return (end - self.start) * 1000.0
+
+    def to_dict(self) -> dict:
+        return {
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "name": self.name,
+            "start": self.start,
+            "end": self.end,
+            "duration_ms": self.duration_ms,
+            "attrs": dict(self.attrs),
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "Span":
+        return Span(
+            trace_id=d.get("trace_id", ""),
+            span_id=d.get("span_id", ""),
+            parent_id=d.get("parent_id"),
+            name=d.get("name", ""),
+            start=float(d.get("start", 0.0)),
+            end=float(d.get("end", 0.0)),
+            attrs=dict(d.get("attrs") or {}),
+        )
+
+
+class _SpanCtx:
+    """Context manager yielded by :meth:`Trace.span`."""
+
+    def __init__(self, trace: "Trace", span: Span):
+        self._trace = trace
+        self.span = span
+
+    def __enter__(self) -> Span:
+        self._trace._push(self.span)
+        return self.span
+
+    def __exit__(self, exc_type, exc, tb):
+        self._trace._pop(self.span, failed=exc is not None)
+        return False
+
+
+class Trace:
+    """One query's span tree; thread-safe, servable mid-flight.
+
+    Spans opened on the same thread nest implicitly (a thread-local
+    stack provides the parent); spans opened on OTHER threads (stage
+    runner pools, exchange pull threads) parent to the trace's root
+    span unless an explicit ``parent`` is given — so a fan-out of
+    concurrent stages still hangs off the one query root.
+    """
+
+    def __init__(self, trace_id: Optional[str] = None):
+        self.trace_id = trace_id or new_trace_id()
+        self._lock = threading.Lock()
+        self._spans: List[Span] = []
+        self._stack = threading.local()
+        self.root: Optional[Span] = None
+
+    # ------------------------------------------------------------ spans
+
+    def span(self, name: str, parent: Optional[Span] = None, **attrs):
+        """Open a span; use as ``with trace.span("plan"):``."""
+        if parent is None:
+            stack = getattr(self._stack, "value", None)
+            if stack:
+                parent = stack[-1]
+            else:
+                parent = self.root
+        s = Span(
+            trace_id=self.trace_id,
+            span_id=new_span_id(),
+            parent_id=parent.span_id if parent is not None else None,
+            name=name,
+            start=time.time(),
+            attrs=dict(attrs),
+        )
+        return _SpanCtx(self, s)
+
+    def _push(self, span: Span) -> None:
+        with self._lock:
+            self._spans.append(span)
+            if self.root is None:
+                self.root = span
+        stack = getattr(self._stack, "value", None)
+        if stack is None:
+            stack = []
+            self._stack.value = stack
+        stack.append(span)
+        log.debug(
+            "trace=%s span=%s start name=%s parent=%s",
+            self.trace_id, span.span_id, span.name, span.parent_id,
+        )
+
+    def _pop(self, span: Span, failed: bool = False) -> None:
+        span.end = time.time()
+        if failed:
+            span.attrs["error"] = True
+        stack = getattr(self._stack, "value", None)
+        if stack and span in stack:
+            stack.remove(span)
+        log.debug(
+            "trace=%s span=%s end name=%s dur_ms=%.1f",
+            self.trace_id, span.span_id, span.name, span.duration_ms,
+        )
+
+    def graft(self, span_dicts) -> None:
+        """Attach foreign (worker-side) spans to this tree. Spans whose
+        trace id differs are re-homed under this trace — a worker that
+        ignored the traceparent still lands in the right query."""
+        spans = [
+            Span.from_dict(d) if isinstance(d, dict) else d
+            for d in (span_dicts or ())
+        ]
+        with self._lock:
+            for s in spans:
+                s.trace_id = self.trace_id
+                if s.parent_id is None and self.root is not None:
+                    s.parent_id = self.root.span_id
+                self._spans.append(s)
+
+    def traceparent(self, span: Optional[Span] = None) -> str:
+        """Header value carrying this trace + the given (or root) span
+        as parent, for coordinator->worker propagation."""
+        parent = span or self.root
+        sid = parent.span_id if parent is not None else new_span_id()
+        return format_traceparent(self.trace_id, sid)
+
+    # -------------------------------------------------------- rendering
+
+    def spans(self) -> List[Span]:
+        with self._lock:
+            return list(self._spans)
+
+    def to_tree(self) -> List[dict]:
+        """Nested span dicts (children under ``"children"``), roots
+        first. Orphans (parent never seen, e.g. pruned worker spans)
+        surface as roots rather than vanishing."""
+        spans = self.spans()
+        by_id = {s.span_id: s.to_dict() for s in spans}
+        for d in by_id.values():
+            d["children"] = []
+        roots: List[dict] = []
+        for s in spans:
+            d = by_id[s.span_id]
+            parent = by_id.get(s.parent_id) if s.parent_id else None
+            if parent is not None and parent is not d:
+                parent["children"].append(d)
+            else:
+                roots.append(d)
+        return roots

@@ -567,3 +567,83 @@ def test_static_unnest_group_by_is_one_launch_on_the_card(cuda):
     got = gpu.execute(sql).rows()
     assert onehot_reduce.launches == before + 1
     assert got == LocalQueryRunner(device="cpu").execute(sql).rows()
+
+
+# ------------------------------------------ observability on the card
+
+
+def test_device_probe_on_the_card_runs_all_three_phases(cuda):
+    # enumerate the card, build K1, launch it once against its plain
+    # version; the outcome is what system.runtime.nodes shows
+    import json
+
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.utils import devicediag
+
+    before = onehot_reduce.launches
+    diag = devicediag.probe_backend()
+    assert onehot_reduce.launches == before + 1
+    assert (diag.backend, diag.ok, diag.phase) == ("gpu", True, "ok")
+    assert diag.device_name == torch.cuda.get_device_name(0)
+    assert diag.phases == {"enumerate": "ok", "compile": "ok", "execute": "ok"}
+    (row,) = LocalQueryRunner(device="cuda").execute(
+        "select backend_diag from system.runtime.nodes"
+    ).rows()
+    assert json.loads(row[0])["device_name"] == diag.device_name
+
+
+def test_explain_analyze_on_the_card_equals_the_cpu(cuda):
+    # the same per-node rows, estimates and capacities; the one-hot
+    # GROUP BY launches K1 once
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from tpch_queries import QUERIES
+
+    sql = "explain analyze " + QUERIES[1]
+    before = onehot_reduce.launches
+    gpu = [r[0] for r in LocalQueryRunner(device="cuda").execute(sql).rows()]
+    assert onehot_reduce.launches == before + 1
+    cpu = [r[0] for r in LocalQueryRunner(device="cpu").execute(sql).rows()]
+    assert gpu[:-1] == cpu[:-1]
+    assert gpu[-1].split(" rows in ")[0] == cpu[-1].split(" rows in ")[0]
+
+
+def _syncs_of(fn):
+    """(result, cudaStreamSynchronize-backed waits) of ``fn()``, counted
+    through torch's sync debug mode. The mode is switched on once before
+    counting: the first switch in a process warns once by itself."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode(0)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing" in str(w.message) for w in seen)
+
+
+@pytest.mark.parametrize("q", [1, 3, 18])
+def test_operator_stats_add_no_host_wait_on_the_card(cuda, q):
+    # the per-node counts ride the run's one control read: a warm query
+    # makes as many host waits with operator stats on as with them off,
+    # and the same rows
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from tpch_queries import QUERIES
+
+    results, syncs = [], []
+    for on in ("true", "false"):
+        r = LocalQueryRunner(device="cuda")
+        r.session.set("enable_operator_stats", on)
+        r.execute(QUERIES[q])  # cold: stages the tables
+        res, n = _syncs_of(lambda: r.execute(QUERIES[q]).rows())
+        results.append(res)
+        syncs.append(n)
+        ops = r.history.snapshot()[-1].all_operator_stats()
+        assert bool(ops) == (on == "true")
+    assert results[0] == results[1]
+    assert syncs[0] == syncs[1] > 0

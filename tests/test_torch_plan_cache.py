@@ -393,7 +393,6 @@ def test_write_statements_raise_with_their_names():
         ("create table t (x bigint)", "CreateTable"),
         ("drop table t", "DropTable"),
         ("delete from tpch.tiny.region", "Delete"),
-        ("explain select 1", "Explain"),
     ):
         with pytest.raises(ExecutionError, match=name):
             r.execute(sql)
