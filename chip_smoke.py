@@ -138,7 +138,31 @@ non-zero, and only a run where every phase passed prints the final
               Every query runs cold then twice warm (bit-identical) and
               prints its warm s, device ms, syncs, peak memory and
               onehot_reduce launches.
-12. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+12. write   - the ninth slice, through a CUDA runner in the joins
+              phase's session with a ``memory`` catalog ``mem``, a
+              ``blackhole`` catalog ``bh`` and a MemoryPool: W1 CTAS of
+              Q1 over SF10 lineitem and an INSERT of Q1 over SF1 (one
+              onehot_reduce launch each), read back exact against numpy
+              (a decimal sum above 2^53 moves through the write path's
+              Python float as it does in the reference); W2 a working
+              table of ten SF1 lineitem columns for the orders whose lines
+              come to at least 524,288 rows, Q1 over it cold then twice
+              warm (one launch a run, bit-identical warm runs, the staging
+              from object arrays timed); W3 INSERT ... SELECT of the next
+              131,072-odd rows, W4 UPDATE, W5 DELETE, each count exact and
+              Q1 after it exact with exactly one split-cache miss; W6 an
+              aggregate materialized view, two ingest deltas of 65,536
+              rows merged incrementally (one launch each), equal to the
+              direct query and numpy, a REFRESH bit-identical; W7 the
+              auto-rewrite (the plan-cache key names the view), the
+              staleness gate after a legacy INSERT and
+              ``system.runtime.materialized_views``; W8 a blackhole table
+              of 2^24 rows as a source and a sink (a scan after the
+              INSERT restages it: one miss, the same rows); W9 the drops,
+              after which no page of a dropped table is cached and the
+              pool holds no query-owned byte. Every statement prints
+              its seconds, launches, misses and peak memory.
+13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -2749,6 +2773,547 @@ def nested_phase(card: str, dev=None, records=None):
     return launches, out
 
 
+# -------------------------------------------------------------- write phase
+
+#: W2's working table holds the lines of the prefix of ``WRITE_SCHEMA``'s
+#: orders that comes to at least ``WRITE_LI_ROWS`` rows; W3 appends the
+#: lines of the next prefix of at least ``WRITE_MORE_ROWS``
+WRITE_SCHEMA = "sf1"
+WRITE_LI_ROWS = 1 << 19
+WRITE_MORE_ROWS = 1 << 17
+#: W6's two ingest deltas: rows each, made with numpy from this seed
+DELTA_ROWS = 1 << 16
+DELTA_SEED = 20261017
+#: W8's blackhole table serves this many rows
+BH_ROWS = 1 << 24
+#: the ten lineitem columns of the working table
+WRITE_COLUMNS = [
+    "l_orderkey", "l_partkey", "l_linenumber", "l_quantity",
+    "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
+    "l_linestatus", "l_shipdate",
+]
+#: the columns held as scaled decimals (scale 2) and as strings
+WRITE_DECIMALS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+WRITE_STRINGS = ("l_returnflag", "l_linestatus")
+WRITE_VIEW = """create materialized view mem.default.li_mv as
+select l_returnflag, l_linestatus, sum(l_extendedprice) as sum_price,
+  count(*) as n, min(l_discount) as min_disc, max(l_discount) as max_disc,
+  avg(l_quantity) as avg_qty
+from mem.default.li group by l_returnflag, l_linestatus"""
+WRITE_VIEW_DIRECT = """select l_returnflag, l_linestatus, sum(l_extendedprice)
+  as sum_price, count(*) as n, min(l_discount) as min_disc,
+  max(l_discount) as max_disc, avg(l_quantity) as avg_qty
+from mem.default.li group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus"""
+#: W7's aggregate over the base table, which the view maintains
+WRITE_REWRITTEN = """select l_returnflag, l_linestatus,
+  sum(l_extendedprice) as sum_price, count(*) as n
+from mem.default.li group by l_returnflag, l_linestatus"""
+
+
+def written_decimal(unscaled: int, scale: int) -> int:
+    """The scaled value a short decimal reads back after a write: the
+    write path holds it as a Python float (``int / 10**scale``, as the
+    reference's ``Page.to_pylist`` decodes it) and stages it back through
+    its shortest repr, rounded half up to the scale. Above 2^53 that may
+    move it (a fault shared with the reference, ROADMAP §3)."""
+    import decimal
+
+    with decimal.localcontext() as ctx:
+        ctx.prec = 50
+        q = decimal.Decimal(1).scaleb(-scale)
+        return int(
+            decimal.Decimal(str(unscaled / 10**scale))
+            .quantize(q, rounding=decimal.ROUND_HALF_UP)
+            .scaleb(scale)
+        )
+
+
+def write_columns(schema: str):
+    """The working table's source: the orderkey bounds of W2's and W3's
+    order prefixes, their row counts, and the generator's own columns of
+    both prefixes (decimals scaled by 100, flags as strings, dates as
+    epoch days), all int64 but the flags."""
+    import numpy as np
+
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+
+    gen = TpchGenerator(SCHEMAS[schema])
+    head = min(gen.counts["lineitem"], WRITE_LI_ROWS + WRITE_MORE_ROWS + 16)
+    ok = gen.generate("lineitem", 0, head, ["l_orderkey"])["l_orderkey"]
+    ok = ok.astype(np.int64)
+    check(bool((np.diff(ok) >= 0).all()), "lineitem is not in order order")
+    k1 = int(ok[WRITE_LI_ROWS - 1])
+    n1 = int(np.searchsorted(ok, k1, side="right"))
+    k2 = int(ok[n1 + WRITE_MORE_ROWS - 1])
+    n2 = int(np.searchsorted(ok, k2, side="right"))
+    check(n2 < head, "W3's prefix runs past the generated rows")
+    g = gen.generate("lineitem", 0, n2, WRITE_COLUMNS)
+    d = {}
+    for c in WRITE_COLUMNS:
+        if c in WRITE_STRINGS:
+            d[c] = np.asarray(g[c].values).astype(str)[g[c].ids]
+        else:
+            d[c] = np.asarray(g[c]).astype(np.int64)
+    return (k1, n1), (k2, n2), d
+
+
+def numpy_q1_of(d):
+    """Q1 over the columns ``d`` (``write_columns``' form), as
+    ``numpy_q1_q6`` returns it."""
+    import numpy as np
+
+    keep = d["l_shipdate"] <= Q1_DATE
+    rf, ls = d["l_returnflag"], d["l_linestatus"]
+    qty, price, disc, tax = (
+        d[c] for c in ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+    )
+    dp = price * (100 - disc)
+    q1 = {}
+    for f in np.unique(rf[keep]):
+        for s in np.unique(ls[keep]):
+            m = keep & (rf == f) & (ls == s)
+            n = int(m.sum())
+            if n:
+                q1[(str(f), str(s))] = {
+                    "count_order": n, "sum_qty": int(qty[m].sum()),
+                    "sum_base_price": int(price[m].sum()),
+                    "sum_disc_price": int(dp[m].sum()),
+                    "sum_charge": int((dp[m] * (100 + tax[m])).sum()),
+                    "avg_qty": int(qty[m].sum()) / 100 / n,
+                    "avg_price": int(price[m].sum()) / 100 / n,
+                    "avg_disc": int(disc[m].sum()) / 100 / n,
+                }
+    return q1
+
+
+def numpy_view_of(d):
+    """The W6 view's rows over the columns ``d``: {(flag, status):
+    (sum_price scaled, n, min_disc scaled, max_disc scaled, avg_qty)}."""
+    import numpy as np
+
+    rf, ls = d["l_returnflag"], d["l_linestatus"]
+    out = {}
+    for f in np.unique(rf):
+        for s in np.unique(ls):
+            m = (rf == f) & (ls == s)
+            n = int(m.sum())
+            if n:
+                out[(str(f), str(s))] = (
+                    int(d["l_extendedprice"][m].sum()), n,
+                    int(d["l_discount"][m].min()),
+                    int(d["l_discount"][m].max()),
+                    int(d["l_quantity"][m].sum()) / 100 / n,
+                )
+    return out
+
+
+def check_view_rows(label, res, want):
+    """A result of the view's shape against ``numpy_view_of``: integers
+    and decimals exact, the average within rel 1e-12."""
+    n, cols = result_columns(res)
+    check(n == len(want), f"{label}: {n} groups, numpy {len(want)}")
+    for i in range(n):
+        key = (cols["l_returnflag"][i], cols["l_linestatus"][i])
+        sp, cnt, mn, mx, aq = want[key]
+        got = (int(cols["sum_price"][i]), int(cols["n"][i]),
+               int(cols["min_disc"][i]), int(cols["max_disc"][i]))
+        check(got == (sp, cnt, mn, mx), f"{label} {key}: {got} != numpy "
+              f"{(sp, cnt, mn, mx)}")
+        a = float(cols["avg_qty"][i])
+        check(abs(a - aq) <= 1e-12 * abs(aq),
+              f"{label} {key}: avg_qty {a} vs numpy {aq}")
+
+
+def write_deltas(first_key: int):
+    """W6's two ingest deltas from ``DELTA_SEED``: each as the ingest
+    lane hands it to ``commit_snapshot`` (Python values per column:
+    decimals as floats, dates as epoch days) and in numpy
+    (``write_columns``' form). Orderkeys start at ``first_key``."""
+    import numpy as np
+
+    rng = np.random.default_rng(DELTA_SEED)
+    out = []
+    for j in range(2):
+        n = DELTA_ROWS
+        d = {
+            "l_orderkey": first_key + j * n + np.arange(n, dtype=np.int64),
+            "l_partkey": rng.integers(1, 200_001, n),
+            "l_linenumber": rng.integers(1, 8, n),
+            "l_quantity": rng.integers(1, 51, n) * 100,
+            "l_extendedprice": rng.integers(90_000, 10_500_000, n),
+            "l_discount": rng.integers(0, 11, n),
+            "l_tax": rng.integers(0, 9, n),
+            "l_returnflag": rng.choice(np.array(["A", "N", "R"]), n),
+            "l_linestatus": rng.choice(np.array(["F", "O"]), n),
+            "l_shipdate": rng.integers(8037, 10562, n),
+        }
+        rows = {
+            c: (v / 100 if c in WRITE_DECIMALS else v).tolist()
+            for c, v in d.items()
+        }
+        out.append((rows, d))
+    return out
+
+
+def concat_columns(*ds):
+    import numpy as np
+
+    return {c: np.concatenate([d[c] for d in ds]) for c in ds[0]}
+
+
+def write_phase(card: str, want_q1_big=None, dev=None, records=None,
+                big: str = JOINS_SCHEMA):
+    """The ninth slice's path on ``dev`` (the card unless a CPU rehearsal
+    passes another), through one runner in the joins phase's session with
+    a ``memory`` catalog ``mem``, a ``blackhole`` catalog ``bh`` and a
+    MemoryPool: W1 a summary table (CTAS of Q1 over ``big`` lineitem,
+    then INSERT of Q1 over SF1), W2 a working table of ten SF1 lineitem
+    columns and Q1 over it cold and twice warm, W3 INSERT ... SELECT,
+    W4 UPDATE, W5 DELETE, W6 an aggregate materialized view with two
+    ingest deltas merged incrementally, W7 the auto-rewrite, the read
+    gate and ``system.runtime.materialized_views``, W8 blackhole, W9 the
+    drops. Every step prints its seconds, K1 launches, split-cache misses
+    and peak device memory and is exact against numpy over the
+    generator's own columns. ``want_q1_big``: Q1's numpy answer over
+    ``big`` (the stream phase's). Returns (the onehot_reduce launches of
+    the counted steps, the records)."""
+    import numpy as np
+    import torch
+
+    from presto_tpu_torch.connectors import create_connector
+    from presto_tpu_torch.connectors.spi import TableHandle
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.exec.staging import CatalogManager
+    from presto_tpu_torch.ops import aggregation as PA
+    from presto_tpu_torch.session import Session
+    from presto_tpu_torch.sql import parse_statement
+    from presto_tpu_torch.utils.memory import MemoryPool
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    phase_t0 = time.perf_counter()
+    out, launches = [], 0
+
+    t0 = time.perf_counter()
+    if want_q1_big is None:
+        want_q1_big = numpy_q1_stream(big)[1]
+    want_q1_sf1, _ = numpy_q1_q6()
+    (k1, n1), (k2, n2), d = write_columns(WRITE_SCHEMA)
+    print(f"numpy columns and answers of the write phase: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    catalogs = CatalogManager()
+    catalogs.register("tpch", create_connector("tpch"))
+    mem = create_connector("memory")
+    catalogs.register("mem", mem)
+    catalogs.register("bh", create_connector("blackhole",
+                                             rows_per_table=BH_ROWS))
+    budget = cache_budget(dev)
+    pool = MemoryPool(2 * budget)
+    runner = LocalQueryRunner(
+        catalogs=catalogs, device=dev, memory_pool=pool,
+        staging_cache_bytes=budget,
+        session=Session(schema=JOINS_SCHEMA, properties={
+            "max_device_rows": JOINS_MAX_DEVICE_ROWS}),
+    )
+
+    def step(label, fn, want_launches=None, want_misses=None):
+        """Run one statement (``fn()``), print and record what it cost,
+        and hold its launch and miss counts and the pool."""
+        nonlocal launches
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        PA.onehot_reduce.launches = 0
+        misses = cache_misses(runner)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        secs = time.perf_counter() - t0
+        n_launch = PA.onehot_reduce.launches
+        misses = cache_misses(runner) - misses
+        launches += n_launch
+        peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+                if on_card else None)
+        rec = {"step": label, "s": secs, "onehot_reduce_launches": n_launch,
+               "cache_misses": misses, "peak_gib": peak}
+        out.append(rec)
+        print(f"{label}: {secs:.4f} s, onehot_reduce launches {n_launch}, "
+              f"split-cache misses {misses}, peak memory "
+              f"{'not measured (no card)' if peak is None else f'{peak:.3f} GiB'}"
+              f" [{card}]", flush=True)
+        if want_launches is not None:
+            want = want_launches if on_card else 0
+            check(n_launch == want, f"{label}: {n_launch} onehot_reduce "
+                  f"launches, expected {want}")
+        if want_misses is not None:
+            check(misses == want_misses, f"{label}: {misses} split-cache "
+                  f"misses, expected {want_misses}")
+        check_pool(label, runner, pool)
+        return res, rec
+
+    def sql_step(label, sql, **kw):
+        return step(label, lambda: runner.execute(sql), **kw)
+
+    def count_of(res):
+        return int(res.rows()[0][0])
+
+    # W1: a summary table from Q1 over the big scale, then SF1's appended
+    q1_big = Q1.replace("tpch.sf1.lineitem", f"tpch.{big}.lineitem")
+    res, _ = sql_step("W1 CTAS q1 " + big,
+                      "create table mem.default.q1_sf10 as " + q1_big,
+                      want_launches=1)
+    check(count_of(res) == len(want_q1_big), "W1 CTAS: wrong row count")
+    res, _ = sql_step("W1 INSERT q1 sf1",
+                      "insert into mem.default.q1_sf10 " + Q1,
+                      want_launches=1)
+    check(count_of(res) == len(want_q1_sf1), "W1 INSERT: wrong row count")
+    res, _ = sql_step("W1 read back", "select * from mem.default.q1_sf10",
+                      want_launches=0)
+    n, cols = result_columns(res)
+    wants = [want_q1_big[k] for k in sorted(want_q1_big)]
+    wants += [want_q1_sf1[k] for k in sorted(want_q1_sf1)]
+    keys = sorted(want_q1_big) + sorted(want_q1_sf1)
+    check(n == len(wants), f"W1: {n} rows read back, expected {len(wants)}")
+    moved = 0
+    scales = {"sum_qty": 2, "sum_base_price": 2, "sum_disc_price": 4,
+              "sum_charge": 6}
+    for i, (key, exp) in enumerate(zip(keys, wants)):
+        check((cols["l_returnflag"][i], cols["l_linestatus"][i]) == key,
+              f"W1 row {i}: key {cols['l_returnflag'][i]}"
+              f"{cols['l_linestatus'][i]} != {key}")
+        check(int(cols["count_order"][i]) == exp["count_order"],
+              f"W1 {key}: count_order")
+        for name, scale in scales.items():
+            want = written_decimal(exp[name], scale)
+            moved += want != exp[name]
+            check(int(cols[name][i]) == want,
+                  f"W1 {key} {name}: {cols[name][i]} != {want} (numpy "
+                  f"{exp[name]} through the write path)")
+        for name in ("avg_qty", "avg_price", "avg_disc"):
+            got = float(cols[name][i])
+            check(abs(got - exp[name]) <= 1e-12 * abs(exp[name]),
+                  f"W1 {key} {name}: {got} vs {exp[name]}")
+    print(f"W1: {n} rows read back exact against numpy; {moved} of "
+          f"{n * len(scales)} decimal sums moved through the write path's "
+          f"float (scaled values above 2^53) [{card}]", flush=True)
+    rec = out[-1]
+    rec["decimal_sums_moved"] = moved
+
+    # W2: the working table, and Q1 over it cold then twice warm
+    cols_sql = ", ".join(WRITE_COLUMNS)
+    res, _ = sql_step(
+        "W2 CTAS li",
+        f"create table mem.default.li as select {cols_sql} from "
+        f"tpch.{WRITE_SCHEMA}.lineitem where l_orderkey <= {k1}",
+        want_launches=0)
+    check(count_of(res) == n1, f"W2: {count_of(res)} rows, expected {n1}")
+    print(f"W2: mem.default.li holds the {n1} lines of {WRITE_SCHEMA}'s "
+          f"orders up to key {k1} [{card}]", flush=True)
+    q1_li = Q1.replace("tpch.sf1.lineitem", "mem.default.li")
+    cur = {c: v[:n1] for c, v in d.items()}
+    runs = []
+    for i, label in enumerate(("W2 Q1 li cold", "W2 Q1 li warm",
+                               "W2 Q1 li warm")):
+        res, rec = sql_step(label, q1_li, want_launches=1,
+                            want_misses=1 if i == 0 else 0)
+        runs.append(res)
+        if i == 0:
+            rec["staging_s"] = runner.history.snapshot()[-1].staging_ms / 1e3
+            print(f"W2: staging Q1's 7 columns of {n1} rows from object "
+                  f"arrays took {rec['staging_s']:.2f} s [{card}]",
+                  flush=True)
+    check_q1_stream("W2 Q1 li", runs[0], numpy_q1_of(cur))
+    diff = results_differ(runs[1], runs[2])
+    check(diff is None, f"W2: two warm runs differ ({diff})")
+    if records is not None and on_card:
+        # the one-hot reduction at this Q1's own inputs (a run not counted)
+        seen = []
+        real = PA.onehot_reduce_many
+
+        def spy(gid, requests, nseg):
+            seen.append((gid, list(requests), nseg))
+            return real(gid, requests, nseg)
+
+        PA.onehot_reduce_many = spy
+        try:
+            runner.execute(q1_li)
+        finally:
+            PA.onehot_reduce_many = real
+        check(len(seen) == 1, f"W2 Q1 made {len(seen)} one-hot calls")
+        records.append(fused_case("li q1 fused", *seen[0], card))
+
+    # W3: INSERT ... SELECT of the next prefix
+    res, _ = sql_step(
+        "W3 INSERT SELECT",
+        f"insert into mem.default.li select {cols_sql} from "
+        f"tpch.{WRITE_SCHEMA}.lineitem where l_orderkey > {k1} and "
+        f"l_orderkey <= {k2}", want_launches=0)
+    check(count_of(res) == n2 - n1,
+          f"W3: {count_of(res)} rows, expected {n2 - n1}")
+    cur = dict(d)
+    res, _ = sql_step("W3 Q1 li", q1_li, want_launches=1, want_misses=1)
+    check_q1_stream("W3 Q1 li", res, numpy_q1_of(cur))
+
+    # W4: UPDATE
+    res, _ = sql_step(
+        "W4 UPDATE",
+        "update mem.default.li set l_discount = l_discount + 0.01 "
+        "where l_returnflag = 'R'", want_launches=0)
+    is_r = cur["l_returnflag"] == "R"
+    check(count_of(res) == int(is_r.sum()),
+          f"W4: {count_of(res)} rows updated, expected {int(is_r.sum())}")
+    cur["l_discount"] = cur["l_discount"] + is_r
+    res, _ = sql_step("W4 Q1 li", q1_li, want_launches=1, want_misses=1)
+    check_q1_stream("W4 Q1 li", res, numpy_q1_of(cur))
+
+    # W5: DELETE
+    res, _ = sql_step(
+        "W5 DELETE",
+        "delete from mem.default.li where l_shipdate > date '1998-09-02'",
+        want_launches=0)
+    gone = cur["l_shipdate"] > Q1_DATE
+    check(count_of(res) == int(gone.sum()),
+          f"W5: {count_of(res)} rows deleted, expected {int(gone.sum())}")
+    cur = {c: v[~gone] for c, v in cur.items()}
+    res, _ = sql_step("W5 Q1 li", q1_li, want_launches=1, want_misses=1)
+    check_q1_stream("W5 Q1 li", res, numpy_q1_of(cur))
+
+    # W6: an aggregate view, two ingest deltas merged incrementally
+    sql_step("W6 CREATE MATERIALIZED VIEW", WRITE_VIEW, want_launches=1)
+    reg = runner.mview_registry
+    mv = reg.lookup(("mem", "default", "li_mv"))
+    check(mv is not None and mv.eligible,
+          f"W6: the view is not eligible ({mv and mv.reason})")
+    res, _ = sql_step("W6 direct", WRITE_VIEW_DIRECT, want_launches=1)
+    check_view_rows("W6 direct", res, numpy_view_of(cur))
+    res, _ = sql_step("W6 read view",
+                      "select * from mem.default.li_mv order by 1, 2",
+                      want_launches=0)
+    check_view_rows("W6 view", res, numpy_view_of(cur))
+    handle = TableHandle("mem", "default", "li")
+    first_key = int(cur["l_orderkey"].max()) + 1
+    for sid, (rows, delta) in enumerate(write_deltas(first_key), 1):
+        def commit():
+            # the ingest lane's commit (server/ingest.py): fold the
+            # delta in, invalidate, read the epoch hint, maintain views
+            mem.commit_snapshot(handle, rows, sid)
+            runner._invalidate_table_caches(handle)
+            reg.on_commit(handle, rows, sid, reg._epoch(handle))
+
+        step(f"W6 delta {sid} ({DELTA_ROWS} rows)", commit, want_launches=1)
+        cur = concat_columns(cur, delta)
+    check(mv.incremental_refreshes == 2 and mv.last_mode == "incremental",
+          f"W6: {mv.incremental_refreshes} incremental refreshes "
+          f"({mv.last_mode}), expected 2")
+    check(not any("__mv_delta_" in repr(k)
+                  for k in runner.split_cache._entries),
+          "W6: a delta staging page stayed in the split cache")
+    want_view = numpy_view_of(cur)
+    view, _ = sql_step("W6 read view",
+                       "select * from mem.default.li_mv order by 1, 2",
+                       want_launches=0)
+    check_view_rows("W6 view after deltas", view, want_view)
+    res, _ = sql_step("W6 direct", WRITE_VIEW_DIRECT, want_launches=1,
+                      want_misses=1)
+    check_view_rows("W6 direct after deltas", res, want_view)
+    sql_step("W6 REFRESH", "refresh materialized view mem.default.li_mv",
+             want_launches=1)
+    again, _ = sql_step("W6 read view",
+                        "select * from mem.default.li_mv order by 1, 2",
+                        want_launches=0)
+    diff = results_differ(view, again)
+    check(diff is None, f"W6: REFRESH changed the stored rows ({diff})")
+    print(f"W6: the view equals numpy and the direct query after two "
+          f"deltas merged incrementally, and a REFRESH stores the same "
+          f"bits [{card}]", flush=True)
+
+    # W7: the auto-rewrite, the read gate, the system table
+    off, _ = sql_step("W7 base aggregate", WRITE_REWRITTEN, want_launches=1)
+    runner.session.set("mview_auto_rewrite", True)
+    try:
+        _plan, _hit, key = runner.plan_cached_keyed(
+            parse_statement(WRITE_REWRITTEN))
+        check("'li_mv'" in (key or ""),
+              f"W7: the plan-cache key does not name the view: {key}")
+        on, _ = sql_step("W7 rewritten", WRITE_REWRITTEN, want_launches=0)
+        check(runner.history.snapshot()[-1].mview_rewritten
+              == "mem.default.li_mv", "W7: the read was not rewritten")
+        check(sorted(on.rows()) == sorted(off.rows()),
+              "W7: the rewritten rows differ")
+    finally:
+        runner.session.set("mview_auto_rewrite", False)
+    extra = {"l_orderkey": first_key + 2 * DELTA_ROWS, "l_partkey": 1,
+             "l_linenumber": 1, "l_quantity": 700, "l_extendedprice": 123456,
+             "l_discount": 4, "l_tax": 2, "l_returnflag": "N",
+             "l_linestatus": "O", "l_shipdate": 10000}
+    values = ", ".join(
+        f"'{extra[c]}'" if c in WRITE_STRINGS
+        else f"{extra[c] / 100:.2f}" if c in WRITE_DECIMALS
+        else str(extra[c])
+        for c in WRITE_COLUMNS)
+    res, _ = sql_step("W7 legacy INSERT",
+                      f"insert into mem.default.li values ({values})",
+                      want_launches=0)
+    check(count_of(res) == 1, "W7: the legacy INSERT did not write 1 row")
+    cur = concat_columns(cur, {c: np.asarray([v]) for c, v in extra.items()})
+    refreshes = mv.refreshes
+    reg.max_staleness_s = 1e-3
+    try:
+        time.sleep(0.01)
+        res, _ = sql_step("W7 gated read",
+                          "select * from mem.default.li_mv order by 1, 2",
+                          want_launches=1)
+    finally:
+        reg.max_staleness_s = None
+    check(mv.refreshes == refreshes + 1 and mv.last_mode == "full",
+          "W7: the read gate did not refresh the view")
+    check_view_rows("W7 gated read", res, numpy_view_of(cur))
+    res, _ = sql_step(
+        "W7 system table",
+        "select view, base_table, eligible, snapshot_id, last_refresh_mode,"
+        ' refreshes, incremental_refreshes, "rows" from '
+        "system.runtime.materialized_views", want_launches=0)
+    rows = res.rows()
+    check(rows == [("mem.default.li_mv", "mem.default.li", True, 2, "full",
+                    mv.refreshes, 2, len(numpy_view_of(cur)))],
+          f"W7: system.runtime.materialized_views {rows}")
+    print(f"W7: {rows[0]} [{card}]", flush=True)
+
+    # W8: blackhole as a source and a sink
+    sql_step("W8 CREATE TABLE", "create table bh.default.big "
+             "(k bigint, x double)", want_launches=0)
+    probe = "select count(*), sum(k), sum(x) from bh.default.big"
+    res, _ = sql_step("W8 scan", probe, want_launches=0)
+    check(res.rows() == [(BH_ROWS, 0, 0.0)], f"W8: {res.rows()}")
+    res, _ = sql_step("W8 INSERT SELECT", "insert into bh.default.big select "
+                      "l_orderkey, l_quantity from mem.default.li",
+                      want_launches=0)
+    n_li = len(cur["l_orderkey"])
+    check(count_of(res) == n_li, f"W8: {count_of(res)} rows, expected {n_li}")
+    res, _ = sql_step("W8 scan after", probe, want_launches=0, want_misses=1)
+    check(res.rows() == [(BH_ROWS, 0, 0.0)], f"W8 after: {res.rows()}")
+
+    # W9: the drops leave no page of a dropped table behind (blackhole
+    # has no DROP TABLE, as in the reference: its page is the one W8's
+    # last scan staged after the INSERT)
+    sql_step("W9 DROP MATERIALIZED VIEW",
+             "drop materialized view mem.default.li_mv", want_launches=0)
+    for t in ("mem.default.li", "mem.default.q1_sf10"):
+        sql_step(f"W9 DROP TABLE {t}", f"drop table {t}", want_launches=0)
+    gone = {"li", "li_mv", "q1_sf10"}
+    left = [k for k in runner.split_cache._entries
+            if k[0].catalog == "mem" and (
+                k[0].table in gone or k[0].table.startswith("__mv_delta_"))]
+    check(not left, f"W9: pages of dropped tables remain: {left}")
+    check_pool("W9", runner, pool)
+    secs = time.perf_counter() - phase_t0
+    print(f"write phase: {secs:.2f} s, onehot_reduce launches {launches} "
+          f"[{card}]", flush=True)
+    del runner
+    return launches, out
+
+
 # ------------------------------------------------------------ observe phase
 
 #: Q3's cached variant for the adaptive step: both date literals move,
@@ -3154,6 +3719,10 @@ def main() -> int:
     phase("nested")
     nested_launches, nested_records = nested_phase(card, records=records)
 
+    phase("write")
+    write_launches, write_records = write_phase(
+        card, want_q1_big=baseline["Q1"][0], records=records)
+
     headline = next(r for r in records if r["label"] == "q1 fused")
     kernels_line = {
         "kernels": [
@@ -3165,7 +3734,8 @@ def main() -> int:
                 "launches": (counts["onehot_reduce"] + joins_launches
                              + rest_launches + stream_launches
                              + tpcds_launches + cache_launches
-                             + nested_launches + observe_launches),
+                             + nested_launches + observe_launches
+                             + write_launches),
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
@@ -3188,6 +3758,8 @@ def main() -> int:
                       "nested_onehot_reduce": nested_launches,
                       "observe": observe_record,
                       "observe_onehot_reduce": observe_launches,
+                      "write": write_records,
+                      "write_onehot_reduce": write_launches,
                       "native": status, "card": card}))
     print(json.dumps(kernels_line))
     print(

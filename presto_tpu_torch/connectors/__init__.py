@@ -1,9 +1,9 @@
-"""Connector SPI + the built-in ``tpch``, ``tpcds`` and ``memory``
-connectors.
+"""Connector SPI + the built-in ``tpch``, ``tpcds``, ``memory`` and
+``blackhole`` connectors.
 
-The SPI, the tpch and tpcds generators and the memory connector are
-copies of the reference's (``presto_tpu/connectors``); the other
-connectors come in later slices.
+The SPI, the tpch and tpcds generators, the writable memory connector
+and the blackhole null source/sink are copies of the reference's
+(``presto_tpu/connectors``); the file connectors come in a later slice.
 """
 
 from presto_tpu_torch.connectors.spi import (  # noqa: F401
@@ -13,6 +13,9 @@ from presto_tpu_torch.connectors.spi import (  # noqa: F401
     SplitSource,
     TableHandle,
 )
+from presto_tpu_torch.connectors.blackhole import (  # noqa: F401
+    BlackholeConnector,
+)
 from presto_tpu_torch.connectors.memory import MemoryConnector  # noqa: F401
 from presto_tpu_torch.connectors.tpcds import TpcdsConnector  # noqa: F401
 from presto_tpu_torch.connectors.tpch import TpchConnector  # noqa: F401
@@ -21,6 +24,7 @@ CONNECTOR_FACTORIES = {
     "tpch": TpchConnector,
     "tpcds": TpcdsConnector,
     "memory": MemoryConnector,
+    "blackhole": BlackholeConnector,
 }
 
 

@@ -2,7 +2,7 @@
 ``presto_tpu/connectors/memory.py``. Tables load through
 ``create_table``/``append_rows`` (object arrays of Python values: lists,
 dicts and row dicts for nested columns, ``decimal.Decimal`` for long
-decimals); the runner's write statements are not ported yet.
+decimals) or through the runner's write statements.
 
 In-memory writable connector (reference: ``presto-memory``,
 SURVEY.md §2.2 — the writable test fixture), extended with the

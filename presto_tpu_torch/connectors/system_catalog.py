@@ -8,11 +8,12 @@ its QueryHistory, history store, split cache, plan cache, memory pool,
 the process metrics registry and the device probe
 (``utils/devicediag.py``). Zero stored bytes; every runner registers it.
 
-Tables a local runner serves empty, as the reference's does:
-``runtime.tasks``, ``runtime.qos``, ``runtime.snapshots``,
-``runtime.materialized_views`` and ``runtime.metrics_history`` (they
-are fed by the server, the materialized views and the telemetry
-sampler, none of which a local runner has). ``runtime.caches`` has no
+``runtime.materialized_views`` lists the runner's materialized views
+(``exec/mview.py``; empty before the first one). Tables a local runner
+serves empty, as the reference's does: ``runtime.tasks``,
+``runtime.qos``, ``runtime.snapshots`` and ``runtime.metrics_history``
+(they are fed by the server and the telemetry sampler, which a local
+runner has not). ``runtime.caches`` has no
 ``compile.programs`` row (the port compiles no program per query) and
 no ``exchange.ici`` row yet (the device exchange comes with the
 server).
@@ -194,11 +195,10 @@ _SCHEMAS: Dict[str, Dict[str, Dict[str, T.DataType]]] = {
 }
 
 
-#: tables only a server (or the materialized views) feeds
+#: tables only a server feeds
 _SERVER_TABLES = {
     ("runtime", t)
-    for t in ("tasks", "metrics_history", "materialized_views", "qos",
-              "snapshots")
+    for t in ("tasks", "metrics_history", "qos", "snapshots")
 }
 
 
@@ -283,6 +283,9 @@ class SystemConnector(Connector):
             ]
         if key == ("runtime", "caches"):
             return self._cache_rows()
+        if key == ("runtime", "materialized_views"):
+            reg = getattr(self._runner, "_mview_registry", None)
+            return reg.view_rows() if reg is not None else []
         if key == ("runtime", "memory"):
             return self._memory_rows()
         if key == ("runtime", "query_history"):
@@ -300,9 +303,9 @@ class SystemConnector(Connector):
                 for n in names
             ]
         if key in _SERVER_TABLES:
-            # fed by the server, the telemetry sampler or the
-            # materialized views, none of which a local runner has:
-            # an empty view, as the reference's local runner serves
+            # fed by the server or the telemetry sampler, which a local
+            # runner has not: an empty view, as the reference's local
+            # runner serves
             return []
         raise KeyError(f"system table {handle.schema}.{handle.table}")
 

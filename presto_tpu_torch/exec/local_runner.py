@@ -11,9 +11,26 @@ bind as literals, the root Output/Sort/Limit is peeled to the host
 pages staged on the runner's device. ``SET SESSION``, ``SHOW
 SESSION/SCHEMAS/TABLES/COLUMNS``, ``PREPARE``, ``EXECUTE``,
 ``DEALLOCATE``, ``EXPLAIN`` and ``EXPLAIN ANALYZE`` run as in the
-reference; statements that need a writable connector (INSERT, CTAS,
-CREATE/DROP TABLE, DELETE, UPDATE) and the materialized views raise
-``ExecutionError`` with their names.
+reference.
+
+The write statements run against any connector with
+``supports_writes()`` (``memory``, ``blackhole``): INSERT ... VALUES,
+INSERT ... SELECT and CREATE TABLE AS append the inner query's rows
+(``_result_columns``, built column by column from the host page),
+CREATE/DROP TABLE are plain DDL, and DELETE and UPDATE run one SELECT
+over the table (the kept complement; each assigned column as ``CASE
+WHEN pred THEN e ELSE c END``) and replace its rows. A write's inner
+query is planned with ``plan_statement`` directly (never the plan
+cache) and runs under a QueryStats of its own, outside the query
+history, whose pins and pool bytes are released when it ends. Every
+write passes ``_invalidate_table_caches``: the table's staged pages
+leave the split cache, its plans leave the plan cache, and the
+materialized views' write epoch moves. CREATE/REFRESH/DROP
+MATERIALIZED VIEW go to the runner's ``MViewRegistry``
+(``exec/mview.py``, made at first use): every SELECT plans behind its
+staleness read gate, and with session ``mview_auto_rewrite`` an
+eligible aggregate over a base table reads the view that maintains it
+(``server/result_cache.py::mview_rewrite``).
 
 Every query is observed as the reference observes it: a ``Trace``
 (query -> plan -> execute spans), a ``QueryStats`` in the runner's
@@ -62,6 +79,7 @@ import warnings
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from presto_tpu_torch import expr as E
@@ -80,6 +98,7 @@ from presto_tpu_torch.exec.staging import (
     SplitCache,
     bucket_capacity,
     merge_column_chunks,
+    obj_array,
     page_nbytes,
     stage_page,
 )
@@ -109,6 +128,7 @@ from presto_tpu_torch.ops.join import cross_join
 from presto_tpu_torch.page import (
     Block,
     Page,
+    column_values,
     compact_page,
     pad_capacity,
     resolve_device,
@@ -134,21 +154,6 @@ class ExecutionError(RuntimeError):
 
 def _noop() -> None:
     """No-op release handle (stage_split callers without an owner)."""
-
-
-#: statements that need a writable connector or the materialized
-#: views: later slices of the port
-_LATER_STATEMENTS = (
-    ast.Insert,
-    ast.CreateTableAs,
-    ast.CreateTable,
-    ast.DropTable,
-    ast.Delete,
-    ast.Update,
-    ast.CreateMaterializedView,
-    ast.RefreshMaterializedView,
-    ast.DropMaterializedView,
-)
 
 
 class QueryResult:
@@ -286,8 +291,29 @@ class LocalQueryRunner:
         #: the running query's operator metadata, per thread: its
         #: signature memo and the counted cells by run root
         self._run_meta = threading.local()
-        #: ids of EXPLAIN ANALYZE runs' own QueryStats (pool owners)
-        self._explain_ids = itertools.count(1)
+        #: ids of the QueryStats of runs kept out of the query history
+        #: (EXPLAIN ANALYZE, a write's inner queries, view maintenance):
+        #: pool owners
+        self._internal_ids = itertools.count(1)
+        #: materialized views (exec/mview.py): the registry is made at
+        #: the first view statement, so the read and write seams skip it
+        #: while it is None
+        self._mview_registry = None
+        #: the serving plane's result cache and streaming ingest lane
+        #: attach here; a local runner has neither (they come with the
+        #: server), so the write seam skips them
+        self.result_cache = None
+        self.ingest = None
+
+    @property
+    def mview_registry(self):
+        """The materialized-view registry (exec/mview.py), made on
+        first use; :attr:`_mview_registry` stays None until then."""
+        if self._mview_registry is None:
+            from presto_tpu_torch.exec.mview import MViewRegistry
+
+            self._mview_registry = MViewRegistry(self)
+        return self._mview_registry
 
     @property
     def _active_qs(self):
@@ -316,6 +342,25 @@ class LocalQueryRunner:
             )
         if isinstance(stmt, ast.ShowColumns):
             return self._execute_show_columns(stmt)
+        if isinstance(stmt, ast.CreateTable):
+            return self._execute_create_table(stmt)
+        if isinstance(stmt, ast.DropTable):
+            return self._execute_drop_table(stmt)
+        if isinstance(stmt, ast.CreateMaterializedView):
+            self.mview_registry.create(stmt, sql)
+            return QueryResult(
+                ("result",), _message_page("CREATE MATERIALIZED VIEW")
+            )
+        if isinstance(stmt, ast.RefreshMaterializedView):
+            self.mview_registry.refresh(stmt.target)
+            return QueryResult(
+                ("result",), _message_page("REFRESH MATERIALIZED VIEW")
+            )
+        if isinstance(stmt, ast.DropMaterializedView):
+            self.mview_registry.drop(stmt.target, stmt.if_exists)
+            return QueryResult(
+                ("result",), _message_page("DROP MATERIALIZED VIEW")
+            )
         if isinstance(stmt, ast.Prepare):
             self._prepared[stmt.name] = stmt.statement
             return QueryResult(("result",), _message_page("PREPARE"))
@@ -349,8 +394,7 @@ class LocalQueryRunner:
                     "Table",
                 ),
             )
-        _refuse_later_statement(stmt)
-        return self._run_query(sql, stmt)
+        return self.execute_bound(stmt, sql)
 
     def _run_query(self, sql: str, stmt) -> QueryResult:
         """One query's lifecycle: its QueryStats, planning (a SELECT
@@ -407,39 +451,76 @@ class LocalQueryRunner:
 
     def _execute_explain(self, stmt, sql: str) -> QueryResult:
         """EXPLAIN [ANALYZE]. ANALYZE's run holds its pins and pool bytes
-        under a QueryStats of its own, released on success and failure.
-        The reference runs it with none, so there every table the split
-        cache does not keep (the ``system`` tables, a table over the
-        budget) stays reserved under "adhoc" after each EXPLAIN ANALYZE
-        (ROADMAP §3). Those stats stay out of the query history, as in
-        the reference: the run's actuals reach the history store
-        through ``_record_history``."""
+        under a QueryStats of its own (``_statement_stats``); the run's
+        actuals reach the history store through ``_record_history``."""
         from presto_tpu_torch.exec.explain import explain_text
 
-        qs = None
-        if stmt.analyze:
-            qs = QueryStats(
-                query_id=f"explain_{next(self._explain_ids)}",
-                sql=sql,
-                state="RUNNING",
-                create_time=time.time(),
-            )
-        prev, self._active_qs = self._active_qs, qs
-        try:
-            text = explain_text(self, stmt, sql)
-        finally:
-            self._active_qs = prev
-            if qs is not None:
-                self.release_pins(qs)
-                if self.memory_pool is not None:
-                    self.memory_pool.release(qs.query_id)
+        with (
+            self._statement_stats("explain", sql)
+            if stmt.analyze
+            else contextlib.nullcontext()
+        ) as qs:
+            prev, self._active_qs = self._active_qs, qs
+            try:
+                text = explain_text(self, stmt, sql)
+            finally:
+                self._active_qs = prev
         return QueryResult(("Query Plan",), _lines_page(text))
 
-    def _execute_show_columns(self, stmt) -> QueryResult:
-        """SHOW COLUMNS FROM t / DESCRIBE t."""
+    @contextlib.contextmanager
+    def _statement_stats(self, kind: str, sql: str = ""):
+        """A QueryStats of its own for a run the reference keeps out of
+        the query history (EXPLAIN ANALYZE, a write's inner query, view
+        maintenance): its pins and pool bytes are released when it
+        ends, on success and on failure. The reference runs these with
+        no QueryStats, so there every page the split cache does not
+        keep (a ``system`` table, a table over the budget) stays
+        reserved under "adhoc" (ROADMAP §3)."""
+        qs = QueryStats(
+            query_id=f"{kind}_{next(self._internal_ids)}",
+            sql=sql,
+            state="RUNNING",
+            create_time=time.time(),
+        )
+        try:
+            yield qs
+        finally:
+            self.release_pins(qs)
+            if self.memory_pool is not None:
+                self.memory_pool.release(qs.query_id)
+
+    def run_internal(self, stmt, kind: str) -> QueryResult:
+        """Run a statement AST the engine composed (a write's inner
+        query, a maintenance query of ``exec/mview.py``): planned with
+        ``plan_statement`` directly, as the reference plans them, so it
+        never reaches the plan cache, the view read gate or the history
+        scope, and executed under ``_statement_stats``."""
+        with self._statement_stats(kind) as qs:
+            plan = plan_statement(stmt, self.catalogs, self.session)
+            return self.execute_plan(plan, qs=qs)
+
+    # ------------------------------------------------------------ writes
+
+    def _invalidate_table_caches(self, handle) -> None:
+        """The one write-path seam: drop a written or dropped table's
+        staged pages (whole-table and split alike, releasing their
+        reservations) and its cached plans, and bump the table's write
+        epoch in the materialized-view registry (the staleness gate's
+        input). Every write passes here, a legacy one or an ingest
+        commit."""
+        self.split_cache.invalidate(handle)
+        self.plan_cache.invalidate(handle)
+        if self._mview_registry is not None:
+            self._mview_registry.note_write(handle)
+        # the serving plane's result cache rides the same seam
+        if self.result_cache is not None:
+            self.result_cache.note_write(handle)
+
+    def _resolve_table(self, parts):
+        """A 1-, 2- or 3-part table name -> (handle, connector), the
+        session's catalog and schema filling what is missing."""
         from presto_tpu_torch.connectors.spi import TableHandle
 
-        parts = stmt.target
         catalog, schema_name = self.session.catalog, self.session.schema
         if len(parts) == 3:
             catalog, schema_name, table = parts
@@ -447,10 +528,175 @@ class LocalQueryRunner:
             schema_name, table = parts
         else:
             (table,) = parts
-        conn = self.catalogs.get(catalog)
-        tschema = conn.metadata().get_table_schema(
-            TableHandle(catalog, schema_name, table)
+        return TableHandle(catalog, schema_name, table), self.catalogs.get(
+            catalog
         )
+
+    def _execute_write(self, stmt) -> QueryResult:
+        """INSERT INTO ... SELECT | VALUES and CREATE TABLE AS against
+        any connector with ``supports_writes()``; one ``rows`` row."""
+        handle, conn = self._resolve_table(stmt.target)
+        if not conn.supports_writes():
+            raise ExecutionError(f"catalog {handle.catalog} is read-only")
+        if isinstance(stmt, ast.CreateTableAs):
+            res = self.run_internal(stmt.query, "write")
+            tschema = {
+                name: blk.dtype
+                for name, blk in zip(res.page.names, res.page.blocks)
+            }
+            conn.create_table(handle, tschema)
+            conn.append_rows(handle, _result_columns(res))
+            n = int(res.page.num_valid)
+        elif stmt.query is not None:
+            tschema = conn.metadata().get_table_schema(handle)
+            res = self.run_internal(stmt.query, "write")
+            if len(res.columns) != len(tschema):
+                raise ExecutionError(
+                    f"INSERT column count mismatch: query has "
+                    f"{len(res.columns)}, table has {len(tschema)}"
+                )
+            src = _result_columns(res)
+            conn.append_rows(
+                handle,
+                {tcol: src[qcol] for tcol, qcol in zip(tschema, res.columns)},
+            )
+            n = int(res.page.num_valid)
+        else:
+            names = list(conn.metadata().get_table_schema(handle))
+            rows = []
+            for row in stmt.values:
+                if len(row) != len(names):
+                    raise ExecutionError(
+                        f"INSERT VALUES arity {len(row)} != table "
+                        f"columns {len(names)}"
+                    )
+                rows.append([_literal_value(e) for e in row])
+            conn.append_rows(
+                handle,
+                {
+                    name: obj_array([r[i] for r in rows])
+                    for i, name in enumerate(names)
+                },
+            )
+            n = len(rows)
+        # a cacheable writable connector (memory) would otherwise serve
+        # the pages staged before the write
+        self._invalidate_table_caches(handle)
+        return QueryResult(("rows",), _rows_page(n))
+
+    def _execute_create_table(self, stmt) -> QueryResult:
+        """CREATE TABLE t (col type, ...) against a writable connector."""
+        handle, conn = self._resolve_table(stmt.target)
+        if not conn.supports_writes():
+            raise ExecutionError(f"catalog {handle.catalog} is read-only")
+        conn.create_table(
+            handle, {name: T.parse_type(t) for name, t in stmt.columns}
+        )
+        return QueryResult(("result",), _message_page("CREATE TABLE"))
+
+    def _execute_drop_table(self, stmt) -> QueryResult:
+        handle, conn = self._resolve_table(stmt.target)
+        if not hasattr(conn, "drop_table"):
+            raise ExecutionError(
+                f"catalog {handle.catalog} does not support DROP TABLE"
+            )
+        if not conn.drop_table(handle) and not stmt.if_exists:
+            raise ExecutionError(
+                f"table {handle.schema}.{handle.table} does not exist"
+            )
+        self._invalidate_table_caches(handle)
+        return QueryResult(("result",), _message_page("DROP TABLE"))
+
+    def _execute_delete(self, stmt) -> QueryResult:
+        """DELETE FROM t [WHERE pred]: keep the complement (the rows
+        where the predicate is FALSE or NULL: SQL deletes only TRUE
+        rows) through one SELECT, then replace the table's rows. The
+        count before comes from the splits, without a scan."""
+        handle, conn = self._resolve_table(stmt.target)
+        if not hasattr(conn, "replace_rows"):
+            raise ExecutionError(
+                f"catalog {handle.catalog} does not support DELETE"
+            )
+        tschema = conn.metadata().get_table_schema(handle)
+        before = 0
+        src = conn.get_splits(handle)
+        while not src.exhausted:
+            for sp in src.next_batch(256):
+                before += sp.num_rows
+        if stmt.where is None:
+            kept, n_kept = {c: [] for c in tschema}, 0
+        else:
+            # the keep-select as an AST: a text round trip breaks on
+            # keyword-named or mixed-case identifiers
+            keep_sel = ast.Select(
+                items=tuple(
+                    ast.SelectItem(ast.Ident((c,)), None) for c in tschema
+                ),
+                from_=ast.TableRef(
+                    (handle.catalog, handle.schema, handle.table)
+                ),
+                where=ast.BinaryOp(
+                    "or",
+                    ast.UnaryOp("not", stmt.where),
+                    ast.IsNullExpr(stmt.where),
+                ),
+            )
+            res = self.run_internal(keep_sel, "write")
+            payload = _result_columns(res)
+            kept = {c: payload[c] for c in tschema}
+            n_kept = int(res.page.num_valid)
+        conn.replace_rows(handle, kept)
+        self._invalidate_table_caches(handle)
+        return QueryResult(("rows",), _rows_page(before - n_kept))
+
+    def _execute_update(self, stmt) -> QueryResult:
+        """UPDATE t SET c = e [WHERE pred]: the new contents are ONE
+        select over the table, each assigned column ``CASE WHEN pred
+        THEN e ELSE c END`` (a NULL predicate leaves the row as it
+        was), then the table's rows are replaced. The affected rows are
+        counted first, over the rows before the update."""
+        handle, conn = self._resolve_table(stmt.target)
+        if not hasattr(conn, "replace_rows"):
+            raise ExecutionError(
+                f"catalog {handle.catalog} does not support UPDATE"
+            )
+        tschema = conn.metadata().get_table_schema(handle)
+        assigns = dict(stmt.assignments)
+        unknown = set(assigns) - set(tschema)
+        if unknown:
+            raise ExecutionError(
+                f"UPDATE of unknown column(s) {sorted(unknown)}"
+            )
+        table = ast.TableRef((handle.catalog, handle.schema, handle.table))
+        items = []
+        for c in tschema:
+            e = ast.Ident((c,))
+            if c in assigns:
+                e = assigns[c]
+                if stmt.where is not None:
+                    e = ast.CaseExpr(None, ((stmt.where, e),), ast.Ident((c,)))
+            items.append(ast.SelectItem(e, c))
+        if stmt.where is not None:
+            cnt_sel = ast.Select(
+                items=(ast.SelectItem(ast.FuncCall("count", ()), "c"),),
+                from_=table,
+                where=stmt.where,
+            )
+            n = int(self.run_internal(cnt_sel, "write").rows()[0][0])
+        res = self.run_internal(
+            ast.Select(items=tuple(items), from_=table), "write"
+        )
+        if stmt.where is None:
+            n = int(res.page.num_valid)
+        payload = _result_columns(res)
+        conn.replace_rows(handle, {c: payload[c] for c in tschema})
+        self._invalidate_table_caches(handle)
+        return QueryResult(("rows",), _rows_page(n))
+
+    def _execute_show_columns(self, stmt) -> QueryResult:
+        """SHOW COLUMNS FROM t / DESCRIBE t."""
+        handle, conn = self._resolve_table(stmt.target)
+        tschema = conn.metadata().get_table_schema(handle)
         page = Page.from_pydict(
             {
                 "Column": list(tschema),
@@ -481,12 +727,18 @@ class LocalQueryRunner:
         return self.execute_bound(bound, sql)
 
     def execute_bound(self, bound, sql: str = "") -> QueryResult:
-        """Run an already-bound statement AST (EXECUTE after marker
-        substitution) with the lifecycle of any query. The reference
-        runs it without one, so there the pool bytes of a table larger
-        than the cache budget stay reserved under "adhoc" after every
-        EXECUTE (ROADMAP §3)."""
-        _refuse_later_statement(bound)
+        """Run a statement AST that writes rows or queries: ``execute``'s
+        last step, and EXECUTE's after marker substitution. A write goes
+        to its handler, a query gets the lifecycle of any query. The
+        reference runs an EXECUTEd query without one, so there the pool
+        bytes of a table larger than the cache budget stay reserved
+        under "adhoc" after every EXECUTE (ROADMAP §3)."""
+        if isinstance(bound, (ast.Insert, ast.CreateTableAs)):
+            return self._execute_write(bound)
+        if isinstance(bound, ast.Delete):
+            return self._execute_delete(bound)
+        if isinstance(bound, ast.Update):
+            return self._execute_update(bound)
         return self._run_query(sql, bound)
 
     def _history_scope(self):
@@ -512,7 +764,32 @@ class LocalQueryRunner:
 
     def plan_cached_keyed(self, stmt) -> Tuple[Plan, bool, Optional[str]]:
         """plan_cached plus the canonical statement key (None when the
-        statement bypassed the cache)."""
+        statement bypassed the cache).
+
+        The one SELECT-planning seam every read path funnels through,
+        so the materialized views' staleness read gate sits here: a
+        referenced stale view refreshes before the statement plans
+        (``MViewRegistry.max_staleness_s``). With session
+        ``mview_auto_rewrite`` an eligible aggregate over a base table
+        is rewritten onto the view that maintains it BEFORE
+        canonicalization, so the plan-cache key names what executes; a
+        failed rewrite falls open to the original statement."""
+        if self._mview_registry is not None:
+            self._mview_registry.read_gate(stmt)
+            if self.session.get("mview_auto_rewrite"):
+                from presto_tpu_torch.server.result_cache import (
+                    mview_rewrite,
+                )
+
+                rewritten = mview_rewrite(
+                    stmt, self._mview_registry, self.session
+                )
+                if rewritten is not None:
+                    stmt, mv = rewritten
+                    qs = self._active_qs
+                    if qs is not None:
+                        with self._qs_mu:
+                            qs.mview_rewritten = ".".join(mv.parts)
         plan, hit, key = self._plan_cached(stmt)
         if hit:
             qs = self._active_qs
@@ -1833,13 +2110,6 @@ def _literal_form(root: N.PlanNode, scan_ids: Dict[int, int], bound):
     return lroot, remapped
 
 
-def _refuse_later_statement(stmt) -> None:
-    if isinstance(stmt, _LATER_STATEMENTS):
-        raise ExecutionError(
-            f"{type(stmt).__name__} statements: later slice of the port"
-        )
-
-
 def _payload_rows(payload: Dict, columns) -> int:
     for c in columns:
         return payload_len(payload[c])
@@ -1900,6 +2170,51 @@ def _bind_param_markers(node, params):
         kwargs[f.name] = nv
         changed |= nv is not v
     return dataclasses.replace(node, **kwargs) if changed else node
+
+
+def _result_columns(res: QueryResult) -> Dict[str, np.ndarray]:
+    """QueryResult -> {column: object ndarray of Python values}, the
+    write SPI's row format (None = NULL). Built column by column from
+    the host page (``page.column_values``), with the values and types
+    of the reference's row-wise build through ``Page.to_pylist``, which
+    takes seconds per million rows. As there, a name the page holds
+    twice reads its last block."""
+    page = res.page
+    if page.live is not None:
+        idx = np.nonzero(page.live.cpu().numpy())[0]
+    else:
+        idx = np.arange(int(page.num_valid))
+    blocks = dict(zip(page.names, page.blocks))
+    return {c: column_values(blocks[c], idx) for c in res.columns}
+
+
+def _literal_value(e):
+    """INSERT VALUES literal -> Python value (numbers, strings, bools,
+    NULL, arrays; unary minus)."""
+    if isinstance(e, ast.NumberLit):
+        t = e.text.lower()
+        if "." in t or "e" in t:  # 1.5, 1e3: float
+            return float(t)
+        return int(t)
+    if isinstance(e, ast.StringLit):
+        return e.value
+    if isinstance(e, ast.NullLit):
+        return None
+    if isinstance(e, ast.ArrayLit):
+        return [_literal_value(x) for x in e.items]
+    if isinstance(e, ast.BoolLit):
+        return e.value
+    if isinstance(e, ast.UnaryOp) and e.op == "-":
+        return -_literal_value(e.arg)
+    raise ExecutionError(
+        "INSERT VALUES supports literal values only "
+        f"(got {type(e).__name__})"
+    )
+
+
+def _rows_page(n: int) -> Page:
+    """A write's result: one BIGINT ``rows`` row."""
+    return Page.from_pydict({"rows": [n]}, {"rows": T.BIGINT}, device="cpu")
 
 
 def _message_page(msg: str) -> Page:

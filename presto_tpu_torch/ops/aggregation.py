@@ -654,8 +654,15 @@ def _sorted_aggregate(
     errors_out: Optional[List] = None,
 ) -> Tuple[Page, torch.Tensor]:
     cap = page.capacity
+    # a computed key's data or validity may be a scalar (``id % 2``
+    # over a null-free column has a 0-d mask); both index by row below
     keys = [
-        (name, torch.broadcast_to(d, _col_shape(cap, e.dtype)), v, e)
+        (
+            name,
+            torch.broadcast_to(d, _col_shape(cap, e.dtype)),
+            None if v is None else torch.broadcast_to(v, (cap,)),
+            e,
+        )
         for name, d, v, e in keys
     ]
     order = sort_order([(d, v, e.dtype) for _, d, v, e in keys], live)

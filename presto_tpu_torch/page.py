@@ -32,6 +32,7 @@ Every tensor constructor names its dtype and device.
 from __future__ import annotations
 
 import dataclasses
+import datetime as _dt
 import hashlib
 from typing import Dict, List, Optional, Sequence
 
@@ -280,6 +281,21 @@ class Block:
                 arr = T.int128_limbs(filled)  # (n, 2) limb pairs
             else:
                 arr = np.asarray(filled, dtype=np.int64)
+        elif dtype.name == "date":
+            # epoch days, or datetime.date values as a query result
+            # holds them (a written table's rows); the reference takes
+            # only the days (ROADMAP §3)
+            epoch = _dt.date(1970, 1, 1).toordinal()
+            arr = np.asarray(
+                [
+                    0
+                    if v is None
+                    else v.toordinal() - epoch
+                    if isinstance(v, _dt.date)
+                    else v
+                    for v in values
+                ]
+            ).astype(dtype.np_dtype)
         else:
             filled = [0 if v is None else v for v in values]
             arr = np.asarray(filled).astype(dtype.np_dtype)
@@ -521,6 +537,39 @@ def _decode_column(blk: Block, idx: np.ndarray) -> list:
         _decode_value(data[i], blk.dtype, blk.dictionary) if rvalid[i] else None
         for i in idx
     ]
+
+
+def column_values(blk: Block, idx: np.ndarray) -> np.ndarray:
+    """Rows ``idx`` of one block as an object ndarray of Python values
+    (None = NULL): the values and types ``to_pylist`` gives, built with
+    whole-column numpy conversions for the flat types instead of one
+    ``_decode_value`` call per value. Short decimals are
+    ``int / 10**scale`` in Python arithmetic, as there (a Python float:
+    a scaled value above 2^53 loses digits)."""
+    t = blk.dtype
+    out = np.empty(len(idx), dtype=object)
+    if t.is_nested or t.is_long_decimal:
+        for i, v in enumerate(_decode_column(blk, idx)):
+            out[i] = v
+        return out
+    data = blk.data.cpu().numpy()[idx]
+    if t.is_string:
+        vals = blk.dictionary._str_values[data].tolist()
+    elif t.is_decimal:
+        scale = 10 ** t.scale
+        vals = [v / scale for v in data.tolist()]
+    elif t.name == "date":
+        vals = data.astype("datetime64[D]").tolist()
+    elif t.name == "boolean":
+        vals = data.astype(bool).tolist()
+    elif t.is_integer or t.name == "timestamp":
+        vals = data.astype(np.int64).tolist()
+    else:
+        vals = data.astype(np.float64).tolist()
+    out[:] = vals
+    if blk.valid is not None:
+        out[~blk.valid.cpu().numpy()[idx]] = None
+    return out
 
 
 def _row_valid(values: Sequence, device) -> Optional[torch.Tensor]:

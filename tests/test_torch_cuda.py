@@ -647,3 +647,98 @@ def test_operator_stats_add_no_host_wait_on_the_card(cuda, q):
         assert bool(ops) == (on == "true")
     assert results[0] == results[1]
     assert syncs[0] == syncs[1] > 0
+
+
+# ------------------------------------------- writes and views on the card
+
+
+def _write_runner(device):
+    from presto_tpu_torch.connectors import create_connector
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.exec.staging import CatalogManager
+    from presto_tpu_torch.utils.memory import MemoryPool
+
+    catalogs = CatalogManager()
+    catalogs.register("tpch", create_connector("tpch"))
+    catalogs.register("mem", create_connector("memory"))
+    return LocalQueryRunner(
+        catalogs=catalogs, device=device, memory_pool=MemoryPool(1 << 34)
+    )
+
+
+WRITE_CARD_STEPS = [
+    "create table mem.default.li as select l_orderkey, l_returnflag, "
+    "l_linestatus, l_quantity, l_extendedprice, l_discount, l_shipdate "
+    "from tpch.tiny.lineitem where l_orderkey < 30000",
+    "select l_returnflag, l_linestatus, count(*), sum(l_quantity), "
+    "avg(l_extendedprice) from mem.default.li group by 1, 2 order by 1, 2",
+    "delete from mem.default.li where l_shipdate > date '1998-01-01'",
+    "select l_returnflag, l_linestatus, count(*), sum(l_quantity), "
+    "max(l_shipdate) from mem.default.li group by 1, 2 order by 1, 2",
+]
+
+
+def test_writes_on_the_card_equal_the_cpu(cuda):
+    # a CTAS, a GROUP BY over the written table (one K1 launch), a
+    # DELETE and the GROUP BY again: the same counts and rows as the CPU
+    # runner, and the pool holds no query-owned byte after each
+    gpu, cpu = _write_runner("cuda"), _write_runner("cpu")
+    for sql in WRITE_CARD_STEPS:
+        before = onehot_reduce.launches
+        got = gpu.execute(sql).rows()
+        if sql.startswith("select"):
+            assert onehot_reduce.launches == before + 1, sql
+        assert _rows_agree(got, cpu.execute(sql).rows()), sql
+        # what stays is the split cache's own reservation
+        assert set(gpu.memory_pool.snapshot()["used"]) <= {"table-cache"}
+
+
+def test_aggregate_view_with_one_delta_on_the_card(cuda):
+    # an eligible view's full refresh and one incremental merge each
+    # launch K1 once; the view equals the defining query and a REFRESH
+    # (its average is over whole quantities: an average of fractional
+    # decimals may move by an ulp, ROADMAP §3)
+    from presto_tpu_torch.connectors.spi import TableHandle
+
+    gpu, cpu = _write_runner("cuda"), _write_runner("cpu")
+    view = ("create materialized view mem.default.mv as select "
+            "l_returnflag, l_linestatus, sum(l_quantity) as q, count(*) as "
+            "c, min(l_discount) as mn, max(l_discount) as mx, "
+            "avg(l_quantity) as aq from mem.default.li group by "
+            "l_returnflag, l_linestatus")
+    direct = ("select l_returnflag, l_linestatus, sum(l_quantity), "
+              "count(*), min(l_discount), max(l_discount), "
+              "avg(l_quantity) from mem.default.li group by 1, 2 "
+              "order by 1, 2")
+    read = "select * from mem.default.mv order by 1, 2"
+    h = TableHandle("mem", "default", "li")
+    delta = {
+        "l_orderkey": [1, 2], "l_returnflag": ["R", "A"],
+        "l_linestatus": ["F", "F"], "l_quantity": [3.0, 4.0],
+        "l_extendedprice": [10.5, 20.25], "l_discount": [0.0, 0.1],
+        "l_shipdate": [9000, 9001],
+    }
+    rows = []
+    for r in (gpu, cpu):
+        r.execute(WRITE_CARD_STEPS[0])
+        before = onehot_reduce.launches
+        r.execute(view)
+        refresh_launches = onehot_reduce.launches - before
+        mem = r.catalogs.get("mem")
+        mem.commit_snapshot(h, delta, 1)
+        r._invalidate_table_caches(h)
+        reg = r.mview_registry
+        before = onehot_reduce.launches
+        reg.on_commit(h, delta, 1, reg._epoch(h))
+        merge_launches = onehot_reduce.launches - before
+        mv = reg.lookup(("mem", "default", "mv"))
+        assert mv.eligible and mv.incremental_refreshes == 1
+        if r is gpu:
+            assert (refresh_launches, merge_launches) == (1, 1)
+        got = r.execute(read).rows()
+        assert _rows_agree(got, r.execute(direct).rows())
+        r.execute("refresh materialized view mem.default.mv")
+        assert r.execute(read).rows() == got
+        assert set(r.memory_pool.snapshot()["used"]) <= {"table-cache"}
+        rows.append(got)
+    assert _rows_agree(rows[0], rows[1])

@@ -387,17 +387,23 @@ def test_lru_eviction_bounded_entries():
 
 
 def test_write_statements_raise_with_their_names():
-    r = LocalQueryRunner(device="cpu")
-    for sql, name in (
-        ("insert into tpch.tiny.region values (9, 'X', 'y')", "Insert"),
-        ("create table t (x bigint)", "CreateTable"),
-        ("drop table t", "DropTable"),
-        ("delete from tpch.tiny.region", "Delete"),
+    """The write statements run in the port (tests/test_torch_writes.py);
+    against the read-only tpch catalog each is refused with the
+    reference's message, directly and through EXECUTE."""
+    r, ref = LocalQueryRunner(device="cpu"), RefRunner()
+    for sql, msg in (
+        ("insert into tpch.tiny.region values (9, 'X', 'y')",
+         "catalog tpch is read-only"),
+        ("create table t (x bigint)", "catalog tpch is read-only"),
+        ("drop table t", "catalog tpch does not support DROP TABLE"),
+        ("delete from tpch.tiny.region", "catalog tpch does not support DELETE"),
     ):
-        with pytest.raises(ExecutionError, match=name):
+        with pytest.raises(ExecutionError, match=msg):
             r.execute(sql)
+        with pytest.raises(Exception, match=msg):
+            ref.execute(sql)
     r.execute("prepare w from insert into tpch.tiny.region values (?, 'X', 'y')")
-    with pytest.raises(ExecutionError, match="Insert"):
+    with pytest.raises(ExecutionError, match="catalog tpch is read-only"):
         r.execute("execute w using 9")
 
 
