@@ -382,16 +382,40 @@ def q1_inputs(dev):
     return torch.from_numpy(g).to(dev), reqs, nseg
 
 
+@contextlib.contextmanager
+def onehot_calls():
+    """Records ``(gid, requests, nseg)`` of every ``onehot_reduce_many``
+    call made while the block runs; each call still goes to the wrapper,
+    which launches and counts as usual. Yields the list."""
+    from presto_tpu_torch.ops import aggregation as PA
+
+    seen = []
+    real = PA.onehot_reduce_many
+
+    def record(gid, requests, nseg):
+        seen.append((gid, list(requests), nseg))
+        return real(gid, requests, nseg)
+
+    PA.onehot_reduce_many = record
+    try:
+        yield seen
+    finally:
+        PA.onehot_reduce_many = real
+
+
 def fused_case(label, gid, reqs, nseg, card):
     """Hold ``onehot_reduce_many`` against its plain version on the card:
     exact for integers, rel 1e-12 of each segment's sum of |x| for float64
     sums; check that two launches agree bit for bit; time it beside its
     bound and a library yardstick the port never calls (``index_add_``
-    over the int64 requests' and the float64 requests' x stacked as
-    columns, one call each, in one timed function)."""
+    over the sum requests' x, ``scatter_reduce_`` over the min and max
+    requests' x, stacked as columns, one call per op and dtype, in one
+    timed function; held equal to the kernel on the int64 requests over
+    the segments that hold rows)."""
     import torch
 
     from presto_tpu_torch.ops.aggregation import (
+        _onehot_fill,
         onehot_reduce_many,
         onehot_reduce_many_plain,
         onehot_reduce_plain,
@@ -421,27 +445,41 @@ def fused_case(label, gid, reqs, nseg, card):
 
     live = (gid >= 0) & (gid < nseg)
     idx = torch.where(live, gid, nseg).to(torch.int64)
-    ints = [x for _, x, _ in reqs if x is not None and x.dtype == torch.int64]
-    flts = [x for _, x, _ in reqs if x is not None and x.is_floating_point()]
-    xi = torch.stack(ints, dim=1) if ints else None
-    xf = torch.stack(flts, dim=1) if flts else None
+    # request positions by (op, dtype): one library call per group
+    groups = {}
+    for k, (op, x, _) in enumerate(reqs):
+        if x is not None and op in ("sum", "min", "max"):
+            groups.setdefault((op, x.dtype), []).append(k)
+    # a masked row takes the op's identity, so it changes nothing
+    stacks = {
+        (op, dtype): torch.stack([
+            reqs[k][1] if reqs[k][2] is None else torch.where(
+                reqs[k][2], reqs[k][1], _onehot_fill(op, dtype))
+            for k in ks], dim=1)
+        for (op, dtype), ks in groups.items()
+    }
 
     def library():
-        outs = []
-        for xs in (xi, xf):
-            if xs is not None:
-                outs.append(
-                    torch.zeros((nseg + 1, xs.shape[1]), dtype=xs.dtype,
-                                device=gid.device).index_add_(0, idx, xs)
-                )
+        outs = {}
+        for (op, dtype), xs in stacks.items():
+            acc = torch.zeros((nseg + 1, xs.shape[1]), dtype=dtype,
+                              device=gid.device)
+            if op == "sum":
+                outs[op, dtype] = acc.index_add_(0, idx, xs)
+            else:
+                outs[op, dtype] = acc.scatter_reduce_(
+                    0, idx[:, None].expand_as(xs), xs,
+                    "amin" if op == "min" else "amax", include_self=False)
         return outs
 
-    if xi is not None:
-        lib_i = library()[0][:nseg]
-        got_i = torch.stack(
-            [r for r, (_, x, _) in zip(onehot_results(out, reqs), reqs)
-             if x is not None and x.dtype == torch.int64], dim=1)
-        check(torch.equal(lib_i, got_i), f"{label}: library call disagrees")
+    got_all = onehot_results(out, reqs)
+    held = torch.bincount(idx, minlength=nseg + 1)[:nseg] > 0
+    for (op, dtype), col in library().items():
+        if dtype != torch.int64:
+            continue
+        for j, k in enumerate(groups[op, dtype]):
+            check(torch.equal(col[:nseg, j][held], got_all[k][held]),
+                  f"{label}: library {op} disagrees")
 
     ms = time_ms(lambda: onehot_reduce_many(gid, reqs, nseg))
     plain_ms = time_ms(lambda: onehot_reduce_many_plain(gid, reqs, nseg))
@@ -1015,18 +1053,8 @@ def joins_phase(card: str, dev=None, records=None, keep=None):
 
     if records is not None:
         # the one-hot reduction at Q5's own inputs (a run not counted)
-        seen = []
-        real = PA.onehot_reduce_many
-
-        def record(gid, requests, nseg):
-            seen.append((gid, list(requests), nseg))
-            return real(gid, requests, nseg)
-
-        PA.onehot_reduce_many = record
-        try:
+        with onehot_calls() as seen:
             runner.execute(Q5)
-        finally:
-            PA.onehot_reduce_many = real
         check(len(seen) == 1, f"Q5 made {len(seen)} one-hot calls")
         records.append(fused_case("q5 fused", *seen[0], card))
     return launches
@@ -2632,18 +2660,8 @@ def nested_phase(card: str, dev=None, records=None):
           f"{expanded}-row page equal numpy's [{card}]", flush=True)
     if records is not None and on_card:
         # the one-hot reduction at N1's own inputs (a run not counted)
-        seen = []
-        real = PA.onehot_reduce_many
-
-        def spy(gid, requests, nseg):
-            seen.append((gid, list(requests), nseg))
-            return real(gid, requests, nseg)
-
-        PA.onehot_reduce_many = spy
-        try:
+        with onehot_calls() as seen:
             runner.execute(N1)
-        finally:
-            PA.onehot_reduce_many = real
         check(len(seen) == 1 and seen[0][0].numel() == expanded,
               "N1 made no single one-hot call over its expanded page")
         records.append(fused_case("n1 fused", *seen[0], card))
@@ -3128,18 +3146,8 @@ def write_phase(card: str, want_q1_big=None, dev=None, records=None,
     check(diff is None, f"W2: two warm runs differ ({diff})")
     if records is not None and on_card:
         # the one-hot reduction at this Q1's own inputs (a run not counted)
-        seen = []
-        real = PA.onehot_reduce_many
-
-        def spy(gid, requests, nseg):
-            seen.append((gid, list(requests), nseg))
-            return real(gid, requests, nseg)
-
-        PA.onehot_reduce_many = spy
-        try:
+        with onehot_calls() as seen:
             runner.execute(q1_li)
-        finally:
-            PA.onehot_reduce_many = real
         check(len(seen) == 1, f"W2 Q1 made {len(seen)} one-hot calls")
         records.append(fused_case("li q1 fused", *seen[0], card))
 
@@ -3180,7 +3188,11 @@ def write_phase(card: str, want_q1_big=None, dev=None, records=None,
     check_q1_stream("W5 Q1 li", res, numpy_q1_of(cur))
 
     # W6: an aggregate view, two ingest deltas merged incrementally
-    sql_step("W6 CREATE MATERIALIZED VIEW", WRITE_VIEW, want_launches=1)
+    # the full refresh's and the first delta merge's one-hot calls are
+    # recorded as they run (counted) and held against the plain version
+    # after the step
+    with onehot_calls() as refresh_calls:
+        sql_step("W6 CREATE MATERIALIZED VIEW", WRITE_VIEW, want_launches=1)
     reg = runner.mview_registry
     mv = reg.lookup(("mem", "default", "li_mv"))
     check(mv is not None and mv.eligible,
@@ -3201,8 +3213,20 @@ def write_phase(card: str, want_q1_big=None, dev=None, records=None,
             runner._invalidate_table_caches(handle)
             reg.on_commit(handle, rows, sid, reg._epoch(handle))
 
-        step(f"W6 delta {sid} ({DELTA_ROWS} rows)", commit, want_launches=1)
+        with onehot_calls() as merge_calls:
+            step(f"W6 delta {sid} ({DELTA_ROWS} rows)", commit,
+                 want_launches=1)
         cur = concat_columns(cur, delta)
+        if sid == 1 and records is not None and on_card:
+            check(len(refresh_calls) == 1 and len(merge_calls) == 1,
+                  f"W6: {len(refresh_calls)} one-hot calls in the refresh "
+                  f"and {len(merge_calls)} in the merge, expected one each")
+            records.append(fused_case("mv refresh fused", *refresh_calls[0],
+                                      card))
+            records.append(fused_case("mv delta fused", *merge_calls[0],
+                                      card))
+        del merge_calls
+    del refresh_calls
     check(mv.incremental_refreshes == 2 and mv.last_mode == "incremental",
           f"W6: {mv.incremental_refreshes} incremental refreshes "
           f"({mv.last_mode}), expected 2")

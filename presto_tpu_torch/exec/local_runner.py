@@ -128,8 +128,8 @@ from presto_tpu_torch.ops.join import cross_join
 from presto_tpu_torch.page import (
     Block,
     Page,
-    column_values,
     compact_page,
+    decode_column,
     pad_capacity,
     resolve_device,
 )
@@ -2175,17 +2175,16 @@ def _bind_param_markers(node, params):
 def _result_columns(res: QueryResult) -> Dict[str, np.ndarray]:
     """QueryResult -> {column: object ndarray of Python values}, the
     write SPI's row format (None = NULL). Built column by column from
-    the host page (``page.column_values``), with the values and types
-    of the reference's row-wise build through ``Page.to_pylist``, which
-    takes seconds per million rows. As there, a name the page holds
-    twice reads its last block."""
+    the host page through the decoder ``Page.to_pylist`` uses, with the
+    values and types of the reference's row-wise build. As there, a
+    name the page holds twice reads its last block."""
     page = res.page
     if page.live is not None:
         idx = np.nonzero(page.live.cpu().numpy())[0]
     else:
         idx = np.arange(int(page.num_valid))
     blocks = dict(zip(page.names, page.blocks))
-    return {c: column_values(blocks[c], idx) for c in res.columns}
+    return {c: obj_array(decode_column(blocks[c], idx)) for c in res.columns}
 
 
 def _literal_value(e):

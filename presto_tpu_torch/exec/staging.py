@@ -223,15 +223,10 @@ def stage_page(
                 )
             )
         else:
-            vals = list(v) + [None] * (cap - len(v))
-            blk = Block.from_pylist(vals, t, device)
-            if blk.valid is not None and not any(x is None for x in v):
-                # only the padding is None: a null-free column carries no
-                # mask, as a numpy column does (the reference keeps one,
-                # so a nullable one-hot GROUP BY over a written table
-                # adds a NULL group per key and a valid count per sum)
-                blk = dataclasses.replace(blk, valid=None)
-            blocks.append(blk)
+            # a null-free column carries no mask (the reference keeps the
+            # padding's, so a nullable one-hot GROUP BY over a written
+            # table adds a NULL group per key and a valid count per sum)
+            blocks.append(Block.from_pylist_padded(v, t, cap, device))
     page = Page(
         blocks=tuple(blocks),
         num_valid=torch.tensor(n, dtype=torch.int32, device=device),

@@ -303,6 +303,20 @@ class Block:
         return cls.from_numpy(arr, dtype, v, None, device)
 
     @classmethod
+    def from_pylist_padded(
+        cls, values: Sequence, dtype: T.DataType, capacity: int, device=None
+    ) -> "Block":
+        """``from_pylist`` of ``values`` padded with NULLs (or cut) to
+        ``capacity`` rows. A column whose only NULLs are the padding
+        carries no mask, as a numpy column does."""
+        n = min(len(values), capacity)
+        vals = list(values[:n]) + [None] * (capacity - n)
+        b = cls.from_pylist(vals, dtype, device)
+        if b.valid is not None and bool(b.valid[:n].all()):
+            b = dataclasses.replace(b, valid=None)
+        return b
+
+    @classmethod
     def _from_pylist_offsets(cls, values, dtype, device) -> "Block":
         """Array (lists) or map (dicts) values -> offsets over flat
         children, the value axis padded to its power-of-two bucket."""
@@ -445,14 +459,10 @@ class Page:
         n = len(next(iter(data.values()))) if data else 0
         cap = capacity if capacity is not None else max(n, 1)
         n = min(n, cap)
-        blocks = []
-        for name in names:
-            vals = list(data[name])
-            vals = vals + [None] * (cap - n) if cap > n else vals[:cap]
-            b = Block.from_pylist(vals, schema[name], device)
-            if b.valid is not None and bool(b.valid[:n].all()):
-                b = dataclasses.replace(b, valid=None)
-            blocks.append(b)
+        blocks = [
+            Block.from_pylist_padded(list(data[name]), schema[name], cap, device)
+            for name in names
+        ]
         return cls(
             blocks=tuple(blocks),
             num_valid=torch.tensor(n, dtype=torch.int32, device=device),
@@ -467,7 +477,7 @@ class Page:
         else:
             idx = np.arange(int(self.num_valid))
         out_cols = {
-            name: _decode_column(blk, idx)
+            name: decode_column(blk, idx)
             for name, blk in zip(self.names, self.blocks)
         }
         return [
@@ -483,93 +493,69 @@ def _np(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
     return None if t is None else t.cpu().numpy()
 
 
-def _decode_column(blk: Block, idx: np.ndarray) -> list:
+def decode_column(blk: Block, idx: np.ndarray) -> list:
     """Rows ``idx`` of one block as Python values (None = NULL)."""
     rvalid = _np(blk.valid)
-    if rvalid is None:
-        rvalid = np.ones(blk.capacity, bool)
     if blk.dtype.is_row:
         fields = [
-            (fname, ftype, ch.data.cpu().numpy(), _np(ch.valid), ch.dictionary)
+            (
+                fname,
+                _decode_values(
+                    ch.data.cpu().numpy()[idx],
+                    ftype,
+                    ch.dictionary,
+                    None if ch.valid is None else _np(ch.valid)[idx],
+                ),
+            )
             for (fname, ftype), ch in zip(blk.dtype.fields, blk.children)
         ]
         return [
-            {
-                fname: (
-                    None
-                    if fvalid is not None and not fvalid[i]
-                    else _decode_value(fd[i], ftype, fdic)
-                )
-                for fname, ftype, fd, fvalid, fdic in fields
-            }
-            if rvalid[i]
-            else None
-            for i in idx
+            None
+            if rvalid is not None and not rvalid[i]
+            else {fname: vals[k] for fname, vals in fields}
+            for k, i in enumerate(idx)
         ]
     if blk.offsets is not None:
-        off = blk.offsets.cpu().numpy()
+        rows = idx if rvalid is None else idx[rvalid[idx]]
+        off = blk.offsets.cpu().numpy().astype(np.int64)
+        lens = off[rows + 1] - off[rows]
+        # element positions of the rows kept, row after row
+        pos = np.repeat(off[rows] - np.cumsum(lens) + lens, lens) + np.arange(
+            int(lens.sum())
+        )
+        ends = np.cumsum(lens).tolist()
+        starts = [0] + ends[:-1]
         if blk.dtype.is_map:
             kc, vc = blk.children
-            kd, vd, vv = kc.data.cpu().numpy(), vc.data.cpu().numpy(), _np(vc.valid)
-            return [
-                {
-                    _decode_value(kd[j], blk.dtype.key, kc.dictionary): (
-                        None
-                        if vv is not None and not vv[j]
-                        else _decode_value(vd[j], blk.dtype.value, vc.dictionary)
-                    )
-                    for j in range(int(off[i]), int(off[i + 1]))
-                }
-                if rvalid[i]
-                else None
-                for i in idx
+            keys = _decode_values(
+                kc.data.cpu().numpy()[pos], blk.dtype.key, kc.dictionary
+            )
+            vals = _decode_values(
+                vc.data.cpu().numpy()[pos],
+                blk.dtype.value,
+                vc.dictionary,
+                None if vc.valid is None else _np(vc.valid)[pos],
+            )
+            kept = [
+                dict(zip(keys[a:b], vals[a:b])) for a, b in zip(starts, ends)
             ]
-        vals = blk.data.cpu().numpy()
-        et = blk.dtype.element
-        return [
-            [_decode_value(v, et, blk.dictionary) for v in vals[off[i]: off[i + 1]]]
-            if rvalid[i]
-            else None
-            for i in idx
-        ]
-    data = blk.data.cpu().numpy()
-    return [
-        _decode_value(data[i], blk.dtype, blk.dictionary) if rvalid[i] else None
-        for i in idx
-    ]
-
-
-def column_values(blk: Block, idx: np.ndarray) -> np.ndarray:
-    """Rows ``idx`` of one block as an object ndarray of Python values
-    (None = NULL): the values and types ``to_pylist`` gives, built with
-    whole-column numpy conversions for the flat types instead of one
-    ``_decode_value`` call per value. Short decimals are
-    ``int / 10**scale`` in Python arithmetic, as there (a Python float:
-    a scaled value above 2^53 loses digits)."""
-    t = blk.dtype
-    out = np.empty(len(idx), dtype=object)
-    if t.is_nested or t.is_long_decimal:
-        for i, v in enumerate(_decode_column(blk, idx)):
-            out[i] = v
+        else:
+            elems = _decode_values(
+                blk.data.cpu().numpy()[pos], blk.dtype.element, blk.dictionary
+            )
+            kept = [elems[a:b] for a, b in zip(starts, ends)]
+        if rvalid is None:
+            return kept
+        out = [None] * len(idx)
+        for k, v in zip(np.nonzero(rvalid[idx])[0].tolist(), kept):
+            out[k] = v
         return out
-    data = blk.data.cpu().numpy()[idx]
-    if t.is_string:
-        vals = blk.dictionary._str_values[data].tolist()
-    elif t.is_decimal:
-        scale = 10 ** t.scale
-        vals = [v / scale for v in data.tolist()]
-    elif t.name == "date":
-        vals = data.astype("datetime64[D]").tolist()
-    elif t.name == "boolean":
-        vals = data.astype(bool).tolist()
-    elif t.is_integer or t.name == "timestamp":
-        vals = data.astype(np.int64).tolist()
-    else:
-        vals = data.astype(np.float64).tolist()
-    out[:] = vals
-    if blk.valid is not None:
-        out[~blk.valid.cpu().numpy()[idx]] = None
-    return out
+    return _decode_values(
+        blk.data.cpu().numpy()[idx],
+        blk.dtype,
+        blk.dictionary,
+        None if rvalid is None else rvalid[idx],
+    )
 
 
 def _row_valid(values: Sequence, device) -> Optional[torch.Tensor]:
@@ -580,28 +566,45 @@ def _row_valid(values: Sequence, device) -> Optional[torch.Tensor]:
     return torch.from_numpy(~isnull).to(device)
 
 
-def _decode_value(v, t: T.DataType, dictionary: Optional[Dictionary]):
-    """One stored value -> python value."""
-    import datetime
-
+def _decode_values(
+    data: np.ndarray,
+    t: T.DataType,
+    dictionary: Optional[Dictionary],
+    valid: Optional[np.ndarray] = None,
+) -> list:
+    """Stored values of one flat type -> Python values, None where
+    ``valid`` is False; one numpy conversion per column. Short decimals
+    are ``int / 10**scale`` in Python arithmetic (a float: a scaled
+    value above 2^53 loses digits), long decimals ``decimal.Decimal``."""
+    if valid is not None and not valid.all():
+        out = [None] * len(data)
+        pos = np.nonzero(valid)[0]
+        for k, v in zip(pos.tolist(), _decode_values(data[pos], t, dictionary)):
+            out[k] = v
+        return out
+    if len(data) == 0:
+        return []
     if t.is_string:
-        return str(dictionary.values[int(v)])
+        return dictionary._str_values[data].tolist()
     if t.is_long_decimal:
         import decimal as _dec
 
-        unscaled = T.int128_value(int(v[0]), int(v[1]))
         with _dec.localcontext() as ctx:
             ctx.prec = 50
-            return _dec.Decimal(unscaled).scaleb(-t.scale)
+            return [
+                _dec.Decimal(T.int128_value(int(hi), int(lo))).scaleb(-t.scale)
+                for hi, lo in data
+            ]
     if t.is_decimal:
-        return int(v) / (10 ** t.scale)
+        scale = 10 ** t.scale
+        return [v / scale for v in data.tolist()]
     if t.name == "date":
-        return datetime.date(1970, 1, 1) + datetime.timedelta(days=int(v))
+        return data.astype("datetime64[D]").tolist()
     if t.name == "boolean":
-        return bool(v)
+        return data.astype(bool).tolist()
     if t.is_integer or t.name == "timestamp":
-        return int(v)
-    return float(v)
+        return data.astype(np.int64).tolist()
+    return data.astype(np.float64).tolist()
 
 
 def nonzero_static(

@@ -288,9 +288,10 @@ def kinds(runners):
 @pytest.mark.parametrize("col", list(KINDS_ROWS))
 def test_result_columns_equal_the_row_wise_build(runners, kinds, col):
     """``_result_columns`` builds the write SPI's columns column by
-    column; the values and their Python types equal the row-wise build
-    through ``Page.to_pylist`` (the reference's) element by element,
-    and the reference's own ``_result_columns`` on the same query. Dates
+    column through the decoder ``Page.to_pylist`` uses; the values and
+    their Python types equal the row-wise build through ``to_pylist``
+    element by element, and the reference's own row-wise
+    ``_result_columns`` on the same query. Dates
     go through ``cast`` here: the reference stages no written date
     (``test_written_dates_read_back``)."""
     expr = f"cast(dt as date) as {col}" if col == "dt" else col
