@@ -162,7 +162,24 @@ non-zero, and only a run where every phase passed prints the final
               after which no page of a dropped table is cached and the
               pool holds no query-owned byte. Every statement prints
               its seconds, launches, misses and peak memory.
-13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+13. server  - the tenth slice: a ``CoordinatorServer`` and two
+              ``WorkerServer``s in this process on the card, each runner
+              with its own split cache and pool (40 GiB in all), driven
+              over loopback HTTP by ``PrestoTpuClient``: S1 Q1 at SF10
+              (each worker batch's partial GROUP BY and each merge task's
+              final one launch K1: the one-hot calls must equal the
+              batches plus the merges; one worker batch's K1 call held
+              against its plain version), rows equal to the stream
+              phase's local result; S2 Q3 and Q18 at SF1 in the default
+              session (the dynamic-filter summary stage first, a shuffled
+              merge) and S3 Q3 with ``join_distribution_type``
+              PARTITIONED (both sides shuffled over HTTP), each equal to
+              the coordinator's local runner; S4 distributed EXPLAIN
+              ANALYZE of Q1 and ``system.runtime.nodes`` listing both
+              workers ACTIVE; S5 a graceful drain of one worker, then Q6
+              on the other. One line per step: seconds, wire bytes,
+              shuffle bytes, K1 launches, stages.
+14. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -3663,6 +3680,243 @@ def observe_phase(card: str, keep: dict, dev=None,
     return launches, rec
 
 
+# ------------------------------------------------------------ server phase
+
+#: the server phase's budgets: three runners (a coordinator and two
+#: workers) share the card in this process, each with its own split
+#: cache and memory pool, 40 GiB in all
+SERVER_CACHE_BYTES = {"coordinator": 4 << 30, "worker": 8 << 30}
+SERVER_POOL_BYTES = {"coordinator": "8GB", "worker": "16GB"}
+SERVER_WORKERS = 2
+
+
+def server_rows(rows):
+    """Result rows as the paged protocol renders them (JSON; dates as
+    their ISO strings)."""
+    return [tuple(r) for r in json.loads(json.dumps(rows, default=str))]
+
+
+def rows_close(got, want, rel: float = 1e-9) -> Optional[str]:
+    """None if the row lists agree (doubles within ``rel``, everything
+    else exactly), else the first difference."""
+    if len(got) != len(want):
+        return f"{len(got)} rows != {len(want)} rows"
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(a, float) or isinstance(b, float):
+                if abs(a - b) > rel * max(abs(a), abs(b)):
+                    return f"{g} != {w}"
+            elif a != b:
+                return f"{g} != {w}"
+    return None
+
+
+def server_phase(card: str, want_q1_big=None, dev=None, records=None,
+                 big: str = JOINS_SCHEMA, small: str = "sf1"):
+    """The tenth slice's path on ``dev`` (the card unless a CPU
+    rehearsal passes another): a ``CoordinatorServer`` and two
+    ``WorkerServer``s in this process over loopback HTTP, driven through
+    ``PrestoTpuClient``. S1 Q1 over ``big`` (each worker batch's partial
+    GROUP BY and each merge task's final one launch K1; the rows held
+    against the port's local runner), S2 Q3 and Q18 over ``small`` in the
+    default session (the dynamic-filter summary stage and the shuffled
+    aggregation), S3 Q3 with ``join_distribution_type=PARTITIONED`` (the
+    HTTP shuffle of both join sides), S4 the distributed EXPLAIN ANALYZE
+    of Q1 and ``system.runtime.nodes``, S5 a graceful worker drain.
+    ``want_q1_big``: the port's local result of Q1 over ``big`` (the
+    stream phase's warm run); None runs it on the coordinator's runner.
+    Returns (the onehot_reduce launches of the counted steps, the
+    records)."""
+    import torch
+
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+    from presto_tpu_torch.ops import aggregation as PA
+    from presto_tpu_torch.server import (
+        CoordinatorServer,
+        PrestoTpuClient,
+        WorkerServer,
+        rpc,
+    )
+    from presto_tpu_torch.server.scheduler import assign_ranges
+    from presto_tpu_torch.session import NodeConfig, Session
+    from presto_tpu_torch.utils.metrics import REGISTRY
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    out, launches = [], 0
+
+    def config(kind):
+        return NodeConfig({
+            "staging.cache-bytes": str(SERVER_CACHE_BYTES[kind]),
+            "query.max-memory-per-node": SERVER_POOL_BYTES[kind],
+        })
+
+    t0 = time.perf_counter()
+    coord = CoordinatorServer(config=config("coordinator"), device=dev,
+                              session=Session(schema=small)).start()
+    workers = [
+        WorkerServer(coordinator_uri=coord.uri, config=config("worker"),
+                     device=dev).start()
+        for _ in range(SERVER_WORKERS)
+    ]
+    deadline = time.monotonic() + 60
+    while (len(coord.active_workers()) < SERVER_WORKERS
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    check(len(coord.active_workers()) == SERVER_WORKERS,
+          "the workers did not announce themselves")
+    print(f"server boot: a coordinator and {SERVER_WORKERS} workers on "
+          f"{dev} in {time.perf_counter() - t0:.2f} s (split caches "
+          f"{SERVER_CACHE_BYTES}, pools {SERVER_POOL_BYTES}) [{card}]",
+          flush=True)
+    client = PrestoTpuClient(coord.uri, timeout_s=900)
+
+    def step(label, sql, want=None):
+        """Run ``sql`` over HTTP; print and record its seconds, wire
+        bytes (every task's serialized output) and K1 launches."""
+        nonlocal launches
+        PA.onehot_reduce.launches = 0
+        shuffle0 = REGISTRY.counter("exchange.http_shuffle_bytes").total
+        t0 = time.perf_counter()
+        res = client.execute(sql)
+        secs = time.perf_counter() - t0
+        n_launch = PA.onehot_reduce.launches
+        launches += n_launch
+        stages = coord.queries[res.query_id].stats.stages
+        wire = sum(t.output_bytes for st in stages for t in st.tasks)
+        shuffle = (REGISTRY.counter("exchange.http_shuffle_bytes").total
+                   - shuffle0)
+        shape = [(st.kind, len(st.tasks)) for st in stages]
+        rec = {"step": label, "s": secs, "wire_bytes": wire,
+               "http_shuffle_bytes": shuffle,
+               "onehot_reduce_launches": n_launch, "stages": shape}
+        out.append(rec)
+        print(f"{label}: {secs:.4f} s, wire bytes {wire} (shuffle "
+              f"{shuffle}), onehot_reduce launches {n_launch}, stages "
+              f"{shape} [{card}]", flush=True)
+        if want is not None:
+            diff = rows_close(res.rows(), server_rows(want))
+            check(diff is None, f"{label}: differs from the local runner "
+                  f"({diff})")
+        return res, rec
+
+    try:
+        # S1: Q1 over ``big``, the partial GROUP BY on every worker batch
+        # and the final one on every merge task
+        q1_big = Q1.replace("tpch.sf1.lineitem", f"tpch.{big}.lineitem")
+        if want_q1_big is None:
+            t0 = time.perf_counter()
+            want_q1_big = coord.local.execute(q1_big).rows()
+            print(f"Q1 {big} on the coordinator's local runner: "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+        with onehot_calls() as seen:
+            res, rec = step(f"S1 Q1 {big} over HTTP", q1_big, want_q1_big)
+        calls = [len(reqs) for _, reqs, _ in seen]
+        session = coord.local.session
+        rows = TpchGenerator(SCHEMAS[big]).counts["lineitem"]
+        batch = int(session.get("page_capacity"))
+        ranges = assign_ranges(
+            rows, SERVER_WORKERS * int(session.get("split_queue_factor")))
+        n_batches = sum(-(-(hi - lo) // batch) for lo, hi in ranges if hi > lo)
+        merges = dict(rec["stages"]).get("merge", 0)
+        check(len(calls) == n_batches + merges,
+              f"S1: {len(calls)} one-hot calls, expected one per worker "
+              f"batch and per merge task ({n_batches} + {merges})")
+        want_launches = (sum(-(-k // PA.K_MAX) for k in calls)
+                         if on_card else 0)
+        check(rec["onehot_reduce_launches"] == want_launches,
+              f"S1: {rec['onehot_reduce_launches']} onehot_reduce "
+              f"launches, expected {want_launches}")
+        rec["batches"], rec["merges"] = n_batches, merges
+        # the first call is a worker batch's partial GROUP BY (Q1's 8
+        # requests); the merge tasks' finals (22) come after every batch
+        check(calls[0] == 8, f"S1: the first one-hot call has {calls[0]} "
+              "requests, not a worker batch's 8")
+        if records is not None and on_card:
+            # one worker's partial GROUP BY, at its own batch's inputs
+            records.append(fused_case("server q1 worker batch fused",
+                                      *seen[0], card))
+        del seen, calls, res
+
+        # S2: Q3 and Q18 in the default session
+        sqls = {"Q3": Q3, "Q18": tpch_queries()["Q18"]}
+        local = {k: coord.local.execute(v).rows() for k, v in sqls.items()}
+        q3 = None
+        for name, sql in sqls.items():
+            res, rec = step(f"S2 {name} {small}", sql, local[name])
+            kinds = [k for k, _ in rec["stages"]]
+            check(kinds[0] == "dynfilter" and "merge" in kinds,
+                  f"S2 {name}: stages {kinds}, expected the dynamic-filter "
+                  "summary first and a shuffled merge")
+            if name == "Q3":
+                q3 = res.rows()
+
+        # S3: Q3 with both join sides shuffled over HTTP
+        client.execute("set session join_distribution_type = 'PARTITIONED'")
+        try:
+            res, rec = step(f"S3 Q3 {small} partitioned", Q3, local["Q3"])
+        finally:
+            client.execute("set session join_distribution_type = 'AUTOMATIC'")
+        kinds = [k for k, _ in rec["stages"]]
+        check(kinds.count("producer") >= 2 and "join" in kinds
+              and rec["http_shuffle_bytes"] > 0,
+              f"S3: stages {kinds}, shuffle bytes "
+              f"{rec['http_shuffle_bytes']}")
+        check(res.rows() == q3, "S3: the partitioned Q3 differs from S2's")
+        print(f"S3 exchange.http_shuffle_bytes {rec['http_shuffle_bytes']} "
+              f"[{card}]", flush=True)
+
+        # S4: distributed EXPLAIN ANALYZE and the server's system rows
+        res, rec = step(f"S4 EXPLAIN ANALYZE Q1 {small}",
+                        "explain analyze " + Q1)
+        text = "\n".join(r[0] for r in res.rows())
+        check("task" in text and "stage" in text.lower(),
+              "S4: the distributed EXPLAIN ANALYZE has no stage or task")
+        nodes = client.execute(
+            "select node_id, state from system.runtime.nodes").rows()
+        ids = {w.node_id for w in workers}
+        check(ids <= {n for n, st in nodes if st == "ACTIVE"},
+              f"S4: system.runtime.nodes {nodes}")
+        rec["nodes"] = nodes
+        print(f"S4 system.runtime.nodes: {nodes}", flush=True)
+
+        # S5: a graceful drain of one worker under the running cluster
+        t0 = time.perf_counter()
+        gone = workers[-1]
+        rpc.call_json("PUT", f"{gone.uri}/v1/state/drain", {})
+        deadline = time.monotonic() + 60
+        while (gone.node_id in {w.node_id for w in coord.active_workers()}
+               or not gone._shutting_down) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        check(gone._shutting_down and gone.node_id not in {
+            w.node_id for w in coord.active_workers()},
+            "S5: the drained worker is still scheduled")
+        drain_s = time.perf_counter() - t0
+        res, rec = step(f"S5 Q6 {small} after a drain",
+                        Q6.replace("tpch.sf1.", f"tpch.{small}."),
+                        coord.local.execute(
+                            Q6.replace("tpch.sf1.", f"tpch.{small}.")
+                        ).rows())
+        nodes = {t.node_id for st in coord.queries[res.query_id].stats.stages
+                 for t in st.tasks}
+        check(gone.node_id not in nodes, f"S5: tasks ran on {nodes}")
+        rec["drain_s"] = drain_s
+        print(f"S5 drain: {drain_s:.2f} s until the worker left discovery "
+              f"and shut down [{card}]", flush=True)
+    finally:
+        for w in workers:
+            w.shutdown(graceful=False)
+        coord.shutdown()
+    secs = time.perf_counter() - phase_t0
+    print(f"server phase: {secs:.2f} s, onehot_reduce launches {launches} "
+          f"[{card}]", flush=True)
+    out.append({"step": "phase", "s": secs})
+    return launches, out
+
+
 def bucket_of(n: int) -> int:
     """The staging bucket of ``n`` rows (a power of two, at least 1024)."""
     cap = 1024
@@ -3747,6 +4001,10 @@ def main() -> int:
     write_launches, write_records = write_phase(
         card, want_q1_big=baseline["Q1"][0], records=records)
 
+    phase("server")
+    server_launches, server_records = server_phase(
+        card, want_q1_big=baseline["Q1"][1].rows(), records=records)
+
     headline = next(r for r in records if r["label"] == "q1 fused")
     kernels_line = {
         "kernels": [
@@ -3759,7 +4017,7 @@ def main() -> int:
                              + rest_launches + stream_launches
                              + tpcds_launches + cache_launches
                              + nested_launches + observe_launches
-                             + write_launches),
+                             + write_launches + server_launches),
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
@@ -3784,6 +4042,8 @@ def main() -> int:
                       "observe_onehot_reduce": observe_launches,
                       "write": write_records,
                       "write_onehot_reduce": write_launches,
+                      "server": server_records,
+                      "server_onehot_reduce": server_launches,
                       "native": status, "card": card}))
     print(json.dumps(kernels_line))
     print(

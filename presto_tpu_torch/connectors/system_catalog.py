@@ -9,11 +9,13 @@ the process metrics registry and the device probe
 (``utils/devicediag.py``). Zero stored bytes; every runner registers it.
 
 ``runtime.materialized_views`` lists the runner's materialized views
-(``exec/mview.py``; empty before the first one). Tables a local runner
-serves empty, as the reference's does: ``runtime.tasks``,
-``runtime.qos``, ``runtime.snapshots`` and ``runtime.metrics_history``
-(they are fed by the server and the telemetry sampler, which a local
-runner has not). ``runtime.caches`` has no
+(``exec/mview.py``; empty before the first one). Under a
+``CoordinatorServer`` (``runner.cluster``), ``runtime.nodes`` lists the
+coordinator and every announced worker and ``runtime.tasks`` the
+coordinator's per-task stats rollups. Tables served empty, as the
+reference's are without the planes that feed them: ``runtime.qos``,
+``runtime.snapshots`` and ``runtime.metrics_history``, and
+``runtime.tasks`` on a plain local runner. ``runtime.caches`` has no
 ``compile.programs`` row (the port compiles no program per query) and
 no ``exchange.ici`` row yet (the device exchange comes with the
 server).
@@ -198,7 +200,7 @@ _SCHEMAS: Dict[str, Dict[str, Dict[str, T.DataType]]] = {
 #: tables only a server feeds
 _SERVER_TABLES = {
     ("runtime", t)
-    for t in ("tasks", "metrics_history", "qos", "snapshots")
+    for t in ("metrics_history", "qos", "snapshots")
 }
 
 
@@ -274,6 +276,8 @@ class SystemConnector(Connector):
             ]
         if key == ("runtime", "nodes"):
             return self._node_rows()
+        if key == ("runtime", "tasks"):
+            return self._task_rows()
         if key == ("runtime", "metrics"):
             from presto_tpu_torch.utils.metrics import REGISTRY
 
@@ -386,8 +390,62 @@ class SystemConnector(Connector):
             )
         return rows
 
+    def _task_rows(self):
+        """Per-task stats of distributed queries (reference:
+        system.runtime.tasks), from the embedding coordinator's stage
+        rollups; empty on a plain local runner. Retention follows the
+        coordinator's bounded query map (MAX_QUERY_HISTORY completed
+        queries) — tasks age out with their query."""
+        cluster = getattr(self._runner, "cluster", None)
+        if cluster is None:
+            return []
+        out = []
+        for q in list(cluster.queries.values()):
+            for stage in q.stats.stages:
+                for t in list(stage.tasks):
+                    out.append(
+                        {
+                            "query_id": t.query_id,
+                            "stage_id": stage.stage_id,
+                            "task_id": t.task_id,
+                            "node_id": t.node_id,
+                            "state": t.state,
+                            "wall_ms": t.wall_ms,
+                            "staging_ms": t.staging_ms,
+                            "execute_ms": t.execute_ms,
+                            "input_rows": t.input_rows,
+                            "input_bytes": t.input_bytes,
+                            "output_rows": t.output_rows,
+                            "output_bytes": t.output_bytes,
+                            "retries": t.retries,
+                        }
+                    )
+        return out
+
+
     def _node_rows(self):
         from presto_tpu_torch.utils.devicediag import last_diag_dict
+
+        cluster = getattr(self._runner, "cluster", None)
+        if cluster is not None:
+            return [
+                {
+                    "node_id": w.node_id,
+                    "http_uri": w.uri,
+                    "node_version": w.version,
+                    "coordinator": w.coordinator,
+                    "state": w.state,
+                    "preemptible": bool(getattr(w, "preemptible", False)),
+                    # the elastic pool comes with a later server slice:
+                    # every node is STABLE and no autoscaler decides
+                    "pool_state": "STABLE",
+                    "last_decision": "",
+                    "backend_diag": json.dumps(
+                        getattr(w, "backend_diag", {}) or {}
+                    ),
+                }
+                for w in cluster.nodes()
+            ]
 
         dev = getattr(self._runner, "device", None)
         if dev is not None and dev.type == "cuda":

@@ -1569,14 +1569,19 @@ class LocalQueryRunner:
         if qs is None:
             return
         with self._qs_mu:
-            qs._pinned_keys.append(key)
+            pins = getattr(qs, "_pinned_keys", None)
+            if pins is None:
+                # a worker task's TaskStats sink starts without the list
+                pins = qs._pinned_keys = []
+            pins.append(key)
 
     def release_pins(self, qs) -> None:
-        """Unpin every cache entry ``qs`` pinned. Idempotent."""
+        """Unpin every cache entry ``qs`` pinned (a query's or a worker
+        task's stats sink). Idempotent."""
         if qs is None:
             return
         with self._qs_mu:
-            keys = qs._pinned_keys
+            keys = getattr(qs, "_pinned_keys", None) or []
             qs._pinned_keys = []
         for k in keys:
             self.split_cache.unpin(k)

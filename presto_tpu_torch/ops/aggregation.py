@@ -32,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -236,6 +237,8 @@ def _grid_blocks(index: int, nseg: int) -> int:
 
 #: per device: the zeroed scratch whose first word is the kernel's ticket
 _scratch: Dict[int, torch.Tensor] = {}
+#: guards ``onehot_reduce.launches``
+_launches_mu = threading.Lock()
 
 
 def _scratch_for(device: torch.device, slots: int) -> torch.Tensor:
@@ -304,7 +307,10 @@ def onehot_reduce_many(
                 raise RuntimeError(
                     f"onehot_reduce launch failed: {msg} ({rc})"
                 )
-            onehot_reduce.launches += 1
+            with _launches_mu:
+                # the server's task threads launch concurrently: the
+                # count must not lose an increment
+                onehot_reduce.launches += 1
     return out
 
 

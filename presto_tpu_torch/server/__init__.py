@@ -1,4 +1,33 @@
-"""The parts of the server planes that split-streamed execution shares:
-the stage cut (``scheduler``) and the host payload merge
-(``pages_wire``). Transport, serialization and the server itself are not
-ported yet."""
+"""Multi-host runtime: coordinator / worker processes over HTTP.
+
+The PyTorch counterpart of ``presto_tpu/server/``, on its default path:
+a ``CoordinatorServer`` and N ``WorkerServer``s, in one process or
+several, on one card, answering SQL over the paged HTTP protocol through
+``PrestoTpuClient`` (reference: the coordinator<->worker split of
+SURVEY.md §1 and the §2.5 REST control plane + pull-based, token-acked
+paged data plane). Each node's ``LocalQueryRunner`` runs on one CUDA
+device (``device=None``; tests pass ``device="cpu"``).
+
+Ported: the wire protocol (``protocol``), the RPC policy and circuit
+breaker (``rpc``), the page wire format (``pages_wire``, byte-equal to
+the reference's frames), the stage cut and placement (``scheduler``),
+the exchange SPI's HTTP lane (``exchange_spi``), the worker task runtime
+(``worker``), the coordinator's dispatcher with the fragment schedulers,
+the ordered MERGE exchange, the partitioned join, the shuffled
+aggregation, distributed dynamic filtering and the adaptive switch
+(``coordinator``), the memory arbiter, resource groups, the client, the
+pool SPI and the ``etc/`` launcher
+(``python -m presto_tpu_torch.server.launcher --etc-dir DIR``), and the
+split-streaming helpers streaming shares (``task_ids``, the payload
+merge, the stage cut, the MV rewrite in ``result_cache``).
+
+Refused with an error naming the later server slice (ROADMAP queue 4):
+the ``ResultCache`` tiers and ingest, micro-batching, ``retry_policy``
+TASK/QUERY with the spool and journal, the lease and HA planes, QoS and
+the elastic pool, and the ICI exchange lanes (with the multi-device
+exchange).
+"""
+
+from presto_tpu_torch.server.client import PrestoTpuClient  # noqa: F401
+from presto_tpu_torch.server.coordinator import CoordinatorServer  # noqa: F401
+from presto_tpu_torch.server.worker import WorkerServer  # noqa: F401

@@ -3,8 +3,10 @@ final step.
 
 The PyTorch counterpart of the stage-cut part of
 ``presto_tpu/server/scheduler.py`` (``StagePlan``, ``plan_stage`` and
-its helpers); the transport and range helpers belong to the server,
-which is not ported yet.
+its helpers) and the server's placement helpers: ``stable_workers``,
+the transport choice (``select_exchange_transport`` and
+``select_exchange_edges``; the port's server refuses the ICI gate, so
+they answer "" there) and ``assign_ranges``.
 
 One scan of the fragment is split by row ranges; every other scan is
 replicated (each split sees it whole). The split scan must reach the
@@ -24,6 +26,10 @@ from typing import List, Optional, Tuple
 
 from presto_tpu_torch.parallel.agg_split import split_aggregation
 from presto_tpu_torch.plan import nodes as N
+
+#: partition fan-outs beyond this take the HTTP wire path (the
+#: reference's ``parallel/exchange.py`` bound for its in-slice lane)
+MAX_ICI_PARTS = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,3 +188,116 @@ def _replace_on_path(
         new = dataclasses.replace(parent, **changes)
         old = parent
     return new
+
+
+def stable_workers(workers) -> list:
+    """Placement set for gather/merge/join stages under preemptible-
+    aware scheduling: these stages hold the only copy of merged state
+    (their buffers are NOT spool-backed the way producer partitions
+    are), so they belong on stable nodes — preemptibles keep the
+    spool-backed shuffle-producer work, where a preemption costs one
+    re-servable partition, not a stage re-run. Returns the
+    non-preemptible subset when any exists; an all-preemptible pool
+    still schedules (recovery, not placement, is the safety net
+    there)."""
+    stable = [
+        w for w in workers if not getattr(w, "preemptible", False)
+    ]
+    return stable if stable else list(workers)
+
+
+def select_exchange_transport(
+    workers, enabled: bool, schemas=()
+) -> str:
+    """Transport selection for one partitioned exchange stage — the
+    ONE place that decides ICI vs HTTP (the exchange-plane confinement
+    rule pins it here; producers and consumers only *honor* the choice
+    carried on ``FragmentSpec.ici_slice``).
+
+    Returns the slice id when every candidate worker announces the
+    SAME non-empty slice (co-located: one host process driving one
+    device mesh — the topology the in-slice exchange segment requires)
+    and every exchanged schema is ICI-transportable (fixed-width
+    scalar columns; array/map/row keep the serialized wire). Returns
+    "" (the HTTP wire) otherwise: mixed slices, unannounced topology,
+    a DRAINING peer in the set, an oversized fan-out, or the gate off.
+    A DRAINING worker's edges must degrade to HTTP so the
+    zero-failure-drain contract holds even for stages planned at the
+    drain boundary."""
+    if not enabled or not workers:
+        return ""
+    if len(workers) > MAX_ICI_PARTS:
+        return ""
+    slices = set()
+    for w in workers:
+        if getattr(w, "state", "ACTIVE") != "ACTIVE":
+            return ""
+        slices.add(getattr(w, "slice_id", ""))
+    if len(slices) != 1:
+        return ""
+    (slice_id,) = slices
+    if not slice_id:
+        return ""
+    for schema in schemas:
+        for t in schema.values():
+            if t.is_array or t.is_map or t.is_row:
+                return ""
+    return slice_id
+
+
+def select_exchange_edges(
+    workers, enabled: bool, schemas=()
+) -> str:
+    """Per-EDGE transport selection for one partitioned exchange
+    stage — the successor of :func:`select_exchange_transport`'s
+    all-or-nothing rule, and like it the ONE place that decides ICI vs
+    HTTP (the exchange-plane confinement rule pins selection here).
+
+    Returns the DOMINANT slice: the largest group of ACTIVE workers
+    announcing the same non-empty slice id, provided at least two
+    workers share it (a single worker has no in-slice peer to exchange
+    with) and every exchanged schema is ICI-transportable. Workers
+    outside the dominant slice no longer veto the stage — the slice id
+    still rides ``FragmentSpec.ici_slice``, and each EDGE settles
+    per-worker at run time: a producer whose own slice does not match
+    emits on the HTTP lane (``exchange.ici_fallbacks``), and a
+    consumer simply misses the segment for that source and pulls HTTP
+    — so a lone cross-slice worker rides HTTP on its own edges without
+    taxing the co-located pairs. DRAINING/INACTIVE workers are
+    excluded from the count (their edges degrade at drain time), but
+    do not demote the rest. Ties break deterministically (largest
+    count, then lexicographically greatest slice id)."""
+    if not enabled or not workers:
+        return ""
+    if len(workers) > MAX_ICI_PARTS:
+        return ""
+    counts: dict = {}
+    for w in workers:
+        if getattr(w, "state", "ACTIVE") != "ACTIVE":
+            continue
+        sid = getattr(w, "slice_id", "")
+        if sid:
+            counts[sid] = counts.get(sid, 0) + 1
+    if not counts:
+        return ""
+    best, n = max(counts.items(), key=lambda kv: (kv[1], kv[0]))
+    if n < 2:
+        return ""
+    for schema in schemas:
+        for t in schema.values():
+            if t.is_array or t.is_map or t.is_row:
+                return ""
+    return best
+
+
+def assign_ranges(total_rows: int, n_ranges: int) -> List[Tuple[int, int]]:
+    """Contiguous row ranges of the partitioned scan. The coordinator
+    over-partitions (n_ranges = workers x split_queue_factor) and lets
+    workers drain a shared queue — dynamic split placement."""
+    chunk = -(-total_rows // max(n_ranges, 1))
+    out = []
+    for i in range(n_ranges):
+        lo = min(i * chunk, total_rows)
+        hi = min((i + 1) * chunk, total_rows)
+        out.append((lo, hi))
+    return out

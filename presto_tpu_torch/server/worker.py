@@ -1,0 +1,1405 @@
+"""Worker process: executes plan fragments on its runner's device.
+
+The PyTorch counterpart of ``presto_tpu/server/worker.py``. Reference
+parity: the worker task runtime — ``TaskResource``
+(``POST /v1/task/{id}``), ``SqlTaskManager``, task status long-poll, the
+producer side of the paged exchange (``OutputBuffer`` +
+``GET /v1/task/{id}/results/{buffer}/{token}``), graceful shutdown
+(SURVEY.md §2.1 "Task runtime", §2.5, §5.3). The device runtime is the
+worker's own ``LocalQueryRunner`` on one CUDA device (``device=None``
+means CUDA and raises without a card, as the runner does; tests pass
+``device="cpu"``); this module is the HTTP host agent.
+
+Execution: a task = FragmentSpec (plan fragment + owned row range of the
+partitioned scan). Replicated scans load in full; the partitioned scan
+streams split batches staged through the runner's split cache, each
+batch run by ``runner._run_with_pages`` (a GROUP BY there is one
+``onehot_reduce_many`` launch, K1, per batch); result pages are
+serialized into the task's output buffer, pulled token-acked by the
+coordinator, and freed on DELETE.
+
+Not in this slice: the spool tee and recovery reads (retry TASK/QUERY),
+the in-slice ICI lane, and preemption (elastic pools). A worker config
+or a task spec that asks for one of them is refused with an error that
+names the later slice.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import threading
+import time
+import traceback
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, List, Optional
+
+from presto_tpu_torch.connectors.spi import ConnectorSplit
+from presto_tpu_torch.exec.staging import (
+    bucket_capacity,
+    page_nbytes,
+    stage_page,
+)
+from presto_tpu_torch.exec.stats import TaskStats
+from presto_tpu_torch.plan import nodes as N
+from presto_tpu_torch.server import exchange_spi, pages_wire, rpc, task_ids
+from presto_tpu_torch.server.coordinator import (
+    _ICI,
+    _QOS,
+    _SPOOL,
+    refuse_later_planes,
+)
+from presto_tpu_torch.server.protocol import FragmentSpec
+from presto_tpu_torch.utils import devicediag, faults, tracing
+from presto_tpu_torch.utils.metrics import REGISTRY
+
+log = logging.getLogger("presto_tpu_torch.worker")
+
+
+class WorkerDraining(RuntimeError):
+    """New-task rejection while the worker drains (or shuts down):
+    surfaced to the coordinator as HTTP 503, which reschedules the
+    task on another worker instead of failing the query."""
+
+#: rows per exchange page (the reference pages its exchange similarly)
+PAGE_ROWS = 1 << 16
+
+#: max unacked pages buffered per task before the producer blocks
+#: (reference: bounded OutputBuffer / sink.max-buffer-size blocking the
+#: producer driver, SURVEY.md §2.5 "Backpressure")
+MAX_BUFFERED_PAGES = 64
+
+
+def _offer_chunked(task: "_Task", cols, n: int) -> None:
+    """Serialize wire columns into PAGE_ROWS-sized pages on the task's
+    output buffer — the ONE chunk-and-offer loop every result-emitting
+    path shares (streaming emit, single- and multi-remote merges)."""
+    for lo in range(0, max(n, 1), PAGE_ROWS):
+        hi = min(lo + PAGE_ROWS, n)
+        chunk = [
+            (name, d[lo:hi], None if v is None else v[lo:hi], t, dv)
+            for name, d, v, t, dv in cols
+        ]
+        task.offer_page(pages_wire.serialize_page(chunk, hi - lo))
+        with task.cond:
+            task.stats.output_rows += hi - lo
+
+
+class _Task:
+    def __init__(self, spec: FragmentSpec, pool=None, node_id: str = ""):
+        self.spec = spec
+        self.state = "QUEUED"  # QUEUED|RUNNING|FINISHED|FAILED|ABORTED
+        self.error: Optional[str] = None
+        #: per-task stats, shipped back in /v1/task/{id}/status
+        #: (reference: TaskStats on the task-status response)
+        self.stats = TaskStats(
+            task_id=spec.task_id,
+            query_id=spec.query_id,
+            node_id=node_id,
+            create_time=time.time(),
+        )
+        #: trace context propagated by the coordinator (the handler
+        #: folds the ``traceparent`` HTTP header into the spec)
+        self.trace_ctx = tracing.parse_traceparent(spec.traceparent)
+        #: synthesized span dicts, filled at task end (status payload)
+        self.spans: List[dict] = []
+        # one output buffer per partition (reference:
+        # PartitionedOutputBuffer); unpartitioned tasks use buffer 0
+        nparts = max(spec.n_partitions, 1)
+        self.parts: List[List[Optional[bytes]]] = [
+            [] for _ in range(nparts)
+        ]
+        self.part_acked: List[int] = [0] * nparts
+        #: per-partition "consumer saw X-Complete" flags — the drain
+        #: protocol waits on these (a draining worker must not exit
+        #: under a consumer still pulling)
+        self.complete_served: List[bool] = [False] * nparts
+        self.cond = threading.Condition()
+        self.created = time.time()
+        # buffered output bytes are accounted against the worker's
+        # MemoryPool under a task-scoped key: buffers outlive task
+        # FINISH (shuffle consumers attach later), so the query-id
+        # safety-net release at task end must not free them
+        self.pool = pool
+        self.buf_key = f"{spec.query_id}#buf#{spec.task_id}"
+        # merge tasks: dynamically-attached upstream sources
+        # (reference: addExchangeLocations + noMoreExchangeLocations)
+        self.sources: List[tuple] = [tuple(s) for s in spec.sources]
+        self.sources_done: bool = bool(spec.sources)
+        #: dynamic-filter summary (JSON dict) of a dynfilter_keys task,
+        #: set when the task finishes; shipped on the status response
+        self.dynfilter: Optional[dict] = None
+
+    def add_sources(self, sources, done: bool) -> None:
+        with self.cond:
+            known = set(self.sources)
+            for s in sources:
+                s = tuple(s)
+                if s not in known:
+                    self.sources.append(s)
+                    known.add(s)
+            if done:
+                self.sources_done = True
+            self.cond.notify_all()
+
+    def drop_buffers(self) -> None:
+        """Release every remaining buffered byte (DELETE/abort path)."""
+        if self.pool is not None:
+            self.pool.release(self.buf_key, None)
+
+    @property
+    def pages(self) -> List[Optional[bytes]]:
+        """Buffer 0 view (status reporting + unpartitioned pulls)."""
+        return self.parts[0]
+
+    def offer_page(self, page: bytes, part: int = 0) -> None:
+        """Producer side: blocks while the buffer is full (backpressure);
+        raises if the task was aborted while blocked.
+
+        Partitioned (shuffle) buffers are stage-lifetime and exempt
+        from the bounded-buffer wait: the merge stage attaches
+        asynchronously (pipelined start) with no guarantee of pulling
+        before this producer FINISHES, so blocking on a full buffer
+        could deadlock the stage. They hold compressed PARTIAL states
+        (small by construction) and every buffered byte is accounted
+        against the MemoryPool — a too-big shuffle fails on accounting,
+        not OOM. The bounded-buffer backpressure applies to the
+        unpartitioned streaming path."""
+        if self.pool is not None:
+            # too-big shuffle output fails on ACCOUNTING
+            # (MemoryLimitExceeded -> task FAILED), not on OOM. The
+            # reserve runs BEFORE taking task.cond: a governance-lane
+            # reserve may block waiting for headroom (and pressure
+            # hooks may run spill DMA), and the condition guards the
+            # result-serving handler threads. Only the producer thread appends
+            # per (task, part), so nothing races the buffered bytes
+            # between the reserve and the append; the abort path below
+            # returns the reservation.
+            self.pool.reserve(self.buf_key, len(page))
+        try:
+            with self.cond:
+                while (
+                    len(self.parts) == 1
+                    and len(self.parts[part]) - self.part_acked[part]
+                    >= MAX_BUFFERED_PAGES
+                    and self.state == "RUNNING"
+                ):
+                    self.cond.wait(timeout=0.1)
+                if self.state == "ABORTED":
+                    raise RuntimeError("task aborted")
+                self.parts[part].append(page)
+                self.stats.output_bytes += len(page)
+        except BaseException:
+            # the page never reached the buffer: its reservation must
+            # not leak into the task's release-all at teardown
+            if self.pool is not None:
+                self.pool.release(self.buf_key, len(page))
+            raise
+    def ack_below(self, token: int, part: int = 0) -> None:
+        """Consumer side: pulling token N acks pages < N.
+
+        Unpartitioned (streaming) buffers FREE acked pages — that is
+        the backpressure contract. Partitioned (shuffle) buffers only
+        advance the cursor: pages stay until DELETE, so a merge task
+        retried on another worker can restart its pull at token 0
+        without finding acked holes (silent data loss)."""
+        with self.cond:
+            pages = self.parts[part]
+            if len(self.parts) == 1:
+                freed = 0
+                for i in range(
+                    self.part_acked[part], min(token, len(pages))
+                ):
+                    if pages[i] is not None:
+                        freed += len(pages[i])
+                    pages[i] = None
+                if freed and self.pool is not None:
+                    self.pool.release(self.buf_key, freed)
+            if token > self.part_acked[part]:
+                self.part_acked[part] = token
+            self.cond.notify_all()
+
+    def abort(self) -> None:
+        with self.cond:
+            if self.state in ("QUEUED", "RUNNING"):
+                self.state = "ABORTED"
+            self.cond.notify_all()
+
+
+#: worker config keys that turn on a plane of a later server slice:
+#: key -> (is the value on?, the later slice)
+_REFUSED_CONFIG = {
+    "exchange.ici-enabled": (bool, _ICI),
+    "exchange.spool-path": (bool, _SPOOL),
+    "node.preemptible": (bool, _QOS),
+}
+
+
+class WorkerServer:
+    """One worker process: HTTP host agent + local device execution."""
+
+    def __init__(
+        self,
+        port: int = 0,
+        node_id: Optional[str] = None,
+        catalogs=None,
+        coordinator_uri: Optional[str] = None,
+        config=None,
+        device=None,
+    ):
+        from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+        from presto_tpu_torch.utils.memory import MemoryPool, parse_bytes
+
+        from presto_tpu_torch.exec.staging import DEFAULT_CACHE_BYTES
+
+        if config is not None:
+            refuse_later_planes(_REFUSED_CONFIG, config.get)
+        self.node_id = node_id or f"worker-{uuid.uuid4().hex[:8]}"
+        # memory accounting is ALWAYS on (reference: MemoryPool wired
+        # unconditionally in the worker; limit from tier-1 config)
+        limit = parse_bytes(
+            (config.get("query.max-memory-per-node") if config else None)
+            or "8GB"
+        )
+        self.memory_pool = MemoryPool(limit)
+        self.memory_pool.node_id = self.node_id
+        # cluster memory governance (server/memory_arbiter.py): with
+        # the gate ON, an over-budget reservation BLOCKS (visible on
+        # the heartbeat report, resolvable by the coordinator's
+        # low-memory killer) instead of failing outright; OFF is the
+        # bit-exact fail-fast legacy path
+        self._governance = bool(
+            config.get("memory.governance-enabled", False)
+            if config
+            else False
+        )
+        if self._governance:
+            self.memory_pool.block_timeout_s = float(
+                config.get("memory.reserve-block-max-s", 30.0)
+            )
+        # device-resident split cache (tier-1: staging.cache-bytes,
+        # 0 disables): the LRU byte budget + try_reserve discipline
+        # make always-on safe on the worker hot path — repeated
+        # queries over the same split ranges skip the connector read
+        # and the host->device transfer entirely
+        cache_raw = (
+            config.get("staging.cache-bytes") if config else None
+        )
+        cache_bytes = (
+            parse_bytes(cache_raw)
+            if cache_raw is not None
+            else DEFAULT_CACHE_BYTES
+        )
+        # device=None means CUDA and raises without a card: a worker
+        # never carries on on the CPU unless asked to
+        self.runner = LocalQueryRunner(
+            catalogs=catalogs,
+            device=device,
+            memory_pool=self.memory_pool,
+            staging_cache_bytes=cache_bytes,
+        )
+        if cache_bytes > 0:
+            self.runner.session.set("stream_split_cache", True)
+        # host-spill lane (degrade before you kill): under HBM
+        # pressure, evicted split-cache pages offload to a host-RAM
+        # pool of this budget and restage on demand — gated with the
+        # governance plane so the default stays bit-exact pre-PR
+        if self._governance:
+            spill_raw = (
+                config.get("memory.host-spill-bytes") if config else None
+            )
+            if spill_raw is not None:
+                self.runner.split_cache.set_spill_budget(
+                    parse_bytes(spill_raw)
+                )
+        prefetch = (
+            config.get("staging.prefetch-depth") if config else None
+        )
+        if prefetch is not None:
+            self.runner.session.set(
+                "staging_prefetch_depth", int(prefetch)
+            )
+        # parameterized plan cache (plan/canonical.py): the worker's
+        # share is fragment CANONICALIZATION — literal-variant fragments
+        # of one shape hit this runner's compile cache — gated by the
+        # same tier-1 keys as the coordinator
+        pcen = config.get("plan.cache-enabled") if config else None
+        if pcen is not None:
+            self.runner.session.set("enable_plan_cache", bool(pcen))
+        pce = config.get("plan.cache-entries") if config else None
+        if pce is not None:
+            self.runner.plan_cache.resize(int(pce))
+        # per-operator observability (exec/stats.OperatorStats): worker
+        # programs trace per-node row counters into TaskStats.operators,
+        # shipped on the status response and rolled into QueryInfo —
+        # the same tier-1 gate as the coordinator. The history STORE
+        # stays coordinator-side (queries complete there); workers only
+        # measure.
+        opstats = (
+            config.get("operator-stats.enabled") if config else None
+        )
+        if opstats is not None:
+            self.runner.session.set(
+                "enable_operator_stats", bool(opstats)
+            )
+        self.tasks: Dict[str, _Task] = {}
+        self._lock = threading.Lock()
+        self._shutting_down = False
+        # multi-coordinator discovery: one URI, a comma-separated
+        # string, or a sequence — the worker heartbeats EVERY
+        # coordinator (each runs its own arbiter/scheduler view), so
+        # any survivor of a coordinator failover already knows this
+        # worker. coordinator_uri keeps the first entry for existing
+        # callers.
+        if isinstance(coordinator_uri, str):
+            self.coordinator_uris = [
+                u.strip().rstrip("/")
+                for u in coordinator_uri.split(",")
+                if u.strip()
+            ]
+        else:
+            self.coordinator_uris = [
+                str(u).strip().rstrip("/")
+                for u in (coordinator_uri or [])
+                if str(u).strip()
+            ]
+        self.coordinator_uri = (
+            self.coordinator_uris[0] if self.coordinator_uris else None
+        )
+        self._announcer: Optional[threading.Thread] = None
+        # orphan-task reaper (task.orphan-ttl-s, 0 = off): announce
+        # acks carry the answering coordinator's BOOT nonce, and every
+        # qid embeds the boot of the coordinator that minted it — a
+        # task whose minting boot has not been heard from in TTL is
+        # orphaned (its coordinator died or was replaced; a failover
+        # peer re-runs the query under ITS boot) and is deleted so a
+        # dead fleet's buffers never pin worker memory
+        self._orphan_ttl_s = float(
+            config.get("task.orphan-ttl-s", 0.0) if config else 0.0
+        )
+        #: coordinator boot nonce -> last monotonic time heard from
+        self._boot_seen: Dict[str, float] = {}
+        # fault-tolerance plane: one RPC policy for worker->worker
+        # shuffle pulls, config-driven announce cadence/timeout
+        self._rpc_policy = rpc.RpcPolicy.from_config(config)
+        self._announce_interval = float(
+            config.get("announcement.interval-s", 1.0) if config else 1.0
+        )
+        self._announce_timeout = float(
+            config.get("announcement.timeout-s", 5.0) if config else 5.0
+        )
+        fault_spec = (
+            config.get("fault-injection.spec") if config else None
+        )
+        if fault_spec:
+            faults.configure(fault_spec)
+        # slice identity announced on discovery (the reference's
+        # in-slice lane groups workers by it; the port refuses that
+        # lane, so it is observability only here)
+        self.slice_id = str(
+            (config.get("exchange.slice-id") if config else None)
+            or exchange_spi.default_slice_id(self.runner.device)
+        )
+        self._draining = False
+        self._drain_grace_s = float(
+            config.get("drain.grace-s", 30.0) if config else 30.0
+        )
+        #: preemptible capacity comes with the elastic pool slice
+        self.preemptible = False
+
+        handler = _make_handler(self)
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", port), handler)
+        self.port = self.httpd.server_address[1]
+        self.uri = f"http://127.0.0.1:{self.port}"
+        self._serve_thread = threading.Thread(
+            target=self.httpd.serve_forever, daemon=True
+        )
+
+    # ---------------------------------------------------------- lifecycle
+
+    def start(self) -> "WorkerServer":
+        # boot-time device probe (utils/devicediag.py): once per
+        # process — the structured diagnosis rides every announcement
+        # and /v1/status from then on
+        if devicediag.last_diag() is None:
+            devicediag.probe_backend(self.runner.device)
+        self._serve_thread.start()
+        if self.coordinator_uris:
+            self._announcer = threading.Thread(
+                target=self._announce_loop, daemon=True
+            )
+            self._announcer.start()
+        if self._orphan_ttl_s > 0:
+            threading.Thread(
+                target=self._reaper_loop, daemon=True
+            ).start()
+        return self
+
+    def shutdown(self, graceful: bool = True) -> None:
+        """Graceful: stop accepting work, finish running tasks, stop
+        (reference: SHUTTING_DOWN protocol, SURVEY.md §5.3)."""
+        self._shutting_down = True
+        if graceful:
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                with self._lock:
+                    busy = any(
+                        t.state in ("QUEUED", "RUNNING")
+                        for t in self.tasks.values()
+                    )
+                if not busy:
+                    break
+                time.sleep(0.05)
+        # Only handshake with serve_forever if it actually ran (see
+        # CoordinatorServer.shutdown).
+        if self._serve_thread.is_alive():
+            self.httpd.shutdown()
+        self.httpd.server_close()
+
+    # ------------------------------------------------------------- drain
+
+    def drain(self, grace_s: Optional[float] = None) -> None:
+        """Graceful drain (``PUT /v1/state/drain``; SIGTERM in the
+        launcher): stop accepting tasks (503 to new POSTs — the
+        coordinator reschedules them), announce ``DRAINING`` so the
+        coordinator stops scheduling here, keep serving result pulls
+        until every finished task's buffers are consumed, then exit
+        clean — a rolling restart under live load loses zero queries
+        (reference: the SHUTTING_DOWN protocol)."""
+        with self._lock:
+            if self._draining or self._shutting_down:
+                return
+            self._draining = True
+        REGISTRY.counter("worker.drains").update()
+        log.info("node=%s draining", self.node_id)
+        # flip discovery NOW instead of waiting out the announce cadence
+        self._announce_once()
+        # chaos hook: kill_worker_draining crashes us mid-drain
+        faults.maybe_inject_drain(self.node_id, kill=self._fault_kill)
+        grace = self._drain_grace_s if grace_s is None else grace_s
+        deadline = time.monotonic() + grace
+        while time.monotonic() < deadline and not self._shutting_down:
+            if not self._drain_busy():
+                break
+            time.sleep(0.05)
+        log.info("node=%s drain complete, exiting", self.node_id)
+        self.shutdown(graceful=False)
+
+    def _drain_busy(self) -> bool:
+        """Anything left that exiting now would lose? Running/queued
+        tasks; a FINISHED task whose buffers a consumer is still
+        pulling. FAILED and ABORTED buffers die with the worker by
+        design."""
+        with self._lock:
+            tasks = list(self.tasks.values())
+        for t in tasks:
+            if t.state in ("QUEUED", "RUNNING"):
+                return True
+            if t.state != "FINISHED":
+                continue
+            with t.cond:
+                if not all(t.complete_served):
+                    return True
+        return False
+
+    def _announce_state(self) -> str:
+        return "DRAINING" if self._draining else "ACTIVE"
+
+    def _memory_report(self) -> dict:
+        """Per-query/per-owner memory accounting for the heartbeat
+        (cluster memory governance: the coordinator's arbiter folds
+        these into its cluster view) — the shared
+        ``rollup_query_report`` fold over this node's pool snapshot
+        plus the host-spill occupancy."""
+        from presto_tpu_torch.exec.staging import SplitCache
+        from presto_tpu_torch.utils.memory import rollup_query_report
+
+        return rollup_query_report(
+            self.memory_pool.snapshot(),
+            SplitCache.OWNER,
+            self.runner.split_cache.spill_used_bytes(),
+        )
+
+    def _announce_body(self) -> dict:
+        return {
+            "node_id": self.node_id,
+            "uri": self.uri,
+            "state": self._announce_state(),
+            "preemptible": self.preemptible,
+            # slice/device-coordinate identity: the scheduler groups
+            # co-located workers by slice id and plans their
+            # partitioned exchanges as device collectives
+            "slice_id": self.slice_id,
+            "device_coords": exchange_spi.device_coords(
+                self.runner.device
+            ),
+            "memory": self._memory_report(),
+            # boot-time device probe: the coordinator keeps the last
+            # non-empty diagnosis per node (system.runtime.nodes)
+            "backend_diag": devicediag.last_diag_dict(),
+        }
+
+    def _announce_once(self) -> None:
+        """One best-effort, no-retry announcement to every coordinator
+        (drain flips state immediately; failures fall back to the
+        regular loop)."""
+        body = self._announce_body()
+        for uri in self.coordinator_uris:
+            try:
+                resp = rpc.call_json(
+                    "PUT",
+                    uri + "/v1/announcement",
+                    body,
+                    policy=rpc.RpcPolicy(
+                        timeout_s=self._announce_timeout, retries=0
+                    ),
+                )
+                self._saw_boot(resp)
+            except Exception:
+                pass
+
+    def _saw_boot(self, resp) -> None:
+        """Record the announce ack's coordinator boot nonce — the
+        orphan reaper's liveness evidence per minting incarnation."""
+        boot = (resp or {}).get("boot") if isinstance(resp, dict) else None
+        if boot:
+            self._boot_seen[str(boot)] = time.monotonic()
+
+    #: announce backoff cap: a worker never goes quieter than this, so
+    #: a recovered coordinator re-discovers it within ~2 TTLs
+    ANNOUNCE_MAX_BACKOFF_S = 16.0
+
+    def _announce_backoff(self, fails: int) -> float:
+        """Delay before the next announcement: the healthy interval at
+        ``fails == 0``, else jittered exponential backoff over
+        [interval, min(interval * 2^fails, cap)] — never faster than
+        the healthy cadence, never synchronized across peers (full
+        jitter), never quieter than ANNOUNCE_MAX_BACKOFF_S."""
+        if fails <= 0:
+            return self._announce_interval
+        cap = min(
+            self._announce_interval * (2.0 ** min(fails, 6)),
+            self.ANNOUNCE_MAX_BACKOFF_S,
+        )
+        return self._announce_interval + rpc.backoff_rng().uniform(
+            0.0, max(cap - self._announce_interval, 0.0)
+        )
+
+    def _announce_loop(self):
+        """Heartbeat to discovery — EVERY coordinator, each with its
+        own failure count. A healthy loop announces every
+        ``announcement.interval-s``; after consecutive failures to one
+        coordinator its delay backs off exponentially (capped,
+        resetting on success) — a fleet of workers must not hammer a
+        restarting coordinator in lockstep (thundering herd). With
+        peers, one dead coordinator backs ITS cadence off without
+        quieting the heartbeats the live ones depend on: the loop
+        wakes at the soonest per-coordinator due time."""
+        fails = {u: 0 for u in self.coordinator_uris}
+        due = {u: 0.0 for u in self.coordinator_uris}
+        while not self._shutting_down:
+            now = time.monotonic()
+            body = self._announce_body()
+            for uri in self.coordinator_uris:
+                if now < due[uri]:
+                    continue
+                try:
+                    # the loop IS the retry policy: no rpc-level
+                    # retries, or backoff would stack on backoff
+                    resp = rpc.call_json(
+                        "PUT",
+                        uri + "/v1/announcement",
+                        body,
+                        policy=rpc.RpcPolicy(
+                            timeout_s=self._announce_timeout, retries=0
+                        ),
+                    )
+                    self._saw_boot(resp)
+                    fails[uri] = 0
+                except Exception:
+                    fails[uri] += 1
+                    REGISTRY.counter("worker.announce_failures").update()
+                due[uri] = time.monotonic() + self._announce_backoff(
+                    fails[uri]
+                )
+            delay = max(min(due.values()) - time.monotonic(), 0.05)
+            # sleep in short slices so shutdown is prompt even when
+            # backed far off
+            deadline = time.monotonic() + delay
+            while (
+                not self._shutting_down
+                and time.monotonic() < deadline
+            ):
+                time.sleep(min(0.2, delay))
+
+    def _reaper_loop(self) -> None:
+        """Orphan-task reaper (``task.orphan-ttl-s``): delete tasks
+        whose minting coordinator incarnation (the boot nonce embedded
+        in every qid) has not been heard from — announce ack or new
+        task — within the TTL. Rides the ONE task-teardown primitive
+        (delete_task), so buffers and reservations free."""
+        while not self._shutting_down:
+            time.sleep(min(self._orphan_ttl_s / 4.0, 1.0))
+            now = time.monotonic()
+            with self._lock:
+                snap = [
+                    (tid, t.spec.query_id, t.created_ts)
+                    for tid, t in self.tasks.items()
+                ]
+            for tid, qid, created in snap:
+                boot = task_ids.boot_of_query(qid)
+                if not boot:
+                    continue  # not a coordinator-minted qid: never reap
+                seen = max(self._boot_seen.get(boot, 0.0), created)
+                if now - seen <= self._orphan_ttl_s:
+                    continue
+                if self.delete_task(tid):
+                    REGISTRY.counter("worker.orphans_reaped").update()
+                    log.warning(
+                        "node=%s reaped orphan task %s (coordinator "
+                        "boot %s silent %.1fs)",
+                        self.node_id, tid, boot, now - seen,
+                    )
+
+    def _fault_kill(self) -> None:
+        """Abrupt crash for the fault plane's ``kill_worker`` action:
+        stop announcing and close the socket WITHOUT draining, so every
+        in-flight coordinator RPC sees a dead peer (connection refused)
+        — a real crash, not the graceful SHUTTING_DOWN protocol."""
+        self._shutting_down = True
+        try:
+            if self._serve_thread.is_alive():
+                self.httpd.shutdown()
+            self.httpd.server_close()
+        except Exception:
+            pass
+        log.warning("node=%s fault plane killed this worker", self.node_id)
+
+    # ---------------------------------------------------------- task exec
+
+    def create_task(self, spec: FragmentSpec) -> str:
+        if self._draining or self._shutting_down:
+            raise WorkerDraining("worker is draining")
+        if spec.spool or spec.ici_slice:
+            raise ValueError(
+                "spooled and in-slice exchanges come with later server "
+                "slices (retry TASK/QUERY, the multi-device exchange); "
+                "this worker serves the HTTP exchange only"
+            )
+        task = _Task(spec, pool=self.memory_pool, node_id=self.node_id)
+        # orphan-reaper bookkeeping: the task itself is liveness
+        # evidence for its minting coordinator boot (a coordinator
+        # actively scheduling is not an orphan-maker even if this
+        # worker's announce acks lag)
+        task.created_ts = time.monotonic()
+        boot = task_ids.boot_of_query(spec.query_id)
+        if boot:
+            self._boot_seen[boot] = task.created_ts
+        with self._lock:
+            self.tasks[spec.task_id] = task
+        threading.Thread(
+            target=self._run_task, args=(task,), daemon=True
+        ).start()
+        REGISTRY.counter("worker.tasks_created").update()
+        return spec.task_id
+
+    def _run_task(self, task: _Task) -> None:
+        task.state = "RUNNING"
+        task.stats.state = "RUNNING"
+        trace_id = task.trace_ctx[0] if task.trace_ctx else ""
+        log.info(
+            "trace=%s task=%s node=%s state=RUNNING",
+            trace_id, task.spec.task_id, self.node_id,
+        )
+        t0 = time.perf_counter()
+        # this thread's engine-stats sink: the runner attributes
+        # staging time, input rows/bytes, compile-cache hits, and
+        # capacity-overflow retries to the active task
+        self.runner._qs_local.value = task.stats
+        outcome = "FINISHED"
+        try:
+            with REGISTRY.timer("worker.task_time").time():
+                self._execute(task)
+        except Exception as e:  # report to coordinator via status
+            outcome = "FAILED"
+            task.error = (
+                f"{type(e).__name__}: {e}\n{traceback.format_exc()[-1000:]}"
+            )
+            REGISTRY.counter("worker.tasks_failed").update()
+        finally:
+            self.runner._qs_local.value = None
+            task.stats.state = outcome
+            task.stats.end_time = time.time()
+            task.stats.wall_ms = (time.perf_counter() - t0) * 1000.0
+            if task.trace_ctx is not None:
+                task.spans = tracing.synthesize_task_spans(
+                    trace_id=task.trace_ctx[0],
+                    parent_span_id=task.trace_ctx[1],
+                    task_id=task.spec.task_id,
+                    node_id=self.node_id,
+                    start=task.stats.create_time,
+                    end=task.stats.end_time,
+                    staging_ms=task.stats.staging_ms,
+                    execute_ms=task.stats.execute_ms,
+                    prefetch_ms=task.stats.prefetch_ms,
+                )
+            # publish the terminal state LAST: it flips X-Complete on
+            # the result stream, and the coordinator reads the final
+            # status (stats + spans above) as soon as it sees it
+            with task.cond:
+                if task.state != "ABORTED":
+                    task.state = outcome
+                task.cond.notify_all()
+            log.info(
+                "trace=%s task=%s node=%s state=%s wall_ms=%.1f",
+                trace_id, task.spec.task_id, self.node_id,
+                task.state, task.stats.wall_ms,
+            )
+            # unpin replicated/whole-table cache entries this task
+            # used, then free its batch-staging reservations
+            self.runner.release_pins(task.stats)
+            self.memory_pool.release(task.spec.query_id)
+
+    def _execute(self, task: _Task) -> None:
+        """Stream split batches of the partitioned scan through the
+        compiled fragment (reference: split parallelism — drivers pull
+        split batches through the pipeline, SURVEY.md §2.4). Per-batch
+        outputs are partial states the coordinator's FINAL step merges,
+        so batching is semantics-preserving; it also bounds device
+        residency to one batch (the grouped-execution memory shape).
+        ``task_concurrency`` drivers overlap host staging with device
+        execution."""
+        # chaos hook: an armed fault plane may delay this task, fail it
+        # (kill_task), or crash the whole worker (kill_worker) here —
+        # mid-execute from the coordinator's point of view, since the
+        # task POST was already acked
+        faults.maybe_inject_task(
+            self.node_id, task.spec.task_id, kill=self._fault_kill
+        )
+        spec = task.spec
+        if spec.sources or spec.partition_scan < 0:
+            # merge task: static sources (barrier mode) or dynamically
+            # attached ones (pipelined shuffle; partition_scan=-1)
+            return self._execute_merge(task)
+        root = spec.fragment
+        # a pushed-down root sort (ordered MERGE exchange: coordinator
+        # wraps the fragment in a SortNode so every emitted batch is a
+        # sorted run) executes host-side per batch — the same
+        # host-root-stage discipline that keeps XLA sort compiles out of
+        # the per-query budget (exec.host_ops)
+        from presto_tpu_torch.exec.host_ops import apply_host_ops, peel_host_ops
+
+        root, pushed_ops = peel_host_ops(root)
+        scans = [n for n in N.walk(root) if isinstance(n, N.TableScanNode)]
+        walk_ids = {
+            id(n): i for i, n in enumerate(N.walk(root))
+        }
+        part_scan = None
+        repl_pages = {}
+        for s in scans:
+            if walk_ids[id(s)] == spec.partition_scan:
+                part_scan = s
+            else:
+                repl_pages[id(s)] = self.runner._load_table(s)
+
+        total = spec.split_end - spec.split_start
+        batch = spec.split_batch_rows or max(total, 1)
+        ranges = [
+            (lo, min(lo + batch, spec.split_end))
+            for lo in range(spec.split_start, spec.split_end, batch)
+        ] or [(spec.split_start, spec.split_end)]
+
+        def stage_batch(lo: int, hi: int):
+            """Stage the partitioned scan's [lo, hi) batch through the
+            device-resident split cache (LocalQueryRunner.stage_split:
+            one fixed capacity bucket per batch size, so every full
+            batch reuses one compiled program; uncached batches
+            reserve their live residency under the query, cached ones
+            are pinned against eviction until released)."""
+            # staging may run on a prefetch/pool thread: point it at
+            # the task's stats sink (thread-local on the runner)
+            self.runner._qs_local.value = task.stats
+            fetched = []
+
+            def read_range():
+                fetched.append(True)
+                return self._load_range(part_scan, lo, hi)
+
+            page, release = self.runner.stage_split(
+                part_scan, lo, hi, bucket_capacity(hi - lo),
+                owner=spec.query_id,
+                page_source=read_range,
+            )
+            # one accounting unit (data + validity + offsets), same as
+            # the pool reservation stage_split made
+            staged_bytes = page_nbytes(page)
+            # task.cond guards the stats accumulators: with
+            # task_concurrency > 1 concurrent drivers race the
+            # read-modify-write (+=) and would drop updates
+            with task.cond:
+                task.stats.input_rows += hi - lo
+                task.stats.input_bytes += staged_bytes
+            if fetched:
+                # only REAL staging traffic counts — a cache hit moved
+                # zero bytes host->device
+                REGISTRY.distribution("worker.staging_bytes").add(
+                    staged_bytes
+                )
+            return page, release
+
+        def exec_batch(split_page, release):
+            pages = [
+                split_page if s is part_scan else repl_pages[id(s)]
+                for s in scans
+            ]
+            t_exec = time.perf_counter()
+            try:
+                out = self.runner._run_with_pages(root, scans, pages)
+                if pushed_ops:
+                    out = apply_host_ops(out, pushed_ops)
+                return out
+            finally:
+                with task.cond:
+                    task.stats.execute_ms += (
+                        time.perf_counter() - t_exec
+                    ) * 1000.0
+                release()
+
+        def run_batch(lo: int, hi: int):
+            self.runner._qs_local.value = task.stats
+            page, release = stage_batch(lo, hi)
+            return exec_batch(page, release)
+
+        # dynamic-filter SUMMARY task: batch outputs fold into one
+        # per-key summary (exec/dynfilter.py — min/max + NDV-capped
+        # distinct sets, string keys resolved through the page
+        # dictionary) instead of crossing the wire as pages; the
+        # coordinator reads the merged summary off the status response
+        summary_cell: List = []
+
+        def emit(out) -> None:
+            if spec.dynfilter_keys:
+                from presto_tpu_torch.exec import dynfilter
+
+                s = dynfilter.summarize_page(
+                    out,
+                    list(spec.dynfilter_keys),
+                    ndv_limit=spec.dynfilter_ndv
+                    or dynfilter.DEFAULT_NDV_LIMIT,
+                )
+                with task.cond:
+                    summary_cell.append(s)
+                return
+            if spec.n_partitions > 1:
+                # partitioned output: the exchange SPI's HTTP lane
+                return exchange_spi.emit_partitioned(task, out)
+            self._emit_result(task, out)
+
+        def finish_summary() -> None:
+            """Merge per-batch summaries into the task's one summary
+            (empty range = empty build: nothing can match)."""
+            if not spec.dynfilter_keys:
+                return
+            from presto_tpu_torch.exec import dynfilter
+
+            ndv = spec.dynfilter_ndv or dynfilter.DEFAULT_NDV_LIMIT
+            merged = None
+            for s in summary_cell:
+                merged = s if merged is None else merged.merge(s, ndv)
+            if merged is None:
+                merged = dynfilter.empty_summary(spec.dynfilter_keys)
+            task.dynfilter = merged.to_json()
+
+        if spec.task_concurrency <= 1 or len(ranges) <= 1:
+            # pipelined prefetch staging (staging_prefetch_depth /
+            # tier-1 staging.prefetch-depth): a background host thread
+            # stages split N+1 while the jitted fragment for split N
+            # runs on device — compute and transfer overlap instead of
+            # alternating. Depth 0 is the exact serial path. The
+            # coordinator ships the client session's value on the spec
+            # (like page_capacity / task_concurrency); -1 = unset
+            depth = (
+                spec.prefetch_depth
+                if spec.prefetch_depth >= 0
+                else int(
+                    self.runner.session.get("staging_prefetch_depth")
+                )
+            )
+            from presto_tpu_torch.exec.staging import prefetch_iter
+
+            def staged_ahead(rng):
+                t0 = time.perf_counter()
+                page, release = stage_batch(*rng)
+                if depth > 0:
+                    with task.cond:
+                        task.stats.prefetch_ms += (
+                            time.perf_counter() - t0
+                        ) * 1000.0
+                return page, release
+
+            def drop_staged(entry):
+                # a prefetched-but-never-executed batch surrenders its
+                # residency (pool reservation or cache pin) — the task
+                # is failing/aborting and the task-end release-all has
+                # not run yet (prefetch_iter's abandonment contract)
+                entry[1]()
+
+            batches = prefetch_iter(
+                ranges, staged_ahead, depth, on_drop=drop_staged
+            )
+            try:
+                for page, release in batches:
+                    emit(exec_batch(page, release))
+            finally:
+                # deterministic close: joins the prefetch thread and
+                # drops queued batches BEFORE _run_task's release-all
+                batches.close()
+            finish_summary()
+            return
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(spec.task_concurrency) as pool:
+            futs = [pool.submit(run_batch, lo, hi) for lo, hi in ranges]
+            for f in futs:
+                emit(f.result())
+        finish_summary()
+
+    def _emit_result(self, task: "_Task", out) -> None:
+        """Root-stage (single-partition) result emit: the serialized
+        chunk-and-offer buffer (``page_to_wire_columns`` reads the
+        runner's host result page in place)."""
+        cols, n = pages_wire.page_to_wire_columns(out)
+        _offer_chunked(task, cols, n)
+
+    def _load_range(self, scan: N.TableScanNode, lo: int, hi: int):
+        conn = self.runner.catalogs.get(scan.handle.catalog)
+        split = ConnectorSplit(scan.handle, lo, hi)
+        return conn.create_page_source(split, list(scan.columns))
+
+    # ------------------------------------------- merge task (shuffle read)
+
+    def _execute_merge(self, task: "_Task") -> None:
+        """Intermediate-stage task: pull this task's output partition
+        from every producer task (worker<->worker data plane — the
+        reference's ExchangeClient feeding an intermediate stage), merge
+        the payloads (dictionary remap included), and run the fragment
+        with its RemoteSourceNode leaf bound to the merged page.
+
+        Correctness: producers hash-partition rows by the final
+        aggregation's group keys, so every group lands wholly in one
+        partition and per-partition FINAL results concatenate."""
+        REGISTRY.counter("worker.merge_tasks").update()
+        spec = task.spec
+        # dynamic source loop (reference: ExchangeClient consuming
+        # addExchangeLocations until noMoreLocations): pull every known
+        # source's partition — pulls OVERLAP production, since the
+        # token loop polls until the producer reports complete — and
+        # wait for more until the coordinator marks the set done.
+        # A source is (uri, task_id[, group]): group tags map each
+        # producer stage to one RemoteSourceNode leaf (a partitioned
+        # JOIN stage has two producer stages — group 0 probe, group 1
+        # build); untagged sources are group 0.
+        #: per-group pulled pages, in source order: [(payload, schema,
+        #: nrows), ...] for each RemoteSource leaf (the reference's
+        #: device-merged in-slice entries come with the ICI lane)
+        by_group: Dict[int, list] = {}
+        pulled = set()
+        # attempt-id dedup: every attempt of one logical upstream task
+        # shares a logical key, and exactly ONE attempt's pages may be
+        # consumed
+        pulled_logical = set()
+        deadline = time.monotonic() + float(
+            self.runner.session.get("query_max_run_time_s")
+        )
+        while True:
+            with task.cond:
+                pending = [
+                    s for s in task.sources if tuple(s) not in pulled
+                ]
+                if not pending:
+                    if task.sources_done:
+                        break
+                    if task.state == "ABORTED":
+                        raise RuntimeError("merge task aborted")
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(
+                            "merge task timed out waiting for sources"
+                        )
+                    task.cond.wait(timeout=0.1)
+                    continue
+            for src in pending:
+                uri, src_task = src[0], src[1]
+                group = int(src[2]) if len(src) > 2 else 0
+                lk = task_ids.logical_key(src_task)
+                if lk in pulled_logical:
+                    pulled.add(tuple(src))
+                    continue
+                t_pull = time.perf_counter()
+                got = _pull_partition(
+                    uri, src_task, spec.partition,
+                    self.runner.session, policy=self._rpc_policy,
+                )
+                task.stats.exchange_http_edges += 1
+                by_group.setdefault(group, []).extend(got)
+                task.stats.staging_ms += (
+                    time.perf_counter() - t_pull
+                ) * 1000.0
+                task.stats.input_rows += sum(p[2] for p in got)
+                pulled.add(tuple(src))
+                pulled_logical.add(lk)
+        root = spec.fragment
+        remotes = [
+            n for n in N.walk(root) if isinstance(n, N.RemoteSourceNode)
+        ]
+        if len(remotes) > 1:
+            # multi-source fragment (partitioned join stage): group i
+            # feeds the i-th RemoteSourceNode in walk order; each
+            # group's entries merge + stage separately, then the
+            # fragment runs once over all leaves
+            import numpy as np
+
+            pages = []
+            for i, r in enumerate(remotes):
+                rschema = dict(r.fragment_root.output_schema())
+                payloads = by_group.get(i, [])
+                if payloads:
+                    merged = pages_wire.merge_payloads(payloads, rschema)
+                else:  # no rows from this side in this partition
+                    merged = {
+                        nm: np.empty(0, t.np_dtype)
+                        for nm, t in rschema.items()
+                    }
+                pages.append(
+                    stage_page(merged, rschema, device=self.runner.device)
+                )
+            # same accounting as the single-remote path: a too-big
+            # (skewed) join partition fails on MemoryPool accounting
+            # (kill-largest policy visible), not device OOM
+            staged = sum(
+                int(b.data.nbytes)
+                for pg in pages
+                for b in pg.blocks
+            )
+            self.memory_pool.reserve(spec.query_id, staged)
+            task.stats.input_bytes += staged
+            t_exec = time.perf_counter()
+            try:
+                out = self.runner._run_with_pages(root, remotes, pages)
+            finally:
+                task.stats.execute_ms += (
+                    time.perf_counter() - t_exec
+                ) * 1000.0
+                self.memory_pool.release(spec.query_id, staged)
+            self._emit_result(task, out)
+            return
+        if len(remotes) != 1:
+            raise RuntimeError(
+                f"merge fragment must have one RemoteSource leaf, "
+                f"got {len(remotes)}"
+            )
+        schema = dict(remotes[0].fragment_root.output_schema())
+        payloads = by_group.get(0, [])
+        # same grouped-execution discipline as the coordinator gather:
+        # a partition beyond max_device_rows sub-buckets and merges one
+        # bucket at a time (or fails under spill_enabled=false) instead
+        # of staging one oversized page
+        from presto_tpu_torch.exec import streaming as S
+
+        out = S.grouped_final_merge(
+            self.runner,
+            payloads,
+            schema,
+            root,
+            remotes[0].fragment_root,
+            int(self.runner.session.get("max_device_rows")),
+        )
+        if out is None:
+            merged = pages_wire.merge_payloads(payloads, schema)
+            page = stage_page(merged, schema, device=self.runner.device)
+            staged = sum(int(b.data.nbytes) for b in page.blocks)
+            self.memory_pool.reserve(spec.query_id, staged)
+            task.stats.input_bytes += staged
+            t_exec = time.perf_counter()
+            try:
+                out = self.runner._run_with_pages(root, remotes, [page])
+            finally:
+                task.stats.execute_ms += (
+                    time.perf_counter() - t_exec
+                ) * 1000.0
+                self.memory_pool.release(spec.query_id, staged)
+        self._emit_result(task, out)
+
+    # ------------------------------------------------------------- status
+
+    def status(self) -> dict:
+        with self._lock:
+            if self._shutting_down:
+                state = "SHUTTING_DOWN"
+            elif self._draining:
+                state = "DRAINING"
+            else:
+                state = "ACTIVE"
+            tasks = {tid: t.state for tid, t in self.tasks.items()}
+        return {
+            "node_id": self.node_id,
+            "state": state,
+            "uri": self.uri,
+            "preemptible": self.preemptible,
+            "slice_id": self.slice_id,
+            "tasks": tasks,
+            "memory": self._memory_report(),
+            "backend_diag": devicediag.last_diag_dict(),
+        }
+
+    def delete_task(self, task_id: str) -> bool:
+        """The one task-teardown primitive (the DELETE route and the
+        cluster memory manager's abort both ride it): drop the task,
+        abort its execution, free its buffered bytes."""
+        with self._lock:
+            t = self.tasks.pop(task_id, None)
+        if t is None:
+            return False
+        t.abort()
+        t.drop_buffers()
+        return True
+
+    def abort_query(self, query_id: str) -> int:
+        """Cluster-wide cancellation, worker side (the low-memory
+        killer's ``PUT /v1/memory/abort``): tear down every task of
+        the victim through the task-DELETE path and fail its blocked
+        reservations — WITHOUT poisoning the query id, so a
+        ``retry_policy=QUERY`` re-admission can reserve again."""
+        with self._lock:
+            doomed = [
+                tid
+                for tid, t in self.tasks.items()
+                if t.spec.query_id == query_id
+            ]
+        n = 0
+        for tid in doomed:
+            if self.delete_task(tid):
+                n += 1
+        self.memory_pool.cancel_blocked(query_id)
+        if n:
+            log.warning(
+                "node=%s memory manager aborted %d task(s) of %s",
+                self.node_id, n, query_id,
+            )
+        return n
+
+
+def _pull_partition(
+    uri: str, src_task: str, part: int, session,
+    policy: rpc.RpcPolicy = rpc.DEFAULT_POLICY,
+):
+    """Token-acked pull of one output partition from a peer worker:
+    the shared rpc.pull_pages loop (exchange client, worker side).
+    Pulls are idempotent (token-acked), so transient peer failures
+    retry under the RPC policy."""
+    return rpc.pull_pages(
+        uri, src_task, part,
+        policy=policy,
+        deadline_s=float(session.get("query_max_run_time_s")),
+        timeout_msg=f"shuffle pull of {src_task}[{part}] timed out",
+    )
+
+
+def _make_handler(worker: WorkerServer):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _json(self, code: int, obj) -> None:
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _read_body(self) -> bytes:
+            n = int(self.headers.get("Content-Length", 0))
+            return self.rfile.read(n)
+
+        def do_GET(self):
+            parts = [p for p in self.path.split("/") if p]
+            if parts == ["v1", "status"]:
+                return self._json(200, worker.status())
+            if parts == ["v1", "metrics"]:
+                body = REGISTRY.render_prometheus().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                return
+            if len(parts) == 4 and parts[:2] == ["v1", "task"] and parts[3] == "status":
+                t = worker.tasks.get(parts[2])
+                if t is None:
+                    return self._json(404, {"error": "no such task"})
+                return self._json(
+                    200,
+                    {
+                        "task_id": parts[2],
+                        "state": t.state,
+                        "error": t.error,
+                        "num_pages": len(t.pages),
+                        # no spool in this slice: output never outlives
+                        # the worker
+                        "spooled": False,
+                        "stats": t.stats.to_dict(),
+                        "spans": t.spans,
+                        "dynamic_filter": t.dynfilter,
+                    },
+                )
+            if (
+                len(parts) == 6
+                and parts[:2] == ["v1", "task"]
+                and parts[3] == "results"
+            ):
+                # /v1/task/{id}/results/{buffer}/{token}
+                t = worker.tasks.get(parts[2])
+                if t is None:
+                    return self._json(404, {"error": "no such task"})
+                part = int(parts[4])
+                token = int(parts[5])
+                if t.state == "FAILED":
+                    return self._json(500, {"error": t.error})
+                if not (0 <= part < len(t.parts)):
+                    return self._json(
+                        400, {"error": f"no output buffer {part}"}
+                    )
+                # pulling token N acks pages < N (frees buffer slots and
+                # unblocks the producer — the reference's token-advance
+                # ack). A pipelined client sends an explicit X-Ack floor
+                # instead: its speculative in-flight request for token
+                # N+k must NOT free pages it hasn't consumed yet.
+                ack_hdr = self.headers.get("X-Ack")
+                t.ack_below(
+                    int(ack_hdr) if ack_hdr is not None else token,
+                    part,
+                )
+                # snapshot (page, count, state) ATOMICALLY: reading
+                # len(pages) then state unlocked races the producer's
+                # final append + FINISHED publish — a 204 with
+                # X-Complete=true would silently drop the last page
+                # (pipelined pulls keep a beyond-the-end token in
+                # flight, so the race window is hit on every pull)
+                with t.cond:
+                    pages = t.parts[part]
+                    body = pages[token] if token < len(pages) else None
+                    n_pages = len(pages)
+                    complete = t.state == "FINISHED" and (
+                        token + (1 if body is not None else 0) >= n_pages
+                    )
+                    if complete:
+                        # drain protocol: this consumer has seen the
+                        # whole stream — the buffer no longer pins a
+                        # draining worker alive
+                        t.complete_served[part] = True
+                if body is not None:
+                    self.send_response(200)
+                    self.send_header(
+                        "Content-Type", "application/x-presto-tpu-page"
+                    )
+                    self.send_header("Content-Length", str(len(body)))
+                    self.send_header("X-Next-Token", str(token + 1))
+                    self.send_header(
+                        "X-Complete", "true" if complete else "false"
+                    )
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                # no page at this token yet
+                self.send_response(204)
+                self.send_header("Content-Length", "0")
+                self.send_header("X-Next-Token", str(token))
+                self.send_header(
+                    "X-Complete", "true" if complete else "false"
+                )
+                self.end_headers()
+                return
+            self._json(404, {"error": f"no route {self.path}"})
+
+        def do_POST(self):
+            parts = [p for p in self.path.split("/") if p]
+            if parts == ["v1", "task"]:
+                if worker._draining or worker._shutting_down:
+                    # reject BEFORE parsing: 503 tells the coordinator
+                    # to reschedule on another worker (no task was
+                    # created here)
+                    return self._json(
+                        503, {"error": "worker is draining"}
+                    )
+                try:
+                    spec = FragmentSpec.from_json(
+                        json.loads(self._read_body().decode())
+                    )
+                    # honor the propagated trace context: a header on
+                    # the POST covers specs from span-unaware clients
+                    hdr = self.headers.get("traceparent", "")
+                    if hdr and not spec.traceparent:
+                        import dataclasses as _dc
+
+                        spec = _dc.replace(spec, traceparent=hdr)
+                    tid = worker.create_task(spec)
+                    return self._json(200, {"task_id": tid})
+                except WorkerDraining as e:
+                    return self._json(503, {"error": str(e)})
+                except Exception as e:
+                    return self._json(400, {"error": str(e)})
+            self._json(404, {"error": f"no route {self.path}"})
+
+        def do_DELETE(self):
+            parts = [p for p in self.path.split("/") if p]
+            if len(parts) == 3 and parts[:2] == ["v1", "task"]:
+                worker.delete_task(parts[2])
+                return self._json(200, {"ok": True})
+            self._json(404, {"error": f"no route {self.path}"})
+
+        def do_PUT(self):
+            parts = [p for p in self.path.split("/") if p]
+            if parts == ["v1", "state", "shutdown"]:
+                threading.Thread(
+                    target=worker.shutdown, daemon=True
+                ).start()
+                return self._json(200, {"ok": True})
+            if parts == ["v1", "memory", "abort"]:
+                # cluster memory manager kill, worker side: tear down
+                # the victim's tasks (task-DELETE path) and fail its
+                # blocked reservations
+                body = json.loads(self._read_body() or b"{}")
+                qid = body.get("query_id", "")
+                if not qid:
+                    return self._json(400, {"error": "query_id required"})
+                return self._json(
+                    200, {"ok": True, "aborted": worker.abort_query(qid)}
+                )
+            if parts == ["v1", "state", "drain"]:
+                # graceful drain: stop accepting, finish + serve
+                # running outputs, announce DRAINING, exit clean
+                threading.Thread(
+                    target=worker.drain, daemon=True
+                ).start()
+                return self._json(200, {"ok": True, "state": "DRAINING"})
+            if (
+                len(parts) == 4
+                and parts[:2] == ["v1", "task"]
+                and parts[3] == "sources"
+            ):
+                # pipelined shuffle: attach upstream sources to a merge
+                # task (reference: addExchangeLocations)
+                t = worker.tasks.get(parts[2])
+                if t is None:
+                    return self._json(404, {"error": "no such task"})
+                body = json.loads(self._read_body() or b"{}")
+                t.add_sources(
+                    body.get("sources", ()), bool(body.get("done"))
+                )
+                return self._json(200, {"ok": True})
+            self._json(404, {"error": f"no route {self.path}"})
+
+    return Handler

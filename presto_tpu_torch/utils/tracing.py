@@ -224,3 +224,55 @@ class Trace:
             else:
                 roots.append(d)
         return roots
+
+
+def synthesize_task_spans(
+    trace_id: str,
+    parent_span_id: Optional[str],
+    task_id: str,
+    node_id: str,
+    start: float,
+    end: float,
+    staging_ms: float,
+    execute_ms: float,
+    prefetch_ms: float = 0.0,
+) -> List[dict]:
+    """Worker-side span tree for one task, synthesized from its phase
+    accumulators: a ``task`` span with ``staging`` and ``execute``
+    children (plus a ``stage:prefetch`` child when pipelined prefetch
+    staging overlapped host transfers with device execution — its
+    duration co-anchored with ``execute`` makes the overlap visible in
+    EXPLAIN ANALYZE). Batches interleave staging and execution, so the
+    children carry aggregate durations anchored at the task start
+    rather than one span per batch (bounded payload however many
+    splits streamed).
+    """
+    task_span = Span(
+        trace_id=trace_id,
+        span_id=new_span_id(),
+        parent_id=parent_span_id,
+        name="task",
+        start=start,
+        end=end,
+        attrs={"task_id": task_id, "node_id": node_id},
+    )
+    out = [task_span]
+    for name, dur_ms in (
+        ("staging", staging_ms),
+        ("stage:prefetch", prefetch_ms),
+        ("execute", execute_ms),
+    ):
+        if dur_ms <= 0:
+            continue
+        out.append(
+            Span(
+                trace_id=trace_id,
+                span_id=new_span_id(),
+                parent_id=task_span.span_id,
+                name=name,
+                start=start,
+                end=start + dur_ms / 1000.0,
+                attrs={"task_id": task_id},
+            )
+        )
+    return [s.to_dict() for s in out]

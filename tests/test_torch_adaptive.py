@@ -28,6 +28,7 @@ from presto_tpu_torch.plan import canonical
 from presto_tpu_torch.plan.history import QueryHistoryStore, diverged
 from presto_tpu_torch.sql import parse_statement
 from presto_tpu_torch.utils.metrics import REGISTRY
+from torch_parity import one_torch_thread  # noqa: F401
 
 #: every row of the build table carries key 7, so the classic
 #: ``k = 7 and v > -1e6`` selectivity math under-estimates the build ~30x

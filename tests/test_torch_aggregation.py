@@ -20,6 +20,7 @@ from presto_tpu_torch import page as PP
 from presto_tpu_torch import types as PT
 from presto_tpu_torch.ops import aggregation as PA
 from torch_parity import assert_columns_equal, both_pages, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 CAP = 256
 LIVE = 230

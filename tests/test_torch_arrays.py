@@ -24,6 +24,7 @@ from presto_tpu_torch.connectors import create_connector
 from presto_tpu_torch.connectors.spi import TableHandle
 from presto_tpu_torch.exec.local_runner import LocalQueryRunner
 from presto_tpu_torch.exec.staging import CatalogManager, obj_array
+from torch_parity import one_torch_thread  # noqa: F401
 
 #: DOUBLE results agree within this relative tolerance
 REL = 1e-9

@@ -26,6 +26,7 @@ from presto_tpu_torch.page import to_host
 from presto_tpu_torch.session import Session
 from broadcast_queries import QUERIES
 from torch_parity import assert_columns_equal, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 SESSIONS = {"default": {}, "streamed": {"max_device_rows": 8_192}}
 

@@ -742,3 +742,91 @@ def test_aggregate_view_with_one_delta_on_the_card(cuda):
         assert set(r.memory_pool.snapshot()["used"]) <= {"table-cache"}
         rows.append(got)
     assert _rows_agree(rows[0], rows[1])
+
+
+# ------------------------------------------------- the server on the card
+
+
+def test_cluster_on_the_card_answers_q1(cuda):
+    # a coordinator and two workers in this process, all on the card:
+    # Q1 over HTTP equals the CPU runner, each worker batch's partial
+    # GROUP BY and the coordinator's final GROUP BY launch K1
+    import math
+    import time
+
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.server import (
+        CoordinatorServer,
+        PrestoTpuClient,
+        WorkerServer,
+    )
+    from presto_tpu_torch.session import NodeConfig
+    from tpch_queries import QUERIES
+
+    cfg = NodeConfig({
+        "staging.cache-bytes": "256MB",
+        "query.max-memory-per-node": "4GB",
+    })
+    coord = CoordinatorServer(config=cfg, device="cuda").start()
+    workers = [
+        WorkerServer(coordinator_uri=coord.uri, config=cfg, device="cuda")
+        .start()
+        for _ in range(2)
+    ]
+    try:
+        deadline = time.time() + 30
+        while len(coord.active_workers()) < 2 and time.time() < deadline:
+            time.sleep(0.05)
+        assert len(coord.active_workers()) == 2
+        client = PrestoTpuClient(coord.uri, timeout_s=300)
+        client.execute("set session distributed_final = false")
+        before = onehot_reduce.launches
+        res = client.execute(QUERIES[1])
+        launches = onehot_reduce.launches - before
+        stages = coord.queries[res.query_id].stats.stages
+        tasks = sum(len(s.tasks) for s in stages)
+        # one partial launch per worker task batch, one final launch
+        assert launches >= tasks + 1
+        want = LocalQueryRunner(device="cpu").execute(QUERIES[1]).rows()
+        got = res.rows()
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if isinstance(b, float):
+                    assert math.isclose(a, b, rel_tol=1e-9), (g, w)
+                elif hasattr(b, "isoformat"):
+                    assert a == str(b), (g, w)
+                else:
+                    assert a == b, (g, w)
+    finally:
+        for w in workers:
+            w.shutdown(graceful=False)
+        coord.shutdown()
+
+
+def test_nodes_without_a_visible_card_refuse_to_start(cuda):
+    # device=None means CUDA: with the card hidden, a worker and a
+    # coordinator raise instead of carrying on on the CPU
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "from presto_tpu_torch.server import CoordinatorServer, WorkerServer\n"
+        "for cls in (WorkerServer, CoordinatorServer):\n"
+        "    try:\n"
+        "        cls()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA is not available' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit(f'{cls.__name__} started without a card')\n"
+        "print('refused')\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=Path(__file__).resolve().parent.parent,
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0 and "refused" in out.stdout, out.stderr

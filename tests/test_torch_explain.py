@@ -31,6 +31,7 @@ from presto_tpu.exec.local_runner import LocalQueryRunner as RefRunner
 from presto_tpu_torch import queries_tpcds
 from presto_tpu_torch.exec.local_runner import LocalQueryRunner
 from tpch_queries import QUERIES
+from torch_parity import one_torch_thread  # noqa: F401
 
 CASES = {f"q{k}": v for k, v in QUERIES.items()}
 CASES["tpcds_q64"] = queries_tpcds.Q64

@@ -12,6 +12,7 @@ from presto_tpu import types as RT
 from presto_tpu_torch import expr as PE
 from presto_tpu_torch import types as PT
 from torch_parity import both_pages
+from torch_parity import one_torch_thread  # noqa: F401
 
 CAP = 96
 LIVE = 90

@@ -27,6 +27,7 @@ from presto_tpu.sql import parse_statement
 from presto_tpu.verifier import diff_results
 from presto_tpu_torch.exec.local_runner import LocalQueryRunner
 from presto_tpu_torch.session import Session
+from torch_parity import one_torch_thread  # noqa: F401
 
 REL = 1e-9
 STREAM_ROWS = 8_192

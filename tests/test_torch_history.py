@@ -36,6 +36,7 @@ from presto_tpu_torch.plan.planner import plan_statement
 from presto_tpu_torch.sql import parse_statement
 from presto_tpu_torch.utils.metrics import REGISTRY
 from tpch_queries import QUERIES
+from torch_parity import one_torch_thread  # noqa: F401
 
 SKEW_SQL = (
     "select count(*) c from memory.default.probe "

@@ -17,6 +17,7 @@ import torch
 from presto_tpu import int128 as RI
 from presto_tpu_torch import int128 as PI
 from presto_tpu_torch import types as PT
+from torch_parity import one_torch_thread  # noqa: F401
 
 M = 1 << 127
 EDGES = [

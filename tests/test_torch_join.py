@@ -21,6 +21,7 @@ from presto_tpu_torch import types as PT
 from presto_tpu_torch.exec import dynfilter as PD
 from presto_tpu_torch.ops import join as PJ
 from torch_parity import assert_columns_equal, both_pages, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 P_CAP, P_LIVE = 200, 180
 B_CAP, B_LIVE = 64, 50

@@ -12,6 +12,7 @@ from presto_tpu import types as RT
 from presto_tpu_torch import page as PP
 from presto_tpu_torch import types as PT
 from test_torch_arrays import assert_both_raise, assert_parity, both_runners
+from torch_parity import one_torch_thread  # noqa: F401
 
 MAPS = [
     {"a": 1, "b": 2},

@@ -14,6 +14,7 @@ from presto_tpu.utils import faults as ref_faults
 from presto_tpu.utils import memory as ref_memory
 from presto_tpu_torch.utils import faults as port_faults
 from presto_tpu_torch.utils import memory as port_memory
+from torch_parity import one_torch_thread  # noqa: F401
 
 PACKAGES = {
     "reference": (ref_memory, ref_faults),

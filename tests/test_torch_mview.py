@@ -24,6 +24,7 @@ from presto_tpu_torch.sql import parse_statement
 
 from test_torch_arrays import assert_same_rows
 from test_torch_writes import both, write_runners
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

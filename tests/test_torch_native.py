@@ -17,6 +17,7 @@ from presto_tpu import page as ref_page
 from presto_tpu.connectors import tpch as ref_tpch
 from presto_tpu_torch import native, page
 from presto_tpu_torch.connectors import tpch
+from torch_parity import one_torch_thread  # noqa: F401
 
 PATHS = ["native", "numpy"]
 

@@ -29,6 +29,7 @@ from presto_tpu_torch import types as PT
 from presto_tpu_torch.exec import staging as PS
 from presto_tpu_torch.exec import streaming as PSTR
 from presto_tpu_torch.server import pages_wire as PW
+from torch_parity import one_torch_thread  # noqa: F401
 
 CAP = 64
 WORDS = ["alpha", "beta", "gamma", "delta", "eps", "zeta"]

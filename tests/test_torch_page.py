@@ -18,6 +18,7 @@ from presto_tpu_torch import types as PT
 from presto_tpu_torch.connectors.tpch import DictColumn
 from presto_tpu_torch.exec import staging as port_staging
 from torch_parity import assert_columns_equal, both_pages, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def _payloads(seed: int, n: int):

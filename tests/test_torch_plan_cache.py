@@ -31,6 +31,7 @@ from presto_tpu_torch.sql import parse_statement
 from presto_tpu_torch.utils.metrics import REGISTRY
 from tpch_queries import QUERIES
 from torch_parity import assert_columns_equal, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -1,0 +1,567 @@
+"""The port's fragment schedulers over the worker<->worker data plane, on
+the CPU, against the JAX reference's cluster.
+
+One module-scoped port cluster (a coordinator and two workers,
+``device="cpu"``) runs beside one module-scoped reference cluster of the
+same shape. Q1, Q3 (broadcast, and forced partitioned) and Q18 give the
+reference cluster's rows (doubles within rel 1e-9) and the same stages
+with the same task counts. The port's cluster then covers what the
+reference's ``tests/test_shuffle.py``, ``test_dynfilter.py`` and
+``test_adaptive.py`` cover on their default path: the shuffled keyed
+aggregation with pipelined source attachment, the partitioned join
+(forced, chosen from stats, and a semi join), the ordered MERGE
+exchange and TopN, the dynamic-filter summary stage with split pruning,
+the adaptive broadcast<->partitioned switch, the session flag that
+disables the shuffle, and the refused ICI, spool, micro-batch and
+result-cache settings.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import pytest
+
+from presto_tpu.server import CoordinatorServer as RefCoordinator
+from presto_tpu.server import PrestoTpuClient as RefClient
+from presto_tpu.server import WorkerServer as RefWorker
+from presto_tpu.verifier import SqliteOracle, verify_query
+from presto_tpu_torch.connectors import create_connector
+from presto_tpu_torch.connectors.spi import RangeSet, SplitSource
+from presto_tpu_torch.connectors.tpch import TpchConnector
+from presto_tpu_torch.exec.staging import CatalogManager
+from presto_tpu_torch.server import (
+    CoordinatorServer,
+    PrestoTpuClient,
+    WorkerServer,
+)
+from presto_tpu_torch.server import coordinator as coord_mod
+from presto_tpu_torch.server import rpc
+from presto_tpu_torch.server import worker as worker_mod
+from presto_tpu_torch.server.client import QueryFailed
+from presto_tpu_torch.server.coordinator import LaterSliceError
+from presto_tpu_torch.server.protocol import FragmentSpec
+from presto_tpu_torch.session import NodeConfig
+from presto_tpu_torch.utils.metrics import REGISTRY
+from tpch_queries import QUERIES
+from torch_parity import one_torch_thread  # noqa: F401
+
+DOUBLE_RTOL = 1e-9
+
+
+def _wait_workers(coord, n, timeout=10.0):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if len(coord.active_workers()) >= n:
+            return
+        time.sleep(0.02)
+    raise TimeoutError("workers not discovered")
+
+
+class PrunableTpch(TpchConnector):
+    """tpch whose ``orders`` and ``lineitem`` splits prune by an order
+    key constraint, as a parquet row group's min/max statistics would:
+    both tables are generated in order-key order, so each split covers
+    one key interval."""
+
+    KEYS = {"orders": "o_orderkey", "lineitem": "l_orderkey"}
+
+    def get_splits(self, handle, target_split_rows=1 << 20, constraint=()):
+        splits = super().get_splits(handle, target_split_rows).next_batch(
+            1 << 30
+        )
+        key = self.KEYS.get(handle.table)
+        wanted = dict(constraint).get(key)
+        if wanted is None:
+            return SplitSource(splits)
+        kept = []
+        for s in splits:
+            keys = self.create_page_source(s, [key])[key]
+            if len(keys) == 0:
+                continue
+            lo, hi = int(keys.min()), int(keys.max())
+            if isinstance(wanted, RangeSet):
+                hit = wanted.lo <= hi and wanted.hi >= lo
+            else:
+                hit = any(lo <= int(v) <= hi for v in wanted)
+            if hit:
+                kept.append(s)
+        return SplitSource(kept)
+
+
+def _catalogs(mem):
+    c = CatalogManager()
+    c.register("tpch", create_connector("tpch"))
+    c.register("prunable", PrunableTpch())
+    c.register("mem", mem)
+    return c
+
+
+@pytest.fixture(scope="module")
+def cluster():
+    mem = create_connector("memory")
+    coord = CoordinatorServer(catalogs=_catalogs(mem), device="cpu").start()
+    workers = [
+        WorkerServer(
+            coordinator_uri=coord.uri, catalogs=_catalogs(mem), device="cpu"
+        ).start()
+        for _ in range(2)
+    ]
+    _wait_workers(coord, 2)
+    yield coord, workers
+    for w in workers:
+        w.shutdown(graceful=False)
+    coord.shutdown()
+
+
+@pytest.fixture(scope="module")
+def client(cluster):
+    coord, _ = cluster
+    return PrestoTpuClient(coord.uri, timeout_s=300)
+
+
+@pytest.fixture(scope="module")
+def ref_cluster():
+    coord = RefCoordinator().start()
+    workers = [RefWorker(coordinator_uri=coord.uri).start() for _ in range(2)]
+    _wait_workers(coord, 2)
+    yield coord, RefClient(coord.uri, timeout_s=300)
+    for w in workers:
+        w.shutdown(graceful=False)
+    coord.shutdown()
+
+
+@pytest.fixture(scope="module")
+def oracle():
+    return SqliteOracle("tiny")
+
+
+def _stage_shape(coord, qid):
+    """(stage kind, task count) per stage of one query, in order."""
+    return [(s.kind, len(s.tasks)) for s in coord.queries[qid].stats.stages]
+
+
+def assert_rows_equal(got, want, rtol: float = DOUBLE_RTOL):
+    assert len(got) == len(want), (len(got), len(want))
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(a, float) or isinstance(b, float):
+                assert math.isclose(a, b, rel_tol=rtol, abs_tol=1e-12), (g, w)
+            else:
+                assert a == b, (g, w)
+
+
+_AGAINST_REFERENCE = {
+    "q1": (None, QUERIES[1]),
+    "q3": (None, QUERIES[3]),
+    "q3_partitioned": ("PARTITIONED", QUERIES[3]),
+    "q18": (None, QUERIES[18]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_AGAINST_REFERENCE))
+def test_matches_the_reference_cluster(cluster, client, ref_cluster, name):
+    coord, _ = cluster
+    ref_coord, ref_client = ref_cluster
+    jdt, sql = _AGAINST_REFERENCE[name]
+    runs = []
+    for c, cl in ((coord, client), (ref_coord, ref_client)):
+        if jdt:
+            cl.execute(f"set session join_distribution_type = '{jdt}'")
+        try:
+            res = cl.execute(sql)
+        finally:
+            if jdt:
+                cl.execute("set session join_distribution_type = 'AUTOMATIC'")
+        runs.append((res.rows(), _stage_shape(c, res.query_id)))
+    (rows, shape), (ref_rows, ref_shape) = runs
+    assert_rows_equal(rows, ref_rows)
+    assert shape == ref_shape
+    assert sum(n for _, n in shape) > 2
+
+
+def _counter(name: str) -> int:
+    return REGISTRY.counter(name).total
+
+
+def test_keyed_agg_takes_shuffle_path(client, oracle):
+    """String + numeric group keys: partitioning hashes VALUES (each
+    producer's dictionaries differ), and the result is oracle-exact."""
+    before = _counter("coordinator.shuffled_stages")
+    http0 = _counter("exchange.http_shuffle_bytes")
+    sql = (
+        "select l_returnflag, l_linestatus, sum(l_quantity) as q, "
+        "count(*) as n from tpch.tiny.lineitem "
+        "group by l_returnflag, l_linestatus "
+        "order by l_returnflag, l_linestatus"
+    )
+    assert verify_query(client, oracle, sql, rel_tol=1e-6) is None
+    assert _counter("coordinator.shuffled_stages") > before
+    assert _counter("exchange.http_shuffle_bytes") > http0
+
+
+def test_high_cardinality_keys_shuffled(client, oracle):
+    before = _counter("coordinator.shuffled_stages")
+    sql = (
+        "select l_orderkey, sum(l_extendedprice) as v "
+        "from tpch.tiny.lineitem group by l_orderkey "
+        "order by v desc, l_orderkey limit 20"
+    )
+    assert verify_query(client, oracle, sql, rel_tol=1e-6) is None
+    assert _counter("coordinator.shuffled_stages") > before
+
+
+def test_merge_tasks_ran_on_workers(client):
+    before = _counter("worker.merge_tasks")
+    client.execute(
+        "select o_orderpriority, count(*) as n from tpch.tiny.orders "
+        "group by o_orderpriority order by o_orderpriority"
+    )
+    assert _counter("worker.merge_tasks") - before >= 2
+
+
+def test_session_flag_disables_shuffle(client, oracle):
+    client.execute("set session distributed_final = false")
+    try:
+        before = _counter("coordinator.shuffled_stages")
+        sql = (
+            "select o_orderstatus, count(*) as n from tpch.tiny.orders "
+            "group by o_orderstatus order by o_orderstatus"
+        )
+        assert verify_query(client, oracle, sql, rel_tol=1e-6) is None
+        assert _counter("coordinator.shuffled_stages") == before
+    finally:
+        client.execute("set session distributed_final = true")
+
+
+def test_pipelined_source_attachment(client, oracle, monkeypatch):
+    """Merge tasks exist before the producers finish: producers are
+    announced one by one and the set is sealed once."""
+    events = []
+    orig = worker_mod._Task.add_sources
+
+    def spy(self, sources, done):
+        sources = list(sources)
+        events.append((len(sources), bool(done)))
+        return orig(self, sources, done)
+
+    monkeypatch.setattr(worker_mod._Task, "add_sources", spy)
+    sql = (
+        "select l_shipmode, count(*) as n from tpch.tiny.lineitem "
+        "group by l_shipmode order by l_shipmode"
+    )
+    assert verify_query(client, oracle, sql, rel_tol=1e-6) is None
+    assert [e for e in events if not e[1] and e[0] > 0]
+    assert [e for e in events if e[1]]
+
+
+def test_global_agg_skips_shuffle(client, oracle):
+    before = _counter("coordinator.shuffled_stages")
+    sql = (
+        "select count(*) as n, sum(l_quantity) as q from tpch.tiny.lineitem"
+    )
+    assert verify_query(client, oracle, sql, rel_tol=1e-6) is None
+    assert _counter("coordinator.shuffled_stages") == before
+
+
+_JOIN_SQL = (
+    "select o_orderpriority, count(*) as c, sum(l_quantity) as q "
+    "from tpch.tiny.lineitem join tpch.tiny.orders "
+    "on l_orderkey = o_orderkey "
+    "where l_shipdate >= date '1995-01-01' "
+    "group by o_orderpriority order by o_orderpriority"
+)
+
+
+def test_partitioned_join_stage(cluster, client, oracle):
+    coord, _ = cluster
+    before = _counter("coordinator.partitioned_join_stages")
+    client.execute("set session join_distribution_type = 'PARTITIONED'")
+    try:
+        res = client.execute(_JOIN_SQL)
+    finally:
+        client.execute("set session join_distribution_type = 'AUTOMATIC'")
+    assert _counter("coordinator.partitioned_join_stages") > before
+    kinds = [k for k, _ in _stage_shape(coord, res.query_id)]
+    assert kinds.count("producer") >= 2 and "join" in kinds
+    assert_rows_equal(res.rows(), coord.local.execute(_JOIN_SQL).rows())
+    assert verify_query(coord.local, oracle, _JOIN_SQL) is None
+
+
+def test_partitioned_join_auto_choice(cluster, client):
+    """AUTOMATIC picks the partitioned stage from stats once both sides
+    exceed the broadcast bound; at the default bound it replicates."""
+    coord, _ = cluster
+    before = _counter("coordinator.partitioned_join_stages")
+    client.execute(_JOIN_SQL)
+    assert _counter("coordinator.partitioned_join_stages") == before
+    client.execute("set session join_max_broadcast_rows = 1000")
+    try:
+        res = client.execute(_JOIN_SQL)
+    finally:
+        client.execute("set session join_max_broadcast_rows = 2097152")
+    assert _counter("coordinator.partitioned_join_stages") > before
+    assert_rows_equal(res.rows(), coord.local.execute(_JOIN_SQL).rows())
+
+
+def test_partitioned_join_semi(cluster, client, oracle):
+    coord, _ = cluster
+    before = _counter("coordinator.partitioned_join_stages")
+    sql = (
+        "select count(*) as c from tpch.tiny.orders "
+        "where o_orderkey in (select l_orderkey from "
+        "tpch.tiny.lineitem where l_quantity > 45)"
+    )
+    client.execute("set session join_distribution_type = 'PARTITIONED'")
+    try:
+        res = client.execute(sql)
+    finally:
+        client.execute("set session join_distribution_type = 'AUTOMATIC'")
+    assert _counter("coordinator.partitioned_join_stages") > before
+    assert res.rows() == coord.local.execute(sql).rows()
+    assert verify_query(coord.local, oracle, sql) is None
+
+
+@pytest.mark.parametrize("limit", ["", " limit 17"], ids=["order_by", "topn"])
+def test_ordered_merge_exchange(cluster, client, monkeypatch, limit):
+    """A root ORDER BY over a cut-free fragment: workers emit sorted
+    runs (TopN truncates each run) and the gather k-way merges them."""
+    coord, _ = cluster
+    calls = []
+    orig = coord_mod._merge_sorted_runs
+
+    def spy(payloads, schema, sort_node):
+        calls.append(len(payloads))
+        return orig(payloads, schema, sort_node)
+
+    monkeypatch.setattr(coord_mod, "_merge_sorted_runs", spy)
+    sql = (
+        "select o_orderkey, o_orderdate, o_totalprice from tpch.tiny.orders "
+        "where o_totalprice > 300000 "
+        "order by o_totalprice desc, o_orderkey" + limit
+    )
+    res = client.execute(sql)
+    assert calls and calls[0] >= 2
+    assert [k for k, _ in _stage_shape(coord, res.query_id)] == ["source"]
+    assert_rows_equal(res.rows(), _wire(coord.local.execute(sql).rows()))
+
+
+def _wire(rows):
+    return [
+        tuple(str(v) if hasattr(v, "isoformat") else v for v in r)
+        for r in rows
+    ]
+
+
+_DF_SQL = (
+    "select count(*) as n, sum(l_extendedprice) as s "
+    "from prunable.tiny.lineitem join prunable.tiny.orders "
+    "on l_orderkey = o_orderkey "
+    "where o_orderkey < 800 and o_totalprice > 1000"
+)
+
+
+def test_dynamic_filter_summary_prunes_splits(cluster, client):
+    """The build side runs first as a summary stage; its merged summary
+    becomes a fused probe filter and a split constraint that skips the
+    probe's splits outside the build's key range."""
+    coord, _ = cluster
+    built0 = _counter("dynamic_filter.built")
+    pruned0 = _counter("dynamic_filter.splits_pruned")
+    res = client.execute(_DF_SQL)
+    q = coord.queries[res.query_id]
+    kinds = [k for k, _ in _stage_shape(coord, res.query_id)]
+    assert kinds[0] == "dynfilter"
+    assert _counter("dynamic_filter.built") > built0
+    assert _counter("dynamic_filter.splits_pruned") > pruned0
+    assert q.stats.dynamic_filter_splits_pruned > 0
+    assert q.stats.dynamic_filters > 0
+    client.execute("set session enable_dynamic_filtering = false")
+    try:
+        off = client.execute(_DF_SQL)
+    finally:
+        client.execute("set session enable_dynamic_filtering = true")
+    assert "dynfilter" not in [
+        k for k, _ in _stage_shape(coord, off.query_id)
+    ]
+    assert_rows_equal(res.rows(), off.rows())
+    assert_rows_equal(res.rows(), coord.local.execute(_DF_SQL).rows())
+
+
+@pytest.fixture(scope="module")
+def skewed(client):
+    """Memory tables whose estimates miss: ``skew`` passes every row of
+    f = 7 where the classic estimate says 10%, ``big`` matches nothing
+    where it says 10%."""
+    client.execute(
+        "create table mem.default.skew as "
+        "select o_orderkey as k, 7 as f from tpch.tiny.orders"
+    )
+    client.execute(
+        "create table mem.default.big as "
+        "select l_orderkey as k, l_linenumber as v from tpch.tiny.lineitem"
+    )
+
+
+def _adaptive(coord, client, sql):
+    """``sql`` with adaptive execution off, then on (broadcast bound
+    2000, page capacity 8192, as the reference's test sets them)."""
+    s = coord.local.session
+    saved = {
+        k: s.get(k) for k in ("join_max_broadcast_rows", "page_capacity")
+    }
+    s.set("join_max_broadcast_rows", "2000")
+    s.set("page_capacity", "8192")
+    try:
+        off = client.execute(sql)
+        s.set("adaptive_enabled", "true")
+        on = client.execute(sql)
+    finally:
+        s.set("adaptive_enabled", "false")
+        for k, v in saved.items():
+            s.set(k, v)
+    return off, on, coord.queries[on.query_id]
+
+
+def test_adaptive_switch_broadcast_to_partitioned(cluster, client, skewed):
+    coord, _ = cluster
+    sql = (
+        "select count(*) as n, sum(l.l_extendedprice) as s "
+        "from tpch.tiny.lineitem l join mem.default.skew s "
+        "on l.l_orderkey = s.k where s.f = 7"
+    )
+    sw0 = _counter("adaptive.strategy_switches")
+    off, on, q = _adaptive(coord, client, sql)
+    assert_rows_equal(on.rows(), off.rows())
+    assert _counter("adaptive.strategy_switches") == sw0 + 1
+    note = next(
+        n for n in q.stats.adaptive_notes if "SWITCHED broadcast" in n
+    )
+    assert "parts 2" in note  # resized to the observed 15000 rows
+    kinds = [s.kind for s in q.stats.stages]
+    assert "dynfilter" in kinds and "join" in kinds
+
+
+def test_adaptive_switch_partitioned_to_broadcast(cluster, client, skewed):
+    coord, _ = cluster
+    sql = (
+        "select count(*) as n from tpch.tiny.lineitem l "
+        "join mem.default.big b on l.l_orderkey = b.k where b.v = 999999"
+    )
+    pj0 = _counter("coordinator.partitioned_join_stages")
+    sw0 = _counter("adaptive.strategy_switches")
+    off, on, q = _adaptive(coord, client, sql)
+    assert on.rows() == off.rows() == [(0,)]
+    # off ran it partitioned as estimated; on went back to broadcast
+    assert _counter("coordinator.partitioned_join_stages") == pj0 + 1
+    assert _counter("adaptive.strategy_switches") == sw0 + 1
+    assert any(
+        "SWITCHED partitioned→broadcast" in n for n in q.stats.adaptive_notes
+    )
+
+
+# ------------------------------------------------- refused later planes
+
+
+_REFUSED_CONFIG = {
+    "exchange.ici-enabled": ("true", "ICI"),
+    "retry-policy": ("TASK", "spool"),
+    "exchange.spool-path": ("/nonexistent/spool", "spool"),
+    "coordinator.journal-path": ("/nonexistent/journal", "journal"),
+    "coordinator.peers": ("http://127.0.0.1:1", "HA"),
+    "serving.microbatch-wait-ms": ("5", "micro-batching"),
+    "result-cache.enabled": ("true", "ResultCache"),
+    "ingest.wal-path": ("/nonexistent/wal", "ingest"),
+    "qos.enabled": ("true", "QoS"),
+    "pool.max-workers": ("2", "elastic pool"),
+}
+
+
+@pytest.mark.parametrize("key", sorted(_REFUSED_CONFIG))
+def test_coordinator_refuses_later_plane_config(key):
+    value, slice_word = _REFUSED_CONFIG[key]
+    with pytest.raises(LaterSliceError, match=slice_word):
+        CoordinatorServer(config=NodeConfig({key: value}), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "key,value",
+    [("exchange.ici-enabled", "true"), ("exchange.spool-path", "/x"),
+     ("node.preemptible", "true")],
+)
+def test_worker_refuses_later_plane_config(key, value):
+    with pytest.raises(ValueError, match="later"):
+        WorkerServer(config=NodeConfig({key: value}), device="cpu")
+
+
+def test_off_values_are_accepted_and_change_nothing(oracle):
+    cfg = NodeConfig({
+        "exchange.ici-enabled": "false",
+        "exchange.single-program": "false",
+        "retry-policy": "NONE",
+        "serving.microbatch-wait-ms": "0",
+        "result-cache.enabled": "false",
+        "qos.enabled": "false",
+    })
+    coord = CoordinatorServer(config=cfg, device="cpu").start()
+    w = WorkerServer(
+        coordinator_uri=coord.uri, config=cfg, device="cpu"
+    ).start()
+    try:
+        _wait_workers(coord, 1)
+        client = PrestoTpuClient(coord.uri, timeout_s=120)
+        sql = "select count(*) as c from tpch.tiny.orders"
+        assert verify_query(client, oracle, sql) is None
+    finally:
+        w.shutdown(graceful=False)
+        coord.shutdown()
+
+
+@pytest.mark.parametrize(
+    "setting,slice_word",
+    [
+        ("retry_policy = 'TASK'", "spool"),
+        ("retry_policy = 'QUERY'", "spool"),
+        ("microbatch_wait_ms = 5", "micro-batching"),
+        ("enable_result_cache = true", "ResultCache"),
+        ("exchange_ici_enabled = true", "ICI"),
+    ],
+)
+def test_set_session_refuses_later_planes(cluster, client, setting, slice_word):
+    coord, _ = cluster
+    name = setting.split(" = ")[0]
+    before = coord.local.session.get(name)
+    with pytest.raises(QueryFailed, match=slice_word):
+        client.execute(f"set session {setting}")
+    assert coord.local.session.get(name) == before
+
+
+def test_worker_refuses_spooled_and_in_slice_tasks(cluster):
+    _, workers = cluster
+    for extra in ({"spool": True}, {"ici_slice": "cuda-1"}):
+        spec = FragmentSpec(
+            task_id="q_x.s.0.0", query_id="q_x", fragment=None,
+            partition_scan=0, split_start=0, split_end=0, **extra,
+        )
+        with pytest.raises(Exception) as info:
+            rpc.call_json(
+                "POST", workers[0].uri + "/v1/task", spec.to_json(),
+                policy=rpc.RpcPolicy(timeout_s=5.0, retries=0),
+            )
+        assert getattr(info.value, "code", None) == 400
+    assert not [
+        t for t in workers[0].tasks if t == "q_x.s.0.0"
+    ]
+
+
+def test_exchange_is_http_with_the_gate_off(cluster):
+    """The transport choice stays the HTTP wire: no spec ever carries a
+    slice while the ICI gate is refused."""
+    coord, workers = cluster
+    from presto_tpu_torch import types as T
+
+    assert all(w.slice_id for w in coord.active_workers())
+    assert coord._select_transport(
+        coord.active_workers(), schemas=({"k": T.BIGINT},)
+    ) == ""

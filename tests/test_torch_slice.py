@@ -17,6 +17,7 @@ from presto_tpu_torch.plan.planner import plan_statement
 from presto_tpu_torch.sql import parse_statement
 from tpch_queries import QUERIES
 from torch_parity import assert_columns_equal, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def _tiny(sql: str) -> str:

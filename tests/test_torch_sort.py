@@ -21,6 +21,7 @@ from presto_tpu_torch import types as PT
 from presto_tpu_torch.ops import common as PC
 from presto_tpu_torch.ops import sort as PS
 from torch_parity import assert_columns_equal, both_pages, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 CAP = 300
 LIVE = 270

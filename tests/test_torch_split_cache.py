@@ -34,6 +34,7 @@ from presto_tpu_torch.exec import staging as port_staging
 from presto_tpu_torch.exec.local_runner import LocalQueryRunner
 from presto_tpu_torch.utils import memory as port_memory
 from torch_parity import assert_columns_equal, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def _package(staging, memory, types, spi, tpch, **stage_kw):

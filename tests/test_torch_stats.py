@@ -33,6 +33,7 @@ from presto_tpu_torch.exec.stats import (
 )
 from presto_tpu_torch.utils.metrics import REGISTRY
 from tpch_queries import QUERIES
+from torch_parity import one_torch_thread  # noqa: F401
 
 AGG = (
     "select l_returnflag, count(*) c from tpch.tiny.lineitem "

@@ -48,6 +48,7 @@ from presto_tpu_torch.sql import parse_statement
 from test_streaming import NON_AGG_STREAMED
 from tpch_queries import QUERIES
 from torch_parity import assert_columns_equal, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 MAX_DEVICE_ROWS = 16_384
 BATCH_ROWS = 4_096

@@ -23,6 +23,7 @@ from presto_tpu_torch.exec.local_runner import LocalQueryRunner
 from presto_tpu_torch.utils import devicediag
 from presto_tpu_torch.utils.memory import MemoryPool
 from tpch_queries import QUERIES
+from torch_parity import one_torch_thread  # noqa: F401
 
 SEQUENCE = (
     QUERIES[1],

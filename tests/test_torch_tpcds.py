@@ -43,6 +43,7 @@ from presto_tpu_torch.exec.streaming import StreamingError
 from presto_tpu_torch.session import Session
 from test_tpcds import EMPTY_AT_TINY, HEAVY
 from torch_parity import assert_columns_equal, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 REL = 1e-6
 #: the six fact and returns tables that exceed this budget at tiny, as

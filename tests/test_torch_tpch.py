@@ -12,6 +12,7 @@ from presto_tpu.connectors.spi import TableHandle as RefHandle
 from presto_tpu_torch.connectors import create_connector
 from presto_tpu_torch.connectors import tpch as port_tpch
 from presto_tpu_torch.connectors.spi import TableHandle
+from torch_parity import one_torch_thread  # noqa: F401
 
 TABLES = ["lineitem", "orders", "customer", "part", "partsupp", "supplier",
           "nation", "region"]

@@ -20,6 +20,7 @@ from presto_tpu_torch.exec.local_runner import LocalQueryRunner
 from presto_tpu_torch.session import Session
 from tpch_queries import QUERIES
 from torch_parity import assert_columns_equal, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 TPCH = [3, 4, 5, 10, 11, 12, 15, 17, 18, 19, 21]
 

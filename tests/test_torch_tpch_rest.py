@@ -26,6 +26,7 @@ from presto_tpu_torch.exec.local_runner import LocalQueryRunner
 from presto_tpu_torch.session import Session
 from tpch_queries import QUERIES
 from torch_parity import assert_columns_equal, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 TPCH = [2, 7, 8, 9, 13, 14, 16, 20, 22]
 #: the first slice's queries, which tests/test_torch_slice.py runs under

@@ -19,6 +19,7 @@ from presto_tpu_torch import types as PT
 from test_torch_arrays import assert_parity, both_runners
 from test_torch_nested import _assert_same_page, _pages
 from torch_parity import assert_columns_equal, both_pages, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ from presto_tpu_torch import types as PT
 from presto_tpu_torch.exec.local_runner import LocalQueryRunner
 from presto_tpu_torch.ops.sort import SortKey as PSortKey
 from torch_parity import assert_columns_equal, both_pages, jax_live_columns
+from torch_parity import one_torch_thread  # noqa: F401
 
 # the modules (``ops.window`` names the function in both packages)
 RW = importlib.import_module("presto_tpu.ops.window")

@@ -42,6 +42,7 @@ from test_torch_arrays import (
     assert_same_rows,
     same_value,
 )
+from torch_parity import one_torch_thread  # noqa: F401
 
 #: the blackhole catalog's tables serve this many (zero) rows
 BH_ROWS = 3000

@@ -10,10 +10,28 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from presto_tpu import page as ref_page
 from presto_tpu import types as ref_types
 from presto_tpu_torch import convert
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a test module's torch CPU ops on one intra-op thread, then
+    restore the count. The port's tests move tiny pages, and the suite
+    runs several pytest workers at once: torch's default of one thread
+    per core then oversubscribes the cores (on an 8-core host busy with
+    other processes a 65,536-row int64 sort took 0.3 s with 8 threads
+    and 3 ms with 1 to 4). Importing this fixture into a test module
+    turns it on there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 #: DOUBLE results are compared within this relative tolerance: both
 #: engines sum float64 in a different order (XLA's reduction tree vs
