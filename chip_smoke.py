@@ -179,7 +179,28 @@ non-zero, and only a run where every phase passed prints the final
               workers ACTIVE; S5 a graceful drain of one worker, then Q6
               on the other. One line per step: seconds, wire bytes,
               shuffle bytes, K1 launches, stages.
-14. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+14. serve   - the eleventh slice, the serving plane: one
+              ``CoordinatorServer`` on the card with no worker, the
+              micro-batch queue (300 ms window, at most 16 a batch), the
+              result cache and the ingest lane on a temporary WAL, driven
+              over loopback HTTP by one ``PrestoTpuClient`` per statement:
+              V1 16 concurrent point lookups over SF1 orders (15 keys, one
+              repeated), V2 8 concurrent Q6 EXECUTEs, V3 8 concurrent Q1
+              EXECUTEs with shipdate cutoffs from 1992 to 1998 (every
+              member served by one batch, exactly one K1 launch through
+              its batching rule, held against one plain reduction per lane
+              as "q1 microbatch fused"), then the same 8 one at a time (8
+              launches; host waits and seconds side by side); V4 the V3
+              statements again (all result-cache hits: no launch, no
+              dispatch) and a new literal (a miss); V5 8 seeded batches of
+              65,536 rows through ``POST /v1/ingest/{table}`` into a memory
+              table with an aggregate view (one K1 launch per delta
+              merge), the cache's staleness contract, then a second
+              coordinator replaying the same WAL. Every answer is exact
+              against numpy; one line per step: seconds, batches and
+              lanes, cache hits, K1 launches, dispatches, WAL frames.
+15. a ``{"kernels": [...]}`` line (K1, and K1 through its batching
+    rule), then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -190,6 +211,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import resource
 import subprocess
 import sys
@@ -432,7 +454,6 @@ def fused_case(label, gid, reqs, nseg, card):
     import torch
 
     from presto_tpu_torch.ops.aggregation import (
-        _onehot_fill,
         onehot_reduce_many,
         onehot_reduce_many_plain,
         onehot_reduce_plain,
@@ -462,41 +483,8 @@ def fused_case(label, gid, reqs, nseg, card):
 
     live = (gid >= 0) & (gid < nseg)
     idx = torch.where(live, gid, nseg).to(torch.int64)
-    # request positions by (op, dtype): one library call per group
-    groups = {}
-    for k, (op, x, _) in enumerate(reqs):
-        if x is not None and op in ("sum", "min", "max"):
-            groups.setdefault((op, x.dtype), []).append(k)
-    # a masked row takes the op's identity, so it changes nothing
-    stacks = {
-        (op, dtype): torch.stack([
-            reqs[k][1] if reqs[k][2] is None else torch.where(
-                reqs[k][2], reqs[k][1], _onehot_fill(op, dtype))
-            for k in ks], dim=1)
-        for (op, dtype), ks in groups.items()
-    }
-
-    def library():
-        outs = {}
-        for (op, dtype), xs in stacks.items():
-            acc = torch.zeros((nseg + 1, xs.shape[1]), dtype=dtype,
-                              device=gid.device)
-            if op == "sum":
-                outs[op, dtype] = acc.index_add_(0, idx, xs)
-            else:
-                outs[op, dtype] = acc.scatter_reduce_(
-                    0, idx[:, None].expand_as(xs), xs,
-                    "amin" if op == "min" else "amax", include_self=False)
-        return outs
-
-    got_all = onehot_results(out, reqs)
-    held = torch.bincount(idx, minlength=nseg + 1)[:nseg] > 0
-    for (op, dtype), col in library().items():
-        if dtype != torch.int64:
-            continue
-        for j, k in enumerate(groups[op, dtype]):
-            check(torch.equal(col[:nseg, j][held], got_all[k][held]),
-                  f"{label}: library {op} disagrees")
+    library = library_yardstick(
+        label, idx, reqs, nseg, onehot_results(out, reqs))
 
     ms = time_ms(lambda: onehot_reduce_many(gid, reqs, nseg))
     plain_ms = time_ms(lambda: onehot_reduce_many_plain(gid, reqs, nseg))
@@ -533,6 +521,54 @@ def fused_case(label, gid, reqs, nseg, card):
         flush=True,
     )
     return rec
+
+
+def library_yardstick(label, idx, reqs, nseg, got_all):
+    """The library call a K1 case is timed beside (the port never calls
+    it): ``index_add_`` over the sum requests' x and ``scatter_reduce_``
+    over the min and max requests' x, stacked as columns, one call per
+    op and dtype, segment ``idx`` in [0, nseg] (nseg: the sink). Held
+    equal to the kernel's results ``got_all`` on the int64 requests over
+    the segments that hold rows; returns the function to time."""
+    import torch
+
+    from presto_tpu_torch.ops.aggregation import _onehot_fill
+
+    # request positions by (op, dtype): one library call per group
+    groups = {}
+    for k, (op, x, _) in enumerate(reqs):
+        if x is not None and op in ("sum", "min", "max"):
+            groups.setdefault((op, x.dtype), []).append(k)
+    # a masked row takes the op's identity, so it changes nothing
+    stacks = {
+        (op, dtype): torch.stack([
+            reqs[k][1] if reqs[k][2] is None else torch.where(
+                reqs[k][2], reqs[k][1], _onehot_fill(op, dtype))
+            for k in ks], dim=1)
+        for (op, dtype), ks in groups.items()
+    }
+
+    def library():
+        outs = {}
+        for (op, dtype), xs in stacks.items():
+            acc = torch.zeros((nseg + 1, xs.shape[1]), dtype=dtype,
+                              device=idx.device)
+            if op == "sum":
+                outs[op, dtype] = acc.index_add_(0, idx, xs)
+            else:
+                outs[op, dtype] = acc.scatter_reduce_(
+                    0, idx[:, None].expand_as(xs), xs,
+                    "amin" if op == "min" else "amax", include_self=False)
+        return outs
+
+    held = torch.bincount(idx, minlength=nseg + 1)[:nseg] > 0
+    for (op, dtype), col in library().items():
+        if dtype != torch.int64:
+            continue
+        for j, k in enumerate(groups[op, dtype]):
+            check(torch.equal(col[:nseg, j][held], got_all[k][held]),
+                  f"{label}: library {op} disagrees")
+    return library
 
 
 def onehot_case(label, gid, x, valid, nseg, op, tol, card):
@@ -2108,6 +2144,12 @@ def q6_sql(schema, args):
 def numpy_q6(args) -> int:
     """Q6's revenue for one argument set over the SF1 columns the slice
     phase checks, as the unscaled decimal(?, 4) the port returns."""
+    return numpy_q6_of(sf1_lineitem(), args)
+
+
+def numpy_q6_of(d, args) -> int:
+    """Q6's revenue for one argument set over the lineitem columns
+    ``d``, as the unscaled decimal(?, 4) the port returns."""
     import datetime
 
     import numpy as np
@@ -2118,7 +2160,6 @@ def numpy_q6(args) -> int:
     def days(s):
         return (datetime.date.fromisoformat(s) - epoch).days
 
-    d = sf1_lineitem()
     qty = d["l_quantity"].astype(np.int64)
     price = d["l_extendedprice"].astype(np.int64)
     disc = d["l_discount"].astype(np.int64)
@@ -3917,6 +3958,655 @@ def server_phase(card: str, want_q1_big=None, dev=None, records=None,
     return launches, out
 
 
+# ------------------------------------------------------------- serve phase
+
+#: the serve phase's coordinator: the batch window and group size, the
+#: result cache on, the ingest lane's explicit commits
+SERVE_WAIT_MS = 300
+SERVE_MAX = 16
+#: Q1 weighs 17 against the default max_fragment_weight of 16 (its
+#: root Sort counts 6), so a Q1-shaped plan would run fragmented and
+#: skip the batch screen, in both packages; the serve session raises it
+SERVE_FRAGMENT_WEIGHT = 24
+SERVE_SEED = 20261018
+SERVE_INGEST_BATCHES = 8
+SERVE_INGEST_ROWS = 1 << 16
+POINT_SHAPE = (
+    "select o_orderkey, o_custkey, o_totalprice, o_orderdate "
+    "from tpch.{schema}.orders where o_orderkey = ?"
+)
+Q1_CUT_SHAPE = Q1.replace(
+    "date '1998-12-01' - interval '90' day", "?")
+Q1_CUTOFFS = [
+    "1992-03-01", "1993-01-15", "1993-11-30", "1994-10-10",
+    "1995-08-20", "1996-07-01", "1997-05-12", "1998-12-01",
+]
+Q6_SERVE = [
+    ("1993-01-01", "1994-01-01", "0.02", "0.04", "24"),
+    ("1994-01-01", "1995-01-01", "0.05", "0.07", "24"),
+    ("1995-01-01", "1996-01-01", "0.04", "0.06", "25"),
+    ("1996-01-01", "1997-01-01", "0.06", "0.08", "30"),
+    ("1997-01-01", "1998-01-01", "0.01", "0.03", "20"),
+    ("1992-01-01", "1993-01-01", "0.07", "0.09", "35"),
+    ("1994-06-01", "1995-06-01", "0.03", "0.05", "28"),
+    ("1995-06-01", "1996-06-01", "0.08", "0.09", "40"),
+]
+INGEST_DDL = (
+    "create table mem.default.li (l_returnflag varchar, "
+    "l_linestatus varchar, l_quantity decimal(12,2), "
+    "l_extendedprice decimal(12,2), l_discount decimal(12,2), "
+    "l_tax decimal(12,2), l_shipdate date)"
+)
+INGEST_VIEW = (
+    "create materialized view mem.default.li_mv as "
+    "select l_returnflag, l_linestatus, sum(l_extendedprice) as sp, "
+    "count(*) as n, min(l_discount) as mn, max(l_discount) as mx, "
+    "sum(l_quantity) as sq from mem.default.li "
+    "group by l_returnflag, l_linestatus"
+)
+INGEST_DIRECT = (
+    "select l_returnflag, l_linestatus, sum(l_extendedprice) as sp, "
+    "count(*) as n, min(l_discount) as mn, max(l_discount) as mx, "
+    "sum(l_quantity) as sq from mem.default.li "
+    "group by l_returnflag, l_linestatus order by 1, 2"
+)
+INGEST_READ = (
+    "select count(*) as n, sum(l_extendedprice) as s, sum(l_tax) as t "
+    "from mem.default.li"
+)
+
+
+@contextlib.contextmanager
+def lane_calls():
+    """Records ``(gid, requests, nseg, lanes)`` of every
+    ``onehot_reduce_lanes`` call (K1's batching rule) made while the
+    block runs; each call still goes to the wrapper. Yields the list."""
+    from presto_tpu_torch.ops import aggregation as PA
+
+    seen = []
+    real = PA.onehot_reduce_lanes
+
+    def record(gid, requests, nseg, lanes):
+        seen.append((gid, list(requests), nseg, lanes))
+        return real(gid, requests, nseg, lanes)
+
+    PA.onehot_reduce_lanes = record
+    try:
+        yield seen
+    finally:
+        PA.onehot_reduce_lanes = real
+
+
+def lanes_case(label, gid, reqs, nseg, lanes, card):
+    """Hold K1's batching rule (``onehot_reduce_lanes``: one launch per
+    256 // nseg lanes over the lane-folded gid) against its plain
+    version (one plain reduction per lane) on the card: integers exact,
+    float64 sums within rel 1e-12 of each segment's sum of |x|; time it
+    beside its bound and a library yardstick over the lane-folded gid
+    (``index_add_``, ``scatter_reduce_``). The bound counts each
+    distinct input byte once: the shared x once (the rows some lane
+    keeps) and each lane's gid once; the kernel reads x once per lane."""
+    import torch
+
+    from presto_tpu_torch.ops import aggregation as PA
+
+    out = PA.onehot_reduce_lanes(gid, reqs, nseg, lanes)
+    again = PA.onehot_reduce_lanes(gid, reqs, nseg, lanes)
+    want = PA.onehot_reduce_lanes_plain(gid, reqs, nseg, lanes)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), f"{label}: two runs differ")
+    rows = gid.shape[0] // lanes
+    err = 0.0
+    for got, exp, (op, x, valid) in zip(
+        PA.onehot_results(out, reqs), PA.onehot_results(want, reqs), reqs
+    ):
+        if not got.is_floating_point():
+            check(torch.equal(got, exp), f"{label}: {op} kernel != plain")
+            continue
+        scale = PA.onehot_reduce_lanes_plain(
+            gid, [("sum", x.abs(), valid)], nseg, lanes)[0].view(
+                torch.float64)
+        diff = (got - exp).abs()
+        err = max(err, float(diff.max()))
+        check(bool((diff <= 1e-12 * scale).all()),
+              f"{label}: float sum off by {float(diff.max())} (rel 1e-12)")
+    g2 = gid.view(lanes, rows)
+    live = (g2 >= 0) & (g2 < nseg)
+    folded = torch.where(
+        live,
+        g2.to(torch.int64)
+        + (torch.arange(lanes, device=gid.device) * nseg)[:, None],
+        lanes * nseg,
+    ).reshape(-1)
+    library = library_yardstick(
+        label, folded, reqs, lanes * nseg, PA.onehot_results(out, reqs))
+    ms = time_ms(lambda: PA.onehot_reduce_lanes(gid, reqs, nseg, lanes))
+    plain_ms = time_ms(
+        lambda: PA.onehot_reduce_lanes_plain(gid, reqs, nseg, lanes))
+    library_ms = time_ms(library)
+    n_any = int(live.any(dim=0).sum())
+    n_live = int(live.sum())
+    nbytes = 4 * gid.numel() + 8 * len(reqs) * lanes * nseg
+    for op, x, valid in reqs:
+        if valid is not None:
+            nbytes += n_live
+        if x is not None:
+            nbytes += x.element_size() * n_any
+    b_ms, b_by = bound_ms(nbytes, n_live * len(reqs))
+    per = max(1, PA._ONEHOT_MAX_SEGMENTS // nseg)
+    rec = {
+        "label": label, "rows": gid.numel(), "lanes": lanes, "nseg": nseg,
+        "op": "+".join(op for op, _, _ in reqs), "dtype": "mixed",
+        "k": len(reqs), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": nbytes,
+        "launches_per_batch": -(-lanes // per) * -(-len(reqs) // PA.K_MAX),
+    }
+    print(
+        f"{label}: ok ({lanes} lanes x {nseg} segments, K={len(reqs)}, "
+        f"{rec['launches_per_batch']} launch(es), two runs bit-identical), "
+        f"max_abs_err {err:.3g}; kernel {ms:.4f} ms, plain (per lane) "
+        f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {nbytes} B: x once, each lane's gid "
+        f"once) [{card}]",
+        flush=True,
+    )
+    return rec
+
+
+def sf1_orders(schema: str):
+    """The point-lookup columns of ``schema``'s orders, from the
+    connector's own generator."""
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+
+    gen = TpchGenerator(SCHEMAS[schema])
+    n = gen.counts["orders"]
+    return n, gen.generate(
+        "orders", 0, n,
+        ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate"])
+
+
+def serve_lineitem(schema: str):
+    """Q1's and Q6's lineitem columns of ``schema`` (sf1: the slice
+    phase's columns)."""
+    if schema == "sf1":
+        return sf1_lineitem()
+    from presto_tpu_torch.connectors.tpch import SCHEMAS, TpchGenerator
+
+    gen = TpchGenerator(SCHEMAS[schema])
+    cols = [
+        "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+        "l_returnflag", "l_linestatus", "l_shipdate",
+    ]
+    return gen.generate("lineitem", 0, gen.counts["lineitem"], cols)
+
+
+def numpy_q1_cut(d, cutoff: int):
+    """Q1 over the columns ``d`` with ``l_shipdate <= cutoff`` (epoch
+    days): the rows as the paged protocol renders them, in the query's
+    order, with the averages as floats."""
+    import numpy as np
+
+    qty = d["l_quantity"].astype(np.int64)
+    price = d["l_extendedprice"].astype(np.int64)
+    disc = d["l_discount"].astype(np.int64)
+    tax = d["l_tax"].astype(np.int64)
+    keep = d["l_shipdate"].astype(np.int64) <= cutoff
+    rf, ls = d["l_returnflag"], d["l_linestatus"]
+    key = rf.ids.astype(np.int64) * len(ls.values) + ls.ids
+    rows = []
+    for k in np.unique(key[keep]):
+        m = keep & (key == k)
+        n = int(m.sum())
+        dp = price[m] * (100 - disc[m])
+        rows.append((
+            str(rf.values[k // len(ls.values)]),
+            str(ls.values[k % len(ls.values)]),
+            int(qty[m].sum()) / 100, int(price[m].sum()) / 100,
+            int(dp.sum()) / 10**4,
+            int((dp * (100 + tax[m])).sum()) / 10**6,
+            int(qty[m].sum()) / 100 / n, int(price[m].sum()) / 100 / n,
+            int(disc[m].sum()) / 100 / n, n,
+        ))
+    return rows
+
+
+def serve_round(coord, name, shape, args, card):
+    """``len(args)`` clients over HTTP, each PREPAREs ``shape`` for
+    itself, then all EXECUTE at once (a barrier start). Returns (the
+    client results, their coordinator stats, the round's seconds)."""
+    import threading
+
+    from presto_tpu_torch.server import PrestoTpuClient
+
+    clients = []
+    for _ in args:
+        c = PrestoTpuClient(coord.uri, timeout_s=600)
+        c.execute(f"prepare {name} from {shape}")
+        clients.append(c)
+    out, errors = [None] * len(args), []
+    bar = threading.Barrier(len(args) + 1)
+
+    def run(i):
+        try:
+            bar.wait(60)
+            out[i] = clients[i].execute(f"execute {name} using {args[i]}")
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in
+               range(len(args))]
+    for t in threads:
+        t.start()
+    bar.wait(60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(600)
+    secs = time.perf_counter() - t0
+    check(not errors and all(r is not None for r in out),
+          f"{name}: a statement failed: {errors}")
+    return out, [coord.queries[r.query_id].stats for r in out], secs
+
+
+def ingest_batches(seed: int, batches: int, rows: int):
+    """Seeded Q1-column batches for the ingest lane: numpy columns
+    (scaled decimals, epoch days) and their JSON columnar payloads."""
+    import datetime
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    epoch = datetime.date(1970, 1, 1)
+    out = []
+    for _ in range(batches):
+        d = {
+            "l_returnflag": rng.choice(np.array(["A", "N", "R"]), rows),
+            "l_linestatus": rng.choice(np.array(["F", "O"]), rows),
+            "l_quantity": rng.integers(100, 5001, rows),
+            "l_extendedprice": rng.integers(90_000, 10_500_000, rows),
+            "l_discount": rng.integers(0, 11, rows),
+            "l_tax": rng.integers(0, 9, rows),
+            "l_shipdate": rng.integers(8036, 10561, rows),
+        }
+
+        def dec(a):
+            return [f"{v // 100}.{v % 100:02d}" for v in a.tolist()]
+
+        payload = {
+            "l_returnflag": d["l_returnflag"].tolist(),
+            "l_linestatus": d["l_linestatus"].tolist(),
+            "l_quantity": dec(d["l_quantity"]),
+            "l_extendedprice": dec(d["l_extendedprice"]),
+            "l_discount": dec(d["l_discount"]),
+            "l_tax": dec(d["l_tax"]),
+            "l_shipdate": [
+                (epoch + datetime.timedelta(days=v)).isoformat()
+                for v in d["l_shipdate"].tolist()
+            ],
+        }
+        out.append((d, payload))
+    return out
+
+
+def numpy_ingest_view(cols):
+    """The serve view's rows over the ingested columns, ordered by the
+    keys, as the paged protocol renders them."""
+    import numpy as np
+
+    rf, ls = cols["l_returnflag"], cols["l_linestatus"]
+    rows = []
+    for f in sorted(set(rf.tolist())):
+        for st in sorted(set(ls.tolist())):
+            m = (rf == f) & (ls == st)
+            if m.any():
+                rows.append((
+                    f, st, int(cols["l_extendedprice"][m].sum()) / 100,
+                    int(m.sum()), int(cols["l_discount"][m].min()) / 100,
+                    int(cols["l_discount"][m].max()) / 100,
+                    int(cols["l_quantity"][m].sum()) / 100,
+                ))
+    return rows
+
+
+def serve_phase(card: str, dev=None, records=None, schema: str = "sf1",
+                wait_ms: int = SERVE_WAIT_MS):
+    """The eleventh slice's path on ``dev`` (the card unless a CPU
+    rehearsal passes another): one ``CoordinatorServer`` with no
+    workers, the micro-batch queue and the result cache on and the
+    ingest lane over a temporary WAL, driven over loopback HTTP by
+    ``PrestoTpuClient``s. V1 16 concurrent point lookups over
+    ``schema``'s orders (15 keys, one repeated); V2 8 concurrent Q6
+    EXECUTEs; V3 8 concurrent Q1 EXECUTEs with shipdate cutoffs from
+    1992 to 1998 (one batch: one K1 launch, held against its plain
+    version), then the same 8 scalar; V4 the V3 statements again, all
+    result-cache hits with no launch and no dispatch, and a new literal
+    that misses (each round of 8 runs with ``microbatch_max`` 8, so its
+    batch closes as soon as its 8 members joined); V5 a memory table of Q1's columns with an aggregate
+    view, 8 seeded batches of 65,536 rows through
+    ``POST /v1/ingest/{table}``, the cache's staleness contract, then a
+    restart on the same WAL. Every answer is exact against numpy over
+    the generator's columns or the ingested batches (Q1's averages
+    within rel 1e-12). Returns (the onehot_reduce launches of the
+    counted steps, the records)."""
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from presto_tpu_torch.connectors import create_connector
+    from presto_tpu_torch.exec.staging import CatalogManager
+    from presto_tpu_torch.ops import aggregation as PA
+    from presto_tpu_torch.server import CoordinatorServer, PrestoTpuClient, rpc
+    from presto_tpu_torch.session import NodeConfig, Session
+    from presto_tpu_torch.utils.metrics import REGISTRY
+    from presto_tpu_torch.utils.telemetry import device_snapshot
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    out, launches = [], 0
+    wal = tempfile.mkdtemp(prefix="serve-wal-")
+
+    def boot():
+        catalogs = CatalogManager()
+        catalogs.register("tpch", create_connector("tpch"))
+        catalogs.register("mem", create_connector("memory"))
+        cfg = NodeConfig({
+            "staging.cache-bytes": str(SERVER_CACHE_BYTES["worker"]),
+            "query.max-memory-per-node": SERVER_POOL_BYTES["worker"],
+            "serving.microbatch-wait-ms": str(wait_ms),
+            "serving.microbatch-max": str(SERVE_MAX),
+            "result-cache.enabled": "true",
+            "ingest.wal-path": wal,
+            "ingest.commit-interval-ms": "0",
+        })
+        coord = CoordinatorServer(
+            config=cfg, catalogs=catalogs, device=dev,
+            max_concurrent_queries=64,
+            session=Session(schema=schema, properties={
+                "max_fragment_weight": SERVE_FRAGMENT_WEIGHT}),
+        ).start()
+        return coord
+
+    def counters():
+        return (REGISTRY.counter("serving.batches").total,
+                REGISTRY.counter("serving.batched_statements").total,
+                REGISTRY.counter("serving.batch_errors").total,
+                PA.onehot_reduce.launches,
+                device_snapshot()["dispatches"])
+
+    def step_line(label, secs, c0, stats, extra=""):
+        nonlocal launches
+        c1 = counters()
+        n_launch = c1[3] - c0[3]
+        launches += n_launch
+        lanes = [st.batch_size for st in stats if st.batched]
+        hits = sum(st.result_cache in ("hit", "stale") for st in stats)
+        rec = {"step": label, "s": secs, "statements": len(stats),
+               "batches": c1[0] - c0[0], "batched": c1[1] - c0[1],
+               "lanes": lanes, "hits": hits,
+               "onehot_reduce_launches": n_launch,
+               "dispatches": c1[4] - c0[4]}
+        out.append(rec)
+        print(f"{label}: {secs:.4f} s, {len(stats)} statements, batches "
+              f"{rec['batches']} serving {rec['batched']} lanes {lanes}, "
+              f"cache hits {hits}, onehot_reduce launches {n_launch}, "
+              f"device dispatches {rec['dispatches']}{extra} [{card}]",
+              flush=True)
+        check(c1[2] == c0[2], f"{label}: a batch failed")
+        return rec
+
+    t0 = time.perf_counter()
+    coord = boot()
+    print(f"serve boot: a coordinator with no worker on {dev} in "
+          f"{time.perf_counter() - t0:.2f} s (window {wait_ms} ms, "
+          f"at most {SERVE_MAX} a batch, result cache on, WAL {wal}) "
+          f"[{card}]", flush=True)
+    try:
+        warm = PrestoTpuClient(coord.uri, timeout_s=600)
+        epoch = datetime.date(1970, 1, 1)
+
+        def days(iso):
+            return (datetime.date.fromisoformat(iso) - epoch).days
+
+        # V1: point lookups over orders
+        n_orders, od = sf1_orders(schema)
+        rng = np.random.default_rng(SERVE_SEED)
+        idx = rng.choice(n_orders, 15, replace=False).tolist()
+        idx = idx + [idx[3]]
+        keys = [int(od["o_orderkey"][i]) for i in idx]
+        shape = POINT_SHAPE.format(schema=schema)
+        warm.execute(f"prepare v1 from {shape}")
+        other = int(od["o_orderkey"][(idx[0] + 1) % n_orders])
+        warm.execute(f"execute v1 using {other}")
+        # V1 runs with the result cache off: when the 16 arrivals form
+        # two batches, the repeated key's second statement must still
+        # be served by a batch, not by the entry the first one stored
+        coord.local.session.set("enable_result_cache", False)
+        c0 = counters()
+        try:
+            res, stats, secs = serve_round(coord, "v1", shape,
+                                           [str(k) for k in keys], card)
+        finally:
+            coord.local.session.set("enable_result_cache", True)
+        rec = step_line("V1 16 point lookups", secs, c0, stats)
+        for r, i in zip(res, idx):
+            want = (int(od["o_orderkey"][i]), int(od["o_custkey"][i]),
+                    int(od["o_totalprice"][i]) / 100,
+                    (epoch + datetime.timedelta(
+                        days=int(od["o_orderdate"][i]))).isoformat())
+            check(r.rows() == [want], f"V1: {r.rows()} != [{want}]")
+        check(all(st.batched for st in stats),
+              "V1: a member was not served by the batch")
+        check(rec["batched"] == 16 and rec["batches"] <= 2,
+              f"V1: {rec['batches']} batches serving {rec['batched']}")
+
+        # V2: Q6; from here on a round of 8 fills its batch
+        coord.local.session.set("microbatch_max", 8)
+        shape = Q6_SHAPE.format("?", "?", "?", "?", "?", schema=schema)
+        warm.execute(f"prepare v2 from {shape}")
+        warm.execute("execute v2 using date '1993-06-01', date "
+                     "'1994-06-01', 0.05, 0.07, 24")
+        args = [f"date '{a}', date '{b}', {lo}, {hi}, {q}"
+                for a, b, lo, hi, q in Q6_SERVE]
+        c0 = counters()
+        res, stats, secs = serve_round(coord, "v2", shape, args, card)
+        step_line("V2 8 Q6", secs, c0, stats)
+        d_li = serve_lineitem(schema)
+        for r, a in zip(res, Q6_SERVE):
+            want = numpy_q6_of(d_li, a) / 10**4
+            check(r.rows() == [(want,)], f"V2 {a}: {r.rows()} != {want}")
+        check(all(st.batched for st in stats),
+              "V2: a member was not served by the batch")
+
+        # V3: Q1 with shipdate cutoffs, batched, then the same scalar
+        shape = Q1_CUT_SHAPE.replace("tpch.sf1.", f"tpch.{schema}.")
+        warm.execute(f"prepare v3 from {shape}")
+        warm.execute("execute v3 using date '1998-09-02'")
+        args = [f"date '{c}'" for c in Q1_CUTOFFS]
+        c0 = counters()
+        with lane_calls() as seen, counting_syncs(dev) as waits:
+            res, stats, secs = serve_round(coord, "v3", shape, args, card)
+        rec = step_line("V3 8 Q1", secs, c0, stats,
+                        f", host waits {waits[0]}")
+        v3_rows = [r.rows() for r in res]
+        for rows, c in zip(v3_rows, Q1_CUTOFFS):
+            diff = rows_close(rows, numpy_q1_cut(d_li, days(c)), rel=1e-12)
+            check(diff is None, f"V3 {c}: differs from numpy ({diff})")
+        check(all(st.batched for st in stats),
+              "V3: a member was not served by the batch")
+        check(rec["batches"] == 1 and len(seen) == 1,
+              f"V3: {rec['batches']} batches, {len(seen)} lane calls")
+        check(rec["onehot_reduce_launches"] == (1 if on_card else 0),
+              f"V3: {rec['onehot_reduce_launches']} K1 launches, not 1")
+        rec["host_waits"] = waits[0]
+        scalar_s, scalar_waits = [], []
+        PA.onehot_reduce.launches = 0
+        for c, rows in zip(Q1_CUTOFFS, v3_rows):
+            with counting_syncs(dev) as w:
+                t0 = time.perf_counter()
+                got = coord.local.execute(f"execute v3 using date '{c}'")
+                if on_card:
+                    torch.cuda.synchronize()
+                scalar_s.append(time.perf_counter() - t0)
+            scalar_waits.append(w[0])
+            diff = rows_close(server_rows(got.rows()), rows, rel=1e-12)
+            check(diff is None, f"V3 scalar {c}: differs ({diff})")
+        scalar_launches = PA.onehot_reduce.launches
+        check(scalar_launches == (8 if on_card else 0),
+              f"V3 scalar: {scalar_launches} K1 launches, not 8")
+        rec.update(scalar_s=scalar_s, scalar_waits=scalar_waits,
+                   scalar_launches=scalar_launches)
+        print(f"V3 scalar: the same 8 one at a time {sum(scalar_s):.4f} s "
+              f"(each {[round(x, 4) for x in scalar_s]}), host waits "
+              f"{scalar_waits}, onehot_reduce launches {scalar_launches}; "
+              f"the batch {secs:.4f} s with {waits[0]} host waits in all "
+              f"(the arrivals into its window included) [{card}]",
+              flush=True)
+        if records is not None and on_card:
+            records.append(lanes_case("q1 microbatch fused", *seen[0], card))
+        del seen
+        check(not coord.local._no_batch, "a shape was retired from batching")
+
+        # V4: the V3 statements again from the result cache
+        c0 = counters()
+        res, stats, secs = serve_round(coord, "v3", shape, args, card)
+        rec = step_line("V4 8 Q1 again", secs, c0, stats)
+        check(all(st.result_cache == "hit" for st in stats),
+              f"V4: {[st.result_cache for st in stats]}")
+        check(rec["onehot_reduce_launches"] == 0 and rec["dispatches"] == 0,
+              "V4: a cache hit touched the card")
+        check([r.rows() for r in res] == v3_rows, "V4: rows moved")
+        t0 = time.perf_counter()
+        got = warm.execute("execute v3 using date '1996-01-01'")
+        secs = time.perf_counter() - t0
+        st = coord.queries[got.query_id].stats
+        check(st.result_cache == "miss", "V4: a new literal hit")
+        diff = rows_close(got.rows(), numpy_q1_cut(d_li, days("1996-01-01")),
+                          rel=1e-12)
+        check(diff is None, f"V4 new literal: {diff}")
+        print(f"V4 new literal: a miss, {secs:.4f} s (planning ms "
+              f"{st.planning_ms:.1f}, execution ms {st.execution_ms:.1f}, "
+              f"staging ms {st.staging_ms:.1f}, the {wait_ms} ms window "
+              f"of a lone leader) [{card}]", flush=True)
+
+        # V5: the ingest lane, the view, the cache's staleness contract
+        t5 = time.perf_counter()
+        warm.execute(INGEST_DDL)
+        warm.execute(INGEST_VIEW)
+        batches = ingest_batches(SERVE_SEED, SERVE_INGEST_BATCHES,
+                                 SERVE_INGEST_ROWS)
+        url = f"{coord.uri}/v1/ingest/mem.default.li"
+
+        def post(i):
+            got = rpc.call_json("POST", url, {"columns": batches[i][1]})
+            check(got["rows"] == SERVE_INGEST_ROWS, f"V5 batch {i}: {got}")
+
+        def flush(label):
+            c0 = counters()
+            t0 = time.perf_counter()
+            coord.ingest.flush()
+            if on_card:
+                torch.cuda.synchronize()
+            n_launch = counters()[3] - c0[3]
+            check(n_launch == (1 if on_card else 0),
+                  f"V5 {label}: {n_launch} K1 launches in the delta merge")
+            return time.perf_counter() - t0, n_launch
+
+        def cols_upto(k):
+            return {c: np.concatenate([b[0][c] for b in batches[:k]])
+                    for c in batches[0][0]}
+
+        def want_read(k):
+            d = cols_upto(k)
+            return [(len(d["l_tax"]), int(d["l_extendedprice"].sum()) / 100,
+                     int(d["l_tax"].sum()) / 100)]
+
+        def read(label, want, status):
+            got = warm.execute(INGEST_READ)
+            st = coord.queries[got.query_id].stats
+            check(got.rows() == want, f"V5 {label}: {got.rows()} != {want}")
+            check(st.result_cache == status,
+                  f"V5 {label}: cache {st.result_cache}, not {status}")
+
+        merges = []
+        t0 = time.perf_counter()
+        for i in range(4):
+            post(i)
+        merges.append(flush("commit 1"))
+        read("after commit 1", want_read(4), "miss")
+        read("again", want_read(4), "hit")
+        for i in range(4, 7):
+            post(i)
+        merges.append(flush("commit 2"))
+        read("after commit 2 at staleness 0", want_read(7), "miss")
+        coord.local.session.set("result_cache_max_staleness_s", 30.0)
+        read("cached", want_read(7), "hit")
+        post(7)
+        merges.append(flush("commit 3"))
+        refreshes = coord.result_cache.stats()["refreshes"]
+        read("after commit 3 at staleness 30", want_read(7), "stale")
+        deadline = time.monotonic() + 60
+        while (coord.result_cache.stats()["refreshes"] == refreshes
+               and time.monotonic() < deadline):
+            time.sleep(0.02)
+        check(coord.result_cache.stats()["refreshes"] == refreshes + 1,
+              "V5: the stale entry was not refreshed once")
+        read("refreshed", want_read(8), "hit")
+        coord.local.session.set("result_cache_max_staleness_s", 0.0)
+        ingest_s = time.perf_counter() - t0
+        want_view = numpy_ingest_view(cols_upto(8))
+        view = warm.execute(
+            "select * from mem.default.li_mv order by 1, 2").rows()
+        direct = warm.execute(INGEST_DIRECT).rows()
+        check(view == want_view, f"V5: the view {view} != numpy")
+        check(direct == want_view, "V5: the direct aggregate != numpy")
+        st = coord.ingest.stats()
+        frames = sum(
+            1 for name in os.listdir(wal) if name.startswith("wal-")
+            for _ in open(os.path.join(wal, name), encoding="utf-8"))
+        rec = {"step": "V5 ingest", "s": ingest_s,
+               "rows": SERVE_INGEST_BATCHES * SERVE_INGEST_ROWS,
+               "batches": st["batches"], "commits": st["commits"],
+               "wal_frames": frames, "wal_bytes": st["wal_bytes"],
+               "merges": merges}
+        launches += sum(n for _, n in merges)
+        out.append(rec)
+        print(f"V5 ingest: {rec['rows']} rows in {st['batches']} batches "
+              f"over HTTP, {st['commits']} commits, {frames} WAL frames "
+              f"({st['wal_bytes']} B), {ingest_s:.4f} s; delta merges "
+              f"s / K1 launches {merges}; the view equals the direct "
+              f"aggregate and numpy; staleness: miss at 0, stale then one "
+              f"refresh at 30 s [{card}]", flush=True)
+    finally:
+        coord.shutdown()
+
+    # the restart: a second coordinator replays the same WAL
+    t0 = time.perf_counter()
+    coord = boot()
+    try:
+        client = PrestoTpuClient(coord.uri, timeout_s=600)
+        got = client.execute(INGEST_READ).rows()
+        check(got == want_read(8), f"V5 restart: {got}")
+        view = client.execute(
+            "select * from mem.default.li_mv order by 1, 2").rows()
+        check(view == want_view, f"V5 restart: the view {view}")
+        secs = time.perf_counter() - t0
+        out.append({"step": "V5 restart", "s": secs})
+        print(f"V5 restart: a second coordinator on the same WAL in "
+              f"{secs:.4f} s, rows and view exact [{card}]", flush=True)
+    finally:
+        coord.shutdown()
+    secs = time.perf_counter() - phase_t0
+    print(f"serve phase: {secs:.2f} s, onehot_reduce launches {launches} "
+          f"[{card}]", flush=True)
+    out.append({"step": "phase", "s": secs})
+    return launches, out
+
+
 def bucket_of(n: int) -> int:
     """The staging bucket of ``n`` rows (a power of two, at least 1024)."""
     cap = 1024
@@ -4005,7 +4695,12 @@ def main() -> int:
     server_launches, server_records = server_phase(
         card, want_q1_big=baseline["Q1"][1].rows(), records=records)
 
+    phase("serve")
+    serve_launches, serve_records = serve_phase(card, records=records)
+
     headline = next(r for r in records if r["label"] == "q1 fused")
+    lanes = next(r for r in records if r["label"] == "q1 microbatch fused")
+    v3 = next(r for r in serve_records if r["step"] == "V3 8 Q1")
     kernels_line = {
         "kernels": [
             {
@@ -4017,14 +4712,31 @@ def main() -> int:
                              + rest_launches + stream_launches
                              + tpcds_launches + cache_launches
                              + nested_launches + observe_launches
-                             + write_launches + server_launches),
+                             + write_launches + server_launches
+                             + serve_launches),
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
                 "bound_ms": headline["bound_ms"],
                 "bound_by": headline["bound_by"],
                 "library_ms": headline["library_ms"],
-            }
+            },
+            {
+                # K1's batching rule: the serve phase's Q1 batch of 8
+                # lanes, one launch over the lane-folded gid
+                "name": "onehot_reduce_lanes",
+                "case": "q1 microbatch fused",
+                "route": "cuda",
+                "source": "presto_tpu_torch/csrc/onehot_reduce.cu",
+                "replaces": "tools/pallas_groupby.py:96",
+                "launches": v3["onehot_reduce_launches"],
+                "max_abs_err": lanes["max_abs_err"],
+                "ms": lanes["ms"],
+                "plain_ms": lanes["plain_ms"],
+                "bound_ms": lanes["bound_ms"],
+                "bound_by": lanes["bound_by"],
+                "library_ms": lanes["library_ms"],
+            },
         ]
     }
     print(json.dumps({"cases": records, "slice": counts,
@@ -4044,6 +4756,8 @@ def main() -> int:
                       "write_onehot_reduce": write_launches,
                       "server": server_records,
                       "server_onehot_reduce": server_launches,
+                      "serve": serve_records,
+                      "serve_onehot_reduce": serve_launches,
                       "native": status, "card": card}))
     print(json.dumps(kernels_line))
     print(

@@ -316,13 +316,13 @@ class SystemConnector(Connector):
     def _cache_rows(self):
         """Live occupancy of the engine caches (reference: the jmx
         cache-stats beans): the device-resident split cache (staged
-        pages, LRU byte budget), the plan cache and the host-spill
-        pool."""
+        pages, LRU byte budget), the plan cache, the coordinator's
+        result cache, the host-spill pool and the ingest WAL."""
         if self._runner is None:
             return []
         split = self._runner.split_cache.stats()
         s = self._runner.plan_cache.stats()
-        return [
+        rows = [
             {
                 "cache": "staging.split_cache",
                 "entries": split["entries"],
@@ -341,8 +341,28 @@ class SystemConnector(Connector):
                 "misses": s["misses"],
                 "evictions": s["evictions"],
             },
-            # host-spill pool: device pages offloaded to host RAM under
-            # memory pressure; hits = restages
+        ]
+        # serving-plane result cache (server/result_cache.py): the
+        # snapshot-keyed entries the coordinator serves without planning
+        # or dispatch (attached by the embedding coordinator; None on
+        # plain runners)
+        rc = getattr(self._runner, "result_cache", None)
+        if rc is not None:
+            r = rc.stats()
+            rows.append(
+                {
+                    "cache": "result.cache",
+                    "entries": r["entries"],
+                    "bytes": r["bytes"],
+                    "budget_bytes": r["budget_bytes"],
+                    "hits": r["hits"],
+                    "misses": r["misses"],
+                    "evictions": r["evictions"],
+                }
+            )
+        # host-spill pool: device pages offloaded to host RAM under
+        # memory pressure; hits = restages
+        rows.append(
             {
                 "cache": "staging.host_spill",
                 "entries": split["spill_entries"],
@@ -351,8 +371,26 @@ class SystemConnector(Connector):
                 "hits": split["restages"],
                 "misses": 0,
                 "evictions": split["spills"],
-            },
-        ]
+            }
+        )
+        # streaming-ingest WAL occupancy (server/ingest.py): pending
+        # (durable, not yet committed) batches, WAL bytes on disk,
+        # committed folds as hits, replayed tail batches as evictions
+        ingest = getattr(self._runner, "ingest", None)
+        if ingest is not None:
+            w = ingest.stats()
+            rows.append(
+                {
+                    "cache": "ingest.wal",
+                    "entries": w["pending_batches"],
+                    "bytes": w["wal_bytes"],
+                    "budget_bytes": 0,
+                    "hits": w["commits"],
+                    "misses": 0,
+                    "evictions": w["replayed"],
+                }
+            )
+        return rows
 
     def _memory_rows(self):
         """The runner's own pool (reference: system.memory's per-node

@@ -191,8 +191,15 @@ def materialize_page(page: Page, n: int) -> Page:
     transfer: slice every block to ``n`` rows on the device, copy them
     together (``page.to_host``), and re-pad on the host to the
     power-of-two bucket. The result page holds CPU tensors."""
+    return host_page(page, to_host(page.prefix_leaves(n)), n)
+
+
+def host_page(page: Page, leaves, n: int) -> Page:
+    """The host page of ``page``'s first ``n`` rows from leaves already
+    fetched in ``Page.prefix_leaves`` order, re-padded to the
+    power-of-two bucket."""
     cap = bucket_capacity(n)
-    fetched = iter(to_host(page.prefix_leaves(n)))
+    fetched = iter(leaves)
     blocks = [_host_block(blk, fetched, n, cap) for blk in page.blocks]
     return Page(
         blocks=tuple(blocks),

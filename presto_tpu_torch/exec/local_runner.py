@@ -65,6 +65,13 @@ A plan that scans a table larger than ``max_device_rows`` streams
 (``stage_split``) run through the fragment below the cut, partial states
 or a join side's rows spill to host-RAM buckets, and each bucket runs
 alone on the device.
+
+The serving plane's micro-batch (``execute_plan_microbatch``, fed by the
+coordinator's batch queue) answers N statements of one cached plan with
+one pass of the operators: the scanned pages are repeated once per lane
+(``page.tile_lanes``), each RuntimeParam reads its lane's value, and an
+aggregation reduces each lane on its own (a one-hot GROUP BY through
+K1's batching rule, ``ops/aggregation.py::onehot_reduce_lanes``).
 """
 
 from __future__ import annotations
@@ -89,6 +96,7 @@ from presto_tpu_torch.connectors.spi import ConnectorSplit, payload_len
 from presto_tpu_torch.exec import dynfilter, streaming
 from presto_tpu_torch.exec.host_ops import (
     apply_host_ops,
+    host_page,
     materialize_page,
     peel_host_ops,
 )
@@ -127,11 +135,14 @@ from presto_tpu_torch.ops import (
 from presto_tpu_torch.ops.join import cross_join
 from presto_tpu_torch.page import (
     Block,
+    NoLaneForm,
     Page,
     compact_page,
     decode_column,
     pad_capacity,
     resolve_device,
+    tile_lanes,
+    to_host,
 )
 from presto_tpu_torch.plan import canonical
 from presto_tpu_torch.plan import history as plan_history
@@ -300,10 +311,15 @@ class LocalQueryRunner:
         #: while it is None
         self._mview_registry = None
         #: the serving plane's result cache and streaming ingest lane
-        #: attach here; a local runner has neither (they come with the
-        #: server), so the write seam skips them
+        #: attach here (``server/result_cache.py``, ``server/ingest.py``);
+        #: a plain local runner has neither, so the write seam skips them
         self.result_cache = None
         self.ingest = None
+        #: micro-batching: canonical fingerprints retired from batching
+        #: (a node or aggregate with no lane form), and the batches
+        #: served under each ``canonical.batch_entry_key``
+        self._no_batch: set = set()
+        self.batch_entries: Dict[tuple, int] = {}
 
     @property
     def mview_registry(self):
@@ -1255,6 +1271,227 @@ class LocalQueryRunner:
                 self._active_qs.device_fragments += 1
         return remote
 
+    # ------------------------------------------------ micro-batched serving
+
+    def microbatch_plan_eligible(self, plan) -> bool:
+        """Cheap structural screen before a statement may join a
+        micro-batch: a cached canonical plan (bound values present), no
+        scalar-subquery pre-passes, already pre-optimized, small enough
+        to run whole, and not a streamed scan. Everything else keeps the
+        scalar path: batching can cost a wait, never a wrong answer or
+        a failed query."""
+        if (
+            plan.bound_values is None
+            or plan.params
+            or not plan.preoptimized
+        ):
+            return False
+        root = plan.root
+        if streaming.needs_streaming(root, self.catalogs, self.session):
+            return False
+        budget = int(self.session.get("max_fragment_weight"))
+        if budget > 0 and _plan_weight(root) > budget:
+            return False
+        return True
+
+    def execute_plan_microbatch(self, plans, qs_list):
+        """Answer N plans of one cached shape (one plan-cache entry, N
+        bound-value vectors) with ONE pass of the operators: the
+        members' vectors stack along a lane axis as device tensors
+        (``canonical.lane_vectors``), every scanned page is repeated
+        once per lane (``page.tile_lanes``), and the plan runs once
+        over those lane-blocked pages, where each RuntimeParam reads
+        its lane's value and an aggregation reduces each lane on its
+        own (a one-hot GROUP BY is ``ceil(lanes * nseg / 256)`` K1
+        launches). Each lane is compacted to the speculative window on
+        the device, and one host read fetches the control values and
+        every lane's window.
+
+        Returns a list aligned with ``plans``: a QueryResult for every
+        lane the batch served, ``None`` for members that fall out (an
+        error bit or an overflow flag in the batch, output beyond the
+        window), which the caller re-runs on the scalar path. All-None
+        means the shape has no lane form (it is then retired from
+        batching: a node or an aggregate of it raised ``NoLaneForm``)
+        or no lane axis (nothing bound). Any other error propagates: a
+        failed launch is never turned into a fallout."""
+        n = len(plans)
+        none: List = [None] * n
+        if n < 2:
+            return none
+        plan0 = plans[0]
+        root = plan0.root
+        host_ops: List[N.PlanNode] = []
+        if self.session.get("host_root_stage"):
+            root, host_ops = peel_host_ops(root)
+        # the demux slices flat blocks; nested output shapes keep the
+        # scalar path
+        if any(t.is_nested for t in root.output_schema().values()):
+            return none
+        spec = int(self.session.get("speculative_result_rows"))
+        if spec <= 0 or not plan0.bound_values:
+            return none  # no window, or nothing bound: no lane axis
+        counted = bool(self.session.get("enable_operator_stats"))
+        offload = self.session.get("tpu_offload")
+        try:
+            canonical.batch_lanes(n)
+            stacked = canonical.stack_param_vectors(
+                [canonical.bound_vector(p.bound_values) for p in plans], n
+            )
+        except (KeyError, ValueError):
+            return none
+        cfp = root.fingerprint()
+        if cfp in self._no_batch:
+            return none
+        scans = [s for s in N.walk(root) if isinstance(s, N.TableScanNode)]
+        # stage the shared scan pages under the LEADER's sink (pins and
+        # staging attribution); the leader's input fold is undone at
+        # once, and every served lane attributes the scan below
+        leader = qs_list[0]
+        prev_qs = self._active_qs
+        self._active_qs = leader
+        rows0 = leader.input_rows if leader is not None else 0
+        bytes0 = leader.input_bytes if leader is not None else 0
+        try:
+            pages = [self._load_table(s) for s in scans]
+        finally:
+            self._active_qs = prev_qs
+        in_rows = in_bytes = 0
+        if leader is not None:
+            with self._qs_mu:
+                in_rows = leader.input_rows - rows0
+                in_bytes = leader.input_bytes - bytes0
+                leader.input_rows = rows0
+                leader.input_bytes = bytes0
+        scan_ids = {id(s): i for i, s in enumerate(scans)}
+        ctx = _ExecContext(
+            None, scan_ids, self.device,
+            counters=[] if counted else None, count_all=False, lanes=n,
+        )
+        t_disp = time.perf_counter()
+        try:
+            ctx.pages = [tile_lanes(p, n) for p in pages]
+            with canonical.active_params(
+                canonical.lane_vectors(stacked, self.device)
+            ):
+                out = _execute_node(root, ctx)
+        except NoLaneForm:
+            # the shape has no lane form: scalar serving still works
+            self._no_batch.add(cfp)
+            REGISTRY.counter("serving.batch_retired").update()
+            return none
+        lane_cap = out.capacity // n
+        window = min(spec, lane_cap)
+        live = out.row_mask().reshape(n, lane_cap)
+        # each lane's first ``window`` live rows, in order, as indices
+        # into the lane-blocked page (nonzero_static along each lane)
+        rank = torch.cumsum(live.to(torch.int64), dim=1) - 1
+        slot = torch.where(live & (rank < window), rank, window)
+        sel = torch.zeros((n, window + 1), dtype=torch.int64, device=live.device)
+        sel.scatter_(
+            1,
+            slot,
+            torch.arange(lane_cap, dtype=torch.int64, device=live.device)
+            .expand(n, lane_cap),
+        )
+        idx = (
+            sel[:, :window]
+            + torch.arange(n, dtype=torch.int64, device=live.device)[:, None]
+            * lane_cap
+        ).reshape(-1)
+        counts = [c for _, c, _, _ in ctx.counters or ()]
+        scalars = [f.reshape(()) for f in ctx.flags] + [
+            e.reshape(()) for _, e in ctx.errors
+        ]
+        control = torch.cat(
+            ([torch.stack(scalars).to(torch.int64)] if scalars else [])
+            + [c.to(torch.int64) for c in counts]
+            + [torch.sum(live, dim=1, dtype=torch.int64)]
+        )
+        leaves = [control]
+        for blk in out.blocks:
+            leaves.append(blk.data[idx])
+            if blk.valid is not None:
+                leaves.append(torch.broadcast_to(blk.valid, (out.capacity,))[idx])
+        t_disped = time.perf_counter()
+        # ONE host read for every lane: the control values and each
+        # lane's window of every block
+        fetched = to_host(leaves)
+        t_fetched = time.perf_counter()
+        control = fetched[0].tolist()
+        batch_d2h = sum(int(t.nbytes) for t in fetched)
+        if DEVICE.enabled:
+            DEVICE.count_dispatch()
+            DEVICE.count_d2h(batch_d2h)
+        bad = any(control[: len(scalars)])
+        pos = len(scalars)
+        lane_counts = []
+        for _ in counts:
+            lane_counts.append(control[pos: pos + n])
+            pos += n
+        n_lane = control[pos: pos + n]
+        wall_ms = (t_fetched - t_disp) * 1000.0
+        device_ms = (t_fetched - t_disped) * 1000.0
+        cells = (
+            self._counter_cells(root, ctx.counters, False)
+            if counted and ctx.counters
+            else None
+        )
+        results: List = [None] * n
+        served = 0
+        for i in range(n):
+            n_i = n_lane[i]
+            if bad or n_i > window:
+                # an error bit or an overflow flag (the scalar path
+                # raises the member's real error or retries), or output
+                # beyond the window (scalar materialization)
+                continue
+            # lane i's first n_i rows of every fetched window
+            lane_page = host_page(
+                out,
+                [t[i * window: i * window + n_i] for t in fetched[1:]],
+                n_i,
+            )
+            if host_ops:
+                lane_page = apply_host_ops(lane_page, host_ops)
+            results[i] = QueryResult(plan0.output_names, lane_page)
+            served += 1
+            qs = qs_list[i]
+            if qs is None:
+                continue
+            with self._qs_mu:
+                qs.batched = True
+                qs.batch_size = n
+                qs.output_rows = int(lane_page.num_valid)
+                qs.execution_ms += wall_ms / n
+                # every SERVED lane scanned the shared pages
+                qs.input_rows += in_rows
+                qs.input_bytes += in_bytes
+                if DEVICE.enabled:
+                    qs.device_dispatches += 1
+                    qs.device_d2h_bytes += batch_d2h // n
+            if cells is not None:
+                self._active_qs = qs
+                try:
+                    self._fold_operator_stats(
+                        cells,
+                        [c[i] for c in lane_counts],
+                        wall_ms=wall_ms / n,
+                        device_ms=device_ms / n,
+                        prog=root,
+                    )
+                finally:
+                    self._active_qs = prev_qs
+        key = canonical.batch_entry_key(
+            cfp, counted, offload, canonical.batch_lanes(n), window
+        )
+        with self._qs_mu:
+            self.batch_entries[key] = self.batch_entries.get(key, 0) + 1
+        REGISTRY.counter("serving.batches").update()
+        REGISTRY.counter("serving.batched_statements").update(served)
+        REGISTRY.distribution("serving.batch_occupancy").add(served)
+        return results
+
     def _run_with_pages(
         self,
         root: N.PlanNode,
@@ -1791,6 +2028,7 @@ class _ExecContext:
     def __init__(
         self, pages, scan_ids, device: torch.device,
         counters: Optional[List] = None, count_all: bool = True,
+        lanes: int = 1,
     ):
         self.pages = pages
         self.scan_ids = scan_ids
@@ -1800,6 +2038,10 @@ class _ExecContext:
         self.dyn: List[torch.Tensor] = []
         self.counters = counters
         self.count_all = count_all
+        #: > 1: a micro-batch over lane-blocked pages (page.tile_lanes);
+        #: each counter is then a (lanes,) count, and capacities and
+        #: bytes are one lane's
+        self.lanes = lanes
 
 
 #: nodes whose output rows carry cardinality signal (scan sizes, filter
@@ -1827,6 +2069,14 @@ def _execute_node(node: N.PlanNode, ctx: _ExecContext) -> Page:
     if ctx.counters is not None and (
         ctx.count_all or isinstance(node, _COUNTED_NODES)
     ):
+        if ctx.lanes > 1:
+            ctx.counters.append((
+                node,
+                torch.sum(out.row_mask().reshape(ctx.lanes, -1), dim=1),
+                out.capacity // ctx.lanes,
+                page_nbytes(out) // ctx.lanes,
+            ))
+            return out
         nv = out.num_valid
         if nv._base is not None:
             # a view (a cumulative sum's last element) would keep its
@@ -1836,10 +2086,24 @@ def _execute_node(node: N.PlanNode, ctx: _ExecContext) -> Page:
     return out
 
 
+#: the nodes a micro-batch can run over lane-blocked pages: they keep
+#: rows in place (scan, filter, project, output) or aggregate each lane
+#: on its own; any other node makes its shape fall out of batching
+_LANE_NODES = (
+    N.TableScanNode,
+    N.FilterNode,
+    N.ProjectNode,
+    N.AggregationNode,
+    N.OutputNode,
+)
+
+
 def _execute_node_inner(node: N.PlanNode, ctx: _ExecContext) -> Page:
     def run(n):
         return _execute_node(n, ctx)
 
+    if ctx.lanes > 1 and not isinstance(node, _LANE_NODES):
+        raise NoLaneForm(f"{type(node).__name__} in a micro-batch")
     if isinstance(node, (N.TableScanNode, N.RemoteSourceNode)):
         return ctx.pages[ctx.scan_ids[id(node)]]
     if isinstance(node, N.ValuesNode):
@@ -1871,6 +2135,7 @@ def _execute_node_inner(node: N.PlanNode, ctx: _ExecContext) -> Page:
             node.aggs,
             node.max_groups,
             errors_out=ctx.errors,
+            lanes=ctx.lanes,
         )
         ctx.flags.append(overflow)
         return out

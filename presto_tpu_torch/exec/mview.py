@@ -1,9 +1,9 @@
 """Incrementally-maintained materialized views: a copy of the
 reference's ``presto_tpu/exec/mview.py`` (imports rewritten; maintenance
-queries run under a QueryStats of their own, see ``_run``). The server's
-ingest lane is not ported yet, so ``runner.ingest`` is None and the
-durable ``record_mview*`` calls and ``restore`` have no caller in the
-port; ``on_commit`` is driven by whoever commits a snapshot.
+queries run under a QueryStats of their own, see ``_run``). The
+server's ingest lane (``server/ingest.py``, ``runner.ingest``) records
+each definition durably (``record_mview*``), replays it through
+``restore`` and drives ``on_commit`` with every committed delta.
 
 Reference parity: Presto's materialized views over a connector-stored
 table (CREATE/REFRESH MATERIALIZED VIEW, SURVEY.md §2.2's metadata

@@ -1619,7 +1619,9 @@ class ExprLowerer:
         else:
             res = self._zeros(torch.bool)
             for m in e.values:
-                x = self.eval(m)[0].to(e.arg.dtype.torch_dtype).reshape(())
+                x = self.eval(m)[0].to(e.arg.dtype.torch_dtype)
+                if x.numel() == 1:
+                    x = x.reshape(())
                 res = res | (data == x)
         return (~res if e.negate else res), valid
 
@@ -1637,6 +1639,18 @@ class ExprLowerer:
         from presto_tpu_torch.plan import canonical
 
         v = canonical.active_param(e.index)
+        if isinstance(v, torch.Tensor):
+            # a micro-batch's lane vector (canonical.lane_vectors): lane
+            # l's value over lane l's block of rows, on the device
+            lanes = v.shape[0]
+            rows = self.page.capacity // lanes
+            if rows * lanes != self.page.capacity:
+                raise ValueError(
+                    f"page of {self.page.capacity} rows is not "
+                    f"lane-blocked over {lanes} lanes"
+                )
+            lane = v.to(device=self.device, dtype=e.dtype.torch_dtype)
+            return lane[:, None].expand(lanes, rows).reshape(-1), None
         value = v.value if isinstance(v, Literal) else np.asarray(v).item()
         return self._eval_literal(Literal(value, e.dtype))
 

@@ -40,7 +40,7 @@ import torch
 from presto_tpu_torch import types as T
 from presto_tpu_torch.expr import Expr, ExprLowerer
 from presto_tpu_torch.ops.common import boundaries, sort_order
-from presto_tpu_torch.page import Block, Page, nonzero_static
+from presto_tpu_torch.page import Block, NoLaneForm, Page, nonzero_static
 
 
 @dataclasses.dataclass(frozen=True)
@@ -339,6 +339,94 @@ def onehot_reduce(
 onehot_reduce.launches = 0
 
 
+def onehot_reduce_lanes(
+    gid: torch.Tensor,
+    requests: Sequence[OnehotRequest],
+    nseg: int,
+    lanes: int,
+) -> torch.Tensor:
+    """K1's batching rule: ``onehot_reduce_many`` over a lane-blocked
+    page, where lane l owns rows [l * C, (l + 1) * C) and its own gid
+    in [0, nseg] (nseg: the lane's dead row). Lane l is folded into the
+    segment id (``gid + l * nseg``, a dead row to the launch's sink),
+    so up to ``256 // nseg`` lanes share ONE launch over their
+    contiguous rows: Q1's 6 groups take 42 lanes per launch. Returns
+    the ``[K, lanes * nseg]`` slots, lane-major (lane l's segment s at
+    ``l * nseg + s``).
+
+    Each lane's x is read in its own rows: a column the lanes share is
+    repeated per lane (``page.tile_lanes``), so a launch reads it once
+    per lane where the least traffic would read it once.
+
+    The fold is the same on every device; ``onehot_reduce_many`` then
+    launches the kernel on a CUDA tensor and takes its plain version on
+    a CPU one. ``onehot_reduce_lanes_plain`` is the independent
+    reference: one plain reduction per lane, no fold."""
+    if not requests:
+        raise ValueError("onehot_reduce_lanes: no requests")
+    n = gid.shape[0]
+    if lanes < 1 or n % lanes:
+        raise ValueError(
+            f"onehot_reduce_lanes: {n} rows do not split into "
+            f"{lanes} lanes"
+        )
+    rows = n // lanes
+    per = max(1, _ONEHOT_MAX_SEGMENTS // nseg)
+    parts = []
+    for l0 in range(0, lanes, per):
+        k = min(lanes, l0 + per) - l0
+        r0, r1 = l0 * rows, (l0 + k) * rows
+        g = gid[r0:r1].view(k, rows)
+        off = (
+            torch.arange(k, dtype=torch.int32, device=gid.device) * nseg
+        )[:, None]
+        folded = torch.where(
+            (g >= 0) & (g < nseg), g + off, k * nseg
+        ).to(torch.int32).reshape(-1)
+        part = [
+            (
+                op,
+                None if x is None else x[r0:r1],
+                None if v is None else v[r0:r1],
+            )
+            for op, x, v in requests
+        ]
+        parts.append(
+            onehot_reduce_many(folded, part, k * nseg).view(
+                len(requests), k, nseg
+            )
+        )
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return out.reshape(len(requests), lanes * nseg)
+
+
+def onehot_reduce_lanes_plain(
+    gid: torch.Tensor,
+    requests: Sequence[OnehotRequest],
+    nseg: int,
+    lanes: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of ``onehot_reduce_lanes``: one
+    ``onehot_reduce_many_plain`` per lane over its own rows, the lanes'
+    slots side by side."""
+    rows = gid.shape[0] // lanes
+    return torch.cat([
+        onehot_reduce_many_plain(
+            gid[l * rows:(l + 1) * rows],
+            [
+                (
+                    op,
+                    None if x is None else x[l * rows:(l + 1) * rows],
+                    None if v is None else v[l * rows:(l + 1) * rows],
+                )
+                for op, x, v in requests
+            ],
+            nseg,
+        )
+        for l in range(lanes)
+    ], dim=1)
+
+
 # ------------------------------------------------------------ aggregation
 
 
@@ -384,6 +472,7 @@ def hash_aggregate(
     aggs: Sequence[AggCall],
     max_groups: int,
     errors_out: Optional[List] = None,
+    lanes: int = 1,
 ) -> Tuple[Page, torch.Tensor]:
     """Group ``page`` by key expressions, compute aggregates.
 
@@ -393,12 +482,20 @@ def hash_aggregate(
     ``(message, 0-d bool)`` hard errors: the sorted path's per-group
     bigint-sum overflow trap (``_sorted_one_agg``); the runner raises
     the message when the flag is set.
-    Global aggregation (no keys) is the plain-reduction case."""
+    Global aggregation (no keys) is the plain-reduction case.
+
+    ``lanes`` > 1: ``page`` is lane-blocked (``page.tile_lanes``) and
+    each lane is aggregated on its own; the output holds one block of
+    rows per lane (one row per lane without keys, every segment masked
+    by occupancy on the one-hot path). The sorted path and the
+    order-dependent aggregates have no lane form (``NoLaneForm``)."""
     live = page.row_mask()
     lowerer = ExprLowerer(page)
 
+    if lanes > 1 and any(a.func in _ORDER_FUNCS for a in aggs):
+        raise NoLaneForm("order-dependent aggregate in a micro-batch")
     if not group_keys:
-        return _global_aggregate(page, aggs, live, lowerer)
+        return _global_aggregate(page, aggs, live, lowerer, lanes)
 
     keys = [(name, *lowerer.eval(e), e) for name, e in group_keys]
     domains = [_static_domain(e, lowerer) for _, _, _, e in keys]
@@ -408,18 +505,22 @@ def hash_aggregate(
             page, keys, aggs, max_groups, live, lowerer, errors_out
         )
     if all(d is not None for d in domains):
+        # a key over an empty dictionary (an empty string column) still
+        # takes one slot: its strides and digits must not divide by 0
         slots = [
-            d + (1 if v is not None else 0)
+            max(d + (1 if v is not None else 0), 1)
             for d, (_, _, v, _) in zip(domains, keys)
         ]
         nseg = 1
         for s in slots:
-            nseg *= max(s, 1)
+            nseg *= s
         if 0 < nseg <= _ONEHOT_MAX_SEGMENTS:
             return _onehot_aggregate(
                 page, keys, domains, slots, nseg, aggs, max_groups,
-                live, lowerer,
+                live, lowerer, lanes,
             )
+    if lanes > 1:
+        raise NoLaneForm("sorted GROUP BY in a micro-batch")
     return _sorted_aggregate(
         page, keys, aggs, max_groups, live, lowerer, errors_out
     )
@@ -438,6 +539,7 @@ def _onehot_aggregate(
     max_groups: int,
     live: torch.Tensor,
     lowerer: ExprLowerer,
+    lanes: int = 1,
 ) -> Tuple[Page, torch.Tensor]:
     """Sort-free, scatter-free aggregation over a tiny provable domain.
 
@@ -445,7 +547,12 @@ def _onehot_aggregate(
     ascending segment order is lexicographic in the keys (dictionary ids
     are order-preserving); a key's NULL slot is its largest id (nulls
     group last). Dead rows get segment id ``nseg``, which no reduction
-    counts."""
+    counts.
+
+    With ``lanes`` > 1 the reductions go through K1's batching rule
+    (``onehot_reduce_lanes``) and the output keeps every lane's nseg
+    segments in place, masked by occupancy: lane l's groups are rows
+    [l * nseg, (l + 1) * nseg), ascending, and nothing can overflow."""
     cap = page.capacity
     dev = page.device
 
@@ -473,6 +580,14 @@ def _onehot_aggregate(
         return len(requests) - 1
 
     finishers = [_onehot_agg_requests(agg, page, lowerer, add) for agg in aggs]
+    if lanes > 1:
+        return _onehot_lane_page(
+            keys, domains, strides, slots, nseg, aggs, finishers,
+            onehot_results(
+                onehot_reduce_lanes(gid, requests, nseg, lanes), requests
+            ),
+            lanes, lowerer,
+        )
     res = onehot_results(onehot_reduce_many(gid, requests, nseg), requests)
     counts = res[0]  # live rows per segment
     occupied = counts > 0
@@ -519,6 +634,49 @@ def _onehot_aggregate(
         names=tuple(names),
     )
     return out, overflow
+
+
+def _onehot_lane_page(
+    keys, domains, strides, slots, nseg, aggs, finishers, res, lanes,
+    lowerer,
+) -> Tuple[Page, torch.Tensor]:
+    """A micro-batch's one-hot output: every lane's nseg segments in
+    place (lane-major, as ``onehot_reduce_lanes`` returns them), the
+    occupied ones live."""
+    occupied = res[0] > 0
+    dev = occupied.device
+    seg = torch.remainder(
+        torch.arange(lanes * nseg, dtype=torch.int64, device=dev), nseg
+    )
+    names: List[str] = []
+    blocks: List[Block] = []
+    for (name, d, v, e), dom, stride, sl in zip(
+        keys, domains, strides, slots
+    ):
+        comp = torch.remainder(
+            torch.div(seg, stride, rounding_mode="floor"), sl
+        )
+        names.append(name)
+        blocks.append(
+            Block(
+                data=comp.to(d.dtype),
+                valid=None if v is None else (comp != dom),
+                dtype=e.dtype,
+                dictionary=(
+                    lowerer.dictionary_of(e) if e.dtype.is_string else None
+                ),
+            )
+        )
+    for agg, finish in zip(aggs, finishers):
+        blocks.append(finish(res))
+        names.append(agg.out_name)
+    out = Page(
+        blocks=tuple(blocks),
+        num_valid=torch.sum(occupied).to(torch.int32),
+        names=tuple(names),
+        live=occupied,
+    )
+    return out, torch.zeros((), dtype=torch.bool, device=dev)
 
 
 def _onehot_agg_requests(
@@ -939,32 +1097,46 @@ def _global_aggregate(
     aggs: Sequence[AggCall],
     live: torch.Tensor,
     lowerer: ExprLowerer,
+    lanes: int = 1,
 ) -> Tuple[Page, torch.Tensor]:
     """No GROUP BY: plain masked whole-array reductions. One output row
     always (SQL: global aggregates over zero rows emit one row; sum ->
-    NULL via the empty-group validity rule, count -> 0)."""
+    NULL via the empty-group validity rule, count -> 0); one row per
+    lane over a lane-blocked page."""
     names, blocks = [], []
     for agg in aggs:
-        blocks.append(_global_one_agg(agg, page, live, lowerer))
+        blocks.append(_global_one_agg(agg, page, live, lowerer, lanes))
         names.append(agg.out_name)
     dev = page.device
     out = Page(
         blocks=tuple(blocks),
-        num_valid=torch.ones((), dtype=torch.int32, device=dev),
+        num_valid=torch.full((), lanes, dtype=torch.int32, device=dev),
         names=tuple(names),
     )
     return out, torch.zeros((), dtype=torch.bool, device=dev)
 
 
 def _global_one_agg(
-    agg: AggCall, page: Page, live: torch.Tensor, lowerer: ExprLowerer
+    agg: AggCall,
+    page: Page,
+    live: torch.Tensor,
+    lowerer: ExprLowerer,
+    lanes: int = 1,
 ) -> Block:
+    """One global aggregate: a (1,) block, or (lanes,) over a
+    lane-blocked page (each lane reduces its own rows)."""
+
     def one(x):
         return x.reshape(1)
 
+    def reduce(fn, x, **kw):
+        if lanes == 1:
+            return one(fn(x, **kw))
+        return fn(x.reshape(lanes, -1), dim=1, **kw)
+
     if agg.func == "count_star":
         return Block(
-            data=one(torch.sum(live, dtype=torch.int64)),
+            data=reduce(torch.sum, live, dtype=torch.int64),
             valid=None,
             dtype=T.BIGINT,
         )
@@ -976,12 +1148,12 @@ def _global_one_agg(
     d, v = lowerer.eval(agg.arg)
     d = torch.broadcast_to(d, (page.capacity,))
     valid = live if v is None else (live & torch.broadcast_to(v, live.shape))
-    cnt = torch.sum(valid, dtype=torch.int64)
+    cnt = reduce(torch.sum, valid, dtype=torch.int64)
 
     if agg.func == "count":
-        return Block(data=one(cnt), valid=None, dtype=T.BIGINT)
+        return Block(data=cnt, valid=None, dtype=T.BIGINT)
 
-    has = one(cnt > 0)
+    has = cnt > 0
     at = agg.arg.dtype
 
     if agg.func in _VARIANCE_FUNCS:
@@ -990,7 +1162,7 @@ def _global_one_agg(
             x = x / (10 ** at.scale)
         x = torch.where(valid, x, 0.0)
         return _variance_block(
-            one(torch.sum(x)), one(torch.sum(x * x)), one(cnt), agg.func
+            reduce(torch.sum, x), reduce(torch.sum, x * x), cnt, agg.func
         )
 
     if agg.func in ("sum", "avg"):
@@ -998,22 +1170,24 @@ def _global_one_agg(
             x = d.to(torch.float64)
             if at.is_decimal:
                 x = x / (10 ** at.scale)
-            s = torch.sum(torch.where(valid, x, 0.0))
+            s = reduce(torch.sum, torch.where(valid, x, 0.0))
             if agg.func == "avg":
                 return Block(
-                    data=one(s / torch.clamp(cnt, min=1)),
+                    data=s / torch.clamp(cnt, min=1),
                     valid=has,
                     dtype=T.DOUBLE,
                 )
-            return Block(data=one(s), valid=has, dtype=T.DOUBLE)
-        s = torch.sum(torch.where(valid, d.to(torch.int64), 0))
-        return Block(data=one(s), valid=has, dtype=agg.result_type())
+            return Block(data=s, valid=has, dtype=T.DOUBLE)
+        s = reduce(torch.sum, torch.where(valid, d.to(torch.int64), 0))
+        return Block(data=s, valid=has, dtype=agg.result_type())
 
     if agg.func in ("min", "max"):
-        reduce = torch.amin if agg.func == "min" else torch.amax
         x = d.to(torch.float64 if at.name in ("double", "real") else torch.int64)
         fill = _onehot_fill(agg.func, x.dtype)
-        data = one(reduce(torch.where(valid, x, fill))).to(at.torch_dtype)
+        data = reduce(
+            torch.amin if agg.func == "min" else torch.amax,
+            torch.where(valid, x, fill),
+        ).to(at.torch_dtype)
         dictionary = None
         if at.is_string:
             dictionary = lowerer.dictionary_of(agg.arg)

@@ -838,3 +838,42 @@ def pad_capacity(page: Page, capacity: int) -> Page:
         num_valid=torch.clamp(page.num_valid, max=capacity).to(torch.int32),
         names=page.names,
     )
+
+
+# ------------------------------------------------ lane-blocked pages
+#
+# A micro-batch of L statements of one cached plan runs the plan once
+# over LANE-BLOCKED pages: capacity L * C, lane l owning rows
+# [l * C, (l + 1) * C). Filters and projections keep rows in place, so
+# they keep the layout; an aggregation emits one block per lane; any
+# other operator raises NoLaneForm and the shape keeps the scalar path
+# (exec/local_runner.py::execute_plan_microbatch).
+
+
+class NoLaneForm(NotImplementedError):
+    """An operator or aggregate of a micro-batched plan has no
+    lane-blocked form: the shape falls out of batching."""
+
+
+def tile_lanes(page: Page, lanes: int) -> Page:
+    """A scanned page repeated once per lane, in masked form: the
+    layout every operator of a micro-batch reads (each lane's filter
+    then masks its own rows). Nested blocks have no lane form."""
+    if any(b.dtype.is_nested for b in page.blocks):
+        raise NoLaneForm("nested column in a micro-batched scan")
+    live = page.row_mask()
+
+    def rep(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if t is None:
+            return None
+        return t.repeat((lanes,) + (1,) * (t.dim() - 1))
+
+    return Page(
+        blocks=tuple(
+            dataclasses.replace(b, data=rep(b.data), valid=rep(b.valid))
+            for b in page.blocks
+        ),
+        num_valid=(page.num_valid * lanes).to(torch.int32),
+        names=page.names,
+        live=rep(live),
+    )

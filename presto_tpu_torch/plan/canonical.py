@@ -45,9 +45,15 @@ bucketing the cache rather than breaking it):
    it; the runner's ``_adaptive_replan`` then replans and replaces the
    entry (``PlanCache.note_replan``).
 
-Not ported: the reference's micro-batch plane (``batch_lanes``,
-``stack_param_vectors``, ``vmap_program``, ``batch_entry_key``), which
-belongs to the server's micro-batch queue.
+4. **The micro-batch plane** (:func:`batch_lanes`,
+   :func:`stack_param_vectors`, :func:`lane_vectors`,
+   :func:`batch_entry_key`): N concurrent statements of one cached
+   shape differ only in their bound values, which stack along a lane
+   axis and become device tensors; the runner then runs the plan once
+   over lane-blocked pages (``page.tile_lanes``), where a RuntimeParam
+   evaluates to each lane's value over that lane's rows. The lane axis
+   is written out by hand where the reference ``jax.vmap``s its traced
+   program (``vmap_program``).
 """
 
 from __future__ import annotations
@@ -379,6 +385,101 @@ def _with_bound(plan, bound):
         bound_values=bound,
         preoptimized=getattr(plan, "preoptimized", False),
     )
+
+
+# ------------------------------------------------- micro-batch plane
+#
+# Many concurrent statements of ONE canonical shape differ only in
+# their bound parameter vectors. The micro-batch serving plane answers
+# N of them with ONE pass of the operators: the members' vectors stack
+# along a lane axis and become device tensors, and the plan runs once
+# over lane-blocked pages (exec/local_runner.py::execute_plan_microbatch).
+# Everything lane-axis-shaped on the host is constructed HERE: a
+# stacking built elsewhere could disagree with the dtype rules above
+# and cross members' answers.
+
+#: lane-count buckets: a batch of any size up to the bucket names the
+#: bucket in its entry key. The reference pads a batch to its bucket so
+#: one compiled program serves every size; the port compiles nothing,
+#: so a batch runs exactly its members' lanes
+_BATCH_LANE_BUCKETS = (2, 4, 8, 16, 32, 64, 128)
+
+
+def batch_lanes(n: int) -> int:
+    """Smallest lane bucket holding ``n`` members (n > the largest
+    bucket is the caller's error: serving.microbatch-max caps groups)."""
+    for b in _BATCH_LANE_BUCKETS:
+        if n <= b:
+            return b
+    raise ValueError(
+        f"micro-batch of {n} exceeds the largest lane bucket "
+        f"{_BATCH_LANE_BUCKETS[-1]}"
+    )
+
+
+def stack_param_vectors(
+    vectors: List[Tuple[np.ndarray, ...]], lanes: int
+) -> Tuple[np.ndarray, ...]:
+    """Stack N members' parameter vectors along a NEW leading lane
+    axis, padded to ``lanes`` by repeating the last member. Every member
+    must carry the same arity and per-slot dtype — guaranteed when the
+    members share one canonical key (dtype bucketing is part of the
+    canonical form), re-checked here because a mismatch would cross
+    members' answers, not just miss a cache."""
+    if not vectors or lanes < len(vectors):
+        raise ValueError("stack_param_vectors: bad lane count")
+    arity = len(vectors[0])
+    for v in vectors:
+        if len(v) != arity:
+            raise ValueError(
+                "micro-batch members disagree on parameter arity"
+            )
+        for a, b in zip(v, vectors[0]):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise ValueError(
+                    "micro-batch members disagree on parameter dtype"
+                )
+    padded = list(vectors) + [vectors[-1]] * (lanes - len(vectors))
+    return tuple(
+        np.stack([v[i] for v in padded]) for i in range(arity)
+    )
+
+
+def bound_vector(bound: Dict[int, E.Literal]) -> Tuple[np.ndarray, ...]:
+    """One member's parameter vector in ordinal order: each bound
+    Literal's host image in its native dtype (``_param_np``)."""
+    return tuple(
+        _param_np(bound[i].value, bound[i].dtype) for i in sorted(bound)
+    )
+
+
+def lane_vectors(stacked: Tuple[np.ndarray, ...], device) -> Dict[int, object]:
+    """The stacked vectors as the runner's active parameter vector:
+    ordinal -> a (lanes,) tensor on ``device`` (the counterpart of the
+    reference's ``vmap_program``: the lane axis written out).
+    ``ExprLowerer._eval_runtimeparam`` spreads lane l's value over lane
+    l's rows of a lane-blocked page, with no host read. A CUDA copy
+    leaves from pinned memory without waiting for queued work."""
+    import torch
+
+    device = torch.device(device)
+    out = {}
+    for i, arr in enumerate(stacked):
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[i] = t
+    return out
+
+
+def batch_entry_key(
+    cfp: str, counted: bool, offload: bool, lanes: int, window: int
+) -> tuple:
+    """Key of a batched shape: the scalar canonical fingerprint plus the
+    lane bucket and the demux window (each lane is compacted to the
+    window), tagged so it can never collide with a scalar key. The
+    runner counts served batches under it (``batch_entries``)."""
+    return (cfp, False, counted, offload, "batch", lanes, window)
 
 
 # ---------------------------------------------- statement canonicalization

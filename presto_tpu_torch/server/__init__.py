@@ -19,13 +19,17 @@ aggregation, distributed dynamic filtering and the adaptive switch
 pool SPI and the ``etc/`` launcher
 (``python -m presto_tpu_torch.server.launcher --etc-dir DIR``), and the
 split-streaming helpers streaming shares (``task_ids``, the payload
-merge, the stage cut, the MV rewrite in ``result_cache``).
+merge, the stage cut). The serving plane: the coordinator's micro-batch
+queue (``serving.microbatch-wait-ms``, ``serving.microbatch-max``), the
+snapshot-keyed result cache with the MV rewrite (``result_cache``,
+``result-cache.*``) and the WAL'd ingest lane behind
+``POST /v1/ingest/{table}`` (``ingest``, ``ingest.wal-path``).
 
-Refused with an error naming the later server slice (ROADMAP queue 4):
-the ``ResultCache`` tiers and ingest, micro-batching, ``retry_policy``
-TASK/QUERY with the spool and journal, the lease and HA planes, QoS and
-the elastic pool, and the ICI exchange lanes (with the multi-device
-exchange).
+Refused with an error naming the later slice: the lakehouse tee
+(``lakehouse.*``, with the file connectors, ROADMAP queue 3) and, from
+queue 4, ``retry_policy`` TASK/QUERY with the spool and journal, the
+lease and HA planes, QoS and the elastic pool, and the ICI exchange lanes
+(with the multi-device exchange).
 """
 
 from presto_tpu_torch.server.client import PrestoTpuClient  # noqa: F401

@@ -13,12 +13,23 @@ The coordinator's embedded ``LocalQueryRunner`` runs on one CUDA device
 (``device=None`` means CUDA and raises without a card; tests pass
 ``device="cpu"``): the gather's final step (a GROUP BY there is one
 ``onehot_reduce_many`` launch, K1, over the gathered partial states),
-the final splice and the all-workers-dead local fallback.
+the final splice, the all-workers-dead local fallback and, with no
+workers, every SELECT.
+
+The serving plane: the micro-batch queue (:class:`MicrobatchQueue`,
+``serving.microbatch-wait-ms`` / ``serving.microbatch-max``) answers
+concurrent coordinator-local statements of one cached shape with one
+pass of the operators
+(``LocalQueryRunner.execute_plan_microbatch``); the snapshot-keyed
+result cache (``server/result_cache.py``, ``result-cache.*``) sits in
+front of dispatch and under the queue; the ingest lane
+(``server/ingest.py``, ``ingest.wal-path``) takes
+``POST /v1/ingest/{table}``.
 
 Not in this slice, each refused with an error that names the later
-server slice (ROADMAP queue 4) when a config key or a session value
-turns it on: the ``ResultCache`` tiers and the ingest lane,
-micro-batching, ``retry_policy`` TASK/QUERY with the spool and the
+slice when a config key or a session value turns it on: the lakehouse
+tee (``lakehouse.*``, with the file connectors: ROADMAP queue 3), and
+from queue 4 ``retry_policy`` TASK/QUERY with the spool and the
 journal, the lease/HA planes, QoS and the elastic pool, and the ICI
 exchange (with the multi-device exchange). Their defaults behave as
 the reference's do with those planes off.
@@ -179,6 +190,18 @@ class _Query:
         #: cluster memory manager kill notice (the MEMORY_PRESSURE
         #: message), set by _apply_memory_kill
         self._mem_kill: Optional[str] = None
+        #: the admission high-water hold PARKED this query before
+        #: dispatch: a parked statement must not also accrue the
+        #: micro-batch window after release (the window starts at
+        #: dispatch-eligibility, not at submit)
+        self._admission_parked = False
+        #: serving-plane result reuse (server/result_cache.py): the
+        #: minted fingerprint x literal key, the statement it was minted
+        #: from (a background refresh re-plans it), and the plan whose
+        #: pinned snapshot handles key the stored entry
+        self._rc_key: Optional[tuple] = None
+        self._rc_stmt = None
+        self._rc_plan = None
         #: prepared statements supplied by the CLIENT on this request
         #: (X-Presto-Prepared-Statement headers — the client owns the
         #: map; see server.protocol)
@@ -205,12 +228,14 @@ def _truthy(v) -> bool:
     return bool(v)
 
 
-_SPOOL = "retry TASK/QUERY with the spool and journal"
-_CACHE = "the ResultCache tiers and ingest"
-_BATCH = "micro-batching"
-_HA = "the lease and HA planes"
-_QOS = "QoS and the elastic pool"
-_ICI = "the ICI lanes, with the multi-device exchange"
+_SPOOL = "retry TASK/QUERY with the spool and journal; ROADMAP queue 4"
+_HA = "the lease and HA planes; ROADMAP queue 4"
+_QOS = "QoS and the elastic pool; ROADMAP queue 4"
+_ICI = "the ICI lanes, with the multi-device exchange; ROADMAP queue 4"
+_LAKE = (
+    "the lakehouse tee, with the file connectors and manifests, "
+    "which need pyarrow; ROADMAP queue 3"
+)
 
 #: config keys that turn on a plane of a later server slice:
 #: key -> (is the value on?, the later slice)
@@ -219,9 +244,11 @@ _REFUSED_CONFIG = {
     "exchange.spool-path": (bool, _SPOOL),
     "coordinator.journal-path": (bool, _SPOOL),
     "coordinator.peers": (bool, _HA),
-    "serving.microbatch-wait-ms": (lambda v: float(v) > 0, _BATCH),
-    "result-cache.enabled": (_truthy, _CACHE),
-    "ingest.wal-path": (bool, _CACHE),
+    "lakehouse.path": (bool, _LAKE),
+    "lakehouse.target-file-bytes": (lambda v: True, _LAKE),
+    "lakehouse.compaction.interval-s": (lambda v: True, _LAKE),
+    "lakehouse.compaction.min-files": (lambda v: True, _LAKE),
+    "lakehouse.orphan-ttl-s": (lambda v: True, _LAKE),
     "qos.enabled": (_truthy, _QOS),
     "pool.max-workers": (lambda v: int(v) > 0, _QOS),
     "exchange.ici-enabled": (_truthy, _ICI),
@@ -230,8 +257,6 @@ _REFUSED_CONFIG = {
 #: session properties likewise, refused at ``SET SESSION``
 _REFUSED_SESSION = {
     "retry_policy": (lambda v: str(v).upper() != "NONE", _SPOOL),
-    "microbatch_wait_ms": (lambda v: float(v) > 0, _BATCH),
-    "enable_result_cache": (_truthy, _CACHE),
     "exchange_ici_enabled": (_truthy, _ICI),
 }
 
@@ -248,10 +273,164 @@ def refuse_later_planes(table, get) -> None:
         v = get(key)
         if v is not None and is_on(v):
             raise LaterSliceError(
-                f"{key}={v}: comes with a later server slice ({later}; "
-                "ROADMAP queue 4); the port's server runs the default "
-                "path only"
+                f"{key}={v}: comes with a later slice of the port "
+                f"({later}); the port's server does not run it yet"
             )
+
+
+class _MicrobatchMember:
+    """One statement parked in the batch queue: its cached canonical
+    plan (bound values included), its stats sink, and the event the
+    leader signals when the batch delivered (or dropped) this member's
+    lane.
+
+    ``claim()`` is the exactly-once ownership handshake: the LEADER
+    claims every member before dispatching, an abandoning FOLLOWER (its
+    belt-timeout fired) claims before falling back to scalar; whoever
+    claims serves the member, so a late leader can never write batch
+    results or stats into a query its own thread already answered."""
+
+    __slots__ = ("plan", "qs", "result", "event", "joined_at", "_own")
+
+    def __init__(self, plan, qs):
+        self.plan = plan
+        self.qs = qs
+        self.result = None
+        self.event = threading.Event()
+        self.joined_at = time.monotonic()
+        self._own = threading.Lock()
+
+    def claim(self) -> bool:
+        return self._own.acquire(blocking=False)
+
+
+class _MicrobatchGroup:
+    def __init__(self, key: str):
+        self.key = key
+        self.members: List[_MicrobatchMember] = []
+        #: set when the group hits microbatch_max: wakes the leader
+        #: before the window expires
+        self.full = threading.Event()
+        self.closed = False
+
+
+class MicrobatchQueue:
+    """Coordinator-side micro-batch serving plane: the batch queue in
+    front of local dispatch (many point lookups, one pass of the
+    operators on the card).
+
+    The FIRST statement of a canonical shape to reach dispatch becomes
+    its group's leader: it holds the window open for
+    ``microbatch_wait_ms`` (or until ``microbatch_max`` members join),
+    then answers the whole group with ONE batched run
+    (``LocalQueryRunner.execute_plan_microbatch``; the lane-axis
+    stacking lives in plan/canonical.py). Followers park on an event and
+    receive their lane's result. Any member whose lane fell out of the
+    batch (no lane form, an error bit or overflow flag, output beyond
+    the window) re-runs the scalar path on its own thread: batching can
+    cost a wait, never a wrong answer or a failed query. The leader's
+    and the followers' threads all launch on the card's default stream
+    through the one runner."""
+
+    def __init__(self, runner):
+        self._runner = runner
+        self._lock = threading.Lock()
+        self._groups: Dict[str, _MicrobatchGroup] = {}
+
+    def execute(
+        self,
+        key: str,
+        plan,
+        qs,
+        wait_ms: float,
+        max_size: int,
+        no_wait: bool = False,
+    ):
+        """-> QueryResult, or None (the caller runs the scalar path).
+
+        ``no_wait``: the statement already waited once (the admission
+        high-water hold parked it before dispatch): it must not accrue
+        the batch window on top of the hold, so it neither opens nor
+        joins a window (the window starts at dispatch-eligibility, not
+        at submit)."""
+        if no_wait:
+            return None
+        member = _MicrobatchMember(plan, qs)
+        with self._lock:
+            g = self._groups.get(key)
+            if (
+                g is not None
+                and not g.closed
+                and len(g.members) < max_size
+            ):
+                g.members.append(member)
+                if len(g.members) >= max_size:
+                    g.full.set()
+                leader = False
+            else:
+                g = _MicrobatchGroup(key)
+                g.members.append(member)
+                self._groups[key] = g
+                leader = True
+        if not leader:
+            # the leader delivers this lane's result at dispatch; the
+            # timeout is a belt: a wedged leader must never wedge a
+            # query. On timeout the follower CLAIMS itself: claim won ->
+            # the leader will skip this lane, scalar path here; claim
+            # lost -> the leader owns the lane and always delivers
+            # (finally below), so wait it out
+            if not member.event.wait(wait_ms / 1000.0 + 60.0):
+                if member.claim():
+                    self._note_wait(member)
+                    return None
+                member.event.wait()
+            self._note_wait(member)
+            return member.result
+        g.full.wait(wait_ms / 1000.0)
+        with self._lock:
+            g.closed = True
+            if self._groups.get(key) is g:
+                del self._groups[key]
+            members = list(g.members)
+        self._note_wait(member)
+        # exactly-once ownership: the leader claims every member it will
+        # serve; one whose claim is lost already abandoned (it answers
+        # itself scalar) and must not be touched again
+        claimed = [m for m in members if m.claim()]
+        if len(claimed) < 2:
+            for m in claimed:
+                if m is not member:
+                    m.event.set()  # result stays None: scalar path
+            return None  # nobody to share the pass with
+        results = [None] * len(claimed)
+        try:
+            try:
+                results = self._runner.execute_plan_microbatch(
+                    [m.plan for m in claimed],
+                    [m.qs for m in claimed],
+                )
+            except Exception:
+                # every member re-runs the scalar path, which raises
+                # the error itself if it is a real one (a failed
+                # launch); counted so a run can show no batch failed
+                REGISTRY.counter("serving.batch_errors").update()
+                log.exception(
+                    "micro-batch dispatch failed; members fall back"
+                )
+        finally:
+            # delivery is unconditional: followers whose claim the
+            # leader won are parked on this event
+            for m, r in zip(claimed, results):
+                m.result = r
+            for m in claimed:
+                m.event.set()
+        return member.result
+
+    @staticmethod
+    def _note_wait(member: _MicrobatchMember) -> None:
+        REGISTRY.distribution("serving.batch_wait_ms").add(
+            (time.monotonic() - member.joined_at) * 1000.0
+        )
 
 
 class CoordinatorServer:
@@ -454,6 +633,57 @@ class CoordinatorServer:
         mv_rw = config.get("mview.auto-rewrite") if config else None
         if mv_rw is not None:
             self.local.session.set("mview_auto_rewrite", bool(mv_rw))
+        # micro-batched serving: tier-1 serving.* keys seed the session
+        # defaults (0 = off = the scalar dispatch), and the ONE batch
+        # queue fronts this coordinator's local dispatch
+        mb_wait = (
+            config.get("serving.microbatch-wait-ms") if config else None
+        )
+        if mb_wait is not None:
+            self.local.session.set("microbatch_wait_ms", float(mb_wait))
+        mb_max = config.get("serving.microbatch-max") if config else None
+        if mb_max is not None:
+            self.local.session.set("microbatch_max", int(mb_max))
+        self.microbatch = MicrobatchQueue(self.local)
+        # serving-plane result reuse (server/result_cache.py): tier-1
+        # result-cache.* keys seed the session gates; the ONE cache is
+        # built unconditionally (idle = zero bytes, zero lookups: the
+        # session gate decides whether any path consults it) so the
+        # write fan-in and system.runtime.caches see a stable object
+        from presto_tpu_torch.server.result_cache import ResultCache
+
+        rc_on = config.get("result-cache.enabled") if config else None
+        if rc_on is not None:
+            self.local.session.set("enable_result_cache", _truthy(rc_on))
+        rc_stale = (
+            config.get("result-cache.max-staleness-s") if config else None
+        )
+        if rc_stale is not None:
+            self.local.session.set(
+                "result_cache_max_staleness_s", float(rc_stale)
+            )
+        rc_bytes = config.get("result-cache.bytes") if config else None
+        self.result_cache = ResultCache(
+            self.local,
+            parse_bytes(rc_bytes)
+            if rc_bytes is not None
+            else 256 * 1024 * 1024,
+            pool=self.memory_pool,
+        )
+        self.local.result_cache = self.result_cache
+        # streaming ingest lane (server/ingest.py): built in start(),
+        # AFTER the embedder registered its catalogs (WAL replay
+        # resolves tables through them). Unset = none of it is built
+        self.ingest = None
+        ing_path = config.get("ingest.wal-path") if config else None
+        self._ingest_cfg = (
+            (
+                ing_path,
+                float(config.get("ingest.commit-interval-ms", 50.0)),
+            )
+            if ing_path
+            else None
+        )
         #: coordinator-global prepared statements (PREPARE over plain
         #: HTTP without a header-aware client); header-supplied maps on
         #: the request take precedence. Bounded: a serving fleet cycles
@@ -559,7 +789,7 @@ class CoordinatorServer:
         self._telemetry_thread = None
 
         handler = _make_handler(self)
-        self.httpd = ThreadingHTTPServer(("127.0.0.1", port), handler)
+        self.httpd = _Server(("127.0.0.1", port), handler)
         self.port = self.httpd.server_address[1]
         self.uri = f"http://127.0.0.1:{self.port}"
         self._serve_thread = threading.Thread(
@@ -567,6 +797,17 @@ class CoordinatorServer:
         )
 
     def start(self) -> "CoordinatorServer":
+        # ingest-lane recovery BEFORE the server accepts requests (and
+        # after catalog registration: WAL replay recreates tables
+        # through the mounted connectors and restores the durable
+        # materialized views)
+        if self._ingest_cfg is not None and self.ingest is None:
+            from presto_tpu_torch.server.ingest import IngestManager
+
+            path, interval = self._ingest_cfg
+            self.ingest = IngestManager(
+                self.local, path, commit_interval_ms=interval
+            )
         # time-series sampler (telemetry.sample-interval-s > 0): a
         # daemon loop folding node scrapes into the metrics_history
         # ring. Started with the server, never before — an unstarted
@@ -585,6 +826,10 @@ class CoordinatorServer:
     def shutdown(self) -> None:
         self._shutting_down = True
         self._telemetry_stop.set()
+        if self.ingest is not None:
+            # stop the commit loop and fold the pending tail (the WAL
+            # has it either way: replay would re-admit it)
+            self.ingest.close()
         # httpd.shutdown() handshakes with the serve_forever loop and
         # blocks forever if that loop never ran (server constructed but
         # not .start()ed, e.g. in-process submit()-only tests).
@@ -1016,6 +1261,7 @@ class CoordinatorServer:
             and not self._shutting_down
             and self.arbiter.admission_held()
         ):
+            q._admission_parked = True
             time.sleep(0.05)
         if q.done.is_set():  # killed while queued (memory manager)
             with self._lock:
@@ -1120,13 +1366,33 @@ class CoordinatorServer:
             q.rows = [[line] for line in text.split("\n")]
             return
         if not isinstance(stmt, ast.Select) or not workers:
+            if isinstance(stmt, ast.Select):
+                # the micro-batch lane and the result cache (coordinator-
+                # local dispatch); None = both off: the path below
+                with q.trace.span("execute-local"):
+                    res = self._microbatch_local_select(
+                        q, stmt, adopt=True
+                    )
+                if res is not None:
+                    self._store_result(q, res)
+                    return
             # non-SELECT (SET SESSION / SHOW / EXPLAIN) or empty cluster:
             # run on the coordinator's local engine
             with q.trace.span("execute-local"):
                 res = self.local.execute(q.sql)
             self._store_result(q, res)
             return
-        self._store_result(q, self._run_select(q, stmt, workers))
+        res = None
+        if bool(self.local.session.get("enable_result_cache")):
+            # tier a in front of distributed dispatch (the EXPLAIN
+            # ANALYZE branch above bypasses it: an analyze executes)
+            res = self._result_cache_lookup(q, stmt, adopt=True)
+            if res is None:
+                res = self._run_select(q, stmt, workers)
+                self._result_cache_store(q, q._rc_plan, res)
+        else:
+            res = self._run_select(q, stmt, workers)
+        self._store_result(q, res)
 
     #: coordinator-global prepared registry bound (names cycle on a
     #: serving fleet; the client-header path carries its own map)
@@ -1194,12 +1460,24 @@ class CoordinatorServer:
         bound = _bind_param_markers(inner, stmt.params)
         workers = self.active_workers()
         if isinstance(bound, A.Select) and workers:
-            res = self._run_select(q, bound, workers)
+            res = None
+            if bool(self.local.session.get("enable_result_cache")):
+                res = self._result_cache_lookup(q, bound, adopt=True)
+            if res is None:
+                res = self._run_select(q, bound, workers)
+                self._result_cache_store(q, q._rc_plan, res)
         else:
             # plan_cached marks q.stats.plan_cache_hit through the
             # thread-local stats sink _execute_query installed
             with q.trace.span("execute-local"):
-                res = self.local.execute_bound(bound)
+                res = None
+                if isinstance(bound, A.Select):
+                    # micro-batch lane: concurrent EXECUTEs of one shape
+                    # share one batched pass (None when the lane and the
+                    # result cache are off: the scalar path below)
+                    res = self._microbatch_local_select(q, bound)
+                if res is None:
+                    res = self.local.execute_bound(bound)
         self._store_result(q, res)
 
     def _parse_prepared(self, text: str):
@@ -1222,6 +1500,160 @@ class CoordinatorServer:
             while len(cache) > self.MAX_PREPARED:
                 cache.popitem(last=False)
         return parsed
+
+    def _microbatch_key(self, stmt_key: str) -> str:
+        """The batch-queue grouping key, built here only: the canonical
+        statement key already carries catalog/schema and the
+        value-erased statement shape, so same-key statements are the
+        same cached plan with different parameter vectors; the prefix
+        keeps queue keys out of every other key space."""
+        return f"mb|{stmt_key}"
+
+    def _microbatch_local_select(self, q: _Query, stmt, adopt=False):
+        """Coordinator-local SELECT through the micro-batch lane: ->
+        QueryResult, or None when the lane and the result cache are
+        both OFF (the caller keeps the scalar path). With either on, an
+        eligible statement always returns here: a cached result, its
+        lane of a batch when a group formed, the scalar path otherwise.
+
+        ``adopt``: the plain-SELECT caller bypasses the runner's own
+        execute() bookkeeping, so the lane adopts the coordinator stats
+        into the runner history (system.runtime.queries must still see
+        the query). Adoption happens AFTER the one wait-ms read below:
+        a None return must leave no adopted twin behind."""
+        runner = self.local
+        wait_ms = float(runner.session.get("microbatch_wait_ms"))
+        rc_on = bool(runner.session.get("enable_result_cache"))
+        if wait_ms <= 0 and not rc_on:
+            return None
+        if adopt:
+            runner.history.adopt(q.stats)
+            q._adopted = True
+        if rc_on:
+            # the result cache UNDER the batch queue: a hot shape's
+            # first batch executes ONCE, every later statement answers
+            # here with zero planning and zero dispatch
+            res = self._result_cache_lookup(q, stmt)
+            if res is not None:
+                return res
+        plan, _hit, key = runner.plan_cached_keyed(stmt)
+        res = None
+        if (
+            wait_ms > 0
+            and key is not None
+            and runner.microbatch_plan_eligible(plan)
+        ):
+            max_size = min(int(runner.session.get("microbatch_max")), 128)
+            res = self.microbatch.execute(
+                self._microbatch_key(key),
+                plan,
+                q.stats,
+                wait_ms,
+                max_size,
+                no_wait=q._admission_parked,
+            )
+        if res is None:
+            # ineligible statement, empty window, or a lane that fell
+            # out of the batch: the one scalar path (capacity retries,
+            # error surfacing, full materialization)
+            res = runner.execute_plan(plan, qs=q.stats)
+        if rc_on:
+            self._result_cache_store(q, plan, res)
+        return res
+
+    def _result_cache_lookup(self, q: _Query, stmt, adopt=False):
+        """Tier-a lookup in front of planning and dispatch: -> a served
+        result on a usable entry (fresh, or stale within the session's
+        bounded-staleness window, which also spawns the ONE background
+        refresh), else None with the minted key kept on ``q`` for the
+        store after execution. Every failure lane degrades to a miss."""
+        rc = self.result_cache
+        if rc is None:
+            return None
+        from presto_tpu_torch.server import result_cache as rc_mod
+
+        key = rc_mod.statement_key(stmt, self.local.session)
+        q._rc_key = key
+        q._rc_stmt = stmt
+        if key is None:
+            return None
+        max_stale = float(
+            self.local.session.get("result_cache_max_staleness_s")
+        )
+        got = rc.get(key, max_staleness_s=max_stale)
+        if got is None:
+            q.stats.result_cache = "miss"
+            return None
+        entry, stale = got
+        if adopt and not q._adopted:
+            # the distributed path adopts inside _run_select, which a
+            # hit never reaches: system.runtime.queries must still see
+            # the query
+            self.local.history.adopt(q.stats)
+            q._adopted = True
+        q.stats.result_cache = "stale" if stale else "hit"
+        q.stats.result_cache_age_ms = (
+            time.time() - entry.created_at
+        ) * 1000.0
+        q.stats.result_cache_snapshot = entry.snapshot_label
+        q.stats.output_rows = len(entry.rows)
+        if stale:
+            self._spawn_result_refresh(entry)
+        return rc_mod.CachedResult(entry.columns, entry.rows)
+
+    def _result_cache_store(self, q: _Query, plan, res) -> None:
+        """The put after execution: the entry keys on the statement key
+        minted at lookup and the snapshot vector pinned into the
+        executed plan. No-op (fail open) without a key, on any
+        non-cacheable scan, or on estimation errors."""
+        rc = self.result_cache
+        key = q._rc_key
+        if rc is None or key is None or plan is None or res is None:
+            return
+        from presto_tpu_torch.plan import canonical
+
+        try:
+            rc.put(
+                key,
+                q._rc_stmt,
+                res.columns,
+                res.rows(),
+                canonical.plan_handles(plan),
+            )
+        except Exception:
+            log.debug("result-cache put skipped", exc_info=True)
+
+    def _spawn_result_refresh(self, entry) -> None:
+        """Tier-c background refresh: exactly ONE re-execution per stale
+        entry (a per-entry compare-and-set), off the serving path,
+        through the normal plan/execute seam; the re-put replaces the
+        stale entry with a fresh vector."""
+        rc = self.result_cache
+        if rc is None or not rc.claim_refresh(entry):
+            return
+
+        def _refresh():
+            from presto_tpu_torch.plan import canonical
+
+            try:
+                runner = self.local
+                plan, _hit, _key = runner.plan_cached_keyed(entry.stmt)
+                res = runner.execute_plan(plan)
+                rc.put(
+                    entry.key,
+                    entry.stmt,
+                    res.columns,
+                    res.rows(),
+                    canonical.plan_handles(plan),
+                )
+            except Exception:
+                log.warning("result-cache refresh failed", exc_info=True)
+            finally:
+                rc.finish_refresh(entry)
+
+        threading.Thread(
+            target=_refresh, name="result-cache-refresh", daemon=True
+        ).start()
 
     def _run_select(self, q: _Query, stmt, workers):
         """Distributed SELECT: plan -> fragment -> schedule stages ->
@@ -1247,6 +1679,9 @@ class CoordinatorServer:
             # worker re-hoists locally, so literal-variant fragments
             # hit the WORKER compile caches too
             plan, q.stats.plan_cache_hit = self.local.plan_cached(stmt)
+            # result-cache store site (the caller): the entry keys on
+            # THIS plan's snapshot-pinned scan handles
+            q._rc_plan = plan
             if plan.bound_values:
                 from presto_tpu_torch.plan import canonical
 
@@ -3581,6 +4016,13 @@ def _passes_through(node: N.PlanNode, col: str) -> bool:
     return False
 
 
+class _Server(ThreadingHTTPServer):
+    #: listen backlog: a burst of concurrent clients (a serving fleet
+    #: submitting into one batch window) must queue for accept, not be
+    #: reset; socketserver's default is 5
+    request_queue_size = 128
+
+
 def _make_handler(coord: CoordinatorServer):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -3632,9 +4074,38 @@ def _make_handler(coord: CoordinatorServer):
                         "nextUri": f"{coord.uri}/v1/statement/{q.qid}/0",
                     },
                 )
+            if len(parts) == 3 and parts[:2] == ["v1", "ingest"]:
+                # streaming ingest: POST /v1/ingest/{table} with
+                # {"rows": [{col: val}, ...]} or {"columns": {col:
+                # [values]}}; {"commit": true} forces a synchronous fold
+                # instead of waiting for the commit loop. The batch is
+                # durable (WAL-framed) once this returns, visible at
+                # its commit
+                raw = self._read_body()
+                if coord.ingest is None:
+                    return self._json(
+                        503,
+                        {
+                            "error": "ingest lane not configured "
+                            "(set ingest.wal-path)"
+                        },
+                    )
+                try:
+                    body = json.loads(raw or b"{}")
+                    out = coord.ingest.append(
+                        parts[2],
+                        columns=body.get("columns"),
+                        rows=body.get("rows"),
+                    )
+                    if body.get("commit"):
+                        coord.ingest.flush()
+                        out["committed"] = True
+                    return self._json(200, out)
+                except Exception as e:
+                    return self._json(
+                        400, {"error": f"{type(e).__name__}: {e}"}
+                    )
             self._json(404, {"error": f"no route {self.path}"})
-
-        def do_PUT(self):            self._json(404, {"error": f"no route {self.path}"})
 
         def do_PUT(self):
             parts = [p for p in self.path.split("/") if p]

@@ -830,3 +830,129 @@ def test_nodes_without_a_visible_card_refuse_to_start(cuda):
         env=env, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0 and "refused" in out.stdout, out.stderr
+
+
+Q1_CUT = (
+    "select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty, "
+    "sum(l_extendedprice * (1 - l_discount)) as sum_disc_price, "
+    "avg(l_discount) as avg_disc, count(*) as count_order "
+    "from tpch.tiny.lineitem where l_shipdate <= ? "
+    "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus"
+)
+CUTOFFS = ["1992-06-01", "1994-01-01", "1996-06-30", "1998-12-01"]
+
+
+def test_lane_batching_rule_at_256_segments_equals_plain(cuda):
+    # K1's batching rule: 32 lanes x 8 segments = 256 in ONE launch per
+    # request group, two lanes without a live row, held against one
+    # plain reduction per lane
+    from presto_tpu_torch.ops.aggregation import (
+        onehot_reduce_lanes,
+        onehot_reduce_lanes_plain,
+    )
+
+    lanes, nseg, rows = 32, 8, 4096
+    rng = np.random.default_rng(7)
+    g = rng.integers(0, nseg + 1, lanes * rows).astype(np.int32)
+    g[3 * rows:4 * rows] = nseg
+    g[17 * rows:18 * rows] = nseg
+    gid = torch.from_numpy(g).to(cuda)
+    x = torch.from_numpy(
+        rng.integers(-(2**40), 2**40, lanes * rows, dtype=np.int64)
+    ).to(cuda)
+    f = torch.from_numpy(rng.standard_normal(lanes * rows)).to(cuda)
+    reqs = [("count", None, None), ("sum", x, None), ("min", x, None),
+            ("max", x, None), ("sum", f, None)]
+    before = onehot_reduce.launches
+    got = onehot_reduce_lanes(gid, reqs, nseg, lanes)
+    assert onehot_reduce.launches - before == 1
+    want = onehot_reduce_lanes_plain(gid, reqs, nseg, lanes)
+    torch.cuda.synchronize()
+    res, exp = onehot_results(got, reqs), onehot_results(want, reqs)
+    for k in range(4):
+        assert torch.equal(res[k], exp[k])
+    scale = onehot_reduce_lanes_plain(
+        gid, [("sum", f.abs(), None)], nseg, lanes)[0].view(torch.float64)
+    assert bool(((res[4] - exp[4]).abs() <= 1e-12 * scale).all())
+    assert int(res[0][3 * nseg:4 * nseg].sum()) == 0
+
+
+def _batched_q1(cuda):
+    """A CUDA coordinator with a 4-lane window and the result cache on,
+    the Q1 shape PREPAREd and warmed."""
+    from presto_tpu_torch.server import CoordinatorServer
+
+    coord = CoordinatorServer(device=cuda, max_concurrent_queries=16)
+    coord.local.session.set("microbatch_wait_ms", 5000.0)
+    coord.local.session.set("microbatch_max", len(CUTOFFS))
+    coord.local.session.set("max_fragment_weight", 24)
+    coord.local.session.set("enable_result_cache", True)
+    prepared = {"q1": Q1_CUT}
+    q = coord.submit("execute q1 using date '1997-01-01'", prepared=prepared)
+    assert q.done.wait(300) and q.state == "FINISHED", q.error
+    return coord, prepared
+
+
+def _concurrent(coord, sqls, prepared):
+    import threading
+
+    out = [None] * len(sqls)
+    bar = threading.Barrier(len(sqls))
+
+    def run(i):
+        bar.wait(60)
+        q = coord.submit(sqls[i], prepared=dict(prepared))
+        q.done.wait(300)
+        out[i] = q
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(sqls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    return out
+
+
+def test_q1_batch_of_four_lanes_is_one_launch_equal_to_scalar(cuda):
+    import math
+
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+
+    coord, prepared = _batched_q1(cuda)
+    try:
+        sqls = [f"execute q1 using date '{c}'" for c in CUTOFFS]
+        before = onehot_reduce.launches
+        qs = _concurrent(coord, sqls, prepared)
+        assert onehot_reduce.launches - before == 1
+        cpu = LocalQueryRunner(device="cpu")
+        for q, c in zip(qs, CUTOFFS):
+            assert q.state == "FINISHED", q.error
+            assert q.stats.batched and q.stats.batch_size == len(CUTOFFS)
+            want = cpu.execute(Q1_CUT.replace("?", f"date '{c}'")).rows()
+            assert len(q.rows) == len(want)
+            for g, w in zip(q.rows, want):
+                for a, b in zip(g, w):
+                    if isinstance(b, float):
+                        assert math.isclose(a, b, rel_tol=1e-12), (g, w)
+                    else:
+                        assert a == b, (g, w)
+    finally:
+        coord.shutdown()
+
+
+def test_result_cache_hit_on_the_card_launches_nothing(cuda):
+    from presto_tpu_torch.utils.telemetry import device_snapshot
+
+    coord, prepared = _batched_q1(cuda)
+    try:
+        sql = "execute q1 using date '1997-01-01'"
+        before = onehot_reduce.launches
+        d0 = device_snapshot()["dispatches"]
+        q = coord.submit(sql, prepared=prepared)
+        assert q.done.wait(300) and q.state == "FINISHED", q.error
+        assert q.stats.result_cache == "hit"
+        assert onehot_reduce.launches == before
+        assert device_snapshot()["dispatches"] == d0
+        assert q.rows
+    finally:
+        coord.shutdown()

@@ -12,8 +12,9 @@ aggregation with pipelined source attachment, the partitioned join
 (forced, chosen from stats, and a semi join), the ordered MERGE
 exchange and TopN, the dynamic-filter summary stage with split pruning,
 the adaptive broadcast<->partitioned switch, the session flag that
-disables the shuffle, and the refused ICI, spool, micro-batch and
-result-cache settings.
+disables the shuffle, and the refused ICI, spool, HA, QoS and lakehouse
+settings. The micro-batch, result-cache and ingest settings, refused by
+the server's first slice, are accepted now and act (the same cases).
 """
 
 from __future__ import annotations
@@ -464,23 +465,95 @@ def test_adaptive_switch_partitioned_to_broadcast(cluster, client, skewed):
 # ------------------------------------------------- refused later planes
 
 
+#: key -> (value, the word its refusal names); a word of None marks a
+#: plane the serving slice ported: the case turns it on and checks that
+#: it acts (``_check_plane_acts``). ``ingest.wal-path`` takes a temporary
+#: directory
 _REFUSED_CONFIG = {
     "exchange.ici-enabled": ("true", "ICI"),
     "retry-policy": ("TASK", "spool"),
     "exchange.spool-path": ("/nonexistent/spool", "spool"),
     "coordinator.journal-path": ("/nonexistent/journal", "journal"),
     "coordinator.peers": ("http://127.0.0.1:1", "HA"),
-    "serving.microbatch-wait-ms": ("5", "micro-batching"),
-    "result-cache.enabled": ("true", "ResultCache"),
-    "ingest.wal-path": ("/nonexistent/wal", "ingest"),
+    "serving.microbatch-wait-ms": ("5000", None),
+    "result-cache.enabled": ("true", None),
+    "ingest.wal-path": ("", None),
+    "lakehouse.path": ("/nonexistent/lake", "pyarrow"),
+    "lakehouse.target-file-bytes": ("64MB", "pyarrow"),
     "qos.enabled": ("true", "QoS"),
     "pool.max-workers": ("2", "elastic pool"),
 }
 
+POINT = (
+    "select c_custkey, c_name from tpch.tiny.customer where c_custkey = ?"
+)
+
+
+def _check_plane_acts(key, value, tmp_path):
+    """A serving-plane key on a worker-less coordinator: accepted, and
+    its plane acts (two concurrent EXECUTEs share one batch; a repeated
+    SELECT is a cache hit; a POSTed batch is committed and read)."""
+    import json
+    import threading
+    import urllib.request
+
+    if key == "ingest.wal-path":
+        value = str(tmp_path)
+    catalogs = CatalogManager()
+    catalogs.register("tpch", create_connector("tpch"))
+    catalogs.register("mem", create_connector("memory"))
+    coord = CoordinatorServer(
+        config=NodeConfig({key: value}), catalogs=catalogs, device="cpu"
+    ).start()
+    try:
+        if key == "serving.microbatch-wait-ms":
+            assert coord.local.session.get("microbatch_wait_ms") == 5000.0
+            coord.local.session.set("microbatch_max", 2)
+            prepared = {"p": POINT}
+            qs = [None, None]
+
+            def run(i):
+                q = coord.submit(f"execute p using {7 + i}", prepared=prepared)
+                q.done.wait(60)
+                qs[i] = q
+
+            threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            assert [q.rows[0][0] for q in qs] == [7, 8]
+            assert all(q.stats.batched for q in qs)
+        elif key == "result-cache.enabled":
+            sql = "select count(*) as c from tpch.tiny.nation"
+            status = []
+            for _ in range(2):
+                q = coord.submit(sql)
+                q.done.wait(60)
+                assert q.rows == [[25]]
+                status.append(q.stats.result_cache)
+            assert status == ["miss", "hit"]
+        else:
+            assert coord.ingest is not None
+            coord.local.execute("create table mem.default.t (k bigint)")
+            req = urllib.request.Request(
+                coord.uri + "/v1/ingest/mem.default.t",
+                data=json.dumps({"rows": [{"k": 4}], "commit": True}).encode(),
+            )
+            assert json.load(urllib.request.urlopen(req))["committed"]
+            assert coord.local.execute(
+                "select k from mem.default.t"
+            ).rows() == [(4,)]
+    finally:
+        coord.shutdown()
+
 
 @pytest.mark.parametrize("key", sorted(_REFUSED_CONFIG))
-def test_coordinator_refuses_later_plane_config(key):
+def test_coordinator_refuses_later_plane_config(key, tmp_path):
     value, slice_word = _REFUSED_CONFIG[key]
+    if slice_word is None:
+        _check_plane_acts(key, value, tmp_path)
+        return
     with pytest.raises(LaterSliceError, match=slice_word):
         CoordinatorServer(config=NodeConfig({key: value}), device="cpu")
 
@@ -523,18 +596,38 @@ def test_off_values_are_accepted_and_change_nothing(oracle):
     [
         ("retry_policy = 'TASK'", "spool"),
         ("retry_policy = 'QUERY'", "spool"),
-        ("microbatch_wait_ms = 5", "micro-batching"),
-        ("enable_result_cache = true", "ResultCache"),
+        ("microbatch_wait_ms = 5", None),
+        ("enable_result_cache = true", None),
         ("exchange_ici_enabled = true", "ICI"),
     ],
 )
 def test_set_session_refuses_later_planes(cluster, client, setting, slice_word):
+    """A later plane's session value is refused and changes nothing; a
+    serving-plane value (slice word None) is accepted and acts: the
+    micro-batch window is set, and with the result cache on a repeated
+    distributed SELECT is a hit. Both are restored afterwards."""
     coord, _ = cluster
     name = setting.split(" = ")[0]
     before = coord.local.session.get(name)
-    with pytest.raises(QueryFailed, match=slice_word):
+    if slice_word is not None:
+        with pytest.raises(QueryFailed, match=slice_word):
+            client.execute(f"set session {setting}")
+        assert coord.local.session.get(name) == before
+        return
+    try:
         client.execute(f"set session {setting}")
-    assert coord.local.session.get(name) == before
+        if name == "microbatch_wait_ms":
+            assert coord.local.session.get(name) == 5.0
+        else:
+            assert coord.local.session.get(name) is True
+            sql = "select count(*) as c from tpch.tiny.region"
+            got = [client.execute(sql) for _ in range(2)]
+            assert [r.rows() for r in got] == [[(5,)], [(5,)]]
+            assert [
+                coord.queries[r.query_id].stats.result_cache for r in got
+            ] == ["miss", "hit"]
+    finally:
+        coord.local.session.set(name, before)
 
 
 def test_worker_refuses_spooled_and_in_slice_tasks(cluster):
