@@ -199,7 +199,27 @@ non-zero, and only a run where every phase passed prints the final
               coordinator replaying the same WAL. Every answer is exact
               against numpy; one line per step: seconds, batches and
               lanes, cache hits, K1 launches, dispatches, WAL frames.
-15. a ``{"kernels": [...]}`` line (K1, and K1 through its batching
+15. recover - the twelfth slice, fault-tolerant execution, every spool,
+              journal and control directory under one temporary
+              directory: R1 Q1 at SF1 on a coordinator and two workers
+              with ``retry-policy=TASK`` and a shared spool, a
+              ``kill_worker`` rule on one worker's second producer task
+              (the lost range re-runs on the survivor, K1 launching on
+              its batches; the dead worker's merge partition re-runs
+              there over its committed producer, re-read from the spool);
+              R2 a partitioned Q3 at SF1, the worker killed as its join
+              task starts (its join partition re-runs over the spooled
+              producer partitions); R3 ``retry_policy=QUERY``, a killed
+              worker restarting the whole Q1; R4 4 QUEUED Q1s across a
+              coordinator bounce on its journal, 4 paginating clients
+              riding it; R5 two coordinators with peers on one control
+              directory, ``kill_coordinator`` on one as Q1 is admitted,
+              the survivor claiming, resuming and aliasing it. Every
+              answer equals the port's local runner; one line per step:
+              seconds, seconds from the fault to the last answer, K1
+              launches, tasks retried, spool frames and bytes written
+              and re-served, restarts, resumed queries, claims.
+16. a ``{"kernels": [...]}`` line (K1, and K1 through its batching
     rule), then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
@@ -4607,6 +4627,460 @@ def serve_phase(card: str, dev=None, records=None, schema: str = "sf1",
     return launches, out
 
 
+# ------------------------------------------------------------ recover phase
+
+#: the recover phase's peer lease TTL: a killed coordinator's lease
+#: expires this long after its last renewal, then a survivor claims it
+RECOVER_LEASE_TTL_S = 0.75
+#: split caches and pools of the recover phase's nodes (its steps run at
+#: SF1; one step's nodes are shut down before the next boots)
+RECOVER_CACHE_BYTES = 4 << 30
+RECOVER_POOL = "16GB"
+
+
+def recover_phase(card: str, dev=None, schema: str = "sf1"):
+    """The twelfth slice's path on ``dev`` (the card unless a CPU
+    rehearsal passes another): fault-tolerant execution, every spool,
+    journal and control directory under one temporary directory that
+    the phase removes. R1 Q1 over ``schema`` on a coordinator and two
+    workers with ``retry-policy=TASK`` and a shared spool, a
+    ``kill_worker`` rule on one worker's second producer task: the lost
+    range re-runs on the survivor as attempt a1, the dead worker's merge
+    partition re-runs there too and re-reads its committed producer from
+    the spool; K1 launches on the retried producer's batches and on the
+    merges. R2 a partitioned Q3 with the worker killed as its join task
+    starts: its join partition re-runs on the survivor over the dead
+    worker's spooled producer partitions. R3 ``retry_policy=QUERY`` with
+    no task-retry budget: a killed worker restarts the whole Q1. R4 a
+    coordinator with ``coordinator.journal-path``, 4 Q1s QUEUED behind
+    held admission, shut down and replaced on the same port and journal
+    while 4 paginating clients ride the bounce. R5 two coordinators with
+    ``coordinator.peers`` on one control directory, ``kill_coordinator``
+    on coord-0 as a Q1 is admitted: the survivor claims the dead lease,
+    resumes the query and resolves its statement id by alias. Every
+    answer equals the port's local runner. One line per step: seconds
+    and seconds from the fault to the last answer, K1 launches, tasks
+    retried, spool frames and bytes written and re-served, query
+    restarts, resumed queries, failover claims. Returns (the
+    onehot_reduce launches of the counted steps, the records)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from presto_tpu_torch.ops import aggregation as PA
+    from presto_tpu_torch.server import (
+        CoordinatorServer,
+        PrestoTpuClient,
+        WorkerServer,
+        task_ids,
+    )
+    from presto_tpu_torch.session import NodeConfig, Session
+    from presto_tpu_torch.utils import faults
+    from presto_tpu_torch.utils.metrics import REGISTRY
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    out, launches = [], 0
+    root = tempfile.mkdtemp(prefix="recover-")
+    q1 = Q1.replace("tpch.sf1.lineitem", f"tpch.{schema}.lineitem")
+    counters = {
+        "tasks_retried": "coordinator.tasks_retried",
+        "spool_frames_written": "spool.pages_written",
+        "spool_bytes_written": "spool.bytes_written",
+        "spool_frames_served": "spool.pages_served",
+        "spool_bytes_served": "spool.bytes_served",
+        "query_restarts": "coordinator.query_restarts",
+        "resumed_queries": "coordinator.resumed_queries",
+        "failover_claims": "coordinator.failover_claims",
+    }
+
+    def node_config(extra):
+        return NodeConfig({
+            "staging.cache-bytes": str(RECOVER_CACHE_BYTES),
+            "query.max-memory-per-node": RECOVER_POOL,
+            **extra,
+        })
+
+    def coordinator(extra, **kw):
+        return CoordinatorServer(
+            config=node_config(extra), device=dev,
+            session=Session(schema=schema), **kw,
+        )
+
+    def cluster(extra, worker_extra):
+        coord = coordinator(extra).start()
+        workers = [
+            WorkerServer(coordinator_uri=coord.uri,
+                         config=node_config(worker_extra),
+                         device=dev).start()
+            for _ in range(2)
+        ]
+        wait_for(lambda: len(coord.active_workers()) == 2,
+                 "the workers did not announce themselves")
+        return coord, workers
+
+    def free_ports(n):
+        import socket
+
+        socks = [socket.socket() for _ in range(n)]
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        ports = [sk.getsockname()[1] for sk in socks]
+        for sk in socks:
+            sk.close()
+        return ports
+
+    def wait_for(cond, msg, timeout=120.0):
+        deadline = time.monotonic() + timeout
+        while not cond() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(cond(), msg)
+
+    def timed_fault(node):
+        """Record when ``node``'s fault-plane kill fires."""
+        fired = {}
+        kill = node._fault_kill
+
+        def record():
+            fired.setdefault("t", time.perf_counter())
+            kill()
+
+        node._fault_kill = record
+        return fired
+
+    @contextlib.contextmanager
+    def k1_by_task(workers):
+        """Every ``onehot_reduce_many`` call of the block, keyed by the
+        worker task whose thread made it ("" on the coordinator)."""
+        calls = []
+        real = PA.onehot_reduce_many
+
+        def record(gid, requests, nseg):
+            tid = ""
+            for w in workers:
+                st = getattr(w.runner._qs_local, "value", None)
+                if st is not None:
+                    tid = st.task_id
+            calls.append((tid, len(requests)))
+            return real(gid, requests, nseg)
+
+        PA.onehot_reduce_many = record
+        try:
+            yield calls
+        finally:
+            PA.onehot_reduce_many = real
+
+    def k1_launches(calls):
+        return sum(-(-k // PA.K_MAX) for _, k in calls) if on_card else 0
+
+    def step(label, run, fired=None):
+        """Run one step with the K1 count and the counters read around
+        it; print and record its line."""
+        nonlocal launches
+        before = {k: REGISTRY.counter(n).total for k, n in counters.items()}
+        PA.onehot_reduce.launches = 0
+        t0 = time.perf_counter()
+        rec = run() or {}
+        t1 = time.perf_counter()
+        n_launch = PA.onehot_reduce.launches
+        launches += n_launch
+        rec = {"step": label, "s": t1 - t0,
+               "recover_s": (t1 - fired["t"]) if fired and "t" in fired
+               else None,
+               "onehot_reduce_launches": n_launch,
+               **{k: int(REGISTRY.counter(n).total - before[k])
+                  for k, n in counters.items()},
+               **rec}
+        out.append(rec)
+        extra = {k: v for k, v in rec.items()
+                 if k not in ("step", "s", "recover_s")}
+        recover = ("" if rec["recover_s"] is None
+                   else f", {rec['recover_s']:.4f} s from the fault to the "
+                   "last answer")
+        print(f"{label}: {rec['s']:.4f} s{recover}, "
+              + ", ".join(f"{k} {v}" for k, v in extra.items())
+              + f" [{card}]", flush=True)
+        return rec
+
+    def shut(coords=(), workers=()):
+        faults.configure(None)
+        for w in workers:
+            w.shutdown(graceful=False)
+        for c in coords:
+            c.shutdown()
+
+    want = {}
+    try:
+        # R1: TASK recovery of the shuffled Q1 over the spool
+        spool = os.path.join(root, "spool-r1")
+        coord, workers = cluster(
+            {"retry-policy": "TASK", "exchange.spool-path": spool},
+            {"exchange.spool-path": spool})
+        try:
+            t0 = time.perf_counter()
+            want["q1"] = server_rows(coord.local.execute(q1).rows())
+            print(f"Q1 {schema} on the coordinator's local runner: "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            victim, survivor = workers
+            fired = timed_fault(victim)
+            client = PrestoTpuClient(coord.uri, timeout_s=900)
+
+            def r1():
+                faults.configure({"rules": [
+                    {"action": "kill_worker", "node": victim.node_id,
+                     "task": ".prod.", "skip": 1, "count": 1},
+                ]})
+                with k1_by_task(workers) as calls:
+                    res = client.execute(q1)
+                diff = rows_close(res.rows(), want["q1"])
+                check(diff is None, f"R1: Q1 differs from the local runner "
+                      f"({diff})")
+                check("t" in fired, "R1: the kill_worker rule never fired")
+                info = client.query_info(res.query_id)
+                by_kind = {}
+                for st in info["stages"]:
+                    for t in st["tasks"]:
+                        by_kind.setdefault(st["kind"], {}).setdefault(
+                            task_ids.logical_key(t["task_id"]), []
+                        ).append(t["task_id"])
+                retried_prod = [a for a in by_kind["producer"].values()
+                                if len(a) > 1]
+                retried_merge = [a for a in by_kind["merge"].values()
+                                 if len(a) > 1]
+                check(retried_prod and retried_merge,
+                      f"R1: no producer or merge re-ran: {by_kind}")
+                check(info["spool_pages_served"] > 0,
+                      "R1: nothing was re-served from the spool")
+                retried = {tid for a in retried_prod for tid in a
+                           if task_ids.attempt_of(tid) > 0}
+                on_retry = [c for c in calls if c[0] in retried]
+                on_merge = [c for c in calls if ".merge." in c[0]]
+                check(on_retry and on_merge,
+                      "R1: no one-hot call on the retried producer or the "
+                      "merges")
+                if on_card:
+                    check(PA.onehot_reduce.launches == k1_launches(calls),
+                          f"R1: {PA.onehot_reduce.launches} launches, "
+                          f"expected {k1_launches(calls)}")
+                return {"task_recoveries": info["task_recoveries"],
+                        "retried_producer_k1": k1_launches(on_retry),
+                        "merge_k1": k1_launches(on_merge),
+                        "retried": sorted(retried)}
+
+            step(f"R1 Q1 {schema} TASK, a worker killed mid-producer", r1,
+                 fired)
+        finally:
+            shut([coord], workers)
+
+        # R2: a partitioned Q3, the worker killed as its join task starts
+        spool = os.path.join(root, "spool-r2")
+        coord, workers = cluster(
+            {"retry-policy": "TASK", "exchange.spool-path": spool},
+            {"exchange.spool-path": spool})
+        try:
+            coord.local.session.set("join_distribution_type", "PARTITIONED")
+            want["q3"] = server_rows(coord.local.execute(Q3).rows())
+            victim = workers[0]
+            fired = timed_fault(victim)
+            client = PrestoTpuClient(coord.uri, timeout_s=900)
+
+            def r2():
+                faults.configure({"rules": [
+                    {"action": "kill_worker", "node": victim.node_id,
+                     "task": ".join.", "count": 1},
+                ]})
+                res = client.execute(Q3)
+                diff = rows_close(res.rows(), want["q3"])
+                check(diff is None, f"R2: Q3 differs from the local runner "
+                      f"({diff})")
+                check("t" in fired, "R2: the kill_worker rule never fired")
+                info = client.query_info(res.query_id)
+                kinds = [st["kind"] for st in info["stages"]]
+                check(kinds.count("producer") >= 2 and "join" in kinds,
+                      f"R2: stages {kinds}")
+                join = next(st for st in info["stages"]
+                            if st["kind"] == "join")
+                check(any(task_ids.attempt_of(t["task_id"]) > 0
+                          for t in join["tasks"]),
+                      "R2: no join task re-ran")
+                check(info["spool_pages_served"] > 0,
+                      "R2: nothing was re-served from the spool")
+                return {"task_recoveries": info["task_recoveries"],
+                        "stages": kinds}
+
+            step(f"R2 Q3 {schema} partitioned, a worker killed mid-join", r2,
+                 fired)
+        finally:
+            shut([coord], workers)
+
+        # R3: QUERY restart of Q1 after a killed worker
+        coord, workers = cluster(
+            {"retry-policy": "QUERY", "failure-detector.threshold": "1"}, {})
+        try:
+            coord.local.session.set("task_retry_budget", 0)
+            fired = timed_fault(workers[1])
+            client = PrestoTpuClient(coord.uri, timeout_s=900)
+
+            def r3():
+                faults.configure({"rules": [
+                    {"action": "kill_worker", "node": workers[1].node_id,
+                     "count": 1},
+                ]})
+                res = client.execute(q1)
+                diff = rows_close(res.rows(), want["q1"])
+                check(diff is None, f"R3: Q1 differs from the local runner "
+                      f"({diff})")
+                info = client.query_info(res.query_id)
+                check(info["query_restarts"] >= 1,
+                      "R3: the query did not restart")
+                return {"query_info_restarts": info["query_restarts"]}
+
+            rec = step(f"R3 Q1 {schema} QUERY, a worker killed", r3, fired)
+            check(rec["query_restarts"] >= 1, "R3: no coordinator restart")
+        finally:
+            shut([coord], workers)
+
+        # R4: a coordinator bounce over its journal, 4 clients riding it
+        journal = os.path.join(root, "journal-r4")
+        c1 = coordinator({"coordinator.journal-path": journal}).start()
+        port = c1.port
+        held = 0
+        while c1._admit.acquire(blocking=False):
+            held += 1  # every admission slot: submissions stay QUEUED
+        results, errors, acked = [None] * 4, [], threading.Barrier(5)
+
+        def ride(i):
+            client = PrestoTpuClient(f"http://127.0.0.1:{port}",
+                                     timeout_s=900, reconnect_attempts=200)
+            get_page = client._get_with_reconnect
+            first = []
+
+            def page(url, deadline):
+                if not first:
+                    first.append(1)
+                    acked.wait(60)  # the statement id is in hand
+                return get_page(url, deadline)
+
+            client._get_with_reconnect = page
+            try:
+                results[i] = client.execute(q1).rows()
+            except Exception as e:  # checked below
+                errors.append(e)
+
+        riders = [threading.Thread(target=ride, args=(i,)) for i in range(4)]
+        c2 = None
+        try:
+            def r4():
+                nonlocal c2
+                for t in riders:
+                    t.start()
+                acked.wait(60)  # every client holds its statement id
+                queued = [q for q in c1.queries.values()
+                          if q.state == "QUEUED"]
+                check(len(queued) == 4, f"R4: {len(queued)} queries QUEUED")
+                t_fault = time.perf_counter()
+                reconnects = REGISTRY.counter("client.reconnects").total
+                c1.shutdown()
+                wait_for(lambda: REGISTRY.counter("client.reconnects").total
+                         > reconnects, "R4: no client reconnected")
+                c2 = CoordinatorServer(
+                    port=port, config=node_config(
+                        {"coordinator.journal-path": journal}),
+                    device=dev, session=Session(schema=schema)).start()
+                for t in riders:
+                    t.join(600)
+                check(not errors, f"R4: a client died across the bounce: "
+                      f"{errors}")
+                for rows in results:
+                    diff = rows_close(rows, want["q1"])
+                    check(diff is None, f"R4: Q1 differs ({diff})")
+                check(c2.resumed_queries == 4,
+                      f"R4: {c2.resumed_queries} queries resumed, not 4")
+                for q in queued:
+                    check(c2.lookup_query(q.qid) is not None,
+                          f"R4: {q.qid} does not resolve after the bounce")
+                return {"recover_s": time.perf_counter() - t_fault,
+                        "resumed": c2.resumed_queries}
+
+            step(f"R4 4 Q1 {schema} across a coordinator bounce", r4)
+        finally:
+            # the dead incarnation's queued threads end without touching
+            # the journal the new one owns
+            c1.journal = None
+            for q in list(c1.queries.values()):
+                q.fail("coordinator shut down")
+                q.done.set()
+            for _ in range(held):
+                c1._admit.release()
+            shut([c for c in (c2,) if c is not None])
+
+        # R5: a peer failover under kill_coordinator
+        ctl = os.path.join(root, "ctl-r5")
+        ports = free_ports(2)  # each peer's list names the other's URI
+        uris = [f"http://127.0.0.1:{p}" for p in ports]
+        peers = [
+            CoordinatorServer(
+                port=ports[i],
+                config=node_config({
+                    "node.id": f"coord-{i}",
+                    "coordinator.journal-path": ctl,
+                    "coordinator.peers": uris[1 - i],
+                    "lease.ttl-s": str(RECOVER_LEASE_TTL_S),
+                }),
+                device=dev, session=Session(schema=schema),
+            ).start()
+            for i in range(2)
+        ]
+        try:
+            c0, c1 = peers
+            fired = timed_fault(c0)
+
+            def r5():
+                faults.configure({"rules": [
+                    {"action": "kill_coordinator", "node": "coord-0",
+                     "count": 1},
+                ]})
+                client = PrestoTpuClient(uris, timeout_s=900,
+                                         reconnect_attempts=200)
+                res = client.execute(q1)
+                diff = rows_close(res.rows(), want["q1"])
+                check(diff is None, f"R5: Q1 differs ({diff})")
+                check("t" in fired, "R5: kill_coordinator never fired")
+                wait_for(lambda: c1.failover_resumed == 1,
+                         "R5: the survivor resumed nothing")
+                check(c1.failover_claims == 1,
+                      f"R5: {c1.failover_claims} failover claims")
+                (dead,) = [q.qid for q in c0.queries.values()]
+                alias = c1.lookup_query(dead)
+                check(alias is not None and alias.qid != dead,
+                      f"R5: {dead} does not resolve through an alias")
+                check(alias.done.wait(600) and alias.state == "FINISHED",
+                      f"R5: the resumed query ended {alias.state}")
+                diff = rows_close([tuple(r) for r in alias.rows], want["q1"])
+                check(diff is None, f"R5: the resumed Q1 differs ({diff})")
+                return {"failover_resumed": c1.failover_resumed,
+                        "dead_qid": dead, "resumed_as": alias.qid}
+
+            step(f"R5 Q1 {schema} peer failover, coord-0 killed", r5, fired)
+        finally:
+            shut(peers)
+    finally:
+        faults.configure(None)
+        shutil.rmtree(root, ignore_errors=True)
+        if on_card:
+            torch.cuda.empty_cache()
+    secs = time.perf_counter() - phase_t0
+    print(f"recover phase: {secs:.2f} s, onehot_reduce launches {launches} "
+          f"[{card}]", flush=True)
+    out.append({"step": "phase", "s": secs})
+    return launches, out
+
+
 def bucket_of(n: int) -> int:
     """The staging bucket of ``n`` rows (a power of two, at least 1024)."""
     cap = 1024
@@ -4698,6 +5172,9 @@ def main() -> int:
     phase("serve")
     serve_launches, serve_records = serve_phase(card, records=records)
 
+    phase("recover")
+    recover_launches, recover_records = recover_phase(card)
+
     headline = next(r for r in records if r["label"] == "q1 fused")
     lanes = next(r for r in records if r["label"] == "q1 microbatch fused")
     v3 = next(r for r in serve_records if r["step"] == "V3 8 Q1")
@@ -4713,7 +5190,7 @@ def main() -> int:
                              + tpcds_launches + cache_launches
                              + nested_launches + observe_launches
                              + write_launches + server_launches
-                             + serve_launches),
+                             + serve_launches + recover_launches),
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
@@ -4758,6 +5235,8 @@ def main() -> int:
                       "server_onehot_reduce": server_launches,
                       "serve": serve_records,
                       "serve_onehot_reduce": serve_launches,
+                      "recover": recover_records,
+                      "recover_onehot_reduce": recover_launches,
                       "native": status, "card": card}))
     print(json.dumps(kernels_line))
     print(

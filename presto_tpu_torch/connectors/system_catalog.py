@@ -317,7 +317,8 @@ class SystemConnector(Connector):
         """Live occupancy of the engine caches (reference: the jmx
         cache-stats beans): the device-resident split cache (staged
         pages, LRU byte budget), the plan cache, the coordinator's
-        result cache, the host-spill pool and the ingest WAL."""
+        result cache, the host-spill pool, the ingest WAL and the
+        durable exchange spool."""
         if self._runner is None:
             return []
         split = self._runner.split_cache.stats()
@@ -388,6 +389,24 @@ class SystemConnector(Connector):
                     "hits": w["commits"],
                     "misses": 0,
                     "evictions": w["replayed"],
+                }
+            )
+        # durable-exchange spool occupancy (fault-tolerant execution):
+        # present when the embedding coordinator has exchange.spool-path
+        # configured (server.spool shares the directory with workers)
+        cluster = getattr(self._runner, "cluster", None)
+        spool = getattr(cluster, "spool", None) if cluster else None
+        if spool is not None:
+            x = spool.stats()
+            rows.append(
+                {
+                    "cache": "exchange.spool",
+                    "entries": x["entries"],
+                    "bytes": x["bytes"],
+                    "budget_bytes": x["budget_bytes"],
+                    "hits": x["hits"],
+                    "misses": x["misses"],
+                    "evictions": x["evictions"],
                 }
             )
         return rows

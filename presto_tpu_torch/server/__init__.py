@@ -24,12 +24,16 @@ queue (``serving.microbatch-wait-ms``, ``serving.microbatch-max``), the
 snapshot-keyed result cache with the MV rewrite (``result_cache``,
 ``result-cache.*``) and the WAL'd ingest lane behind
 ``POST /v1/ingest/{table}`` (``ingest``, ``ingest.wal-path``).
+Fault-tolerant execution: retry TASK/QUERY over the durable exchange
+spool (``spool``, ``retry-policy``, ``exchange.spool-path``), the
+coordinator's admission journal with restart recovery (``journal``,
+``coordinator.journal-path``) and the lease plane with peer failover
+(``lease``, ``coordinator.peers``).
 
 Refused with an error naming the later slice: the lakehouse tee
 (``lakehouse.*``, with the file connectors, ROADMAP queue 3) and, from
-queue 4, ``retry_policy`` TASK/QUERY with the spool and journal, the
-lease and HA planes, QoS and the elastic pool, and the ICI exchange lanes
-(with the multi-device exchange).
+queue 4, QoS and the elastic pool, and the ICI exchange lanes (with the
+multi-device exchange).
 """
 
 from presto_tpu_torch.server.client import PrestoTpuClient  # noqa: F401

@@ -26,19 +26,31 @@ front of dispatch and under the queue; the ingest lane
 (``server/ingest.py``, ``ingest.wal-path``) takes
 ``POST /v1/ingest/{table}``.
 
+Fault-tolerant execution: ``retry_policy`` TASK re-runs the lost tasks
+of a stage, and a partitioned stage's consumers re-serve a dead
+producer's committed pages from the durable exchange spool
+(``server/spool.py``, ``exchange.spool-path``); QUERY restarts the whole
+query within ``query_retry_count`` (and re-admits a memory-killed
+victim once pressure subsides). The admission journal
+(``server/journal.py``, ``coordinator.journal-path``) lets a restarted
+coordinator resume its queued and running queries under aliases, and
+the lease plane (``server/lease.py``, ``coordinator.peers``) lets a
+surviving peer claim a dead coordinator's journal and resume its
+queries.
+
 Not in this slice, each refused with an error that names the later
 slice when a config key or a session value turns it on: the lakehouse
 tee (``lakehouse.*``, with the file connectors: ROADMAP queue 3), and
-from queue 4 ``retry_policy`` TASK/QUERY with the spool and the
-journal, the lease/HA planes, QoS and the elastic pool, and the ICI
-exchange (with the multi-device exchange). Their defaults behave as
-the reference's do with those planes off.
+from queue 4 QoS and the elastic pool, and the ICI exchange (with the
+multi-device exchange). Their defaults behave as the reference's do
+with those planes off.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import json
 import logging
 import sys
@@ -57,6 +69,7 @@ from presto_tpu_torch.exec.staging import stage_page
 from presto_tpu_torch.exec.stats import QueryStats, StageStats, TaskStats
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.server import pages_wire, rpc, task_ids
+from presto_tpu_torch.server.journal import CoordinatorJournal
 from presto_tpu_torch.server.protocol import FragmentSpec
 from presto_tpu_torch.server.scheduler import (
     assign_ranges,
@@ -65,6 +78,7 @@ from presto_tpu_torch.server.scheduler import (
     select_exchange_transport,
     stable_workers,
 )
+from presto_tpu_torch.server.spool import ExchangeSpool
 from presto_tpu_torch.utils import faults
 from presto_tpu_torch.utils.metrics import REGISTRY, DistributionStat
 from presto_tpu_torch.utils.tracing import Trace
@@ -188,7 +202,8 @@ class _Query:
         #: task ids of speculative (backup) attempts, for accounting
         self._speculative: set = set()
         #: cluster memory manager kill notice (the MEMORY_PRESSURE
-        #: message), set by _apply_memory_kill
+        #: message): set by _apply_memory_kill when the victim may
+        #: re-admit; consumed by the restart loop's re-admission lane
         self._mem_kill: Optional[str] = None
         #: the admission high-water hold PARKED this query before
         #: dispatch: a parked statement must not also accrue the
@@ -228,8 +243,6 @@ def _truthy(v) -> bool:
     return bool(v)
 
 
-_SPOOL = "retry TASK/QUERY with the spool and journal; ROADMAP queue 4"
-_HA = "the lease and HA planes; ROADMAP queue 4"
 _QOS = "QoS and the elastic pool; ROADMAP queue 4"
 _ICI = "the ICI lanes, with the multi-device exchange; ROADMAP queue 4"
 _LAKE = (
@@ -240,10 +253,6 @@ _LAKE = (
 #: config keys that turn on a plane of a later server slice:
 #: key -> (is the value on?, the later slice)
 _REFUSED_CONFIG = {
-    "retry-policy": (lambda v: str(v).upper() != "NONE", _SPOOL),
-    "exchange.spool-path": (bool, _SPOOL),
-    "coordinator.journal-path": (bool, _SPOOL),
-    "coordinator.peers": (bool, _HA),
     "lakehouse.path": (bool, _LAKE),
     "lakehouse.target-file-bytes": (lambda v: True, _LAKE),
     "lakehouse.compaction.interval-s": (lambda v: True, _LAKE),
@@ -256,7 +265,6 @@ _REFUSED_CONFIG = {
 
 #: session properties likewise, refused at ``SET SESSION``
 _REFUSED_SESSION = {
-    "retry_policy": (lambda v: str(v).upper() != "NONE", _SPOOL),
     "exchange_ici_enabled": (_truthy, _ICI),
 }
 
@@ -580,8 +588,15 @@ class CoordinatorServer:
         )
         if fault_spec:
             faults.configure(fault_spec)
-        # retry-policy (NONE only in this slice) and the ICI gate (off
-        # only) were checked above. Single-program collective stages:
+        # fault-tolerant execution: tier-1 retry-policy seeds the
+        # session default; the durable-exchange spool (shared dir with
+        # the workers) backs TASK-level recovery and the occupancy row
+        # in system.runtime.caches
+        rp = config.get("retry-policy") if config else None
+        if rp is not None:
+            self.local.session.set("retry_policy", rp)
+        # the ICI gate (off only) was checked above. Single-program
+        # collective stages:
         # tier-1 exchange.single-program seeds the session default (on
         # by default; meaningful only behind the ICI gate, so accepted
         # here and changing nothing, as in the reference)
@@ -690,10 +705,58 @@ class CoordinatorServer:
         #: thousands of ad-hoc names
         self._prepared_sql: "OrderedDict[str, str]" = OrderedDict()
         self._prepared_mu = threading.Lock()
+        self.spool = ExchangeSpool.from_config(config)
+        # durable coordinator state (server.journal): admitted/queued/
+        # running queries + the prepared registry survive a bounce —
+        # start() replays the journal and re-admits open queries
+        jp = config.get("coordinator.journal-path") if config else None
+        # multi-coordinator control plane: with coordinator.peers set,
+        # the journal path is a SHARED directory — each coordinator
+        # journals under its own subdirectory and publishes an
+        # atomic-rename lease beside it (server/lease.py). Peers fold
+        # each other's lease payloads into admission (memory arbiter,
+        # resource-group quotas, QoS lanes) and claim+resume a dead
+        # peer's journal on lease expiry. Without peers the lease
+        # plane never constructs and the journal lives at the path
+        # root — bit-exact single-coordinator behavior.
         self.coord_id = (
             (config.get("node.id") if config else None)
             or f"coord-{uuid.uuid4().hex[:6]}"
         )
+        peers_raw = config.get("coordinator.peers") if config else None
+        self._peer_uris = [
+            u.strip()
+            for u in str(peers_raw or "").split(",")
+            if u.strip()
+        ]
+        self.lease = None
+        self._control_dir = None
+        self._lease_thread = None
+        #: dead-peer journals this incarnation claimed / queries it
+        #: resumed from them (nodes + failover observability)
+        self.failover_claims = 0
+        self.failover_resumed = 0
+        if jp and self._peer_uris:
+            from presto_tpu_torch.server.lease import LeasePlane
+
+            self._control_dir = jp
+            self.journal = CoordinatorJournal(
+                os.path.join(jp, self.coord_id)
+            )
+            self.lease = LeasePlane(
+                jp,
+                self.coord_id,
+                ttl_s=float(
+                    config.get("lease.ttl-s", 10.0) if config else 10.0
+                ),
+            )
+        else:
+            self.journal = CoordinatorJournal(jp) if jp else None
+        #: queries re-admitted from the journal at this boot
+        self.resumed_queries = 0
+        #: old-boot qid -> this boot's qid: statement/query-info URLs
+        #: minted by a dead incarnation stay routable after a restart
+        self._qid_alias: Dict[str, str] = {}
         self._lock = threading.Lock()
         self._qid = itertools.count(1)
         #: per-boot nonce folded into every query id: deterministic
@@ -749,6 +812,12 @@ class CoordinatorServer:
         from presto_tpu_torch.server.memory_arbiter import ClusterMemoryArbiter
 
         self.arbiter = ClusterMemoryArbiter(self, config)
+        # multi-coordinator shared admission: live peers' lease
+        # payloads fold into the memory view (the hook defaults None —
+        # single-coordinator stays bit-exact; the QoS lane fold comes
+        # with the QoS slice)
+        if self.lease is not None:
+            self.arbiter.peer_reports_fn = self._peer_memory_reports
 
         # device-plane telemetry (utils/telemetry.py): federation of
         # the workers' /v1/metrics expositions behind
@@ -792,12 +861,22 @@ class CoordinatorServer:
         self.httpd = _Server(("127.0.0.1", port), handler)
         self.port = self.httpd.server_address[1]
         self.uri = f"http://127.0.0.1:{self.port}"
+        if self.lease is not None:
+            # the serving URI exists only after the bind: peers reach
+            # a claimed incarnation's clients through this lease field
+            self.lease.uri = self.uri
         self._serve_thread = threading.Thread(
             target=self.httpd.serve_forever, daemon=True
         )
 
     def start(self) -> "CoordinatorServer":
-        # ingest-lane recovery BEFORE the server accepts requests (and
+        # journal recovery BEFORE the server accepts requests: a client
+        # reconnecting mid-pagination must never observe the window
+        # between serving and alias registration (its old statement id
+        # would 404 instead of resolving to the resumed run)
+        if self.journal is not None:
+            self._recover_from_journal()
+        # ingest-lane recovery rides the same before-serving seam (and
         # after catalog registration: WAL replay recreates tables
         # through the mounted connectors and restores the durable
         # materialized views)
@@ -820,12 +899,28 @@ class CoordinatorServer:
                 target=self._telemetry_loop, daemon=True
             )
             self._telemetry_thread.start()
+        # multi-coordinator lease: publish BEFORE serving (a peer must
+        # never observe this incarnation's statements without a lease
+        # to locate them through), then heartbeat + peer-watch loop
+        if self.lease is not None and self._lease_thread is None:
+            try:
+                self.lease.renew(self._lease_state())
+            except Exception:
+                log.exception("initial lease publish failed")
+            self._lease_thread = threading.Thread(
+                target=self._lease_loop, daemon=True
+            )
+            self._lease_thread.start()
         self._serve_thread.start()
         return self
 
     def shutdown(self) -> None:
         self._shutting_down = True
         self._telemetry_stop.set()
+        if self.lease is not None:
+            # clean shutdown WITHDRAWS the lease: peers see an absent
+            # file, not an expiring one, and claim nothing
+            self.lease.stop()
         if self.ingest is not None:
             # stop the commit loop and fold the pending tail (the WAL
             # has it either way: replay would re-admit it)
@@ -837,11 +932,362 @@ class CoordinatorServer:
             self.httpd.shutdown()
         self.httpd.server_close()
 
-    def lookup_query(self, qid: str) -> Optional[_Query]:
-        """The query behind a statement/query-info id (the reference
-        also resolves restart aliases, which come with the journal)."""
+    # ------------------------------------------- coordinator HA (journal)
+
+    def _recover_from_journal(self) -> None:
+        """Replay the admission journal: re-register the prepared
+        registry, then re-admit every query that never reached a
+        terminal state — under THIS boot's query ids (the per-boot qid
+        nonce keeps the re-run's task-attempt ids collision-free
+        against the dead incarnation's spooled pages), with the old id
+        aliased so clients paginating across the bounce reconnect
+        transparently. The replacement's submit frame is written (by
+        ``submit``) BEFORE the old id's RESUMED close-out: a crash
+        between the two can only duplicate a resume, never lose the
+        query — at-least-once, the right failure for a query plane."""
+        state = self.journal.replay()
+        for name, text in state.prepared.items():
+            with self._prepared_mu:
+                self._prepared_sql[name] = text
+                self._prepared_sql.move_to_end(name)
+            try:
+                from presto_tpu_torch.sql import parse_statement
+
+                self.local._prepared[name] = parse_statement(text)
+            except Exception:
+                pass  # EXECUTE re-parses from the registry text
+        resumed: Dict[str, str] = {}
+        # recovery re-admission must not lose to the queued-queries
+        # gate: every replayed query was ALREADY admitted by the dead
+        # incarnation under the same cap (replay runs before serving,
+        # so nothing external races the temporary headroom)
+        prev_max = self._max_queued
+        self._max_queued = prev_max + len(state.open)
+        try:
+            for rec in state.open:
+                old_qid = rec.get("qid", "")
+                q = self.submit(
+                    rec.get("sql", ""),
+                    user=rec.get("user") or "presto_tpu",
+                    prepared=rec.get("prepared") or {},
+                )
+                if q.done.is_set() and q.state == "FAILED" and (
+                    q.error or ""
+                ).startswith("Query rejected"):
+                    # re-admission lost after all (no submit frame was
+                    # written): close the old id out HONESTLY so the
+                    # journal never claims a resume that is not running
+                    self.journal.record_finish(old_qid, "FAILED")
+                    log.warning(
+                        "journal recovery: re-admission of %s rejected",
+                        old_qid,
+                    )
+                    continue
+                self.journal.record_finish(
+                    old_qid, "RESUMED", resumed_as=q.qid
+                )
+                resumed[old_qid] = q.qid
+                with self._lock:
+                    self._qid_alias[old_qid] = q.qid
+                q.resumed_from = old_qid
+                self.resumed_queries += 1
+                REGISTRY.counter("coordinator.resumed_queries").update()
+                REGISTRY.counter("pool.resumed_queries").update()
+                log.info(
+                    "journal recovery: resumed %s as %s", old_qid, q.qid
+                )
+        finally:
+            self._max_queued = prev_max
+        # transitive restart aliases: ids minted N bounces ago chain
+        # through every intermediate resume (the journal collapses the
+        # chain to its open tip; map that tip to THIS boot's run)
         with self._lock:
-            return self.queries.get(qid)
+            for old, tip in state.aliases.items():
+                if tip in resumed:
+                    self._qid_alias[old] = resumed[tip]
+        if state.open:
+            log.info(
+                "journal recovery: re-admitted %d quer%s",
+                len(state.open),
+                "y" if len(state.open) == 1 else "ies",
+            )
+
+    def lookup_query(self, qid: str) -> Optional[_Query]:
+        """Query by id, following restart aliases (a nextUri minted by
+        a dead coordinator incarnation resolves to the resumed run)."""
+        q = self.queries.get(qid)
+        if q is None:
+            new = self._qid_alias.get(qid)
+            if new:
+                q = self.queries.get(new)
+        return q
+
+    # --------------------------------- multi-coordinator control plane
+
+    def _lease_state(self) -> dict:
+        """This coordinator's lease payload (server/lease.py): the
+        shared-state channel peers fold into THEIR admission view —
+        open statement ids (plus aliases, so any peer can redirect a
+        sprayed client), admission occupancy, the local-pool memory
+        report and per-resource-group usage (the reference's QoS-lane
+        counts come with the QoS slice)."""
+        with self._lock:
+            open_q = [
+                (qid, getattr(q, "resource_group", None))
+                for qid, q in self.queries.items()
+                if not q.done.is_set()
+            ]
+            aliases = list(self._qid_alias.keys())
+            pending = self._pending
+        groups: Dict[str, dict] = {}
+        for qid, g in open_q:
+            if not g:
+                continue
+            d = groups.setdefault(g, {"qids": [], "local_bytes": 0})
+            d["qids"].append(qid)
+            d["local_bytes"] += self.memory_pool.used_bytes(qid)
+        state = {
+            "uri": self.uri,
+            "boot": self._boot,
+            "qids": [qid for qid, _ in open_q] + aliases,
+            "running": pending,
+            "local": self.arbiter.local_report(),
+            "groups": groups,
+        }
+        return state
+
+    def _peer_memory_reports(self) -> Dict[str, dict]:
+        """Live peers' LOCAL-pool reports for the arbiter's cluster
+        view, keyed ``coord:<id>``. Worker bytes are NOT re-folded
+        (workers heartbeat every coordinator directly); the blocked
+        lane is cleared — kill/unblock decisions stay local-evidence
+        only, a stale peer payload must never nominate victims here."""
+        out: Dict[str, dict] = {}
+        for pl in self.lease.peers(live_only=True):
+            rep = (pl.state or {}).get("local")
+            if not isinstance(rep, dict):
+                continue
+            rep = dict(rep)
+            rep["ts"] = pl.ts
+            rep["blocked"] = []
+            out[f"coord:{pl.owner}"] = rep
+        return out
+
+    def locate_peer(self, qid: str) -> str:
+        """URI of the live peer serving ``qid`` (its lease payload
+        lists it as open or aliased), or "". The statement route uses
+        this to redirect a sprayed/failed-over client that landed on
+        the wrong coordinator."""
+        if self.lease is None:
+            return ""
+        for pl in self.lease.peers(live_only=True):
+            st = pl.state or {}
+            if qid in (st.get("qids") or ()):
+                return str(st.get("uri") or pl.uri)
+        return ""
+
+    def _lease_loop(self) -> None:
+        """Heartbeat + peer watch, at TTL/3 cadence (two missed beats
+        never expire a healthy owner): renew the lease with fresh
+        shared state, announce this coordinator to every peer (they
+        surface it in system.runtime.nodes), and claim + fail over any
+        peer whose lease expired."""
+        interval = max(self.lease.ttl_s / 3.0, 0.05)
+        policy = rpc.RpcPolicy(timeout_s=2.0, retries=0)
+        while not self._shutting_down:
+            try:
+                self.lease.renew(self._lease_state())
+            except Exception:
+                log.exception("lease renewal failed")
+            for peer in self._peer_uris:
+                if self._shutting_down:
+                    break
+                try:
+                    rpc.call_json(
+                        "PUT",
+                        peer + "/v1/announcement",
+                        {
+                            "node_id": self.coord_id,
+                            "uri": self.uri,
+                            "state": "ACTIVE",
+                            "role": "coordinator",
+                        },
+                        policy=policy,
+                    )
+                except Exception:
+                    pass  # the lease file is the durable signal
+            try:
+                self._scan_expired_peers()
+            except Exception:
+                log.exception("peer lease scan failed")
+            deadline = time.monotonic() + interval
+            while (
+                not self._shutting_down
+                and time.monotonic() < deadline
+            ):
+                time.sleep(min(0.05, interval))
+
+    def _scan_expired_peers(self) -> None:
+        if self._shutting_down:
+            return
+        for pl in self.lease.peers(live_only=False):
+            if not self.lease.is_expired(pl):
+                continue
+            claim = self.lease.claim_expired(pl.owner)
+            if claim is None:
+                continue  # still live, retired, or another claimant won
+            self.failover_claims += 1
+            REGISTRY.counter("coordinator.failover_claims").update()
+            log.warning(
+                "lease of %s expired (age %.1fs): claimed its journal "
+                "at fencing epoch %d",
+                pl.owner,
+                pl.age(),
+                claim.epoch,
+            )
+            self._failover_from(pl.owner, claim)
+
+    def _failover_from(self, owner: str, claim) -> None:
+        """Replay a dead peer's claimed journal: re-admit every
+        non-terminal query under THIS boot's qids, close the old ids
+        out as RESUMED (with ``resumed_as``) in the DEAD journal, and
+        alias them locally + in OUR journal so the dead incarnation's
+        statement URIs resolve here — for clients landing directly
+        (reconnect spray) and via any peer's alias redirect. Every
+        write into claimed state is fence-checked: a superseded
+        claimant abandons the failover instead of double-resuming."""
+        from presto_tpu_torch.server.lease import FencedError
+
+        dead_dir = os.path.join(self._control_dir, owner)
+        if not os.path.isdir(dead_dir):
+            # peer never journaled (no queries): nothing to replay
+            self.lease.retire(owner)
+            return
+        try:
+            self.lease.check_fence(claim)
+            dead = CoordinatorJournal(dead_dir)
+            # stamp the claim INTO the claimed journal first: a
+            # replayer (including the dead owner restarting) sees who
+            # took the queries and at what epoch
+            dead.record_claim(self.coord_id, claim.epoch)
+            state = dead.replay()
+        except FencedError:
+            log.warning(
+                "failover from %s abandoned: claim superseded", owner
+            )
+            return
+        resumed: Dict[str, str] = {}
+        # same temporary-headroom rule as _recover_from_journal: the
+        # dead peer already admitted these under its own queue cap
+        prev_max = self._max_queued
+        self._max_queued = prev_max + len(state.open)
+        try:
+            for rec in state.open:
+                old_qid = rec.get("qid", "")
+                try:
+                    self.lease.check_fence(claim)
+                except FencedError:
+                    log.warning(
+                        "failover from %s fenced mid-replay "
+                        "(resumed %d of %d)",
+                        owner,
+                        len(resumed),
+                        len(state.open),
+                    )
+                    return
+                q = self.submit(
+                    rec.get("sql", ""),
+                    user=rec.get("user") or "presto_tpu",
+                    prepared=rec.get("prepared") or {},
+                )
+                if q.done.is_set() and q.state == "FAILED" and (
+                    q.error or ""
+                ).startswith("Query rejected"):
+                    dead.record_finish(old_qid, "FAILED")
+                    log.warning(
+                        "failover: re-admission of %s rejected", old_qid
+                    )
+                    continue
+                # our submit frame is on disk before the dead id's
+                # RESUMED close-out — a crash between the two can only
+                # duplicate a resume, never lose the query
+                dead.record_finish(
+                    old_qid, "RESUMED", resumed_as=q.qid
+                )
+                if self.journal is not None:
+                    self.journal.record_alias(old_qid, q.qid)
+                resumed[old_qid] = q.qid
+                with self._lock:
+                    self._qid_alias[old_qid] = q.qid
+                q.resumed_from = old_qid
+                self.failover_resumed += 1
+                self.resumed_queries += 1
+                REGISTRY.counter("coordinator.failover_resumed").update()
+                REGISTRY.counter("coordinator.resumed_queries").update()
+                log.info(
+                    "failover: resumed %s (from %s) as %s",
+                    old_qid,
+                    owner,
+                    q.qid,
+                )
+        finally:
+            self._max_queued = prev_max
+        # transitive aliases: ids the DEAD peer was itself serving by
+        # alias chain land on this boot's runs too (journal writes
+        # happen OUTSIDE the discovery lock)
+        trans = [
+            (old, resumed[tip])
+            for old, tip in state.aliases.items()
+            if tip in resumed
+        ]
+        with self._lock:
+            for old, new in trans:
+                self._qid_alias[old] = new
+        if self.journal is not None:
+            for old, new in trans:
+                self.journal.record_alias(old, new)
+        # adopt the dead peer's prepared registry (names a sprayed
+        # client may EXECUTE against any coordinator)
+        adopted = []
+        for name, text in state.prepared.items():
+            with self._prepared_mu:
+                if name in self._prepared_sql:
+                    continue
+                self._prepared_sql[name] = text
+                self._prepared_sql.move_to_end(name)
+            adopted.append((name, text))
+        if self.journal is not None:
+            for name, text in adopted:
+                self.journal.record_prepare(name, text)
+        # fully failed over: drop the lease + claim files so restarts
+        # of the dead owner rejoin fresh instead of re-claiming
+        self.lease.retire(owner)
+        if state.open:
+            log.info(
+                "failover from %s complete: resumed %d quer%s",
+                owner,
+                len(resumed),
+                "y" if len(resumed) == 1 else "ies",
+            )
+
+    def _fault_kill(self) -> None:
+        """Abrupt crash for the fault plane's ``kill_coordinator``
+        action: drop the journal handle (no FAILED close-out may reach
+        disk — the open frames are what a survivor resumes), leave the
+        lease to EXPIRE (survivors must take the TTL path, exactly
+        like a real crash), and close the socket so clients see a dead
+        peer, not a clean error."""
+        self._shutting_down = True
+        self.journal = None
+        try:
+            if self._serve_thread.is_alive():
+                self.httpd.shutdown()
+            self.httpd.server_close()
+        except Exception:
+            pass
+        log.warning(
+            "node=%s fault plane killed this coordinator", self.coord_id
+        )
 
     def _kill_largest_query(self, holders, requester):
         """ClusterMemoryManager policy: on pool exhaustion, abort the
@@ -875,9 +1321,12 @@ class CoordinatorServer:
     def _apply_memory_kill(
         self, victim: str, policy: str, reason: str
     ) -> None:
-        """Apply one arbiter kill decision: fail the victim with a
-        MEMORY_PRESSURE error naming victim and policy and cancel it
-        cluster-wide through the workers' task-DELETE path."""
+        """Apply one arbiter kill decision: journal it, cancel the
+        victim cluster-wide through the workers' task-DELETE path with
+        a MEMORY_PRESSURE error naming victim and policy, and — under
+        ``retry_policy=QUERY`` with restart budget left — leave the
+        query alive for its own execution thread to re-admit once
+        pressure subsides."""
         q = self.queries.get(victim)
         if q is None or q.done.is_set():
             self.arbiter.forget_query(victim)
@@ -889,21 +1338,33 @@ class CoordinatorServer:
             f"MEMORY_PRESSURE (victim {victim}, policy {policy}): "
             f"{reason}"
         )
-        log.warning("memory kill: %s", msg)
+        readmit = (
+            self._retry_policy() == "QUERY"
+            and int(self.local.session.get("query_retry_count")) > 0
+        )
+        log.warning(
+            "memory kill: %s (readmit=%s)", msg, readmit
+        )
+        if self.journal is not None:
+            self.journal.record_kill(victim, policy, reason, cur)
         self.arbiter.record_kill(victim, policy, reason, cur)
-        # the flag gates task-retry/speculation/local-fallback: a
-        # killed attempt's DELETEd tasks look like lost workers, and
-        # resurrecting them would re-consume the memory the kill just
-        # freed (re-admission under retry_policy=QUERY comes with the
-        # spool slice)
+        # the flag gates task-retry/speculation/local-fallback in both
+        # modes: a killed attempt's DELETEd tasks look like lost
+        # workers, and resurrecting them would re-consume the memory
+        # the kill just freed
         q._mem_kill = msg
-        q.fail(msg)
-        q.done.set()
-        # cooperative cancel, exactly like the local kill-largest
-        # policy: the victim cannot grow, its thread fails at the next
-        # reservation
-        self.memory_pool.mark_dead(victim)
-        self.memory_pool.cancel_blocked(victim)
+        if readmit:
+            # in-thread re-admission: _run_sql_with_restart waits out
+            # the pressure and re-runs within query_retry_count
+            self.memory_pool.cancel_blocked(victim)
+        else:
+            q.fail(msg)
+            q.done.set()
+            # cooperative cancel, exactly like the local kill-largest
+            # policy: the victim cannot grow, its thread fails at the
+            # next reservation
+            self.memory_pool.mark_dead(victim)
+            self.memory_pool.cancel_blocked(victim)
         self._cancel_query_on_workers(victim)
 
     def _cancel_query_on_workers(self, qid: str) -> None:
@@ -926,6 +1387,22 @@ class CoordinatorServer:
                     pass
 
         threading.Thread(target=run, daemon=True).start()
+
+    def _await_memory_calm(self, q: _Query) -> None:
+        """Hold a killed-but-re-admittable victim until cluster
+        pressure subsides (below low-water, nothing blocked), bounded
+        by the query's own run-time limit."""
+        deadline = time.monotonic() + float(
+            self.local.session.get("query_max_run_time_s")
+        )
+        while (
+            not q.done.is_set()
+            and not self._shutting_down
+            and time.monotonic() < deadline
+        ):
+            if self.arbiter.pressure_subsided():
+                return
+            time.sleep(0.05)
 
     def _fold_memory_stats(self, q: _Query) -> None:
         """Roll the query's cluster-wide memory view (coordinator pool
@@ -1067,9 +1544,18 @@ class CoordinatorServer:
     # ------------------------------------------- fault-tolerant execution
 
     def _retry_policy(self) -> str:
-        """Session ``retry_policy``, normalized: NONE in this slice
-        (TASK and QUERY are refused at construction and SET SESSION)."""
+        """Session ``retry_policy``, normalized (NONE | TASK | QUERY)."""
         return str(self.local.session.get("retry_policy")).upper()
+
+    def _spooling(self) -> bool:
+        """Should task specs carry the spool flag? TASK/QUERY policy
+        with a configured shared spool directory; NONE never spools
+        (bit-for-bit legacy behavior)."""
+        return self.spool is not None and self._retry_policy() in (
+            "TASK",
+            "QUERY",
+        )
+
 
     def _select_transport(self, workers, schemas) -> str:
         """Stage transport decision, delegated to the scheduler: the
@@ -1174,6 +1660,23 @@ class CoordinatorServer:
                 and getattr(q, "resource_group", None) == group_name
             ]
         local = sum(self.memory_pool.used_bytes(qid) for qid in qids)
+        # multi-coordinator shared quotas: fold live peers' published
+        # per-group usage (their coordinator-local bytes directly;
+        # their qids through the arbiter, which holds every worker's
+        # heartbeat once) so one group's softMemoryLimit holds across
+        # N admitters
+        if self.lease is not None:
+            for pl in self.lease.peers(live_only=True):
+                g = ((pl.state or {}).get("groups") or {}).get(
+                    group_name
+                )
+                if not isinstance(g, dict):
+                    continue
+                qids.extend(g.get("qids") or [])
+                try:
+                    local += int(g.get("local_bytes") or 0)
+                except (TypeError, ValueError):
+                    pass
         return local + self.arbiter.queries_bytes(qids)
 
     def submit(
@@ -1191,6 +1694,12 @@ class CoordinatorServer:
         q.user = user
         q.prepared = dict(prepared or {})
         q.resource_group = None
+        # snapshot the journal handle: a fault-plane kill racing this
+        # submit nulls self.journal (no close-out may reach disk), but
+        # a statement already past the handler's shutdown gate must
+        # still land its submit frame — an ACKed query with no frame
+        # would be unresumable by any survivor
+        j = self.journal
         with self._lock:
             self.queries[q.qid] = q
             # bounded retention (reference: query.max-history): evict
@@ -1211,6 +1720,13 @@ class CoordinatorServer:
             ]
             for qid in done[: max(0, len(done) - MAX_QUERY_HISTORY)]:
                 del self.queries[qid]
+            if self._qid_alias:
+                # restart aliases die with their resumed target
+                self._qid_alias = {
+                    a: t
+                    for a, t in self._qid_alias.items()
+                    if t in self.queries
+                }
             if self._pending >= self._max_queued:
                 q.fail(
                     "Query rejected: too many queued queries "
@@ -1221,6 +1737,10 @@ class CoordinatorServer:
                 return q
             self._pending += 1
         if self.resource_groups is None:
+            # journal BEFORE the execution thread can start: finish
+            # must never precede submit on disk
+            if j is not None:
+                j.record_submit(q.qid, sql, user, q.prepared, None)
             threading.Thread(
                 target=self._execute_query, args=(q,), daemon=True
             ).start()
@@ -1234,6 +1754,12 @@ class CoordinatorServer:
         # group assignment is deterministic: record it before the
         # thread can race to the finish hook
         q.resource_group = self.resource_groups.group_of(user).name
+        if j is not None:
+            # before resource_groups.submit — a run-now admission
+            # starts the thread synchronously inside it
+            j.record_submit(
+                q.qid, sql, user, q.prepared, q.resource_group
+            )
         state, info = self.resource_groups.submit(user, start)
         if state == "rejected":
             with self._lock:
@@ -1241,6 +1767,8 @@ class CoordinatorServer:
             q.fail(info)
             REGISTRY.counter("coordinator.queries_rejected").update()
             q.done.set()
+            if j is not None:
+                j.record_finish(q.qid, "FAILED")
             return q
         q.resource_group = info
         return q
@@ -1271,6 +1799,20 @@ class CoordinatorServer:
                 and getattr(q, "resource_group", None) is not None
             ):
                 self.resource_groups.finish(q.resource_group)
+            if self.journal is not None:
+                self.journal.record_finish(q.qid, q.state)
+            return
+        # chaos hook (utils/faults.py kill_coordinator): fires at the
+        # admitted-but-not-yet-RUNNING seam — the journal holds the
+        # submit frame with no close-out, exactly the state a real
+        # crash strands. The "dead" coordinator returns silently: no
+        # FAILED transition, no journal write, no client answer — a
+        # surviving peer claims and resumes the query
+        try:
+            faults.maybe_inject_coordinator(
+                self.coord_id, q.qid, kill=self._fault_kill
+            )
+        except faults.FaultInjectedError:
             return
         q.state = "RUNNING"
         q.stats.state = "RUNNING"
@@ -1286,7 +1828,7 @@ class CoordinatorServer:
         try:
             with REGISTRY.timer("coordinator.query_time").time():
                 with q.trace.span("query", query_id=q.qid):
-                    self._run_sql_killable(q)
+                    self._run_sql_with_restart(q)
             if not q.done.is_set():  # a killed query stays FAILED
                 q.state = "FINISHED"
         except Exception as e:
@@ -1304,6 +1846,11 @@ class CoordinatorServer:
             self.memory_pool.release(q.qid)
             with self._lock:
                 self._pending -= 1
+            if self.journal is not None:
+                # terminal close-out BEFORE done is observable: a
+                # restart must never re-admit a query whose client
+                # already saw the outcome
+                self.journal.record_finish(q.qid, q.state)
             q.done.set()
             if (
                 self.resource_groups is not None
@@ -1313,17 +1860,89 @@ class CoordinatorServer:
                 # query by weighted fairness
                 self.resource_groups.finish(q.resource_group)
 
-    def _run_sql_killable(self, q: _Query) -> None:
-        """Run the statement; a query the cluster memory manager killed
-        surfaces as :class:`MemoryPressureKilled` (the reference's
-        ``_run_sql_with_restart`` under retry_policy=NONE: no restart
-        budget; QUERY restarts come with the spool slice)."""
-        try:
-            self._run_sql(q)
-        except Exception as e:
-            if q._mem_kill is not None:
-                raise MemoryPressureKilled(q._mem_kill) from e
-            raise
+
+    def _run_sql_with_restart(self, q: _Query) -> None:
+        """``retry_policy=QUERY``: a bounded full-query restart is the
+        LAST resort when task-level recovery could not save the query
+        (reference: Tardigrade's QUERY retry policy). Only failures
+        that mean "the cluster changed under us" (connection-level, a
+        draining/lost worker, no live workers) are restartable —
+        execution errors would fail again identically."""
+        budget = (
+            int(self.local.session.get("query_retry_count"))
+            if self._retry_policy() == "QUERY"
+            else 0
+        )
+        attempt = 0
+        while True:
+            try:
+                if attempt == 0:
+                    return self._run_sql(q)
+                with q.trace.span(
+                    "recovery", phase="query-restart", attempt=attempt
+                ):
+                    return self._run_sql(q)
+            except Exception as e:
+                mem_kill = getattr(q, "_mem_kill", None)
+                restartable = rpc.is_task_recoverable(e) or isinstance(
+                    e, NoLiveWorkers
+                )
+                if mem_kill is not None:
+                    # cluster memory manager kill: re-admit the victim
+                    # after pressure subsides — within the SAME bounded
+                    # query_retry_count budget as connection restarts
+                    if attempt >= budget or q.done.is_set():
+                        raise MemoryPressureKilled(mem_kill) from e
+                    attempt += 1
+                    REGISTRY.counter(
+                        "memory.victims_readmitted"
+                    ).update()
+                    log.warning(
+                        "query=%s re-admitting memory-pressure victim "
+                        "(attempt %d/%d)", q.qid, attempt, budget,
+                    )
+                    # surrender this attempt's residency before the
+                    # wait: the victim must not hold bytes while the
+                    # cluster drains
+                    self.local.release_pins(q.stats)
+                    self.memory_pool.release(q.qid)
+                    self._await_memory_calm(q)
+                    q._mem_kill = None
+                    self.arbiter.forget_query(q.qid)
+                elif (
+                    attempt >= budget
+                    or not restartable
+                    or q.done.is_set()
+                ):
+                    raise
+                else:
+                    attempt += 1
+                    REGISTRY.counter(
+                        "coordinator.query_restarts"
+                    ).update()
+                    log.warning(
+                        "query=%s restarting (attempt %d/%d) after "
+                        "%s: %s",
+                        q.qid, attempt, budget, type(e).__name__, e,
+                    )
+                # close out the failed attempt's partial state: stages
+                # left RUNNING become ABORTED, partial results dropped
+                with q._stats_lock:
+                    q.stats.query_restarts = attempt
+                    for st in q.stats.stages:
+                        if st.state == "RUNNING":
+                            st.state = "ABORTED"
+                        for t in st.tasks:
+                            if t.state in ("QUEUED", "RUNNING"):
+                                t.state = "FAILED"
+                    # drop the failed attempt's coordinator-local
+                    # operator folds: the retry re-executes the same
+                    # local programs, and keeping both would teach the
+                    # history store doubled cardinalities
+                    q.stats.operators = []
+                    q.stats.__dict__.pop("_op_index", None)
+                    q.stats.__dict__.pop("_op_pins", None)
+                q.columns, q.rows = [], []
 
     def _run_sql(self, q: _Query) -> None:
         from presto_tpu_torch.sql import ast, parse_statement
@@ -1426,6 +2045,11 @@ class CoordinatorServer:
             # the embedded runner serves the non-distributed EXECUTE
             # path: keep its per-runner registry in step
             self.local._prepared[stmt.name] = stmt.statement
+            if self.journal is not None:
+                # the coordinator-GLOBAL registry is coordinator state
+                # and survives a bounce (client-header-owned maps are
+                # the client's to replay)
+                self.journal.record_prepare(stmt.name, text)
             q.added_prepare = (stmt.name, text)
             q.columns = [{"name": "result"}]
             q.rows = [["PREPARE"]]
@@ -1434,6 +2058,8 @@ class CoordinatorServer:
             with self._prepared_mu:
                 self._prepared_sql.pop(stmt.name, None)
             self.local._prepared.pop(stmt.name, None)
+            if self.journal is not None:
+                self.journal.record_deallocate(stmt.name)
             q.deallocated_prepare = stmt.name
             q.columns = [{"name": "result"}]
             q.rows = [["DEALLOCATE"]]
@@ -3270,6 +3896,7 @@ class CoordinatorServer:
                     ),
                     n_partitions=nparts,
                     partition_keys=tuple(keys),
+                    spool=self._spooling(),
                     ici_slice=ici_slice,
                     traceparent=q.trace.traceparent(),
                 ))
@@ -3280,12 +3907,15 @@ class CoordinatorServer:
                 self._wait_task(w, spec)
                 return (w.uri, spec.task_id, group)
 
-            # retry_policy=NONE: producer death fails the query —
-            # partitioned exchanges are non-recoverable (TASK recovery
-            # through the spool comes with a later slice)
+            # legacy (retry_policy=NONE): producer death fails the
+            # query — partitioned exchanges are non-recoverable. Under
+            # TASK (and QUERY, its superset) the stage recovers: the
+            # sources list carries only winning attempts (barrier
+            # mode), and join tasks pulling a later-dead producer
+            # re-serve its committed partitions from the durable spool
             res = self._ranged_tasks(
                 workers, ranges, make_spec, wait_producer,
-                q=q, retry=False,
+                q=q, retry=self._retry_policy() in ("TASK", "QUERY"),
             )
             pstage.state = "FINISHED"
             return res
@@ -3316,6 +3946,15 @@ class CoordinatorServer:
             # merged copy: stable nodes first (preemptible-aware)
             jworkers = stable_workers(workers)
 
+            def post_and_pull(w, spec):
+                with clock:
+                    created.append((w, spec.task_id))
+                self._rpc_json(
+                    "POST", w.uri + "/v1/task", spec.to_json(),
+                    traceparent=spec.traceparent,
+                )
+                return self._pull_task(w, spec)
+
             def run_join_task(i: int):
                 w = jworkers[i % len(jworkers)]
                 spec = self._register_task(q, jstage, FragmentSpec(
@@ -3329,16 +3968,38 @@ class CoordinatorServer:
                     split_end=0,
                     sources=tuple(sources),
                     partition=i,
+                    spool=self._spooling(),
                     ici_slice=ici_slice,
                     traceparent=q.trace.traceparent(),
                 ))
-                with clock:
-                    created.append((w, spec.task_id))
-                self._rpc_json(
-                    "POST", w.uri + "/v1/task", spec.to_json(),
-                    traceparent=spec.traceparent,
-                )
-                return self._pull_task(w, spec)
+                try:
+                    return post_and_pull(w, spec)
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    # join-worker death under a spooling retry policy:
+                    # re-run the partition as the SAME logical task's
+                    # next attempt on a live worker; its dead producer
+                    # sources re-serve from the durable spool (the
+                    # reference fails the query here: its partitioned
+                    # join has no task recovery)
+                    if not self._spooling() or (
+                        getattr(q, "_mem_kill", None) is not None
+                    ):
+                        raise
+                    self._worker_failed(w)
+                    others = stable_workers(
+                        self.active_workers(exclude={w.node_id})
+                    )
+                    if not others or not self._take_retry(q):
+                        raise
+                    self._record_recovery(q)
+                    with q.trace.span(
+                        "recovery", phase="join-task",
+                        task_id=spec.task_id,
+                    ):
+                        return post_and_pull(
+                            others[i % len(others)],
+                            self._retry_spec(q, spec),
+                        )
 
             with ThreadPoolExecutor(nparts) as pool:
                 futs = [
@@ -3426,6 +4087,7 @@ class CoordinatorServer:
                 ),
                 n_partitions=nparts,
                 partition_keys=tuple(key_names),
+                spool=self._spooling(),
                 ici_slice=ici_slice,
                 traceparent=q.trace.traceparent(),
             ))
@@ -3496,7 +4158,8 @@ class CoordinatorServer:
                         split_start=0,
                         split_end=0,
                         partition=i,
-                            ici_slice=ici_slice,
+                        spool=self._spooling(),
+                        ici_slice=ici_slice,
                         traceparent=q.trace.traceparent(),
                     ))
                     try:
@@ -3517,14 +4180,18 @@ class CoordinatorServer:
                         "no live worker accepts merge tasks"
                     )
 
-            # retry_policy=NONE: a producer dying after its
+            # legacy (retry_policy=NONE): a producer dying after its
             # announcement fails the query (classic non-recoverable
-            # exchange; spool-backed producer retry comes with a later
-            # slice)
+            # exchange). With the spool (TASK, or QUERY before its
+            # last-resort restart) producers are retryable: every
+            # attempt spools under one logical key and merge tasks
+            # consume exactly ONE committed attempt per key, so a
+            # retried producer racing its announced original can
+            # never double-count
             with q.trace.span("schedule", stage_id=prod_stage.stage_id):
                 producers = self._ranged_tasks(
                     workers, ranges, make_spec, wait_producer,
-                    q=q, retry=False,
+                    q=q, retry=self._spooling(),
                 )
             sources = tuple((w.uri, tid) for w, tid in producers)
             # seal with the FULL list: add_sources dedups, so this
@@ -3535,7 +4202,8 @@ class CoordinatorServer:
                 # merge-worker death: re-run that partition's FINAL as
                 # a barrier-mode merge task — the SAME logical task,
                 # next attempt — on a live worker (full source list
-                # known by now)
+                # known by now; dead producers' partitions re-serve
+                # from the durable spool when retry_policy spools)
                 spec = self._register_task(
                     q,
                     merge_stage,
@@ -4051,7 +4719,10 @@ def _make_handler(coord: CoordinatorServer):
             if parts == ["v1", "statement"]:
                 from presto_tpu_torch.server import protocol
 
-                # a shutting-down coordinator admits nothing: 503
+                # a dying coordinator must not ACK a statement it
+                # cannot journal (the ack promises a resumable query):
+                # 503 = "nothing admitted", which the spray client
+                # re-targets at a peer duplicate-free
                 if coord._shutting_down:
                     return self._json(
                         503, {"error": "coordinator shutting down"}
@@ -4067,6 +4738,15 @@ def _make_handler(coord: CoordinatorServer):
                     )
                 )
                 q = coord.submit(sql, user=user, prepared=prepared)
+                # re-check AFTER submit: a kill that raced past the
+                # gate above may have dropped the journal before the
+                # frame landed — refuse the ACK (the client resubmits
+                # at a peer; a frame that DID land resumes there too,
+                # which is the journal's at-least-once contract)
+                if coord._shutting_down:
+                    return self._json(
+                        503, {"error": "coordinator shutting down"}
+                    )
                 return self._json(
                     200,
                     {
@@ -4188,7 +4868,10 @@ def _make_handler(coord: CoordinatorServer):
                 )
             if len(parts) == 3 and parts[:2] == ["v1", "query"]:
                 # full QueryInfo incl. stage/task stats + span tree
-                # (reference: GET /v1/query/{id}); works mid-flight
+                # (reference: GET /v1/query/{id}); works mid-flight.
+                # lookup_query follows restart aliases: ids minted by
+                # a dead coordinator incarnation resolve to their
+                # journal-resumed runs
                 x = coord.lookup_query(parts[2])
                 if x is None:
                     return self._json(404, {"error": "no such query"})
@@ -4197,6 +4880,23 @@ def _make_handler(coord: CoordinatorServer):
                 qid, token = parts[2], int(parts[3])
                 q = coord.lookup_query(qid)
                 if q is None:
+                    # multi-coordinator alias lookup: a sprayed (or
+                    # failed-over) client may land here holding a
+                    # statement another live coordinator serves —
+                    # redirect via its lease payload. Loop-free:
+                    # coordinators only advertise qids they can
+                    # resolve locally
+                    peer = coord.locate_peer(qid)
+                    if peer:
+                        return self._json(
+                            200,
+                            {
+                                "id": qid,
+                                "nextUri": (
+                                    f"{peer}/v1/statement/{qid}/{token}"
+                                ),
+                            },
+                        )
                     return self._json(404, {"error": "no such query"})
                 # long-poll up to 1s for progress (reference: long-poll)
                 q.done.wait(timeout=1.0)

@@ -18,10 +18,16 @@ batch run by ``runner._run_with_pages`` (a GROUP BY there is one
 serialized into the task's output buffer, pulled token-acked by the
 coordinator, and freed on DELETE.
 
-Not in this slice: the spool tee and recovery reads (retry TASK/QUERY),
-the in-slice ICI lane, and preemption (elastic pools). A worker config
-or a task spec that asks for one of them is refused with an error that
-names the later slice.
+Fault-tolerant execution (``exchange.spool-path``, a spec's ``spool``
+flag): partitioned output pages are teed into the shared durable spool
+(``server/spool.py``) off the producer thread, the attempt is sealed
+(committed, or discarded) before FINISHED is visible, and a merge task
+whose producer died re-serves that producer's committed partition from
+the spool.
+
+Not in this slice: the in-slice ICI lane and preemption (elastic
+pools). A worker config or a task spec that asks for one of them is
+refused with an error that names the later slice.
 """
 
 from __future__ import annotations
@@ -47,10 +53,14 @@ from presto_tpu_torch.server import exchange_spi, pages_wire, rpc, task_ids
 from presto_tpu_torch.server.coordinator import (
     _ICI,
     _QOS,
-    _SPOOL,
     refuse_later_planes,
 )
 from presto_tpu_torch.server.protocol import FragmentSpec
+from presto_tpu_torch.server.spool import (
+    DEFAULT_DRAIN_DEPTH,
+    ExchangeSpool,
+    SpoolDrain,
+)
 from presto_tpu_torch.utils import devicediag, faults, tracing
 from presto_tpu_torch.utils.metrics import REGISTRY
 
@@ -87,7 +97,10 @@ def _offer_chunked(task: "_Task", cols, n: int) -> None:
 
 
 class _Task:
-    def __init__(self, spec: FragmentSpec, pool=None, node_id: str = ""):
+    def __init__(
+        self, spec: FragmentSpec, pool=None, node_id: str = "",
+        spool: "ExchangeSpool" = None, drain: "SpoolDrain" = None,
+    ):
         self.spec = spec
         self.state = "QUEUED"  # QUEUED|RUNNING|FINISHED|FAILED|ABORTED
         self.error: Optional[str] = None
@@ -110,6 +123,15 @@ class _Task:
         self.parts: List[List[Optional[bytes]]] = [
             [] for _ in range(nparts)
         ]
+        #: durable-exchange spool (fault-tolerant execution): tee this
+        #: task's PARTITIONED output pages so a consumer can re-serve
+        #: them after this worker dies; committed at FINISH
+        self._spool = spool if spec.spool and nparts > 1 else None
+        #: background tee drain: when attached, EVERY spool append of
+        #: this task funnels through its one thread (single-appender
+        #: contract), and _run_task flushes it before the commit
+        self._spool_drain = drain if self._spool is not None else None
+        self.spooled = False  # committed to the spool
         self.part_acked: List[int] = [0] * nparts
         #: per-partition "consumer saw X-Complete" flags — the drain
         #: protocol waits on these (a draining worker must not exit
@@ -172,7 +194,8 @@ class _Task:
             # reserve runs BEFORE taking task.cond: a governance-lane
             # reserve may block waiting for headroom (and pressure
             # hooks may run spill DMA), and the condition guards the
-            # result-serving handler threads. Only the producer thread appends
+            # result-serving handler threads, the same discipline as
+            # the spool tee below. Only the producer thread appends
             # per (task, part), so nothing races the buffered bytes
             # between the reserve and the append; the abort path below
             # returns the reservation.
@@ -196,6 +219,25 @@ class _Task:
             if self.pool is not None:
                 self.pool.release(self.buf_key, len(page))
             raise
+        # the spool tee runs OUTSIDE task.cond: disk I/O under the
+        # condition would block the result-serving handler threads
+        # behind every spooled page. Safe because pages are immutable
+        # once buffered, the appends of one (task, part) all run on one
+        # thread (the producer, or the drain when one is attached), and
+        # commit (in _run_task's finally) flushes the drain first. The
+        # page is a wire frame already on the host: the tee adds no
+        # wait on the card
+        if self._spool is not None:
+            if self._spool_drain is not None:
+                spool, tid = self._spool, self.spec.task_id
+
+                def tee(page=page, part=part):
+                    spool.append(tid, part, page)
+
+                self._spool_drain.submit(tid, tee)
+            else:
+                self._spool.append(self.spec.task_id, part, page)
+
     def ack_below(self, token: int, part: int = 0) -> None:
         """Consumer side: pulling token N acks pages < N.
 
@@ -231,7 +273,6 @@ class _Task:
 #: key -> (is the value on?, the later slice)
 _REFUSED_CONFIG = {
     "exchange.ici-enabled": (bool, _ICI),
-    "exchange.spool-path": (bool, _SPOOL),
     "node.preemptible": (bool, _QOS),
 }
 
@@ -394,6 +435,28 @@ class WorkerServer:
         )
         if fault_spec:
             faults.configure(fault_spec)
+        # durable-exchange spool (fault-tolerant execution): a shared
+        # directory every node mounts (exchange.spool-path); None when
+        # unconfigured — retry_policy=NONE never touches it
+        self.spool = ExchangeSpool.from_config(config)
+        # off-hot-path spool tee: one background drain thread per
+        # worker takes the retry-TASK tee's SPL1 writes off the
+        # producer thread; _run_task flushes it before the commit
+        # marker (commit-marker-last unchanged)
+        self.spool_drain = (
+            SpoolDrain(
+                int(
+                    config.get(
+                        "exchange.spool-drain-depth",
+                        DEFAULT_DRAIN_DEPTH,
+                    )
+                    if config
+                    else DEFAULT_DRAIN_DEPTH
+                )
+            )
+            if self.spool is not None
+            else None
+        )
         # slice identity announced on discovery (the reference's
         # in-slice lane groups workers by it; the port refuses that
         # lane, so it is observability only here)
@@ -456,6 +519,8 @@ class WorkerServer:
         if self._serve_thread.is_alive():
             self.httpd.shutdown()
         self.httpd.server_close()
+        if self.spool_drain is not None:
+            self.spool_drain.close()
 
     # ------------------------------------------------------------- drain
 
@@ -464,9 +529,10 @@ class WorkerServer:
         launcher): stop accepting tasks (503 to new POSTs — the
         coordinator reschedules them), announce ``DRAINING`` so the
         coordinator stops scheduling here, keep serving result pulls
-        until every finished task's buffers are consumed, then exit
-        clean — a rolling restart under live load loses zero queries
-        (reference: the SHUTTING_DOWN protocol)."""
+        until every finished task's buffers are consumed or spooled,
+        then exit clean — a rolling restart under live load loses zero
+        queries (reference: the SHUTTING_DOWN protocol, upgraded with
+        the durable-exchange spool)."""
         with self._lock:
             if self._draining or self._shutting_down:
                 return
@@ -475,7 +541,9 @@ class WorkerServer:
         log.info("node=%s draining", self.node_id)
         # flip discovery NOW instead of waiting out the announce cadence
         self._announce_once()
-        # chaos hook: kill_worker_draining crashes us mid-drain
+        # chaos hook: kill_worker_draining crashes us mid-drain (the
+        # protocol must stay recoverable — consumers fall back to the
+        # spool / task retry)
         faults.maybe_inject_drain(self.node_id, kill=self._fault_kill)
         grace = self._drain_grace_s if grace_s is None else grace_s
         deadline = time.monotonic() + grace
@@ -489,8 +557,8 @@ class WorkerServer:
     def _drain_busy(self) -> bool:
         """Anything left that exiting now would lose? Running/queued
         tasks; a FINISHED task whose buffers a consumer is still
-        pulling. FAILED and ABORTED buffers die with the worker by
-        design."""
+        pulling (unless the spool holds a committed copy). FAILED and
+        ABORTED buffers die with the worker by design."""
         with self._lock:
             tasks = list(self.tasks.values())
         for t in tasks:
@@ -498,6 +566,8 @@ class WorkerServer:
                 return True
             if t.state != "FINISHED":
                 continue
+            if t.spooled:
+                continue  # durable copy outlives this worker
             with t.cond:
                 if not all(t.complete_served):
                     return True
@@ -681,13 +751,16 @@ class WorkerServer:
     def create_task(self, spec: FragmentSpec) -> str:
         if self._draining or self._shutting_down:
             raise WorkerDraining("worker is draining")
-        if spec.spool or spec.ici_slice:
+        if spec.ici_slice:
             raise ValueError(
-                "spooled and in-slice exchanges come with later server "
-                "slices (retry TASK/QUERY, the multi-device exchange); "
-                "this worker serves the HTTP exchange only"
+                "the in-slice exchange comes with a later server slice "
+                "(the multi-device exchange); this worker serves the "
+                "HTTP exchange and the spool only"
             )
-        task = _Task(spec, pool=self.memory_pool, node_id=self.node_id)
+        task = _Task(
+            spec, pool=self.memory_pool, node_id=self.node_id,
+            spool=self.spool, drain=self.spool_drain,
+        )
         # orphan-reaper bookkeeping: the task itself is liveness
         # evidence for its minting coordinator boot (a coordinator
         # actively scheduling is not an orphan-maker even if this
@@ -744,6 +817,36 @@ class WorkerServer:
                     execute_ms=task.stats.execute_ms,
                     prefetch_ms=task.stats.prefetch_ms,
                 )
+            # seal the spooled attempt BEFORE the terminal state is
+            # visible: FINISHED must imply the durable copy is complete
+            # (consumers that see FINISHED may rely on the spool the
+            # instant this worker dies); failed/aborted partial pages
+            # must never serve
+            if task._spool is not None:
+                try:
+                    if outcome == "FINISHED" and task.state != "ABORTED":
+                        # drain flush BEFORE the commit marker: every
+                        # teed frame must be on disk (and none failed)
+                        # when the marker appears — a failed unit
+                        # raises here and the attempt is discarded
+                        # below instead of committed with a hole
+                        if task._spool_drain is not None:
+                            task._spool_drain.flush(task.spec.task_id)
+                        task._spool.commit(task.spec.task_id)
+                        task.spooled = True
+                    else:
+                        if task._spool_drain is not None:
+                            task._spool_drain.forget(task.spec.task_id)
+                        task._spool.discard(task.spec.task_id)
+                except Exception:
+                    log.warning(
+                        "node=%s spool seal failed for %s",
+                        self.node_id, task.spec.task_id, exc_info=True,
+                    )
+                    try:
+                        task._spool.discard(task.spec.task_id)
+                    except Exception:
+                        pass
             # publish the terminal state LAST: it flips X-Complete on
             # the result stream, and the coordinator reads the final
             # status (stats + spans above) as soon as it sees it
@@ -972,6 +1075,26 @@ class WorkerServer:
         cols, n = pages_wire.page_to_wire_columns(out)
         _offer_chunked(task, cols, n)
 
+    def _spool_partition(self, task: "_Task", logical_key: str):
+        """Recovery read: one committed attempt's pages for this merge
+        task's partition out of the durable spool (None = nothing
+        recoverable). The spool serves raw wire frames; deserialization
+        and stats attribution happen here, mirroring the HTTP pull."""
+        if self.spool is None:
+            return None
+        raw = self.spool.serve(logical_key, task.spec.partition)
+        if raw is None:
+            return None
+        pages = [pages_wire.deserialize_page(b) for b in raw]
+        with task.cond:
+            task.stats.spool_pages_served += len(pages)
+        log.info(
+            "node=%s task=%s re-served %d page(s) of %s[%d] from spool",
+            self.node_id, task.spec.task_id, len(pages), logical_key,
+            task.spec.partition,
+        )
+        return pages
+
     def _load_range(self, scan: N.TableScanNode, lo: int, hi: int):
         conn = self.runner.catalogs.get(scan.handle.catalog)
         split = ConnectorSplit(scan.handle, lo, hi)
@@ -1005,10 +1128,15 @@ class WorkerServer:
         #: device-merged in-slice entries come with the ICI lane)
         by_group: Dict[int, list] = {}
         pulled = set()
-        # attempt-id dedup: every attempt of one logical upstream task
-        # shares a logical key, and exactly ONE attempt's pages may be
-        # consumed
+        # attempt-id dedup (fault-tolerant execution): every attempt of
+        # one logical upstream task shares a logical key, and exactly
+        # ONE attempt's pages may be consumed — a retried producer and
+        # its zombie original must never both contribute rows
         pulled_logical = set()
+        #: logical keys whose announced attempt died unreachable with
+        #: no spooled copy — a replacement announcement may still heal
+        #: them; anything left at loop end is a hard loss
+        abandoned: Dict[str, Exception] = {}
         deadline = time.monotonic() + float(
             self.runner.session.get("query_max_run_time_s")
         )
@@ -1036,11 +1164,31 @@ class WorkerServer:
                     pulled.add(tuple(src))
                     continue
                 t_pull = time.perf_counter()
-                got = _pull_partition(
-                    uri, src_task, spec.partition,
-                    self.runner.session, policy=self._rpc_policy,
-                )
-                task.stats.exchange_http_edges += 1
+                try:
+                    got = _pull_partition(
+                        uri, src_task, spec.partition,
+                        self.runner.session, policy=self._rpc_policy,
+                    )
+                    task.stats.exchange_http_edges += 1
+                except Exception as e:
+                    # a dead producer: its committed attempt's pages
+                    # re-serve from the durable spool
+                    got = (
+                        self._spool_partition(task, lk)
+                        if spec.spool
+                        else None
+                    )
+                    if got is None:
+                        if spec.spool:
+                            # recoverable exchange: the coordinator may
+                            # announce a replacement attempt of this
+                            # logical task — consume that instead
+                            abandoned[lk] = e
+                            pulled.add(tuple(src))
+                            continue
+                        raise
+                    task.stats.exchange_spool_edges += 1
+                abandoned.pop(lk, None)
                 by_group.setdefault(group, []).extend(got)
                 task.stats.staging_ms += (
                     time.perf_counter() - t_pull
@@ -1048,6 +1196,14 @@ class WorkerServer:
                 task.stats.input_rows += sum(p[2] for p in got)
                 pulled.add(tuple(src))
                 pulled_logical.add(lk)
+        lost = [lk for lk in abandoned if lk not in pulled_logical]
+        if lost:
+            # every attempt of these upstream tasks is gone and nothing
+            # was spooled/committed: the merge cannot be correct
+            raise RuntimeError(
+                f"merge task lost upstream partition(s) {lost}: "
+                f"{abandoned[lost[0]]}"
+            )
         root = spec.fragment
         remotes = [
             n for n in N.walk(root) if isinstance(n, N.RemoteSourceNode)
@@ -1247,9 +1403,9 @@ def _make_handler(worker: WorkerServer):
                         "state": t.state,
                         "error": t.error,
                         "num_pages": len(t.pages),
-                        # no spool in this slice: output never outlives
-                        # the worker
-                        "spooled": False,
+                        # durable-copy flag: a FINISHED+spooled task's
+                        # output outlives this worker (drain protocol)
+                        "spooled": t.spooled,
                         "stats": t.stats.to_dict(),
                         "spans": t.spans,
                         "dynamic_filter": t.dynfilter,
@@ -1379,7 +1535,7 @@ def _make_handler(worker: WorkerServer):
                     200, {"ok": True, "aborted": worker.abort_query(qid)}
                 )
             if parts == ["v1", "state", "drain"]:
-                # graceful drain: stop accepting, finish + serve
+                # graceful drain: stop accepting, finish + serve/spool
                 # running outputs, announce DRAINING, exit clean
                 threading.Thread(
                     target=worker.drain, daemon=True

@@ -956,3 +956,130 @@ def test_result_cache_hit_on_the_card_launches_nothing(cuda):
         assert q.rows
     finally:
         coord.shutdown()
+
+
+def _q1_rows_on_the_cpu():
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from tpch_queries import QUERIES
+
+    return LocalQueryRunner(device="cpu").execute(QUERIES[1]).rows()
+
+
+def _assert_rows_close(got, want):
+    import math
+
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(b, float):
+                assert math.isclose(a, b, rel_tol=1e-9), (g, w)
+            else:
+                assert a == b, (g, w)
+
+
+def test_worker_killed_mid_producer_recovers_on_the_card(cuda, tmp_path):
+    # retry-policy TASK over a shared spool, a coordinator and two
+    # workers on the card: the dead worker's second producer re-runs on
+    # the survivor (K1 on its batches), its merge partition re-runs over
+    # the committed producer re-read from the spool; Q1 equals the CPU
+    import time
+
+    from presto_tpu_torch.server import (
+        CoordinatorServer,
+        PrestoTpuClient,
+        WorkerServer,
+        task_ids,
+    )
+    from presto_tpu_torch.session import NodeConfig
+    from presto_tpu_torch.utils import faults
+    from tpch_queries import QUERIES
+
+    spool = str(tmp_path / "spool")
+    base = {"staging.cache-bytes": "256MB", "query.max-memory-per-node": "4GB",
+            "exchange.spool-path": spool}
+    coord = CoordinatorServer(
+        config=NodeConfig({**base, "retry-policy": "TASK"}), device="cuda"
+    ).start()
+    workers = [
+        WorkerServer(coordinator_uri=coord.uri, config=NodeConfig(base),
+                     device="cuda").start()
+        for _ in range(2)
+    ]
+    try:
+        deadline = time.time() + 30
+        while len(coord.active_workers()) < 2 and time.time() < deadline:
+            time.sleep(0.05)
+        assert len(coord.active_workers()) == 2
+        faults.configure({"rules": [
+            {"action": "kill_worker", "node": workers[0].node_id,
+             "task": ".prod.", "skip": 1, "count": 1},
+        ]})
+        client = PrestoTpuClient(coord.uri, timeout_s=300)
+        before = onehot_reduce.launches
+        res = client.execute(QUERIES[1])
+        assert onehot_reduce.launches > before
+        _assert_rows_close(res.rows(), _q1_rows_on_the_cpu())
+        info = client.query_info(res.query_id)
+        attempts = [
+            task_ids.attempt_of(t["task_id"])
+            for st in info["stages"] for t in st["tasks"]
+        ]
+        assert max(attempts) >= 1
+        assert info["spool_pages_served"] > 0
+    finally:
+        faults.configure(None)
+        for w in workers:
+            w.shutdown(graceful=False)
+        coord.shutdown()
+
+
+def test_peer_failover_resumes_q1_on_the_card(cuda, tmp_path):
+    # two coordinators on the card sharing a control directory;
+    # kill_coordinator on coord-0 as Q1 is admitted: the survivor claims
+    # the dead lease, resumes the query, and its id resolves by alias
+    import socket
+    import time
+
+    from presto_tpu_torch.server import CoordinatorServer, PrestoTpuClient
+    from presto_tpu_torch.session import NodeConfig
+    from presto_tpu_torch.utils import faults
+    from tpch_queries import QUERIES
+
+    socks = [socket.socket() for _ in range(2)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    uris = [f"http://127.0.0.1:{p}" for p in ports]
+    coords = [
+        CoordinatorServer(port=ports[i], device="cuda", config=NodeConfig({
+            "node.id": f"coord-{i}",
+            "coordinator.journal-path": str(tmp_path / "ctl"),
+            "coordinator.peers": uris[1 - i],
+            "lease.ttl-s": "0.75",
+            "staging.cache-bytes": "256MB",
+        })).start()
+        for i in range(2)
+    ]
+    c0, c1 = coords
+    try:
+        faults.configure({"rules": [
+            {"action": "kill_coordinator", "node": "coord-0", "count": 1},
+        ]})
+        want = _q1_rows_on_the_cpu()
+        res = PrestoTpuClient(uris, timeout_s=300).execute(QUERIES[1])
+        _assert_rows_close(res.rows(), want)
+        deadline = time.time() + 60
+        while c1.failover_resumed < 1 and time.time() < deadline:
+            time.sleep(0.05)
+        assert c1.failover_claims == 1 and c1.failover_resumed == 1
+        (dead,) = list(c0.queries)
+        alias = c1.lookup_query(dead)
+        assert alias is not None and alias.qid != dead
+        assert alias.done.wait(300) and alias.state == "FINISHED"
+        _assert_rows_close([tuple(r) for r in alias.rows], want)
+    finally:
+        faults.configure(None)
+        for c in coords:
+            c.shutdown()

@@ -369,68 +369,50 @@ def _free_ports(n):
 
 
 def test_kill_coordinator_failover_starts_cold(pkg, tmp_path):
-    """Cached results never survive a coordinator's death. The reference
-    fails over to a peer through its lease plane; the port has no HA
-    plane yet (refused: ROADMAP queue 4), so its coordinator is replaced
-    by a new one on the same port. Either way the survivor starts COLD,
-    serves the statement from a miss, and hits after."""
+    """Cached results never survive a coordinator's death: each package
+    fails over to a peer through its lease plane, and the survivor
+    starts COLD, serves the statement from a miss, and hits after."""
+    from presto_tpu_torch.utils import faults as port_faults
+
     sql = "select count(*) as c from tpch.tiny.region"
-    if pkg is REF:
-        ctl = str(tmp_path / "ctl")
-        ports = _free_ports(2)
-        uris = [f"http://127.0.0.1:{p}" for p in ports]
-        coords = []
-        for i in range(2):
-            cfg = RefNodeConfig({
-                "node.id": f"coord-{i}",
-                "coordinator.journal-path": ctl,
-                "coordinator.peers": ",".join(
-                    u for j, u in enumerate(uris) if j != i
-                ),
-                "lease.ttl-s": "0.6",
-                "result-cache.enabled": "true",
-            })
-            coords.append(RefCoord(port=ports[i], config=cfg).start())
-        c0, c1 = coords
-        try:
-            assert _run(c0, sql).stats.result_cache == "miss"
-            assert _run(c0, sql).stats.result_cache == "hit"
-            assert c0.result_cache.stats()["entries"] == 1
-            c0._fault_kill()
-            deadline = time.monotonic() + 20
-            while time.monotonic() < deadline and c1.failover_claims < 1:
-                time.sleep(0.05)
-            assert c1.failover_claims >= 1
-            survivor = c1
-            assert survivor.result_cache.stats()["entries"] == 0
-            q = _run(survivor, sql)
-            assert q.stats.result_cache == "miss" and q.rows == [[5]]
-            assert _run(survivor, sql).stats.result_cache == "hit"
-        finally:
-            ref_faults.configure(None)
-            for c in coords:
-                try:
-                    c.shutdown()
-                except Exception:
-                    pass
-        return
-    cfg = PortNodeConfig({"result-cache.enabled": "true"})
-    c0 = PortCoord(config=cfg, device="cpu").start()
-    port = c0.port
+    ctl = str(tmp_path / "ctl")
+    ports = _free_ports(2)
+    uris = [f"http://127.0.0.1:{p}" for p in ports]
+    coords = []
+    for i in range(2):
+        cfg = pkg.NodeConfig({
+            "node.id": f"coord-{i}",
+            "coordinator.journal-path": ctl,
+            "coordinator.peers": ",".join(
+                u for j, u in enumerate(uris) if j != i
+            ),
+            "lease.ttl-s": "0.6",
+            "result-cache.enabled": "true",
+        })
+        coords.append(pkg.Coord(port=ports[i], config=cfg, **pkg.kw).start())
+    c0, c1 = coords
     try:
         assert _run(c0, sql).stats.result_cache == "miss"
         assert _run(c0, sql).stats.result_cache == "hit"
         assert c0.result_cache.stats()["entries"] == 1
-    finally:
-        c0.shutdown()
-    c1 = PortCoord(port=port, config=cfg, device="cpu").start()
-    try:
-        assert c1.result_cache.stats()["entries"] == 0
-        q = _run(c1, sql)
+        c0._fault_kill()
+        deadline = time.monotonic() + 20
+        while time.monotonic() < deadline and c1.failover_claims < 1:
+            time.sleep(0.05)
+        assert c1.failover_claims >= 1
+        survivor = c1
+        assert survivor.result_cache.stats()["entries"] == 0
+        q = _run(survivor, sql)
         assert q.stats.result_cache == "miss" and q.rows == [[5]]
-        assert _run(c1, sql).stats.result_cache == "hit"
+        assert _run(survivor, sql).stats.result_cache == "hit"
     finally:
-        c1.shutdown()
+        ref_faults.configure(None)
+        port_faults.configure(None)
+        for c in coords:
+            try:
+                c.shutdown()
+            except Exception:
+                pass
 
 
 # -------------------------------------------------- eviction / budget

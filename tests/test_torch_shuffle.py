@@ -12,9 +12,11 @@ aggregation with pipelined source attachment, the partitioned join
 (forced, chosen from stats, and a semi join), the ordered MERGE
 exchange and TopN, the dynamic-filter summary stage with split pruning,
 the adaptive broadcast<->partitioned switch, the session flag that
-disables the shuffle, and the refused ICI, spool, HA, QoS and lakehouse
-settings. The micro-batch, result-cache and ingest settings, refused by
-the server's first slice, are accepted now and act (the same cases).
+disables the shuffle, and the refused ICI, QoS and lakehouse settings.
+The micro-batch, result-cache and ingest settings, refused by the
+server's first slice, and the retry-policy, spool, journal and peer
+settings, refused until fault-tolerant execution was ported, are
+accepted now and act (the same cases).
 """
 
 from __future__ import annotations
@@ -466,15 +468,16 @@ def test_adaptive_switch_partitioned_to_broadcast(cluster, client, skewed):
 
 
 #: key -> (value, the word its refusal names); a word of None marks a
-#: plane the serving slice ported: the case turns it on and checks that
-#: it acts (``_check_plane_acts``). ``ingest.wal-path`` takes a temporary
-#: directory
+#: plane a later slice ported: the case turns it on and checks that it
+#: acts (``_check_plane_acts``). ``ingest.wal-path``,
+#: ``exchange.spool-path`` and ``coordinator.journal-path`` take a
+#: temporary directory
 _REFUSED_CONFIG = {
     "exchange.ici-enabled": ("true", "ICI"),
-    "retry-policy": ("TASK", "spool"),
-    "exchange.spool-path": ("/nonexistent/spool", "spool"),
-    "coordinator.journal-path": ("/nonexistent/journal", "journal"),
-    "coordinator.peers": ("http://127.0.0.1:1", "HA"),
+    "retry-policy": ("TASK", None),
+    "exchange.spool-path": ("", None),
+    "coordinator.journal-path": ("", None),
+    "coordinator.peers": ("http://127.0.0.1:1", None),
     "serving.microbatch-wait-ms": ("5000", None),
     "result-cache.enabled": ("true", None),
     "ingest.wal-path": ("", None),
@@ -490,23 +493,66 @@ POINT = (
 
 
 def _check_plane_acts(key, value, tmp_path):
-    """A serving-plane key on a worker-less coordinator: accepted, and
-    its plane acts (two concurrent EXECUTEs share one batch; a repeated
-    SELECT is a cache hit; a POSTed batch is committed and read)."""
+    """A key of a ported plane on a worker-less coordinator: accepted,
+    and its plane acts (two concurrent EXECUTEs share one batch; a
+    repeated SELECT is a cache hit; a POSTed batch is committed and
+    read; a query runs under the retry policy; the spool has its
+    ``runtime.caches`` row; a query's submit and finish frames replay
+    closed; the peer lease is published)."""
     import json
+    import os
     import threading
     import urllib.request
 
-    if key == "ingest.wal-path":
+    from presto_tpu_torch.server.journal import CoordinatorJournal
+
+    if key in (
+        "ingest.wal-path", "exchange.spool-path", "coordinator.journal-path"
+    ):
         value = str(tmp_path)
+    settings = {key: value}
+    if key == "coordinator.peers":
+        # the lease plane lives beside the journals it fails over
+        settings["coordinator.journal-path"] = str(tmp_path)
+        settings["node.id"] = "coord-a"
     catalogs = CatalogManager()
     catalogs.register("tpch", create_connector("tpch"))
     catalogs.register("mem", create_connector("memory"))
     coord = CoordinatorServer(
-        config=NodeConfig({key: value}), catalogs=catalogs, device="cpu"
+        config=NodeConfig(settings), catalogs=catalogs, device="cpu"
     ).start()
+    sql = "select count(*) as c from tpch.tiny.nation"
     try:
-        if key == "serving.microbatch-wait-ms":
+        if key == "retry-policy":
+            # a distributed query carries the policy (one worker)
+            w = WorkerServer(coordinator_uri=coord.uri, device="cpu").start()
+            try:
+                _wait_workers(coord, 1)
+                q = coord.submit(sql)
+                assert q.done.wait(60) and q.rows == [[25]]
+                assert q.stats.retry_policy == "TASK"
+            finally:
+                w.shutdown(graceful=False)
+        elif key == "exchange.spool-path":
+            assert coord.spool is not None and coord.spool.path == value
+            rows = coord.local.execute(
+                "select cache from system.runtime.caches"
+            ).rows()
+            assert ("exchange.spool",) in rows
+        elif key == "coordinator.journal-path":
+            q = coord.submit(sql)
+            assert q.done.wait(60) and q.rows == [[25]]
+            assert coord.journal is not None
+            assert os.listdir(value)
+            state = CoordinatorJournal(value).replay()
+            assert state.open == []  # submitted, then finished
+        elif key == "coordinator.peers":
+            assert coord.lease is not None
+            assert coord.lease.read_lease("coord-a").uri == coord.uri
+            assert coord.journal.path == os.path.join(
+                str(tmp_path), "coord-a"
+            )
+        elif key == "serving.microbatch-wait-ms":
             assert coord.local.session.get("microbatch_wait_ms") == 5000.0
             coord.local.session.set("microbatch_max", 2)
             prepared = {"p": POINT}
@@ -560,10 +606,23 @@ def test_coordinator_refuses_later_plane_config(key, tmp_path):
 
 @pytest.mark.parametrize(
     "key,value",
-    [("exchange.ici-enabled", "true"), ("exchange.spool-path", "/x"),
+    [("exchange.ici-enabled", "true"), ("exchange.spool-path", None),
      ("node.preemptible", "true")],
 )
-def test_worker_refuses_later_plane_config(key, value):
+def test_worker_refuses_later_plane_config(key, value, tmp_path):
+    """A later plane's key is refused; the spool path (value None: a
+    temporary directory), ported with fault-tolerant execution, builds
+    the worker's spool and its tee drain."""
+    if value is None:
+        w = WorkerServer(
+            config=NodeConfig({key: str(tmp_path)}), device="cpu"
+        )
+        try:
+            assert w.spool is not None and w.spool.path == str(tmp_path)
+            assert w.spool_drain is not None
+        finally:
+            w.shutdown(graceful=False)
+        return
     with pytest.raises(ValueError, match="later"):
         WorkerServer(config=NodeConfig({key: value}), device="cpu")
 
@@ -594,8 +653,8 @@ def test_off_values_are_accepted_and_change_nothing(oracle):
 @pytest.mark.parametrize(
     "setting,slice_word",
     [
-        ("retry_policy = 'TASK'", "spool"),
-        ("retry_policy = 'QUERY'", "spool"),
+        ("retry_policy = 'TASK'", None),
+        ("retry_policy = 'QUERY'", None),
         ("microbatch_wait_ms = 5", None),
         ("enable_result_cache = true", None),
         ("exchange_ici_enabled = true", "ICI"),
@@ -603,9 +662,10 @@ def test_off_values_are_accepted_and_change_nothing(oracle):
 )
 def test_set_session_refuses_later_planes(cluster, client, setting, slice_word):
     """A later plane's session value is refused and changes nothing; a
-    serving-plane value (slice word None) is accepted and acts: the
-    micro-batch window is set, and with the result cache on a repeated
-    distributed SELECT is a hit. Both are restored afterwards."""
+    ported plane's value (slice word None) is accepted and acts: the
+    micro-batch window is set; with the result cache on a repeated
+    distributed SELECT is a hit; a distributed query runs under the
+    retry policy. Each is restored afterwards."""
     coord, _ = cluster
     name = setting.split(" = ")[0]
     before = coord.local.session.get(name)
@@ -618,6 +678,14 @@ def test_set_session_refuses_later_planes(cluster, client, setting, slice_word):
         client.execute(f"set session {setting}")
         if name == "microbatch_wait_ms":
             assert coord.local.session.get(name) == 5.0
+        elif name == "retry_policy":
+            policy = setting.split("'")[1]
+            assert coord.local.session.get(name) == policy
+            res = client.execute(
+                "select count(*) as c from tpch.tiny.orders"
+            )
+            assert res.rows() == [(15000,)]
+            assert client.query_info(res.query_id)["retry_policy"] == policy
         else:
             assert coord.local.session.get(name) is True
             sql = "select count(*) as c from tpch.tiny.region"
@@ -631,21 +699,40 @@ def test_set_session_refuses_later_planes(cluster, client, setting, slice_word):
 
 
 def test_worker_refuses_spooled_and_in_slice_tasks(cluster):
+    """An in-slice task is refused; a spooled one, ported with
+    fault-tolerant execution, is accepted (this worker has no spool, so
+    it tees nothing) and its status answers."""
     _, workers = cluster
-    for extra in ({"spool": True}, {"ici_slice": "cuda-1"}):
-        spec = FragmentSpec(
-            task_id="q_x.s.0.0", query_id="q_x", fragment=None,
-            partition_scan=0, split_start=0, split_end=0, **extra,
+    policy = rpc.RpcPolicy(timeout_s=5.0, retries=0)
+    spec = FragmentSpec(
+        task_id="q_x.s.0.0", query_id="q_x", fragment=None,
+        partition_scan=0, split_start=0, split_end=0, ici_slice="cuda-1",
+    )
+    with pytest.raises(Exception) as info:
+        rpc.call_json(
+            "POST", workers[0].uri + "/v1/task", spec.to_json(),
+            policy=policy,
         )
-        with pytest.raises(Exception) as info:
-            rpc.call_json(
-                "POST", workers[0].uri + "/v1/task", spec.to_json(),
-                policy=rpc.RpcPolicy(timeout_s=5.0, retries=0),
-            )
-        assert getattr(info.value, "code", None) == 400
-    assert not [
-        t for t in workers[0].tasks if t == "q_x.s.0.0"
-    ]
+    assert getattr(info.value, "code", None) == 400
+    assert not [t for t in workers[0].tasks if t == "q_x.s.0.0"]
+    spec = FragmentSpec(
+        task_id="q_x.s.1.0", query_id="q_x", fragment=None,
+        partition_scan=0, split_start=0, split_end=0, spool=True,
+    )
+    rpc.call_json(
+        "POST", workers[0].uri + "/v1/task", spec.to_json(), policy=policy
+    )
+    try:
+        assert workers[0].tasks["q_x.s.1.0"]._spool is None
+        st = rpc.call_json(
+            "GET", workers[0].uri + "/v1/task/q_x.s.1.0/status",
+            policy=policy,
+        )
+        assert st["spooled"] is False
+    finally:
+        rpc.call(
+            "DELETE", workers[0].uri + "/v1/task/q_x.s.1.0", policy=policy
+        )
 
 
 def test_exchange_is_http_with_the_gate_off(cluster):
