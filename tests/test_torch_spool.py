@@ -488,9 +488,13 @@ def test_query_retry_policy_restarts_the_whole_query(tmp_path, oracle):
     """retry_policy=QUERY with no task-retry budget: a killed worker
     fails the attempt and the bounded restart completes it on the
     survivor."""
+    # the dead worker's breaker stays open past the failed attempt, so
+    # the restart never probes it (the default 5 s can pass on a slow
+    # host while the survivor drains the failed attempt's ranges)
     coord, ws = _mk_cluster(
         tmp_path, policy="QUERY",
-        extra={"failure-detector.threshold": "1"},
+        extra={"failure-detector.threshold": "1",
+               "failure-detector.open-s": "60"},
     )
     try:
         coord.local.session.set("task_retry_budget", 0)
