@@ -220,7 +220,35 @@ non-zero, and only a run where every phase passed prints the final
               seconds, seconds from the fault to the last answer, K1
               launches, tasks retried, spool frames and bytes written
               and re-served, restarts, resumed queries, claims.
-16. a ``{"kernels": [...]}`` line (K1, and K1 through its batching
+16. qos     - the thirteenth slice, the QoS plane and the elastic pool,
+              every spool, journal and control directory under one
+              temporary directory. A coordinator with ``qos.enabled``,
+              one admission slot, an ``interactive`` lane (priority 10)
+              above a ``batch`` lane (priority 0), ``retry-policy=TASK``
+              over a shared spool, and two workers: P1 Q1 at SF10 in the
+              batch lane, then 8 concurrent Q6 at SF1 in the interactive
+              lane (Q1 suspends at a range boundary, the 8 finish before
+              it resumes, it finishes exact with no producer re-run; the
+              interactive p50/p99 from ``system.runtime.qos`` beside the
+              same burst behind the same Q1 with the plane off); P2 a
+              ``suspend_storm`` of 3 against Q1 (exactly 1 suspension);
+              P3 ``kill_worker`` on one worker while Q1 is suspended (no
+              query fails, the dead producer's committed partitions
+              re-served from the spool). P4 a second coordinator with
+              ``pool.max-workers=3``, one stable worker and the
+              autoscaler over ``LocalWorkerPoolProvider`` under 3
+              concurrent clients of Q1 at SF1 (preemptible workers
+              spawned on the card show SCALING_UP, then STABLE, and are
+              drained when idle, without flapping); P5 back on the
+              first, ``kill_worker_preempt`` on a preemptible worker
+              during Q1 at SF10 (it drains within
+              ``pool.preempt-grace-s``, its ranges reschedule, merges run
+              on the stable node only, no query fails). Every answer
+              equals the port's local runner; one line per step:
+              seconds, suspensions, resumes, producer re-runs, spool
+              frames re-served, workers spawned and drained, K1
+              launches.
+17. a ``{"kernels": [...]}`` line (K1, and K1 through its batching
     rule), then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
@@ -4928,14 +4956,12 @@ def recover_phase(card: str, dev=None, schema: str = "sf1"):
         finally:
             shut([coord], workers)
 
-        # R3: QUERY restart of Q1 after a killed worker. The dead
-        # worker's breaker stays open past the failed attempt (which
-        # runs on until the survivor drains the range queue): with the
-        # default 5 s, a slow attempt lets the restart probe the dead
-        # worker again
+        # R3: QUERY restart of Q1 after a killed worker, under the
+        # default breaker cool-off: the restart schedules on no node
+        # whose failure failed the attempt
         coord, workers = cluster(
-            {"retry-policy": "QUERY", "failure-detector.threshold": "1",
-             "failure-detector.open-s": "60"}, {})
+            {"retry-policy": "QUERY", "failure-detector.threshold": "1"},
+            {})
         try:
             coord.local.session.set("task_retry_budget", 0)
             fired = timed_fault(workers[1])
@@ -5096,6 +5122,556 @@ def recover_phase(card: str, dev=None, schema: str = "sf1"):
     return launches, out
 
 
+# --------------------------------------------------------------- qos phase
+
+#: the qos phase's two lanes: interactive strictly above batch
+QOS_GROUPS = {
+    "rootGroups": [
+        {"name": "interactive", "weight": 1, "hardConcurrencyLimit": 16,
+         "priority": 10},
+        {"name": "batch", "weight": 1, "hardConcurrencyLimit": 16,
+         "priority": 0},
+    ],
+    "selectors": [{"user": "inter-.*", "group": "interactive"}],
+    "defaultGroup": "batch",
+}
+#: the interactive burst of P1
+QOS_BURST = 8
+#: each of the analytic Q1's producer tasks is held this long (a fault
+#: rule scoped to its query id), so that ranges are still unclaimed when
+#: the burst arrives
+QOS_PRODUCER_DELAY_S = 0.3
+#: a preemptible worker's drain window
+QOS_PREEMPT_GRACE_S = 10.0
+#: the pool of P4: bounds and control cadence
+QOS_POOL = {"pool.min-workers": "1", "pool.max-workers": "3",
+            "pool.scale-interval-s": "0.25", "pool.scale-down-ticks": "2",
+            "pool.cooldown-s": "0.5"}
+QOS_CACHE_BYTES = {"coordinator": 4 << 30, "worker": 8 << 30}
+QOS_POOL_BYTES = "16GB"
+#: the qos phase's per-request RPC timeout (the default is 30 s). On the
+#: H100 machine a new connection to the port of a worker killed in this
+#: process can go unanswered rather than refused, as a powered-off
+#: host's would: each such request then waits out the timeout (P3 took
+#: 43-63 s in 3 of 4 runs under the default). 5 s is a LAN's setting;
+#: every request of these nodes is answered at once when its peer lives
+RPC_TIMEOUT_S = 5
+
+
+def qos_phase(card: str, want_q1_big=None, dev=None, big: str = JOINS_SCHEMA,
+              small: str = "sf1"):
+    """The thirteenth slice's path on ``dev`` (the card unless a CPU
+    rehearsal passes another): the QoS plane and the elastic pool, every
+    spool, journal and control directory under one temporary directory
+    that the phase removes. Cluster A: a coordinator with ``qos.enabled``
+    and one admission slot (lanes ``interactive``, priority 10, and
+    ``batch``, priority 0), ``retry-policy=TASK`` over a shared spool and
+    a journal, two stable workers; every node's requests time out after
+    ``RPC_TIMEOUT_S``. P0 Q1 over ``big`` and Q6 over ``small``
+    unpreempted (the warm-up). P1 Q1 over ``big`` in the batch lane
+    (its producers held ``QOS_PRODUCER_DELAY_S`` each), then
+    ``QOS_BURST`` concurrent Q6 over ``small`` in the interactive lane:
+    Q1 suspends, the burst finishes before it resumes, it finishes exact
+    with no producer re-run; before it the same burst behind the same Q1
+    with the plane off (the controller set aside: the semaphore path of
+    ``qos.enabled=false``), and the interactive p99 must be lower with
+    the plane on. P2 a ``suspend_storm`` of 3 against Q1 under a 60 s
+    resume grace: exactly 1 suspension. P3 one worker killed while Q1 is
+    suspended behind an interactive Q6: no query fails and Q1's merges
+    re-read the dead producers' committed partitions from the spool.
+    Cluster B: a coordinator with ``pool.max-workers=3``, one stable
+    worker and the autoscaler over ``LocalWorkerPoolProvider`` on ``dev``.
+    P4 3 concurrent clients of Q1 over ``small`` with one admission
+    slot: preemptible workers spawn on ``dev``, show SCALING_UP, then
+    STABLE, take batches (K1 on their tasks), and drain when idle with no
+    scale-up after the load. P5 back on cluster A with a preemptible
+    worker beside the survivor: ``kill_worker_preempt`` on its first
+    producer task during Q1 over ``big``; it drains within
+    ``QOS_PREEMPT_GRACE_S``, the ranges after the notice go to the stable
+    node, the merges run there only, and no query fails.
+    ``want_q1_big``: the port's local result of Q1 over ``big`` (the
+    stream phase's); None runs it on the coordinator's runner. Returns
+    (the onehot_reduce launches of the steps, the records)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from presto_tpu_torch.ops import aggregation as PA
+    from presto_tpu_torch.server import (
+        CoordinatorServer,
+        PrestoTpuClient,
+        WorkerServer,
+        task_ids,
+    )
+    from presto_tpu_torch.server.launcher import LocalWorkerPoolProvider
+    from presto_tpu_torch.session import NodeConfig, Session
+    from presto_tpu_torch.utils import faults
+    from presto_tpu_torch.utils.metrics import REGISTRY, DistributionStat
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    out, launches = [], 0
+    root = tempfile.mkdtemp(prefix="qos-")
+    q1_big = Q1.replace("tpch.sf1.lineitem", f"tpch.{big}.lineitem")
+    q1_small = Q1.replace("tpch.sf1.lineitem", f"tpch.{small}.lineitem")
+    q6_small = Q6.replace("tpch.sf1.lineitem", f"tpch.{small}.lineitem")
+    counters = {
+        "suspensions": "qos.suspensions",
+        "resumes": "qos.resumes",
+        "preempt_triggers": "qos.preempt_triggers",
+        "tasks_retried": "coordinator.tasks_retried",
+        "spool_frames_served": "spool.pages_served",
+        "workers_spawned": "pool.scale_up",
+        "workers_drained": "pool.scale_down",
+        "preemptions": "pool.preemptions",
+        "drain_reroutes": "coordinator.drain_reroutes",
+    }
+    spool = os.path.join(root, "spool")
+
+    def node_config(kind, extra=None):
+        return NodeConfig({
+            "staging.cache-bytes": str(QOS_CACHE_BYTES[kind]),
+            "query.max-memory-per-node": QOS_POOL_BYTES,
+            "exchange.spool-path": spool,
+            "pool.preempt-grace-s": str(QOS_PREEMPT_GRACE_S),
+            "rpc.request-timeout-s": str(RPC_TIMEOUT_S),
+            **(extra or {}),
+        })
+
+    def wait_for(cond, msg, timeout=120.0):
+        deadline = time.monotonic() + timeout
+        while not cond() and time.monotonic() < deadline:
+            time.sleep(0.005)
+        check(cond(), msg)
+
+    def worker(coord, **kw):
+        return WorkerServer(coordinator_uri=coord.uri,
+                            config=node_config("worker"), device=dev,
+                            **kw).start()
+
+    def run_async(coord, sql, user):
+        """``sql`` over HTTP as ``user`` on a thread; returns (the
+        thread, its result holder, its errors)."""
+        holder, errors = {}, []
+
+        def run():
+            try:
+                client = PrestoTpuClient(coord.uri, timeout_s=900, user=user)
+                holder["res"] = client.execute(sql)
+            except Exception as e:  # checked by the caller
+                errors.append(e)
+
+        t = threading.Thread(target=run)
+        t.start()
+        return t, holder, errors
+
+    def query_of(coord, user):
+        """The coordinator's query submitted by ``user`` (one each)."""
+        found = []
+
+        def look():
+            found[:] = [q for q in list(coord.queries.values())
+                        if getattr(q, "user", None) == user]
+            return bool(found)
+
+        wait_for(look, f"no query from {user}", 60)
+        return found[0]
+
+    def hold_producers(q):
+        faults.configure({"rules": [
+            {"action": "delay", "task": f"{q.qid}.prod.",
+             "delay_s": QOS_PRODUCER_DELAY_S},
+        ]})
+
+    def producer_finished(q, node_id=None):
+        """Has a producer task of ``q`` finished (committed its spooled
+        output) on a worker (on ``node_id``, if given)? Read off the
+        workers: the coordinator folds task states at the stage's end."""
+        return any(
+            tid.startswith(f"{q.qid}.prod.") and t.state == "FINISHED"
+            for w in workers
+            if node_id is None or w.node_id == node_id
+            for tid, t in list(w.tasks.items())
+        )
+
+    def producer_reruns(coord, q):
+        info = coord.query_info(q)
+        return sum(
+            1 for st in info["stages"] if st["kind"] == "producer"
+            for t in st["tasks"] if task_ids.attempt_of(t["task_id"]) > 0
+        )
+
+    def join_all(threads, errors, what):
+        for t in threads:
+            t.join(900)
+        check(not errors, f"{what}: a query failed: {errors}")
+
+    def step(label, run):
+        """Run one step with the K1 count and the counters read around
+        it; print and record its line."""
+        nonlocal launches
+        before = {k: REGISTRY.counter(n).total for k, n in counters.items()}
+        PA.onehot_reduce.launches = 0
+        t0 = time.perf_counter()
+        rec = run() or {}
+        secs = time.perf_counter() - t0
+        n_launch = PA.onehot_reduce.launches
+        launches += n_launch
+        rec = {"step": label, "s": secs, "onehot_reduce_launches": n_launch,
+               **{k: int(REGISTRY.counter(n).total - before[k])
+                  for k, n in counters.items()},
+               **rec}
+        out.append(rec)
+        extra = {k: v for k, v in rec.items() if k not in ("step", "s")}
+        print(f"{label}: {secs:.4f} s, "
+              + ", ".join(f"{k} {v}" for k, v in extra.items())
+              + f" [{card}]", flush=True)
+        return rec
+
+    coord = coord_b = None
+    workers, pool_prov = [], None
+    try:
+        coord = CoordinatorServer(
+            config=node_config("coordinator", {
+                "qos.enabled": "true", "qos.resume-grace-s": "0.2",
+                "retry-policy": "TASK",
+                "coordinator.journal-path": os.path.join(root, "journal"),
+            }),
+            device=dev, session=Session(schema=small),
+            max_concurrent_queries=1, resource_groups=QOS_GROUPS,
+        ).start()
+        workers = [worker(coord) for _ in range(2)]
+        wait_for(lambda: len(coord.active_workers()) == 2,
+                 "the workers did not announce themselves")
+        t0 = time.perf_counter()
+        if want_q1_big is None:
+            want_q1_big = coord.local.execute(q1_big).rows()
+        want = {"q1_big": server_rows(want_q1_big),
+                "q6": server_rows(coord.local.execute(q6_small).rows()),
+                "q1_small": server_rows(coord.local.execute(q1_small).rows())}
+        print(f"qos answers on the coordinator's local runner: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        def warm():
+            # the unpreempted run, which also stages Q1 and Q6 on both
+            # workers: the bursts below compare warm against warm
+            client = PrestoTpuClient(coord.uri, timeout_s=900,
+                                     user="batch-warm")
+            res = client.execute(q1_big)
+            diff = rows_close(res.rows(), want["q1_big"])
+            check(diff is None, f"P0: Q1 differs ({diff})")
+            res = client.execute(q6_small)
+            check(server_rows(res.rows()) == want["q6"], "P0: Q6 differs")
+            return {}
+
+        step(f"P0 Q1 {big} and Q6 {small} unpreempted (warm-up)", warm)
+
+        def burst(tag):
+            """Q1 in the batch lane, then the interactive burst once a
+            producer finished; returns (Q1, its holder, the burst's
+            queries, the burst's errors)."""
+            t, holder, errs = run_async(coord, q1_big, f"batch-{tag}")
+            qa = query_of(coord, f"batch-{tag}")
+            hold_producers(qa)
+            wait_for(lambda: producer_finished(qa) or qa.done.is_set(),
+                     f"{tag}: no producer of Q1 finished")
+            check(not qa.done.is_set(), f"{tag}: Q1 ended before the burst")
+            runs = [run_async(coord, q6_small, f"inter-{tag}-{i}")
+                    for i in range(QOS_BURST)]
+            burst_q = [query_of(coord, f"inter-{tag}-{i}")
+                       for i in range(QOS_BURST)]
+            errors = errs + [e for r in runs for e in r[2]]
+            return qa, t, holder, runs, burst_q, errors
+
+        def p1():
+            qos = coord.qos
+            # the same burst behind the same Q1 with the plane off: the
+            # admission semaphore of qos.enabled=false
+            coord.qos = None
+            try:
+                qa, t, holder, runs, off_q, errors = burst("off")
+                join_all([t] + [r[0] for r in runs], errors, "P1 off")
+            finally:
+                coord.qos = qos
+                faults.configure(None)
+            off = DistributionStat()
+            for q in off_q:
+                off.add(q.stats.elapsed_ms)
+            resumed = {"n": 0}
+
+            def watch(q):
+                # the wall time of Q1's last resume
+                while not q.done.is_set():
+                    n = getattr(q, "qos_resumes", 0)
+                    if n > resumed["n"]:
+                        resumed.update(n=n, t=time.time())
+                    time.sleep(0.001)
+
+            qa, t, holder, runs, on_q, errors = burst("on")
+            watcher = threading.Thread(target=watch, args=(qa,))
+            watcher.start()
+            try:
+                join_all([t, watcher] + [r[0] for r in runs], errors,
+                         "P1 on")
+            finally:
+                faults.configure(None)
+            diff = rows_close(holder["res"].rows(), want["q1_big"])
+            check(diff is None, f"P1: Q1 differs after its resume ({diff})")
+            for _, h, _ in runs:
+                check(server_rows(h["res"].rows()) == want["q6"],
+                      "P1: an interactive Q6 differs")
+            check(getattr(qa, "qos_suspensions", 0) >= 1
+                  and getattr(qa, "qos_resumes", 0) >= 1,
+                  f"P1: Q1 suspended {getattr(qa, 'qos_suspensions', 0)} "
+                  f"and resumed {getattr(qa, 'qos_resumes', 0)} times")
+            check("t" in resumed and all(
+                q.stats.end_time <= resumed["t"] for q in on_q),
+                "P1: an interactive query ended after Q1 resumed")
+            reruns = producer_reruns(coord, qa)
+            check(reruns == 0, f"P1: {reruns} producer re-runs")
+            (lane,) = [r for r in coord.local.execute(
+                'select "group", p50_ms, p99_ms, queries, suspensions, '
+                "resumes from system.runtime.qos").rows()
+                if r[0] == "interactive"]
+            v = off.values()
+            check(lane[3] == QOS_BURST,
+                  f"P1: {lane[3]} interactive queries in runtime.qos")
+            check(lane[2] < v["p99"],
+                  f"P1: the interactive p99 with QoS {lane[2]:.2f} ms is not "
+                  f"below the {v['p99']:.2f} ms without it")
+            info = coord.query_info(qa)["qos"]
+            return {"interactive_p50_ms": lane[1],
+                    "interactive_p99_ms": lane[2],
+                    "interactive_p50_ms_qos_off": v["p50"],
+                    "interactive_p99_ms_qos_off": v["p99"],
+                    "q1_suspended_ms": info["suspended_ms"],
+                    "producer_reruns": reruns}
+
+        step(f"P1 Q1 {big} batch lane, {QOS_BURST} Q6 {small} interactive",
+             p1)
+
+        def p2():
+            grace = coord.qos.resume_grace_s
+            coord.qos.resume_grace_s = 60.0
+            faults.configure({"rules": [
+                {"action": "suspend_storm", "owner": "q_c", "count": 3},
+            ]})
+            try:
+                client = PrestoTpuClient(coord.uri, timeout_s=900,
+                                         user="batch-storm")
+                res = client.execute(q1_big)
+            finally:
+                faults.configure(None)
+                coord.qos.resume_grace_s = grace
+            diff = rows_close(res.rows(), want["q1_big"])
+            check(diff is None, f"P2: Q1 differs ({diff})")
+            q = coord.lookup_query(res.query_id)
+            check(q.qos_suspensions == 1 and q.qos_resumes == 1,
+                  f"P2: {q.qos_suspensions} suspensions and "
+                  f"{q.qos_resumes} resumes, not 1 and 1")
+            return {"producer_reruns": producer_reruns(coord, q)}
+
+        rec = step(f"P2 Q1 {big}, a suspend_storm of 3", p2)
+        check(rec["preempt_triggers"] == 3,
+              f"P2: {rec['preempt_triggers']} triggers, not 3")
+
+        def p3():
+            victim = workers[1]
+            t, holder, errs = run_async(coord, q1_big, "batch-kill")
+            qa = query_of(coord, "batch-kill")
+            hold_producers(qa)
+            wait_for(lambda: producer_finished(qa, victim.node_id)
+                     or qa.done.is_set(),
+                     "P3: no producer of Q1 finished on the victim")
+            check(not qa.done.is_set(), "P3: Q1 ended before the kill")
+            ti, hi, erri = run_async(coord, q6_small, "inter-kill")
+            wait_for(lambda: getattr(qa, "qos_suspensions", 0) >= 1,
+                     "P3: Q1 was not suspended")
+            victim._fault_kill()
+            try:
+                join_all([t, ti], errs + erri, "P3")
+            finally:
+                faults.configure(None)
+            diff = rows_close(holder["res"].rows(), want["q1_big"])
+            check(diff is None, f"P3: Q1 differs ({diff})")
+            check(server_rows(hi["res"].rows()) == want["q6"],
+                  "P3: the interactive Q6 differs")
+            info = coord.query_info(qa)
+            check(info["spool_pages_served"] > 0,
+                  "P3: nothing was re-served from the spool")
+            check(info["qos"]["resumes"] >= 1, "P3: Q1 did not resume")
+            return {"producer_reruns": producer_reruns(coord, qa),
+                    "q1_spool_frames_served": info["spool_pages_served"]}
+
+        step(f"P3 Q1 {big}, a worker killed while Q1 is suspended", p3)
+        workers[1].shutdown(graceful=False)
+
+        # cluster B: the elastic pool from one stable worker
+        coord_b = CoordinatorServer(
+            config=node_config("coordinator", QOS_POOL), device=dev,
+            session=Session(schema=small), max_concurrent_queries=1,
+        ).start()
+        stable_b = worker(coord_b)
+        workers.append(stable_b)
+        wait_for(lambda: len(coord_b.active_workers()) == 1,
+                 "P4: the stable worker did not announce itself")
+        pool_prov = LocalWorkerPoolProvider(
+            coord_b.uri, config=node_config("worker"), device=dev)
+
+        def p4():
+            seen, stop = {}, threading.Event()
+
+            def watch():
+                # every pool state each spawned node shows, in order
+                while not stop.is_set():
+                    for w in coord_b.nodes():
+                        if w.node_id in pool_prov.workers or w.node_id in seen:
+                            states = seen.setdefault(w.node_id, [])
+                            st = coord_b.pool_state(w)
+                            if not states or states[-1] != st:
+                                states.append(st)
+                    time.sleep(0.002)
+
+            watcher = threading.Thread(target=watch)
+            watcher.start()
+            spawned_tasks = []
+            real = PA.onehot_reduce_many
+
+            def record(gid, requests, nseg):
+                for w in list(pool_prov.workers.values()):
+                    st = getattr(w.runner._qs_local, "value", None)
+                    if st is not None:
+                        spawned_tasks.append(st.task_id)
+                return real(gid, requests, nseg)
+
+            PA.onehot_reduce_many = record
+            # every task held a little, so that the queue builds while
+            # the spawned workers boot
+            faults.configure({"rules": [
+                {"action": "delay", "task": "q_c", "delay_s": 0.2},
+            ]})
+            try:
+                coord_b.attach_pool(pool_prov)
+                runs = [run_async(coord_b, q1_small, f"batch-pool-{i}")
+                        for i in range(3)]
+                join_all([r[0] for r in runs], [e for r in runs
+                                                for e in r[2]], "P4")
+                for _, h, _ in runs:
+                    diff = rows_close(h["res"].rows(), want["q1_small"])
+                    check(diff is None, f"P4: Q1 differs ({diff})")
+                ups = REGISTRY.counter("pool.scale_up").total
+                wait_for(lambda: len(coord_b.active_workers()) == 1
+                         and not pool_prov.workers,
+                         "P4: the pool did not scale down when idle")
+                flaps = REGISTRY.counter("pool.scale_up").total - ups
+            finally:
+                faults.configure(None)
+                PA.onehot_reduce_many = real
+                stop.set()
+                watcher.join()
+                coord_b.autoscaler.stop()
+            check(seen, "P4: the autoscaler spawned no worker")
+            for nid, states in seen.items():
+                check("SCALING_UP" in states and "STABLE" in
+                      states[states.index("SCALING_UP"):],
+                      f"P4: {nid} went {states}")
+            check(flaps == 0, f"P4: {flaps} scale-ups after the load")
+            check(spawned_tasks, "P4: no batch ran on a spawned worker")
+            return {"pool_states": {k: v for k, v in seen.items()},
+                    "k1_calls_on_spawned": len(spawned_tasks),
+                    "scale_ups_after_load": flaps}
+
+        step(f"P4 3 clients of Q1 {small}, pool.max-workers=3", p4)
+        for w in list(pool_prov.workers.values()):
+            w.shutdown(graceful=False)
+        coord_b.shutdown()
+        coord_b = None
+
+        def p5():
+            stable = workers[0]
+            # the worker killed in P3 has left discovery: nothing probes
+            # it for a range or a merge
+            gone = workers[1].node_id
+            wait_for(lambda: gone not in {
+                w.node_id for w in coord._ttl_workers()},
+                "P5: the dead worker is still announced", 60)
+            pre = worker(coord, preemptible=True)
+            workers.append(pre)
+            wait_for(lambda: pre.node_id in {
+                w.node_id for w in coord.active_workers()},
+                "P5: the preemptible worker did not announce itself")
+            fired = {}
+            notice = pre._fault_preempt
+
+            def record():
+                fired.setdefault("t", time.monotonic())
+                notice()
+
+            pre._fault_preempt = record
+            faults.configure({"rules": [
+                {"action": "kill_worker_preempt", "node": pre.node_id,
+                 "task": ".prod.", "count": 1},
+            ]})
+            try:
+                client = PrestoTpuClient(coord.uri, timeout_s=900,
+                                         user="batch-preempt")
+                res = client.execute(q1_big)
+            finally:
+                faults.configure(None)
+            diff = rows_close(res.rows(), want["q1_big"])
+            check(diff is None, f"P5: Q1 differs ({diff})")
+            check("t" in fired, "P5: the preemption notice never fired")
+            wait_for(lambda: pre._shutting_down,
+                     "P5: the preempted worker did not exit",
+                     QOS_PREEMPT_GRACE_S + 30)
+            drained_s = time.monotonic() - fired["t"]
+            check(drained_s <= QOS_PREEMPT_GRACE_S,
+                  f"P5: drained in {drained_s:.2f} s, past the grace")
+            info = client.query_info(res.query_id)
+            merges = {t["node_id"] for st in info["stages"]
+                      if st["kind"] == "merge" for t in st["tasks"]}
+            check(merges == {stable.node_id},
+                  f"P5: merges ran on {merges}")
+            prod = [t["node_id"] for st in info["stages"]
+                    if st["kind"] == "producer" for t in st["tasks"]]
+            check(pre.node_id in prod
+                  and prod.count(stable.node_id) > prod.count(pre.node_id),
+                  f"P5: producers ran on {prod}")
+            return {"drained_s": drained_s,
+                    "producers_on_preempted": prod.count(pre.node_id),
+                    "producers_on_stable": prod.count(stable.node_id)}
+
+        rec = step(f"P5 Q1 {big}, kill_worker_preempt on a preemptible "
+                   "worker", p5)
+        check(rec["preemptions"] == 1,
+              f"P5: {rec['preemptions']} preemptions")
+    finally:
+        faults.configure(None)
+        if pool_prov is not None:
+            for w in list(pool_prov.workers.values()):
+                w.shutdown(graceful=False)
+        for w in workers:
+            w.shutdown(graceful=False)
+        for c in (coord_b, coord):
+            if c is not None:
+                if c.autoscaler is not None:
+                    c.autoscaler.stop()
+                c.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+        if on_card:
+            torch.cuda.empty_cache()
+    secs = time.perf_counter() - phase_t0
+    print(f"qos phase: {secs:.2f} s, onehot_reduce launches {launches} "
+          f"[{card}]", flush=True)
+    out.append({"step": "phase", "s": secs})
+    return launches, out
+
+
 def bucket_of(n: int) -> int:
     """The staging bucket of ``n`` rows (a power of two, at least 1024)."""
     cap = 1024
@@ -5190,6 +5766,10 @@ def main() -> int:
     phase("recover")
     recover_launches, recover_records = recover_phase(card)
 
+    phase("qos")
+    qos_launches, qos_records = qos_phase(
+        card, want_q1_big=baseline["Q1"][1].rows())
+
     headline = next(r for r in records if r["label"] == "q1 fused")
     lanes = next(r for r in records if r["label"] == "q1 microbatch fused")
     v3 = next(r for r in serve_records if r["step"] == "V3 8 Q1")
@@ -5205,7 +5785,8 @@ def main() -> int:
                              + tpcds_launches + cache_launches
                              + nested_launches + observe_launches
                              + write_launches + server_launches
-                             + serve_launches + recover_launches),
+                             + serve_launches + recover_launches
+                             + qos_launches),
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
@@ -5252,6 +5833,8 @@ def main() -> int:
                       "serve_onehot_reduce": serve_launches,
                       "recover": recover_records,
                       "recover_onehot_reduce": recover_launches,
+                      "qos": qos_records,
+                      "qos_onehot_reduce": qos_launches,
                       "native": status, "card": card}))
     print(json.dumps(kernels_line))
     print(

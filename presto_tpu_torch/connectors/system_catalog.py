@@ -11,9 +11,11 @@ the process metrics registry and the device probe
 ``runtime.materialized_views`` lists the runner's materialized views
 (``exec/mview.py``; empty before the first one). Under a
 ``CoordinatorServer`` (``runner.cluster``), ``runtime.nodes`` lists the
-coordinator and every announced worker and ``runtime.tasks`` the
-coordinator's per-task stats rollups. Tables served empty, as the
-reference's are without the planes that feed them: ``runtime.qos``,
+coordinator and every announced worker with its pool state and the
+autoscaler's last decision, ``runtime.tasks`` the coordinator's per-task
+stats rollups, and ``runtime.qos`` one row per QoS lane (with
+``qos.enabled``). Tables served empty, as the reference's are without
+the planes that feed them: ``runtime.qos`` with the plane off,
 ``runtime.snapshots`` and ``runtime.metrics_history``, and
 ``runtime.tasks`` on a plain local runner. ``runtime.caches`` has no
 ``compile.programs`` row (the port compiles no program per query) and
@@ -200,7 +202,7 @@ _SCHEMAS: Dict[str, Dict[str, Dict[str, T.DataType]]] = {
 #: tables only a server feeds
 _SERVER_TABLES = {
     ("runtime", t)
-    for t in ("metrics_history", "qos", "snapshots")
+    for t in ("metrics_history", "snapshots")
 }
 
 
@@ -306,6 +308,12 @@ class SystemConnector(Connector):
                 }
                 for n in names
             ]
+        if key == ("runtime", "qos"):
+            cluster = getattr(self._runner, "cluster", None)
+            qos = getattr(cluster, "qos", None) if cluster else None
+            # plane off (or plain local runner): an empty view, not an
+            # error — dashboards can always select from it
+            return qos.view_rows() if qos is not None else []
         if key in _SERVER_TABLES:
             # fed by the server or the telemetry sampler, which a local
             # runner has not: an empty view, as the reference's local
@@ -485,6 +493,8 @@ class SystemConnector(Connector):
 
         cluster = getattr(self._runner, "cluster", None)
         if cluster is not None:
+            pool_state = getattr(cluster, "pool_state", None)
+            decision = getattr(cluster, "pool_decision", "")
             return [
                 {
                     "node_id": w.node_id,
@@ -493,10 +503,16 @@ class SystemConnector(Connector):
                     "coordinator": w.coordinator,
                     "state": w.state,
                     "preemptible": bool(getattr(w, "preemptible", False)),
-                    # the elastic pool comes with a later server slice:
-                    # every node is STABLE and no autoscaler decides
-                    "pool_state": "STABLE",
-                    "last_decision": "",
+                    "pool_state": (
+                        pool_state(w)
+                        if pool_state is not None
+                        else "STABLE"
+                    ),
+                    # the autoscaler is a coordinator duty: its last
+                    # decision renders on the coordinator row only
+                    "last_decision": (
+                        decision if w.coordinator else ""
+                    ),
                     "backend_diag": json.dumps(
                         getattr(w, "backend_diag", {}) or {}
                     ),

@@ -28,12 +28,15 @@ Fault-tolerant execution: retry TASK/QUERY over the durable exchange
 spool (``spool``, ``retry-policy``, ``exchange.spool-path``), the
 coordinator's admission journal with restart recovery (``journal``,
 ``coordinator.journal-path``) and the lease plane with peer failover
-(``lease``, ``coordinator.peers``).
+(``lease``, ``coordinator.peers``). The QoS plane: priority admission
+lanes with preempt-and-resume and per-group SLOs (``qos``,
+``qos.enabled``), and the elastic pool with preemptible workers
+(``pool``'s autoscaler, the launcher's ``LocalWorkerPoolProvider``,
+``pool.max-workers``, ``node.preemptible``).
 
 Refused with an error naming the later slice: the lakehouse tee
-(``lakehouse.*``, with the file connectors, ROADMAP queue 3) and, from
-queue 4, QoS and the elastic pool, and the ICI exchange lanes (with the
-multi-device exchange).
+(``lakehouse.*``, with the file connectors, ROADMAP queue 3) and the ICI
+exchange lanes (with the multi-device exchange).
 """
 
 from presto_tpu_torch.server.client import PrestoTpuClient  # noqa: F401

@@ -38,12 +38,20 @@ the lease plane (``server/lease.py``, ``coordinator.peers``) lets a
 surviving peer claim a dead coordinator's journal and resume its
 queries.
 
+The QoS plane (``server/qos.py``, ``qos.enabled``) admits queries by
+priority lane, suspends a running lower-priority query at its next range
+boundary when a higher-priority one waits, and resumes it under the same
+logical task ids; the elastic pool (``attach_pool``,
+``pool.max-workers``) grows and shrinks the workers with the backlog
+through a ``server/pool.py`` provider. A QUERY restart schedules on no
+node whose failure failed the attempt until that node announces itself
+again.
+
 Not in this slice, each refused with an error that names the later
 slice when a config key or a session value turns it on: the lakehouse
-tee (``lakehouse.*``, with the file connectors: ROADMAP queue 3), and
-from queue 4 QoS and the elastic pool, and the ICI exchange (with the
-multi-device exchange). Their defaults behave as the reference's do
-with those planes off.
+tee (``lakehouse.*``, with the file connectors: ROADMAP queue 3) and the
+ICI exchange (with the multi-device exchange). Their defaults behave as
+the reference's do with those planes off.
 """
 
 from __future__ import annotations
@@ -243,7 +251,6 @@ def _truthy(v) -> bool:
     return bool(v)
 
 
-_QOS = "QoS and the elastic pool; ROADMAP queue 4"
 _ICI = "the ICI lanes, with the multi-device exchange; ROADMAP queue 4"
 _LAKE = (
     "the lakehouse tee, with the file connectors and manifests, "
@@ -258,8 +265,6 @@ _REFUSED_CONFIG = {
     "lakehouse.compaction.interval-s": (lambda v: True, _LAKE),
     "lakehouse.compaction.min-files": (lambda v: True, _LAKE),
     "lakehouse.orphan-ttl-s": (lambda v: True, _LAKE),
-    "qos.enabled": (_truthy, _QOS),
-    "pool.max-workers": (lambda v: int(v) > 0, _QOS),
     "exchange.ici-enabled": (_truthy, _ICI),
 }
 
@@ -752,6 +757,42 @@ class CoordinatorServer:
             )
         else:
             self.journal = CoordinatorJournal(jp) if jp else None
+        # elastic worker pool (server.pool): bounds + control cadence
+        # from tier-1 config; attach_pool() supplies the provider and
+        # starts the autoscaler
+        self._pool_cfg = {
+            "min_workers": int(
+                config.get("pool.min-workers", 0) if config else 0
+            ),
+            "max_workers": int(
+                config.get("pool.max-workers", 0) if config else 0
+            ),
+            "interval_s": float(
+                config.get("pool.scale-interval-s", 1.0) if config else 1.0
+            ),
+            "scale_down_ticks": int(
+                config.get("pool.scale-down-ticks", 3) if config else 3
+            ),
+            "cooldown_s": (
+                float(config.get("pool.cooldown-s"))
+                if config and config.get("pool.cooldown-s") is not None
+                else None
+            ),
+        }
+        self.autoscaler = None
+        #: node ids spawned by the autoscaler that have not announced
+        #: yet (the SCALING_UP pool state in system.runtime.nodes)
+        self._pool_scaling: set = set()
+        #: the autoscaler's last decision (nodes view)
+        self.pool_decision = ""
+        #: node id -> monotonic time of its last connection-level
+        #: failure (the QUERY restart reads which nodes failed during
+        #: the attempt it replaces)
+        self._failed_at: Dict[str, float] = {}
+        #: nodes whose failure failed a query attempt: nothing schedules
+        #: on them until they announce themselves again (a half-open
+        #: breaker alone would re-admit a dead node to the restart)
+        self._lost_nodes: set = set()
         #: queries re-admitted from the journal at this boot
         self.resumed_queries = 0
         #: old-boot qid -> this boot's qid: statement/query-info URLs
@@ -812,12 +853,24 @@ class CoordinatorServer:
         from presto_tpu_torch.server.memory_arbiter import ClusterMemoryArbiter
 
         self.arbiter = ClusterMemoryArbiter(self, config)
+        # tail-latency QoS plane (server/qos.py): priority admission
+        # lanes + preempt-and-resume + per-group SLOs. Disabled
+        # (default) the controller is never constructed and admission
+        # stays the bit-exact legacy semaphore below
+        self.qos = None
+        if config and _truthy(config.get("qos.enabled", False)):
+            from presto_tpu_torch.server.qos import QosController
+
+            self.qos = QosController(
+                self, config, max_concurrent_queries
+            )
         # multi-coordinator shared admission: live peers' lease
-        # payloads fold into the memory view (the hook defaults None —
-        # single-coordinator stays bit-exact; the QoS lane fold comes
-        # with the QoS slice)
+        # payloads fold into the memory view and the QoS lane columns
+        # (both hooks default None — single-coordinator stays bit-exact)
         if self.lease is not None:
             self.arbiter.peer_reports_fn = self._peer_memory_reports
+            if self.qos is not None:
+                self.qos.peer_lanes_fn = self.peer_lane_occupancy
 
         # device-plane telemetry (utils/telemetry.py): federation of
         # the workers' /v1/metrics expositions behind
@@ -917,6 +970,8 @@ class CoordinatorServer:
     def shutdown(self) -> None:
         self._shutting_down = True
         self._telemetry_stop.set()
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
         if self.lease is not None:
             # clean shutdown WITHDRAWS the lease: peers see an absent
             # file, not an expiring one, and claim nothing
@@ -1029,8 +1084,7 @@ class CoordinatorServer:
         shared-state channel peers fold into THEIR admission view —
         open statement ids (plus aliases, so any peer can redirect a
         sprayed client), admission occupancy, the local-pool memory
-        report and per-resource-group usage (the reference's QoS-lane
-        counts come with the QoS slice)."""
+        report, per-resource-group usage, and QoS-lane counts."""
         with self._lock:
             open_q = [
                 (qid, getattr(q, "resource_group", None))
@@ -1054,6 +1108,8 @@ class CoordinatorServer:
             "local": self.arbiter.local_report(),
             "groups": groups,
         }
+        if self.qos is not None:
+            state["lanes"] = self.qos.lane_occupancy()
         return state
 
     def _peer_memory_reports(self) -> Dict[str, dict]:
@@ -1071,6 +1127,16 @@ class CoordinatorServer:
             rep["ts"] = pl.ts
             rep["blocked"] = []
             out[f"coord:{pl.owner}"] = rep
+        return out
+
+    def peer_lane_occupancy(self) -> Dict[str, dict]:
+        """Live peers' QoS-lane occupancy keyed by peer id — the
+        ``system.runtime.qos`` cluster fold (server/qos.py)."""
+        out: Dict[str, dict] = {}
+        for pl in self.lease.peers(live_only=True):
+            lanes = (pl.state or {}).get("lanes")
+            if isinstance(lanes, dict):
+                out[pl.owner] = lanes
         return out
 
     def locate_peer(self, qid: str) -> str:
@@ -1289,6 +1355,58 @@ class CoordinatorServer:
             "node=%s fault plane killed this coordinator", self.coord_id
         )
 
+    # ------------------------------------------------ elastic worker pool
+
+    def attach_pool(self, provider, **overrides) -> "object":
+        """Wire a WorkerPoolProvider and start the autoscaler
+        (``pool.min/max-workers`` bounds, ``pool.scale-interval-s``
+        cadence; see server.pool). Keyword overrides replace the
+        config-derived knobs — the test/bench hook."""
+        from presto_tpu_torch.server.pool import Autoscaler
+
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+        cfg = dict(self._pool_cfg)
+        cfg.update(overrides)
+        self.autoscaler = Autoscaler(self, provider, **cfg).start()
+        return self.autoscaler
+
+    def load_snapshot(self) -> dict:
+        """The autoscaler's control signals, read off the existing
+        stats plane: admission queue depth, running-query count, and
+        stage backlog (QUEUED/RUNNING tasks of live queries)."""
+        with self._lock:
+            qs = list(self.queries.values())
+        queued = running = backlog = 0
+        seen: set = set()
+        for q in qs:
+            if id(q) in seen:  # restart aliases map to one query
+                continue
+            seen.add(id(q))
+            if q.done.is_set():
+                continue
+            if q.state == "QUEUED":
+                queued += 1
+            elif q.state == "RUNNING":
+                running += 1
+            with q._stats_lock:
+                for st in q.stats.stages:
+                    for t in st.tasks:
+                        if t.state in ("QUEUED", "RUNNING"):
+                            backlog += 1
+        return {"queued": queued, "running": running, "backlog": backlog}
+
+    def pool_state(self, w: _WorkerNode) -> str:
+        """Pool lifecycle state of one node for system.runtime.nodes:
+        DRAINING (scale-down/preemption in flight), SCALING_UP (spawned
+        by the autoscaler, not yet announced-and-acknowledged), else
+        STABLE."""
+        if w.state == "DRAINING":
+            return "DRAINING"
+        if w.node_id in self._pool_scaling:
+            return "SCALING_UP"
+        return "STABLE"
+
     def _kill_largest_query(self, holders, requester):
         """ClusterMemoryManager policy: on pool exhaustion, abort the
         largest memory holder that is a *running query* (never the
@@ -1434,6 +1552,9 @@ class CoordinatorServer:
         # NEVER schedulable — _ttl_workers filters them out
         is_coord = role == "coordinator"
         with self._lock:
+            # a node lost to a failed query attempt is schedulable again
+            # once it announces itself
+            self._lost_nodes.discard(node_id)
             w = self.workers.get(node_id)
             if w is None:
                 self.workers[node_id] = _WorkerNode(
@@ -1482,13 +1603,33 @@ class CoordinatorServer:
         ``allow()`` admits one half-open probe here). ``exclude``
         filters BEFORE the breaker check, so asking for a spare never
         consumes an excluded worker's probe slot."""
+        with self._lock:
+            lost = set(self._lost_nodes)
         return [
             w
             for w in self._ttl_workers()
             if w.state == "ACTIVE"
             and w.node_id not in exclude
+            and w.node_id not in lost
             and self._breaker(w.node_id).allow()
         ]
+
+    def _mark_lost(self, since: float) -> List[str]:
+        """Take the nodes that failed at a connection level since
+        ``since`` (a monotonic time) out of scheduling until each one
+        announces itself again: the nodes whose failure failed a query
+        attempt. Returns their ids."""
+        with self._lock:
+            lost = sorted(
+                n for n, t in self._failed_at.items() if t >= since
+            )
+            self._lost_nodes.update(lost)
+        for n in lost:
+            log.warning(
+                "node %s failed a query attempt: excluded until it "
+                "announces itself again", n,
+            )
+        return lost
 
     # ------------------------------------------------- worker health
 
@@ -1510,6 +1651,8 @@ class CoordinatorServer:
 
     def _worker_failed(self, w) -> None:
         REGISTRY.counter("coordinator.worker_failures").update()
+        with self._lock:
+            self._failed_at[w.node_id] = time.monotonic()
         if self._breaker(w.node_id).record_failure():
             REGISTRY.counter("coordinator.circuit_opened").update()
             log.warning("circuit OPEN for worker %s", w.node_id)
@@ -1774,10 +1917,37 @@ class CoordinatorServer:
         return q
 
     def _execute_query(self, q: _Query) -> None:
-        # admission gate: the bounded semaphore (the reference's QoS
-        # priority lanes come with a later slice)
-        with self._admit:
-            self._admitted_execute(q)
+        # admission gate: the QoS plane's priority lanes when enabled
+        # (strict-priority dequeue, weighted-fair within a lane,
+        # preempt-and-resume of lower-priority running work), else the
+        # legacy bounded semaphore — qos.enabled=false is bit-exact
+        # legacy admission
+        if self.qos is not None:
+            admitted = self.qos.qos_admit(q)
+            try:
+                if not admitted and not q.done.is_set():
+                    # shutdown while lane-queued: never execute — fail
+                    # the query so _admitted_execute's queued-death
+                    # branch closes it out (pending count, group slot,
+                    # journal finish)
+                    q.fail(
+                        "Query rejected: coordinator shut down before "
+                        "admission"
+                    )
+                    q.done.set()
+                self._admitted_execute(q)
+            finally:
+                self.qos.qos_release(q)
+        else:
+            with self._admit:
+                self._admitted_execute(q)
+
+    def _qos_checkpoint(self, q: Optional[_Query]) -> None:
+        """Cooperative QoS suspension point (server/qos.py): a
+        suspended query's stage threads park here between ranges.
+        No-op when the plane is off."""
+        if self.qos is not None and q is not None:
+            self.qos.qos_checkpoint(q)
 
     def _admitted_execute(self, q: _Query) -> None:
         # admission high-water (cluster memory governance): while
@@ -1875,6 +2045,7 @@ class CoordinatorServer:
         )
         attempt = 0
         while True:
+            attempt_t0 = time.monotonic()
             try:
                 if attempt == 0:
                     return self._run_sql(q)
@@ -1920,10 +2091,17 @@ class CoordinatorServer:
                     REGISTRY.counter(
                         "coordinator.query_restarts"
                     ).update()
+                    # the restart schedules on no node whose failure
+                    # failed this attempt: its breaker may be half-open
+                    # again by now (the attempt ends only when its
+                    # claimed ranges do), and a half-open probe would
+                    # hand the restart's work to a dead node
+                    lost = self._mark_lost(attempt_t0)
                     log.warning(
                         "query=%s restarting (attempt %d/%d) after "
-                        "%s: %s",
+                        "%s: %s (excluding %s)",
                         q.qid, attempt, budget, type(e).__name__, e,
+                        lost,
                     )
                 # close out the failed attempt's partial state: stages
                 # left RUNNING become ABORTED, partial results dropped
@@ -2585,6 +2763,9 @@ class CoordinatorServer:
         info["user"] = getattr(q, "user", None)
         info["resource_group"] = getattr(q, "resource_group", None)
         info["trace"] = q.trace.to_tree()
+        if self.qos is not None:
+            # QoS plane: lane/SLO identity + suspension/resume counters
+            info["qos"] = self.qos.query_info(q)
         return info
 
     def query_summary(self, q: _Query) -> dict:
@@ -3344,6 +3525,9 @@ class CoordinatorServer:
         in the given root SortNode so workers emit sorted runs, and
         k-way merge the runs at the gather instead of re-sorting. The
         caller guarantees the stage has no aggregation cut."""
+        # QoS: stage boundaries are suspension points too — a query
+        # suspended between stages parks before scheduling the next
+        self._qos_checkpoint(q)
         jdt = str(
             self.local.session.get("join_distribution_type")
         ).upper()
@@ -4327,7 +4511,13 @@ class CoordinatorServer:
             v = durations.values()
             if v["count"] < 3:
                 return None  # too few samples to call a straggler
-            return max(spec_min, spec_mult * v["p50"])
+            th = max(spec_min, spec_mult * v["p50"])
+            if self.qos is not None and q is not None:
+                # deadline-aware speculation (server/qos.py): the
+                # threshold tightens as the query approaches its
+                # group's SLO budget
+                th *= self.qos.speculation_scale(q)
+            return th
 
         def spare_worker(tried_ids):
             # exclude BEFORE the breaker check: asking for a spare
@@ -4569,15 +4759,32 @@ class CoordinatorServer:
         range_q: "_queue.Queue" = _queue.Queue()
         for r in ranges:
             range_q.put(r)
+        #: set when a range failed for good: the stage raises that
+        #: failure once the claimed ranges end, so the other threads
+        #: claim nothing more (a QUERY restart must not wait for the
+        #: survivors to drain a queue whose results are dropped)
+        failed = threading.Event()
 
         def drain_worker(w):
             out = []
             while True:
+                # QoS preempt-and-resume: a suspended query's stage
+                # threads park HERE, between ranges — claimed ranges
+                # ran to completion (tasks exit clean, spool-backed
+                # producers committed), unclaimed ones wait out the
+                # suspension and re-run under fresh claims on resume
+                self._qos_checkpoint(q)
+                if failed.is_set():
+                    return out
                 try:
                     lo, hi = range_q.get_nowait()
                 except _queue.Empty:
                     return out
-                out.append(run_range(w, lo, hi))
+                try:
+                    out.append(run_range(w, lo, hi))
+                except BaseException:
+                    failed.set()
+                    raise
 
         with ThreadPoolExecutor(max(len(workers), 1)) as pool:
             futs = [pool.submit(drain_worker, w) for w in workers]
@@ -4898,6 +5105,24 @@ def _make_handler(coord: CoordinatorServer):
                             },
                         )
                     return self._json(404, {"error": "no such query"})
+                if q.state == "SUSPENDED" and not q.done.is_set():
+                    # QoS preempt-and-resume: a parked query must not
+                    # hold its client on the long-poll — answer NOW
+                    # with empty data and a retry hint, keeping the
+                    # poll loop alive (and cheap) until resume
+                    return self._json(
+                        200,
+                        {
+                            "id": qid,
+                            "stats": {"state": "SUSPENDED"},
+                            "data": [],
+                            "nextUri": (
+                                f"{coord.uri}/v1/statement/{qid}/"
+                                f"{token}"
+                            ),
+                        },
+                        extra_headers={"Retry-After": "0.5"},
+                    )
                 # long-poll up to 1s for progress (reference: long-poll)
                 q.done.wait(timeout=1.0)
                 # q.error decides failure delivery alongside the state

@@ -11,9 +11,10 @@ The PyTorch counterpart of ``presto_tpu/server/launcher.py``. A node
 boots on the CUDA device (``launch(..., device="cpu")`` for tests).
 The connectors are the port's: an ``etc/`` that names one the port does
 not have yet (``hive``, ``parquet``) fails fast with "unknown
-connector", never skipping the catalog. The elastic pool
-(``pool.max-workers``) comes with a later server slice and is refused
-by the coordinator.
+connector", never skipping the catalog. A coordinator with
+``pool.max-workers`` runs the elastic pool through
+:class:`LocalWorkerPoolProvider`: its workers are threads of the
+coordinator's process on the coordinator's device.
 
 Usage::
 
@@ -40,10 +41,12 @@ import argparse
 import os
 import signal
 import sys
+import threading
 from typing import Dict, Optional, Tuple
 
 from presto_tpu_torch.connectors import create_connector
 from presto_tpu_torch.exec.staging import CatalogManager
+from presto_tpu_torch.server.pool import WorkerPoolProvider
 from presto_tpu_torch.session import NodeConfig
 
 
@@ -99,10 +102,73 @@ def load_etc(etc_dir: str) -> Tuple[NodeConfig, CatalogManager]:
     return config, catalogs
 
 
+class LocalWorkerPoolProvider(WorkerPoolProvider):
+    """In-process pool provider: the zero-dependency shape of the
+    elastic-pool SPI (server.pool.WorkerPoolProvider). ``spawn``
+    starts a WorkerServer thread in THIS process pointed at the
+    coordinator, on ``device`` (None: the CUDA device, as every node);
+    ``drain`` routes through the real drain protocol
+    (``PUT /v1/state/drain`` semantics via ``WorkerServer.drain`` on a
+    background thread), so scale-down is identical to a rolling
+    restart. Real deployments implement the same two methods against
+    their scheduler (k8s replicas, cloud instance groups) — autoscaled
+    capacity defaults to PREEMPTIBLE, which the scheduler treats as
+    first-class (spool-backed producers there, gather/merge on stable
+    nodes)."""
+
+    def __init__(
+        self,
+        coordinator_uri: str,
+        config=None,
+        catalogs=None,
+        preemptible: bool = True,
+        device=None,
+    ):
+        self.coordinator_uri = coordinator_uri
+        self.config = config
+        self.catalogs = catalogs
+        self.preemptible = preemptible
+        self.device = device
+        self.workers: Dict[str, object] = {}
+        self._lock = threading.Lock()
+
+    def spawn(self) -> str:
+        from presto_tpu_torch.server.worker import WorkerServer
+
+        w = WorkerServer(
+            coordinator_uri=self.coordinator_uri,
+            catalogs=self.catalogs,
+            config=self.config,
+            preemptible=self.preemptible,
+            device=self.device,
+        ).start()
+        with self._lock:
+            self.workers[w.node_id] = w
+        return w.node_id
+
+    def drain(self, node_id: str) -> None:
+        with self._lock:
+            w = self.workers.pop(node_id, None)
+        if w is None:
+            return  # already gone (preempted/killed): a no-op drain
+        threading.Thread(target=w.drain, daemon=True).start()
+
+    def owns(self, node_id: str) -> bool:
+        """Still drainable by this provider: tracked AND not already
+        shutting down (a preempted/crashed in-process worker flips
+        `_shutting_down`, so the autoscaler may forget it; a worker
+        merely slow to announce stays owned)."""
+        with self._lock:
+            w = self.workers.get(node_id)
+        return w is not None and not getattr(w, "_shutting_down", False)
+
+
 def launch(etc_dir: str, device=None):
     """Boot the node this etc/ describes on ``device`` (None: the CUDA
     device); returns the running server (CoordinatorServer or
-    WorkerServer)."""
+    WorkerServer). A coordinator config with ``pool.max-workers`` set
+    additionally attaches the local pool provider (its workers on the
+    same device) and starts the autoscaler (elastic worker pool)."""
     from presto_tpu_torch.server.coordinator import CoordinatorServer
     from presto_tpu_torch.server.worker import WorkerServer
 
@@ -119,6 +185,13 @@ def launch(etc_dir: str, device=None):
             resource_groups=rg_path if os.path.exists(rg_path) else None,
             device=device,
         ).start()
+        if int(config.get("pool.max-workers", 0) or 0) > 0:
+            server.attach_pool(
+                LocalWorkerPoolProvider(
+                    server.uri, config=config, catalogs=catalogs,
+                    device=device,
+                )
+            )
     else:
         disc = config.get("discovery.uri")
         if not disc:
@@ -143,7 +216,10 @@ def install_signal_handlers(server, exit=sys.exit):
     A worker drains: it stops accepting tasks, announces ``DRAINING``
     (the coordinator stops scheduling to it), finishes + serves/spools
     its running outputs, then exits clean — a rolling restart under
-    live load loses zero queries. A coordinator (no ``drain``) falls
+    live load loses zero queries. A PREEMPTIBLE worker treats SIGTERM
+    as the preemption notice (``preempt``: the same drain under the
+    short ``pool.preempt-grace-s`` window — cloud preemptions don't
+    wait out a full drain grace). A coordinator (no ``drain``) falls
     back to its ordinary shutdown. Returns the installed handler so
     tests can invoke and assert it directly."""
 
@@ -151,6 +227,8 @@ def install_signal_handlers(server, exit=sys.exit):
         name = signal.Signals(signum).name
         print(f"{name}: draining before exit", flush=True)
         drain = getattr(server, "drain", None)
+        if getattr(server, "preemptible", False):
+            drain = getattr(server, "preempt", drain)
         try:
             if drain is not None:
                 drain()

@@ -25,9 +25,14 @@ flag): partitioned output pages are teed into the shared durable spool
 whose producer died re-serves that producer's committed partition from
 the spool.
 
-Not in this slice: the in-slice ICI lane and preemption (elastic
-pools). A worker config or a task spec that asks for one of them is
-refused with an error that names the later slice.
+Preemptible capacity (``node.preemptible``, the elastic pool): the
+worker announces the flag, so the scheduler keeps merge stages on
+stable nodes, and a preemption notice (``preempt``; SIGTERM in the
+launcher, or the ``kill_worker_preempt`` fault rule) drains it within
+``pool.preempt-grace-s``.
+
+Not in this slice: the in-slice ICI lane. A worker config or a task spec
+that asks for it is refused with an error that names the later slice.
 """
 
 from __future__ import annotations
@@ -50,11 +55,7 @@ from presto_tpu_torch.exec.staging import (
 from presto_tpu_torch.exec.stats import TaskStats
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.server import exchange_spi, pages_wire, rpc, task_ids
-from presto_tpu_torch.server.coordinator import (
-    _ICI,
-    _QOS,
-    refuse_later_planes,
-)
+from presto_tpu_torch.server.coordinator import _ICI, refuse_later_planes
 from presto_tpu_torch.server.protocol import FragmentSpec
 from presto_tpu_torch.server.spool import (
     DEFAULT_DRAIN_DEPTH,
@@ -273,7 +274,6 @@ class _Task:
 #: key -> (is the value on?, the later slice)
 _REFUSED_CONFIG = {
     "exchange.ici-enabled": (bool, _ICI),
-    "node.preemptible": (bool, _QOS),
 }
 
 
@@ -288,6 +288,7 @@ class WorkerServer:
         coordinator_uri: Optional[str] = None,
         config=None,
         device=None,
+        preemptible: Optional[bool] = None,
     ):
         from presto_tpu_torch.exec.local_runner import LocalQueryRunner
         from presto_tpu_torch.utils.memory import MemoryPool, parse_bytes
@@ -468,8 +469,17 @@ class WorkerServer:
         self._drain_grace_s = float(
             config.get("drain.grace-s", 30.0) if config else 30.0
         )
-        #: preemptible capacity comes with the elastic pool slice
-        self.preemptible = False
+        # preemptible capacity (elastic pools): announced to discovery
+        # so the scheduler places gather/merge stages on stable nodes;
+        # a preemption notice drains with this SHORT grace window
+        self.preemptible = bool(
+            preemptible
+            if preemptible is not None
+            else (config.get("node.preemptible", False) if config else False)
+        )
+        self._preempt_grace_s = float(
+            config.get("pool.preempt-grace-s", 10.0) if config else 10.0
+        )
 
         handler = _make_handler(self)
         self.httpd = ThreadingHTTPServer(("127.0.0.1", port), handler)
@@ -553,6 +563,35 @@ class WorkerServer:
             time.sleep(0.05)
         log.info("node=%s drain complete, exiting", self.node_id)
         self.shutdown(graceful=False)
+
+    def preempt(self, grace_s: Optional[float] = None) -> None:
+        """Preemption notice (the cloud's SIGTERM-with-short-grace on
+        preemptible capacity): an IMMEDIATE graceful drain bounded by
+        ``pool.preempt-grace-s`` — announce DRAINING now (the
+        coordinator reschedules everything new), finish what fits in
+        the grace window, serve/spool finished buffers, exit. Running
+        producers that spooled stay recoverable even when the grace
+        expires mid-task (retry_policy=TASK re-runs only the lost
+        work)."""
+        with self._lock:
+            if self._draining or self._shutting_down:
+                return
+        REGISTRY.counter("pool.preemptions").update()
+        log.warning(
+            "node=%s preemption notice: draining (grace %.1fs)",
+            self.node_id,
+            self._preempt_grace_s if grace_s is None else grace_s,
+        )
+        self.drain(
+            grace_s=self._preempt_grace_s if grace_s is None else grace_s
+        )
+
+    def _fault_preempt(self) -> None:
+        """Background preemption for the ``kill_worker_preempt`` fault
+        rule: the notice arrives WHILE a task runs (the hook fires at
+        task execute), so the drain must not block that task's
+        thread."""
+        threading.Thread(target=self.preempt, daemon=True).start()
 
     def _drain_busy(self) -> bool:
         """Anything left that exiting now would lose? Running/queued
@@ -878,7 +917,8 @@ class WorkerServer:
         # mid-execute from the coordinator's point of view, since the
         # task POST was already acked
         faults.maybe_inject_task(
-            self.node_id, task.spec.task_id, kill=self._fault_kill
+            self.node_id, task.spec.task_id, kill=self._fault_kill,
+            preempt=self._fault_preempt,
         )
         spec = task.spec
         if spec.sources or spec.partition_scan < 0:

@@ -1083,3 +1083,145 @@ def test_peer_failover_resumes_q1_on_the_card(cuda, tmp_path):
         faults.configure(None)
         for c in coords:
             c.shutdown()
+
+
+def _k1_calls_by_task(workers):
+    """Spy on ``onehot_reduce_many``: (monotonic time, worker task id)
+    per call made on a worker task's thread; returns (calls, undo)."""
+    import time
+
+    from presto_tpu_torch.ops import aggregation as PA
+
+    calls, real = [], PA.onehot_reduce_many
+
+    def record(gid, requests, nseg):
+        for w in workers:
+            st = getattr(w.runner._qs_local, "value", None)
+            if st is not None:
+                calls.append((time.monotonic(), st.task_id))
+        return real(gid, requests, nseg)
+
+    PA.onehot_reduce_many = record
+
+    def undo():
+        PA.onehot_reduce_many = real
+
+    return calls, undo
+
+
+def test_preempt_and_resume_on_the_card_runs_k1_on_resumed_ranges(
+    cuda, tmp_path
+):
+    # the QoS plane on a coordinator and two workers on the card: Q1 in
+    # the batch lane is suspended by an interactive lookup, resumes under
+    # the same logical task ids (no producer re-runs), launches K1 on the
+    # ranges it runs after the resume, and equals the CPU
+    import time
+
+    from presto_tpu_torch.server import CoordinatorServer, WorkerServer
+    from presto_tpu_torch.server import task_ids
+    from presto_tpu_torch.session import NodeConfig
+    from presto_tpu_torch.utils import faults
+    from tpch_queries import QUERIES
+
+    groups = {
+        "rootGroups": [
+            {"name": "interactive", "weight": 1, "hardConcurrencyLimit": 4,
+             "priority": 10},
+            {"name": "batch", "weight": 1, "hardConcurrencyLimit": 4,
+             "priority": 0},
+        ],
+        "selectors": [{"user": "inter-.*", "group": "interactive"}],
+        "defaultGroup": "batch",
+    }
+    base = {"staging.cache-bytes": "256MB", "query.max-memory-per-node": "4GB",
+            "exchange.spool-path": str(tmp_path / "spool"),
+            "qos.enabled": "true", "qos.resume-grace-s": "0.2"}
+    coord = CoordinatorServer(
+        config=NodeConfig({**base, "retry-policy": "TASK"}), device="cuda",
+        max_concurrent_queries=1, resource_groups=groups,
+    ).start()
+    workers = [
+        WorkerServer(coordinator_uri=coord.uri, config=NodeConfig(base),
+                     device="cuda").start()
+        for _ in range(2)
+    ]
+    calls, undo = _k1_calls_by_task(workers)
+    try:
+        deadline = time.time() + 30
+        while len(coord.active_workers()) < 2 and time.time() < deadline:
+            time.sleep(0.05)
+        assert len(coord.active_workers()) == 2
+        want = _q1_rows_on_the_cpu()
+        faults.configure({"rules": [
+            {"action": "delay", "task": ".prod.", "delay_s": 0.25},
+        ]})
+        qa = coord.submit(QUERIES[1], user="batch-1")
+        while qa.state != "RUNNING" and time.time() < deadline:
+            time.sleep(0.01)
+        time.sleep(0.3)
+        qi = coord.submit("select count(*) as c from tpch.tiny.region",
+                          user="inter-1")
+        while not getattr(qa, "qos_resumes", 0) and not qa.done.is_set():
+            time.sleep(0.005)
+        resumed_at = time.monotonic()
+        assert qi.done.wait(120) and qi.state == "FINISHED", qi.error
+        assert qa.done.wait(300) and qa.state == "FINISHED", qa.error
+        _assert_rows_close([tuple(r) for r in qa.rows], want)
+        info = coord.query_info(qa)
+        assert info["qos"]["suspensions"] >= 1 and info["qos"]["resumes"] >= 1
+        for st in info["stages"]:
+            if st["kind"] == "producer":
+                assert all(task_ids.attempt_of(t["task_id"]) == 0
+                           for t in st["tasks"])
+        after = [tid for t, tid in calls if t >= resumed_at
+                 and tid.startswith(qa.qid)]
+        assert after, "no K1 call on the resumed query's ranges"
+    finally:
+        undo()
+        faults.configure(None)
+        for w in workers:
+            w.shutdown(graceful=False)
+        coord.shutdown()
+
+
+def test_pool_spawned_worker_stages_onto_the_card(cuda):
+    # the elastic pool on the card: the autoscaler spawns a preemptible
+    # worker through LocalWorkerPoolProvider on the coordinator's device;
+    # Q1 runs its batches there (K1 launches) and equals the CPU
+    import time
+
+    from presto_tpu_torch.server import CoordinatorServer, PrestoTpuClient
+    from presto_tpu_torch.server.launcher import LocalWorkerPoolProvider
+    from presto_tpu_torch.session import NodeConfig
+    from tpch_queries import QUERIES
+
+    cfg = NodeConfig({"staging.cache-bytes": "256MB",
+                      "query.max-memory-per-node": "4GB",
+                      "pool.max-workers": "2"})
+    coord = CoordinatorServer(config=cfg, device="cuda").start()
+    prov = LocalWorkerPoolProvider(coord.uri, config=cfg, device="cuda")
+    try:
+        coord.attach_pool(prov, min_workers=1, interval_s=0.1)
+        deadline = time.time() + 60
+        while not coord.active_workers() and time.time() < deadline:
+            time.sleep(0.05)
+        (node,) = coord.active_workers()
+        assert node.preemptible
+        (w,) = prov.workers.values()
+        assert w.runner.device.type == "cuda"
+        calls, undo = _k1_calls_by_task([w])
+        try:
+            before = onehot_reduce.launches
+            res = PrestoTpuClient(coord.uri, timeout_s=300).execute(
+                QUERIES[1])
+            assert onehot_reduce.launches > before
+        finally:
+            undo()
+        assert calls, "no K1 call on the spawned worker"
+        _assert_rows_close(res.rows(), _q1_rows_on_the_cpu())
+    finally:
+        coord.autoscaler.stop()
+        for w in list(prov.workers.values()):
+            w.shutdown(graceful=False)
+        coord.shutdown()

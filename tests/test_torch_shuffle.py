@@ -483,8 +483,8 @@ _REFUSED_CONFIG = {
     "ingest.wal-path": ("", None),
     "lakehouse.path": ("/nonexistent/lake", "pyarrow"),
     "lakehouse.target-file-bytes": ("64MB", "pyarrow"),
-    "qos.enabled": ("true", "QoS"),
-    "pool.max-workers": ("2", "elastic pool"),
+    "qos.enabled": ("true", None),
+    "pool.max-workers": ("2", None),
 }
 
 POINT = (
@@ -498,7 +498,8 @@ def _check_plane_acts(key, value, tmp_path):
     repeated SELECT is a cache hit; a POSTed batch is committed and
     read; a query runs under the retry policy; the spool has its
     ``runtime.caches`` row; a query's submit and finish frames replay
-    closed; the peer lease is published)."""
+    closed; the peer lease is published; a query is admitted by its QoS
+    lane; the autoscaler spawns a worker that announces itself)."""
     import json
     import os
     import threading
@@ -546,6 +547,34 @@ def _check_plane_acts(key, value, tmp_path):
             assert os.listdir(value)
             state = CoordinatorJournal(value).replay()
             assert state.open == []  # submitted, then finished
+        elif key == "qos.enabled":
+            assert coord.qos is not None
+            q = coord.submit(sql)
+            assert q.done.wait(60) and q.rows == [[25]]
+            assert coord.query_info(q)["qos"]["group"] == "default"
+            rows = coord.local.execute(
+                'select "group", queries from system.runtime.qos'
+            ).rows()
+            assert ("default", 1) in rows
+        elif key == "pool.max-workers":
+            from presto_tpu_torch.server.launcher import (
+                LocalWorkerPoolProvider,
+            )
+
+            assert coord._pool_cfg["max_workers"] == 2
+            prov = LocalWorkerPoolProvider(coord.uri, device="cpu")
+            try:
+                coord.attach_pool(prov, min_workers=1, interval_s=0.05)
+                _wait_workers(coord, 1, timeout=30)
+                (w,) = coord.active_workers()
+                assert w.preemptible and w.node_id in prov.workers
+                assert coord.pool_decision
+                q = coord.submit(sql)
+                assert q.done.wait(60) and q.rows == [[25]]
+            finally:
+                coord.autoscaler.stop()
+                for w in list(prov.workers.values()):
+                    w.shutdown(graceful=False)
         elif key == "coordinator.peers":
             assert coord.lease is not None
             assert coord.lease.read_lease("coord-a").uri == coord.uri
@@ -612,7 +641,25 @@ def test_coordinator_refuses_later_plane_config(key, tmp_path):
 def test_worker_refuses_later_plane_config(key, value, tmp_path):
     """A later plane's key is refused; the spool path (value None: a
     temporary directory), ported with fault-tolerant execution, builds
-    the worker's spool and its tee drain."""
+    the worker's spool and its tee drain; a preemptible worker reports
+    the flag and drains on a preemption notice."""
+    if key == "node.preemptible":
+        w = WorkerServer(
+            config=NodeConfig({key: value, "pool.preempt-grace-s": "0.5"}),
+            device="cpu",
+        ).start()
+        try:
+            assert w.preemptible and w._preempt_grace_s == 0.5
+            assert w.status()["preemptible"] is True
+            preemptions = REGISTRY.counter("pool.preemptions").total
+            w.preempt()
+            assert w._shutting_down
+            assert REGISTRY.counter("pool.preemptions").total == (
+                preemptions + 1
+            )
+        finally:
+            w.shutdown(graceful=False)
+        return
     if value is None:
         w = WorkerServer(
             config=NodeConfig({key: str(tmp_path)}), device="cpu"

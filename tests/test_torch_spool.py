@@ -488,13 +488,9 @@ def test_query_retry_policy_restarts_the_whole_query(tmp_path, oracle):
     """retry_policy=QUERY with no task-retry budget: a killed worker
     fails the attempt and the bounded restart completes it on the
     survivor."""
-    # the dead worker's breaker stays open past the failed attempt, so
-    # the restart never probes it (the default 5 s can pass on a slow
-    # host while the survivor drains the failed attempt's ranges)
     coord, ws = _mk_cluster(
         tmp_path, policy="QUERY",
-        extra={"failure-detector.threshold": "1",
-               "failure-detector.open-s": "60"},
+        extra={"failure-detector.threshold": "1"},
     )
     try:
         coord.local.session.set("task_retry_budget", 0)
@@ -512,6 +508,57 @@ def test_query_retry_policy_restarts_the_whole_query(tmp_path, oracle):
         assert info["retry_policy"] == "QUERY"
     finally:
         coord.local.session.reset("task_retry_budget")
+        _teardown(coord, ws)
+
+
+def test_query_restart_outlasting_the_breaker_skips_the_dead_worker(
+    tmp_path, oracle
+):
+    """The failed attempt of a QUERY restart ends only when its claimed
+    ranges do: here a delay holds the survivor's range past the default
+    5 s breaker cool-off, so the dead worker's breaker is half-open when
+    the restart schedules. The restart still completes on the survivor:
+    a node whose failure failed the attempt takes no work until it
+    announces itself again, and the attempt claims no range after the
+    failure."""
+    coord, ws = _mk_cluster(
+        tmp_path, policy="QUERY",
+        extra={"failure-detector.threshold": "1"},
+    )
+    dead, survivor = ws[1].node_id, ws[0].node_id
+    try:
+        assert coord._breaker_open_s == 5.0  # the default
+        coord.local.session.set("task_retry_budget", 0)
+        coord.local.session.set("query_retry_count", 1)
+        faults.configure({"rules": [
+            {"action": "kill_worker", "node": dead, "count": 1},
+            {"action": "delay", "node": survivor, "count": 1,
+             "delay_s": 5.5},
+        ]})
+        client = PrestoTpuClient(coord.uri, timeout_s=120)
+        sql = "select count(*) as c from tpch.tiny.lineitem"
+        t0 = time.monotonic()
+        res = client.execute(sql)
+        assert time.monotonic() - t0 > 5.5
+        assert_oracle_rows(oracle, sql, res.rows())
+        info = client.query_info(res.query_id)
+        assert info["query_restarts"] == 1
+        assert dead in coord._lost_nodes
+        # the breaker alone would have let the restart probe it again
+        breaker = coord._breaker(dead)
+        assert time.monotonic() - breaker._opened >= breaker.open_s
+        # the restart's stage ran on the survivor alone
+        last = info["stages"][-1]
+        assert last["tasks"] and {
+            t["node_id"] for t in last["tasks"]
+        } == {survivor}
+        # the failed attempt claimed no range after the kill: one task
+        # on each worker, then the restart's
+        first = info["stages"][0]
+        assert len(first["tasks"]) == 2
+    finally:
+        coord.local.session.reset("task_retry_budget")
+        coord.local.session.reset("query_retry_count")
         _teardown(coord, ws)
 
 
