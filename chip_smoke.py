@@ -79,10 +79,12 @@ non-zero, and only a run where every phase passed prints the final
               Q18 also without its LIMIT (every order over 300 as a set)
               and once more with ``staging_prefetch_depth`` 0 (the
               serial loop, bit-identical to the prefetched runs);
-              then Q18 at SF100 (``max_device_rows`` 2^26, batches of
-              2^24: lineitem's 599,999,994 rows and orders' 150,000,000
+              then Q18 at SF30 (``max_device_rows`` 2^25, batches of
+              2^23: lineitem's 179,999,994 rows and orders' 45,000,000
               both exceed the budget, so the outer join takes the
-              partitioned build-side spill), once. Every run is exact
+              partitioned build-side spill; SF100 until the distrib and
+              ici phases needed the time), once.
+              Every run is exact
               against numpy over the generator's own columns and prints
               its batches, buckets, spilled bytes, retries, host syncs,
               native generator calls (at least one on the card), peak
@@ -248,8 +250,43 @@ non-zero, and only a run where every phase passed prints the final
               seconds, suspensions, resumes, producer re-runs, spool
               frames re-served, workers spawned and drained, K1
               launches.
-17. a ``{"kernels": [...]}`` line (K1, and K1 through its batching
-    rule), then ``{"ok": true, "device": ...}``.
+17. distrib - the fourteenth slice's multi-device exchange:
+              ``DistributedQueryRunner(devices=[cuda:0] * 4)``, one
+              controller over four shards of the one card. D1 TPC-H Q1,
+              Q3, Q5 and Q18 at SF10 (lineitem 59,999,997 rows, about 15 M
+              and a 2^24-row bucket per shard), each cold then warm: every
+              scan row-sharded, the partial and final one-hot GROUP BYs of
+              Q1 and Q5 one K1 call per shard each (one shard's partial
+              held against its plain version), Q3's and Q5's big joins
+              hash-repartitioned (all_to_all), Q18's l_orderkey GROUP BY
+              routed by key hash; each result equal to the same statement
+              on the single-device runner (the joins and stream phases'
+              results; doubles within rel 1e-9), warm bit-identical to
+              cold. Per run: seconds, peak memory, host waits, K1
+              launches, bytes routed per collective, fragment reads,
+              balance retries. Then the largest all_to_all's routing
+              passes on their own inputs, device ms by kernel kind. D2
+              the dryrun twin, Q3 at tiny over 8 shards of the card. On
+              one card no collective copies bytes between cards.
+18. ici     - the in-slice (ICI) lane of the server, every node with
+              ``exchange.ici-enabled``: I1 Q1 and a partitioned Q3 at
+              SF10 on a coordinator and two workers, each with the lane
+              off then on (the same rows; with it on, ICI edges, no
+              fallback, no HTTP shuffle byte; the bytes elided and both
+              walls printed; a merge task's final K1 call over its
+              device-merged page held against its plain version); I2 Q1
+              at SF10 with ``exchange.single-program`` off (the
+              per-source gather: the same rows, device dispatches per
+              stage beside I1's); I5 a third worker announcing another
+              slice joins (Q1 and a partitioned Q3 at SF1 ride both lanes
+              per edge, the same rows); I3 a worker drained while a
+              partitioned Q3 at SF1 runs under ``retry-policy=TASK`` (every
+              FINISHED ICI task of it materialized, no query fails); I4 a
+              co-located worker killed mid-join (the query completes over
+              the spool with the same rows).
+19. a ``{"kernels": [...]}`` line (K1, K1 through its batching rule, a
+    distributed shard's K1 call and an ICI merge task's), then
+    ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -259,6 +296,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import os
 import resource
@@ -1146,6 +1184,10 @@ def joins_phase(card: str, dev=None, records=None, keep=None):
         (nm, r) for nm, r in result_rows(results["Q5"], ("n_name", "revenue"))
     )
     check(got5 == want_q5, f"Q5 {got5} != numpy {want_q5}")
+    if keep is not None:
+        # the distrib phase holds its distributed runs to these
+        keep.update(q3_rows=results["Q3"].rows(),
+                    q5_rows=results["Q5"].rows())
     for row in results["Q3"].rows():
         print("Q3 row:", row, flush=True)
     for row in results["Q5"].rows():
@@ -1565,10 +1607,20 @@ def rest_phase(card: str, dev=None):
 # ------------------------------------------------------------ stream phase
 
 #: the stream phase's sessions: SF10 under the default session
-#: (``max_device_rows`` 2^24, batches of 2^20), SF100 under the joins
-#: phase's budget with batches of 2^24 (a CPU rehearsal at a small scale
-#: sets smaller budgets here)
+#: (``max_device_rows`` 2^24, batches of 2^20), and the large Q18 at
+#: ``STREAM_BIG`` (a CPU rehearsal at a small scale sets smaller budgets
+#: here). The large run is at SF30, cut from SF100 (187 s of the smoke
+#: and 21 s of numpy) to make room for the distrib and ici phases; its
+#: budget keeps the SF100 run's shape: lineitem's
+#: 179,999,994 rows and orders' 45,000,000 both exceed it, so the outer
+#: join's build side takes the partitioned spill
 STREAM_SF10_PROPS: dict = {}
+STREAM_BIG = "sf30"
+STREAM_BIG_PROPS = {"max_device_rows": 1 << 25, "page_capacity": 1 << 23}
+#: tpch scales the connector names no schema for
+TPCH_SCALES = {"sf30": 30.0}
+#: chip_profile.py's SF100 session (Q95 at SF100): the joins phase's
+#: budget with batches of 2^24
 STREAM_SF100_PROPS = {"max_device_rows": JOINS_MAX_DEVICE_ROWS,
                       "page_capacity": 1 << 24}
 #: orders per lineitem cycle: order i of a cycle has i + 1 lines
@@ -1832,10 +1884,10 @@ def check_q1_stream(label, res, want_q1):
                   f"{label} {key} {name}: {got} vs {exp[name]}")
 
 
-def stream_phase(card: str, dev=None, records=None, sf100: str = "sf100"):
+def stream_phase(card: str, dev=None, records=None, big: str = STREAM_BIG):
     """The fourth slice's path on ``dev`` (the card unless a CPU
     rehearsal passes another): streamed Q1 and Q18 at SF10 under the
-    default session, then Q18 at ``sf100`` once. Returns (the
+    default session, then Q18 at ``big`` once. Returns (the
     onehot_reduce launches of the counted runs, the records)."""
     import torch
 
@@ -1954,24 +2006,27 @@ def stream_phase(card: str, dev=None, records=None, sf100: str = "sf100"):
           flush=True)
     del runner, serial, q18_runs
 
-    # Q18 at SF100: lineitem and orders both over the budget, once
+    # Q18 at the large scale: lineitem and orders both over the budget,
+    # once
+    for name, scale in TPCH_SCALES.items():
+        SCHEMAS.setdefault(name, scale)
     t0 = time.perf_counter()
-    n_li, want18 = numpy_q18(sf100)
-    print(f"numpy evaluation of Q18 at {sf100}: {len(want18)} orders over "
+    n_li, want18 = numpy_q18(big)
+    print(f"numpy evaluation of Q18 at {big}: {len(want18)} orders over "
           f"300 ({time.perf_counter() - t0:.2f} s)", flush=True)
     runner = LocalQueryRunner(device=dev, session=Session(
-        schema=sf100, properties=STREAM_SF100_PROPS),
+        schema=big, properties=STREAM_BIG_PROPS),
         staging_cache_bytes=cache_budget(dev))
-    n_orders = TpchGenerator(SCHEMAS[sf100]).counts["orders"]
-    batch = STREAM_SF100_PROPS["page_capacity"]
+    n_orders = TpchGenerator(SCHEMAS[big]).counts["orders"]
+    batch = STREAM_BIG_PROPS["page_capacity"]
     # the subquery's pass over lineitem, then both join sides' passes
     want_batches = 2 * n_batches(n_li, batch) + n_batches(n_orders, batch)
-    res, rec = stream_run(runner, q18, dev, f"Q18 stream {sf100}", card,
+    res, rec = stream_run(runner, q18, dev, f"Q18 stream {big}", card,
                           n_li, want_batches)
     launches += rec["onehot_reduce_launches"]
-    check_q18("Q18 stream " + sf100, res, want18, 100)
+    check_q18("Q18 stream " + big, res, want18, 100)
     out.append(rec)
-    print(f"Q18 {sf100}: the top 100 of {len(want18)} orders equal numpy's",
+    print(f"Q18 {big}: the top 100 of {len(want18)} orders equal numpy's",
           flush=True)
     return launches, out, baseline
 
@@ -5672,6 +5727,627 @@ def qos_phase(card: str, want_q1_big=None, dev=None, big: str = JOINS_SCHEMA,
     return launches, out
 
 
+# ----------------------------------------------------------- distrib phase
+
+#: the distrib phase: shards of the distributed runner, all on the one
+#: card (the one-card analogue of the reference's virtual CPU mesh)
+DISTRIB_SHARDS = 4
+#: the dryrun twin's shard count, as the reference's dryrun takes it
+DRYRUN_SHARDS = 8
+
+
+def qualify(sql: str, schema: str) -> str:
+    """``sql`` with its unqualified TPC-H tables read from ``schema``."""
+    import re
+
+    return re.sub(
+        r"\b(from|join|,)(\s+)(customer|orders|lineitem|supplier|nation|"
+        r"region|part|partsupp)\b",
+        lambda m: f"{m.group(1)}{m.group(2)}tpch.{schema}.{m.group(3)}",
+        sql,
+    )
+
+
+def distrib_queries():
+    """The distrib phase's statements over the session's schema."""
+    return {"Q1": stream_q1(), "Q3": Q3, "Q5": Q5, "Q18": stream_q18()[0]}
+
+
+def routing_profile(pages, dests, bucket_cap, dev, card):
+    """The all_to_all's routing passes (hash, destination sort, bucket
+    scatter, the move and the compaction) on one call's own inputs:
+    device ms by kernel kind under torch.profiler, and CUDA-event ms of
+    the whole call. Empty on the CPU."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_profile import kind_of
+    from presto_tpu_torch.parallel import exchange as X
+
+    if dev.type != "cuda":
+        return {}
+    ms = time_ms(lambda: X.partition_exchange(pages, dests, bucket_cap),
+                 runs=5)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        X.partition_exchange(pages, dests, bucket_cap)
+        torch.cuda.synchronize(dev)
+    by_kind = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            k = kind_of(e.key)
+            by_kind[k] = by_kind.get(k, 0.0) + e.self_device_time_total / 1e3
+    rows = sum(int(p.num_valid) for p in pages)
+    print(f"D1 routing passes of one all_to_all ({len(pages)} sources, "
+          f"{rows} rows, bucket_cap {bucket_cap}): {ms:.3f} ms per call; "
+          "device ms by kind " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(by_kind.items(),
+                                                 key=lambda kv: -kv[1]))
+          + f" [{card}]", flush=True)
+    return {"ms": ms, "rows": rows, "bucket_cap": bucket_cap,
+            "device_ms_by_kind": by_kind}
+
+
+def distrib_phase(card: str, dev=None, want=None, records=None,
+                  schema: str = JOINS_SCHEMA, shards: int = DISTRIB_SHARDS,
+                  broadcast_threshold: int = 1 << 16):
+    """The fourteenth slice's multi-device path on ``dev`` (the card
+    unless a CPU rehearsal passes another): D1 ``DistributedQueryRunner``
+    over ``shards`` shards of the one card, TPC-H Q1, Q3, Q5 and Q18 at
+    ``schema``, each cold then warm: every scan row-sharded, Q1's and
+    Q5's partial GROUP BY one K1 call per shard and their finals one per
+    shard over the replicated partial states, Q3's and Q5's big joins
+    hash-repartitioned (all_to_all), Q18's l_orderkey GROUP BY routed by
+    key hash. Each result equals ``want`` (the port's single-device
+    runner on the same statement: the joins and stream phases' results;
+    None computes them here), doubles within rel 1e-9, and the warm run
+    equals the cold one bit for bit. ``broadcast_threshold`` is the
+    runner's default (a CPU rehearsal at tiny passes a lower one, so its
+    joins repartition too). D2 the dryrun twin: Q3 at tiny over 8 shards
+    of the card. Returns (the onehot_reduce launches of the counted runs,
+    the records)."""
+    import torch
+
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.ops import aggregation as PA
+    from presto_tpu_torch.parallel import DistributedQueryRunner
+    from presto_tpu_torch.parallel import distributed_runner as DR
+    from presto_tpu_torch.session import Session
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    # earlier phases' runners and their catalogs refer to each other:
+    # collect them before this phase's SF10 shards take the card
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    out, launches = [], 0
+    queries = distrib_queries()
+    if want is None:
+        local = LocalQueryRunner(device=dev, session=Session(
+            schema=schema,
+            properties={"max_device_rows": JOINS_MAX_DEVICE_ROWS}),
+            staging_cache_bytes=cache_budget(dev))
+        t0 = time.perf_counter()
+        want = {k: local.execute(v).rows() for k, v in queries.items()}
+        print(f"D1 baselines on the single-device runner: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        # a runner and its catalogs refer to each other (the system
+        # connector): only a collection frees its cached tables
+        del local
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    runner = DistributedQueryRunner(
+        devices=[dev] * shards, session=Session(schema=schema),
+        broadcast_threshold=broadcast_threshold)
+    # what each run routed: the key columns of every all_to_all, and the
+    # largest one's inputs (the routing profile's case)
+    routed = {"keys": [], "biggest": None}
+    partition = runner._partition
+
+    def spy(pages, key_cols, bucket_cap, flags):
+        routed["keys"].append(tuple(key_cols))
+        big = routed["biggest"]
+        if big is None or bucket_cap > big[2]:
+            dests = [DR.umod(DR.partition_hash(p, key_cols), runner.n)
+                     for p in pages]
+            routed["biggest"] = (list(pages), dests, bucket_cap)
+        return partition(pages, key_cols, bucket_cap, flags)
+
+    runner._partition = spy
+    try:
+        for name, sql in queries.items():
+            runs = []
+            for label in ("cold", "warm"):
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats(dev)
+                PA.onehot_reduce.launches = 0
+                routed["keys"].clear()
+                before = dict(runner.collective_bytes)
+                reads, retries = (runner.fragment_reads,
+                                  runner.balance_retries)
+                with onehot_calls() as seen, counting_syncs(dev) as syncs:
+                    res, secs = run_timed(runner, sql, dev)
+                n_launch = PA.onehot_reduce.launches
+                launches += n_launch
+                calls = [len(reqs) for _, reqs, _ in seen]
+                want_launches = (sum(-(-k // PA.K_MAX) for k in calls)
+                                 if on_card else 0)
+                check(n_launch == want_launches,
+                      f"D1 {name}: {n_launch} onehot_reduce launches, "
+                      f"expected {want_launches}")
+                diff = rows_close(res.rows(), want[name])
+                check(diff is None, f"D1 {name} {label}: differs from the "
+                      f"single-device runner ({diff})")
+                moved = {k: runner.collective_bytes[k] - before[k]
+                         for k in before}
+                rec = {
+                    "step": f"D1 {name} {label}", "s": secs,
+                    "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                                 if on_card else None),
+                    "host_waits": syncs[0],
+                    "onehot_reduce_launches": n_launch,
+                    "onehot_calls": len(calls),
+                    "collective_bytes": moved,
+                    "fragment_reads": runner.fragment_reads - reads,
+                    "balance_retries": runner.balance_retries - retries,
+                    "all_to_all_keys": [list(k) for k in routed["keys"]],
+                }
+                out.append(rec)
+                runs.append(res)
+                if name == "Q18" and label == "warm":
+                    for row in res.rows()[:3]:
+                        print("D1 Q18 row:", row, flush=True)
+                if label == "cold" and name in ("Q1", "Q5") \
+                        and records is not None and on_card:
+                    # one shard's partial GROUP BY at its own inputs
+                    records.append(fused_case(
+                        f"distrib {name.lower()} shard fused", *seen[0], card))
+                del seen
+                print(f"D1 {name} {schema} {label} over {shards} shards: "
+                      f"{secs:.4f} s, peak memory "
+                      + (f"{rec['peak_gib']:.3f} GiB" if on_card
+                         else "not measured (no card)")
+                      + f", host waits {rec['host_waits']}, onehot_reduce "
+                      f"launches {n_launch} ({len(calls)} calls), bytes "
+                      f"routed {moved}, fragment reads "
+                      f"{rec['fragment_reads']}, balance retries "
+                      f"{rec['balance_retries']}, all_to_all keys "
+                      f"{rec['all_to_all_keys']} [{card}]", flush=True)
+            check(runs[0].rows() == runs[1].rows(),
+                  f"D1 {name}: cold and warm runs differ")
+            # each query's sharded tables go before the next one's
+            # (their column sets differ): the card holds one query's
+            runner._shard_cache.clear()
+            del runs
+            if on_card:
+                torch.cuda.empty_cache()
+            keys = out[-1]["all_to_all_keys"]
+            if name in ("Q1", "Q5"):
+                check(out[-1]["onehot_calls"] == 2 * shards,
+                      f"D1 {name}: {out[-1]['onehot_calls']} one-hot calls, "
+                      f"expected a partial and a final per shard")
+            if name == "Q5":
+                check(["l_orderkey"] in keys or ["o_orderkey"] in keys,
+                      f"D1 Q5: the orders-lineitem join was not "
+                      f"repartitioned ({keys})")
+            if name == "Q18":
+                check(["l_orderkey"] in keys,
+                      f"D1 Q18: the l_orderkey GROUP BY was not routed by "
+                      f"key hash ({keys})")
+        prof = routing_profile(*routed["biggest"], dev, card)
+        out.append({"step": "D1 routing profile", **prof})
+        print("D1: on one card no collective copies bytes between cards "
+              "(.to() onto the same card moves nothing); the bytes above "
+              "are what the collectives route", flush=True)
+    finally:
+        routed.clear()
+        del runner
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # D2: the dryrun twin, Q3 at tiny over 8 shards of the card
+    t0 = time.perf_counter()
+    with counting_syncs(dev) as syncs:
+        twin = DR.dryrun_multichip(DRYRUN_SHARDS, devices=[dev] * DRYRUN_SHARDS)
+    secs = time.perf_counter() - t0
+    rec = {"step": "D2 dryrun_multichip", "s": secs, "shards": twin.n,
+           "host_waits": syncs[0], "collective_bytes": twin.collective_bytes}
+    out.append(rec)
+    print(f"D2 dryrun_multichip({DRYRUN_SHARDS}): Q3 at tiny, 10 rows, "
+          f"{secs:.2f} s, host waits {syncs[0]}, bytes routed "
+          f"{twin.collective_bytes} [{card}]", flush=True)
+    del twin
+    secs = time.perf_counter() - phase_t0
+    print(f"distrib phase: {secs:.2f} s, onehot_reduce launches {launches} "
+          f"[{card}]", flush=True)
+    out.append({"step": "phase", "s": secs})
+    return launches, out
+
+
+# --------------------------------------------------------------- ici phase
+
+#: the ici phase's nodes: split caches and pools as the server phase's,
+#: a 5 s RPC timeout (a killed in-process worker's port can leave new
+#: connections unanswered; the qos phase's finding)
+ICI_NODE = {"staging.cache-bytes": str(4 << 30),
+            "query.max-memory-per-node": "16GB",
+            "rpc.request-timeout-s": "5"}
+
+
+def ici_phase(card: str, dev=None, want_q1_big=None, records=None,
+              big: str = JOINS_SCHEMA, small: str = "sf1"):
+    """The fourteenth slice's in-slice (ICI) lane on ``dev`` (the card
+    unless a CPU rehearsal passes another): coordinators and workers in
+    this process with ``exchange.ici-enabled``, so partitioned edges
+    move device pages between co-located workers and the root gather
+    rides the lane. I1 Q1 (the shuffled aggregation) and Q3 with
+    ``join_distribution_type=PARTITIONED`` over ``big`` on a coordinator
+    and two workers, each with the lane off then on: the same rows, ICI
+    edges and no fallback with it on, no HTTP shuffle byte. I2 Q1 over
+    ``big`` with ``exchange.single-program`` off (the per-source gather):
+    the same rows, the root gather over HTTP, device dispatches per stage
+    against I1's. I3 a worker
+    drained while a partitioned Q3 over ``small`` runs (retry TASK over a
+    spool): every FINISHED ICI task of it materialized, no query fails.
+    I4 a co-located worker killed mid-join (TASK): the query completes
+    over the spool with the same rows. I5 a third worker announcing
+    another slice on I1's cluster: its edges ride HTTP, the pair's ICI,
+    the same rows. ``want_q1_big``: the single-device runner's Q1 over
+    ``big``. Returns (the onehot_reduce launches of the counted steps,
+    the records)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from presto_tpu_torch.ops import aggregation as PA
+    from presto_tpu_torch.server import (
+        CoordinatorServer,
+        PrestoTpuClient,
+        WorkerServer,
+        exchange_spi,
+        rpc,
+    )
+    from presto_tpu_torch.session import NodeConfig, Session
+    from presto_tpu_torch.utils import faults
+    from presto_tpu_torch.utils.metrics import REGISTRY
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    out, launches = [], 0
+    root = tempfile.mkdtemp(prefix="ici-")
+    q1_big = Q1.replace("tpch.sf1.lineitem", f"tpch.{big}.lineitem")
+    q3_big, q3_small = qualify(Q3, big), qualify(Q3, small)
+    q1_small = Q1.replace("tpch.sf1.lineitem", f"tpch.{small}.lineitem")
+    names = ("ici_edges", "ici_fallbacks", "ici_bytes_elided",
+             "ici_materialized", "ici_stages", "collective_stages",
+             "collective_fallbacks", "ici_merge_errors",
+             "http_shuffle_bytes")
+
+    def counters():
+        return {n: REGISTRY.counter(f"exchange.{n}").total for n in names}
+
+    def wait_for(cond, msg, timeout=120.0):
+        deadline = time.monotonic() + timeout
+        while not cond() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(cond(), msg)
+
+    def cluster(extra=None, n=2):
+        # each node's runner and catalogs refer to each other: collect
+        # the last cluster's, so this one finds the card empty
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        cfg = {**ICI_NODE, "exchange.ici-enabled": "true", **(extra or {})}
+        coord = CoordinatorServer(config=NodeConfig(cfg), device=dev,
+                                  session=Session(schema=small)).start()
+        workers = [WorkerServer(coordinator_uri=coord.uri,
+                                config=NodeConfig(cfg), device=dev).start()
+                   for _ in range(n)]
+        wait_for(lambda: len(coord.active_workers()) == n,
+                 "the workers did not announce themselves")
+        return coord, workers, PrestoTpuClient(coord.uri, timeout_s=900)
+
+    def shut(coord, workers):
+        for w in workers:
+            w.shutdown(graceful=False)
+        coord.shutdown()
+
+    def step(coord, client, label, sql, ici: bool, want=None):
+        """One statement with the lane on or off; its seconds, counter
+        deltas, stage dispatches and K1 launches."""
+        nonlocal launches
+        client.execute(f"set session exchange_ici_enabled = "
+                       f"{'true' if ici else 'false'}")
+        PA.onehot_reduce.launches = 0
+        c0 = counters()
+        with onehot_calls() as seen:
+            t0 = time.perf_counter()
+            res = client.execute(sql)
+            secs = time.perf_counter() - t0
+        delta = {k: v - c0[k] for k, v in counters().items()}
+        n_launch = PA.onehot_reduce.launches
+        launches += n_launch
+        stages = coord.queries[res.query_id].stats.stages
+        info = client.query_info(res.query_id)
+        rec = {"step": label, "s": secs, "ici": ici, **delta,
+               "exchange": info["exchange"],
+               "onehot_reduce_launches": n_launch,
+               "stage_dispatches": [(st.kind, sum(t.device_dispatches
+                                                  for t in st.tasks))
+                                    for st in stages]}
+        out.append(rec)
+        print(f"{label}: {secs:.4f} s, lane {'ICI' if ici else 'HTTP'}, "
+              f"edges {info['exchange']}, ici_bytes_elided "
+              f"{delta['ici_bytes_elided']}, http_shuffle_bytes "
+              f"{delta['http_shuffle_bytes']}, fallbacks "
+              f"{delta['ici_fallbacks']}, collective stages "
+              f"{delta['collective_stages']}, dispatches per stage "
+              f"{rec['stage_dispatches']}, onehot_reduce launches "
+              f"{n_launch} [{card}]", flush=True)
+        if want is not None:
+            diff = rows_close(res.rows(), server_rows(want))
+            check(diff is None, f"{label}: differs ({diff})")
+        return res, rec, seen
+
+    def on_lane(rec, label):
+        check(rec["ici_edges"] > 0 and rec["ici_fallbacks"] == 0
+              and rec["http_shuffle_bytes"] == 0
+              and rec["ici_merge_errors"] == 0,
+              f"{label}: ICI edges {rec['ici_edges']}, fallbacks "
+              f"{rec['ici_fallbacks']}, HTTP shuffle bytes "
+              f"{rec['http_shuffle_bytes']}: the lane fell to HTTP")
+
+    try:
+        # I1 + I2 + I5 on one cluster
+        coord, workers, client = cluster()
+        try:
+            slices = {w.slice_id for w in coord.active_workers()}
+            check(len(slices) == 1 and coord.slice_id in slices,
+                  f"I1: slices {slices}, coordinator {coord.slice_id}")
+            if want_q1_big is None:
+                want_q1_big = coord.local.execute(q1_big).rows()
+            off, rec_off, _ = step(coord, client, f"I1 Q1 {big} HTTP",
+                                   q1_big, False, want_q1_big)
+            on, rec_on, seen = step(coord, client, f"I1 Q1 {big} ICI",
+                                    q1_big, True, want_q1_big)
+            on_lane(rec_on, "I1 Q1")
+            check(on.rows() == off.rows(), "I1 Q1: ICI and HTTP differ")
+            check(rec_off["http_shuffle_bytes"] > 0,
+                  "I1 Q1: the HTTP run shuffled nothing")
+            merges = [s for s in seen if len(s[1]) > 8]
+            check(merges, "I1 Q1: no merge task's final GROUP BY seen")
+            if records is not None and on_card:
+                # a merge task's final GROUP BY over its ICI-fed page
+                records.append(fused_case("ici q1 merge fused", *merges[0],
+                                          card))
+            del seen, merges
+            client.execute(
+                "set session join_distribution_type = 'PARTITIONED'")
+            try:
+                off3, _, _ = step(coord, client,
+                                  f"I1 Q3 {big} partitioned HTTP",
+                                  q3_big, False)
+                on3, rec3, _ = step(coord, client,
+                                    f"I1 Q3 {big} partitioned ICI",
+                                    q3_big, True)
+            finally:
+                client.execute(
+                    "set session join_distribution_type = 'AUTOMATIC'")
+            on_lane(rec3, "I1 Q3")
+            check(on3.rows() == off3.rows(), "I1 Q3: ICI and HTTP differ")
+            for row in on3.rows()[:3]:
+                print("I1 Q3 row:", row, flush=True)
+
+            # I2: the per-source gather against I1's single program (the
+            # workers' exchange.single-program and the session's value,
+            # as nodes booted with the key off would have them)
+            client.execute("set session exchange_single_program = false")
+            for w in workers:
+                w.single_program = False
+            try:
+                sp_off, rec2, _ = step(coord, client,
+                                       f"I2 Q1 {big} ICI single-program off",
+                                       q1_big, True, want_q1_big)
+            finally:
+                client.execute("set session exchange_single_program = true")
+                for w in workers:
+                    w.single_program = True
+            on_lane(rec2, "I2")
+            check(sp_off.rows() == on.rows(), "I2: single-program on and "
+                  "off differ")
+            check(rec_on["collective_stages"] > 0
+                  and rec2["collective_stages"] == 0,
+                  f"I2: collective stages {rec_on['collective_stages']} on, "
+                  f"{rec2['collective_stages']} off")
+
+            # I5: a third worker on another slice joins the cluster
+            odd = WorkerServer(coordinator_uri=coord.uri, device=dev,
+                               config=NodeConfig({
+                                   **ICI_NODE, "exchange.ici-enabled": "true",
+                                   "exchange.slice-id": "other-slice"})
+                               ).start()
+            workers.append(odd)
+            wait_for(lambda: len(coord.active_workers()) == 3,
+                     "I5: the third worker did not announce itself")
+            client.execute(
+                "set session join_distribution_type = 'PARTITIONED'")
+            try:
+                for name, sql in (("Q1", q1_small), ("Q3", q3_small)):
+                    r_off, _, _ = step(coord, client,
+                                       f"I5 {name} {small} HTTP", sql, False)
+                    r_on, rec5, _ = step(coord, client,
+                                         f"I5 {name} {small} mixed", sql,
+                                         True)
+                    check(r_on.rows() == r_off.rows(),
+                          f"I5 {name}: mixed and HTTP differ")
+                    check(rec5["exchange"]["ici_edges"] > 0
+                          and rec5["exchange"]["http_edges"] > 0,
+                          f"I5 {name}: edges {rec5['exchange']}, expected "
+                          "both lanes")
+            finally:
+                client.execute(
+                    "set session join_distribution_type = 'AUTOMATIC'")
+        finally:
+            shut(coord, workers)
+        wait_for(lambda: exchange_spi.SEGMENT.stats()["entries"] == 0,
+                 "the segment kept entries after its cluster shut down",
+                 timeout=30)
+
+        spool = {"exchange.spool-path": os.path.join(root, "spool"),
+                 "retry-policy": "TASK"}
+
+        def run_bg(client, sql):
+            box, errs = {}, []
+
+            def run():
+                try:
+                    box["res"] = client.execute(sql)
+                except Exception as e:  # surfaced by the caller's check
+                    errs.append(e)
+
+            t = threading.Thread(target=run)
+            t.start()
+            return t, box, errs
+
+        # I3: a worker drained under ICI load
+        coord, workers, client = cluster(spool)
+        try:
+            client.execute(
+                "set session join_distribution_type = 'PARTITIONED'")
+            base, _, _ = step(coord, client, f"I3 Q3 {small} HTTP baseline",
+                              q3_small, False)
+            client.execute("set session exchange_ici_enabled = true")
+            faults.configure({"seed": 5, "rules": [
+                {"action": "delay", "task": ".prod.", "delay_s": 0.1}]})
+            c0 = counters()
+            t0 = time.perf_counter()
+            t, box, errs = run_bg(client, q3_small)
+            victim = workers[0]
+
+            def finished_ici():
+                with victim._lock:
+                    tasks = list(victim.tasks.values())
+                return [x for x in tasks if x.spec.ici_slice
+                        and x.state == "FINISHED"]
+
+            wait_for(lambda: finished_ici() or not t.is_alive(),
+                     "I3: no ICI task finished on the worker to drain")
+            rpc.call_json("PUT", f"{victim.uri}/v1/state/drain", {})
+            t.join(300)
+            secs = time.perf_counter() - t0
+            faults.configure(None)
+            check(not t.is_alive() and not errs,
+                  f"I3: the query failed under the drain: {errs}")
+            check(box["res"].rows() == base.rows(),
+                  "I3: the drained run differs")
+            wait_for(lambda: victim._shutting_down,
+                     "I3: the drained worker did not exit", timeout=60)
+            done = finished_ici()
+            unmat = [x.spec.task_id for x in done if not x._ici_mat_done]
+            delta = {k: v - c0[k] for k, v in counters().items()}
+            check(done and not unmat,
+                  f"I3: {len(done)} FINISHED ICI tasks, not materialized "
+                  f"{unmat}")
+            rec = {"step": f"I3 Q3 {small} drain under ICI", "s": secs,
+                   "finished_ici_tasks": len(done), **delta}
+            out.append(rec)
+            print(f"I3 drain: {secs:.2f} s, {len(done)} FINISHED ICI tasks "
+                  f"on the drained worker, all materialized "
+                  f"(ici_materialized {delta['ici_materialized']}), "
+                  f"ici_edges {delta['ici_edges']}, fallbacks "
+                  f"{delta['ici_fallbacks']} [{card}]", flush=True)
+        finally:
+            faults.configure(None)
+            shut(coord, workers)
+
+        # I4: a co-located worker killed mid-join
+        coord, workers, client = cluster(spool)
+        try:
+            client.execute(
+                "set session join_distribution_type = 'PARTITIONED'")
+            base, _, _ = step(coord, client, f"I4 Q3 {small} HTTP baseline",
+                              q3_small, False)
+            client.execute("set session exchange_ici_enabled = true")
+            faults.configure({"seed": 2, "rules": [
+                {"action": "delay", "task": ".prod.", "delay_s": 0.05},
+                {"action": "delay", "task": ".join.", "delay_s": 0.8}]})
+            c0 = counters()
+            served0 = REGISTRY.counter("spool.pages_served").total
+            t0 = time.perf_counter()
+            t, box, errs = run_bg(client, q3_small)
+
+            def joining():
+                """A worker running a join task over the sealed producer
+                stage: killing it loses a partition to recover."""
+                for w in workers:
+                    with w._lock:
+                        tasks = list(w.tasks.values())
+                    if any(x.spec.partition_scan < 0 and x.sources_done
+                           and x.state in ("QUEUED", "RUNNING")
+                           for x in tasks):
+                        return w
+                return None
+
+            wait_for(lambda: joining() or not t.is_alive(),
+                     "I4: no join task ran over the sealed producers")
+            victim = joining()
+            check(victim is not None, "I4: the join ended before the kill")
+            victim._fault_kill()
+            # a crash loses the victim's device pages
+            with victim._lock:
+                doomed = list(victim.tasks)
+            for tid in doomed:
+                exchange_spi.SEGMENT.discard(tid)
+            t.join(300)
+            secs = time.perf_counter() - t0
+            faults.configure(None)
+            check(not t.is_alive() and not errs,
+                  f"I4: the query failed despite TASK recovery: {errs}")
+            check(box["res"].rows() == base.rows(),
+                  "I4: the recovered run differs")
+            info = client.query_info(box["res"].query_id)
+            delta = {k: v - c0[k] for k, v in counters().items()}
+            rec = {"step": f"I4 Q3 {small} worker killed mid-join", "s": secs,
+                   "task_recoveries": info["task_recoveries"],
+                   "spool_frames_served": (
+                       REGISTRY.counter("spool.pages_served").total - served0),
+                   "exchange": info["exchange"], **delta}
+            out.append(rec)
+            check(rec["task_recoveries"] >= 1,
+                  "I4: no task was recovered")
+            print(f"I4 kill: {secs:.2f} s, task recoveries "
+                  f"{rec['task_recoveries']}, spool frames re-served "
+                  f"{rec['spool_frames_served']}, edges {info['exchange']}, "
+                  f"ici fallbacks {delta['ici_fallbacks']} [{card}]",
+                  flush=True)
+        finally:
+            faults.configure(None)
+            shut(coord, workers)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        coord = workers = client = None
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    secs = time.perf_counter() - phase_t0
+    print(f"ici phase: {secs:.2f} s, onehot_reduce launches {launches} "
+          f"[{card}]", flush=True)
+    out.append({"step": "phase", "s": secs})
+    return launches, out
+
+
 def bucket_of(n: int) -> int:
     """The staging bucket of ``n`` rows (a power of two, at least 1024)."""
     cap = 1024
@@ -5733,6 +6409,8 @@ def main() -> int:
     phase("joins")
     joins_launches = joins_phase(card, records=records, keep=keep)
 
+    distrib_want = {"Q3": keep["q3_rows"], "Q5": keep["q5_rows"]}
+
     phase("observe")
     observe_launches, observe_record = observe_phase(card, keep)
 
@@ -5770,8 +6448,20 @@ def main() -> int:
     qos_launches, qos_records = qos_phase(
         card, want_q1_big=baseline["Q1"][1].rows())
 
+    phase("distrib")
+    distrib_launches, distrib_records = distrib_phase(
+        card, want={"Q1": baseline["Q1"][1].rows(),
+                    "Q18": baseline["Q18"][1].rows(), **distrib_want},
+        records=records)
+
+    phase("ici")
+    ici_launches, ici_records = ici_phase(
+        card, want_q1_big=baseline["Q1"][1].rows(), records=records)
+
     headline = next(r for r in records if r["label"] == "q1 fused")
     lanes = next(r for r in records if r["label"] == "q1 microbatch fused")
+    shard = next(r for r in records if r["label"] == "distrib q1 shard fused")
+    merge = next(r for r in records if r["label"] == "ici q1 merge fused")
     v3 = next(r for r in serve_records if r["step"] == "V3 8 Q1")
     kernels_line = {
         "kernels": [
@@ -5786,7 +6476,8 @@ def main() -> int:
                              + nested_launches + observe_launches
                              + write_launches + server_launches
                              + serve_launches + recover_launches
-                             + qos_launches),
+                             + qos_launches + distrib_launches
+                             + ici_launches),
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
@@ -5810,6 +6501,26 @@ def main() -> int:
                 "bound_by": lanes["bound_by"],
                 "library_ms": lanes["library_ms"],
             },
+        ] + [
+            {
+                # K1 on the multi-device exchange's paths: one shard's
+                # partial GROUP BY of distributed Q1 (launches: the distrib
+                # phase's), one ICI merge task's final over its
+                # device-merged page (launches: the ici phase's)
+                "name": "onehot_reduce",
+                "case": rec["label"],
+                "route": "cuda",
+                "source": "presto_tpu_torch/csrc/onehot_reduce.cu",
+                "replaces": "tools/pallas_groupby.py:96",
+                "launches": n,
+                "max_abs_err": rec["max_abs_err"],
+                "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"],
+            }
+            for rec, n in ((shard, distrib_launches), (merge, ici_launches))
         ]
     }
     print(json.dumps({"cases": records, "slice": counts,
@@ -5835,6 +6546,10 @@ def main() -> int:
                       "recover_onehot_reduce": recover_launches,
                       "qos": qos_records,
                       "qos_onehot_reduce": qos_launches,
+                      "distrib": distrib_records,
+                      "distrib_onehot_reduce": distrib_launches,
+                      "ici": ici_records,
+                      "ici_onehot_reduce": ici_launches,
                       "native": status, "card": card}))
     print(json.dumps(kernels_line))
     print(

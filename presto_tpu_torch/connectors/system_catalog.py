@@ -18,9 +18,8 @@ stats rollups, and ``runtime.qos`` one row per QoS lane (with
 the planes that feed them: ``runtime.qos`` with the plane off,
 ``runtime.snapshots`` and ``runtime.metrics_history``, and
 ``runtime.tasks`` on a plain local runner. ``runtime.caches`` has no
-``compile.programs`` row (the port compiles no program per query) and
-no ``exchange.ici`` row yet (the device exchange comes with the
-server).
+``compile.programs`` row (the port compiles no program per query); its
+``exchange.ici`` row is the process's in-slice exchange segment.
 """
 
 from __future__ import annotations
@@ -399,6 +398,27 @@ class SystemConnector(Connector):
                     "evictions": w["replayed"],
                 }
             )
+        # in-slice exchange segment (server/exchange_spi.py): device
+        # pages parked for co-located consumers. hits = ICI edges
+        # served, misses = planned-ICI fetches that fell back to the
+        # wire, evictions = drain or retry materializations to HTTP
+        from presto_tpu_torch.server.exchange_spi import SEGMENT
+        from presto_tpu_torch.utils.metrics import REGISTRY
+
+        seg = SEGMENT.stats()
+        rows.append(
+            {
+                "cache": "exchange.ici",
+                "entries": seg["entries"],
+                "bytes": seg["bytes"],
+                "budget_bytes": 0,  # bounded by the MemoryPool
+                "hits": seg["hits"],
+                "misses": seg["misses"],
+                "evictions": int(
+                    REGISTRY.counter("exchange.ici_materialized").total
+                ),
+            }
+        )
         # durable-exchange spool occupancy (fault-tolerant execution):
         # present when the embedding coordinator has exchange.spool-path
         # configured (server.spool shares the directory with workers)

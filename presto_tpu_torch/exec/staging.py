@@ -241,6 +241,22 @@ def stage_page(
     return page
 
 
+def stage_sharded(
+    payloads: List[Dict[str, object]],
+    schema: Dict[str, T.DataType],
+    capacity: int,
+    devices: List[torch.device],
+) -> List[Page]:
+    """Host payloads -> one page per shard, shard i on ``devices[i]``,
+    every shard at the same ``capacity`` (the multi-device twin of
+    :func:`stage_page`, which counts each shard's host-to-device bytes
+    in ``DEVICE``; ``parallel.distributed_runner``'s scan placement)."""
+    return [
+        stage_page(p, schema, capacity=capacity, device=d)
+        for p, d in zip(payloads, devices)
+    ]
+
+
 def _stage_array(
     col: ArrayColumn, t: T.DataType, cap: int, device
 ) -> Block:

@@ -32,11 +32,14 @@ coordinator's admission journal with restart recovery (``journal``,
 lanes with preempt-and-resume and per-group SLOs (``qos``,
 ``qos.enabled``), and the elastic pool with preemptible workers
 (``pool``'s autoscaler, the launcher's ``LocalWorkerPoolProvider``,
-``pool.max-workers``, ``node.preemptible``).
+``pool.max-workers``, ``node.preemptible``). The in-slice (ICI) lanes
+of the exchange SPI (``exchange_spi``, ``exchange.ici-enabled``,
+``exchange.slice-id``, ``exchange.single-program``): co-located workers
+exchange partitioned output as device pages, and the root gather rides
+the lane when the coordinator shares the slice.
 
 Refused with an error naming the later slice: the lakehouse tee
-(``lakehouse.*``, with the file connectors, ROADMAP queue 3) and the ICI
-exchange lanes (with the multi-device exchange).
+(``lakehouse.*``, with the file connectors, ROADMAP queue 3).
 """
 
 from presto_tpu_torch.server.client import PrestoTpuClient  # noqa: F401

@@ -47,11 +47,17 @@ through a ``server/pool.py`` provider. A QUERY restart schedules on no
 node whose failure failed the attempt until that node announces itself
 again.
 
-Not in this slice, each refused with an error that names the later
-slice when a config key or a session value turns it on: the lakehouse
-tee (``lakehouse.*``, with the file connectors: ROADMAP queue 3) and the
-ICI exchange (with the multi-device exchange). Their defaults behave as
-the reference's do with those planes off.
+The in-slice (ICI) exchange (``server/exchange_spi.py``,
+``exchange.ici-enabled`` or ``SET SESSION exchange_ici_enabled``): a
+partitioned stage whose workers share an announced slice is planned on
+it, its edges move device pages between co-located workers, and the
+root stage's gather is one more in-slice edge when the coordinator
+shares the slice (``exchange.single-program``).
+
+Not in this slice, refused with an error that names the later slice
+when a config key turns it on: the lakehouse tee (``lakehouse.*``, with
+the file connectors: ROADMAP queue 3). Its defaults behave as the
+reference's do with that plane off.
 """
 
 from __future__ import annotations
@@ -76,7 +82,7 @@ import numpy as np
 from presto_tpu_torch.exec.staging import stage_page
 from presto_tpu_torch.exec.stats import QueryStats, StageStats, TaskStats
 from presto_tpu_torch.plan import nodes as N
-from presto_tpu_torch.server import pages_wire, rpc, task_ids
+from presto_tpu_torch.server import exchange_spi, pages_wire, rpc, task_ids
 from presto_tpu_torch.server.journal import CoordinatorJournal
 from presto_tpu_torch.server.protocol import FragmentSpec
 from presto_tpu_torch.server.scheduler import (
@@ -251,7 +257,6 @@ def _truthy(v) -> bool:
     return bool(v)
 
 
-_ICI = "the ICI lanes, with the multi-device exchange; ROADMAP queue 4"
 _LAKE = (
     "the lakehouse tee, with the file connectors and manifests, "
     "which need pyarrow; ROADMAP queue 3"
@@ -265,12 +270,6 @@ _REFUSED_CONFIG = {
     "lakehouse.compaction.interval-s": (lambda v: True, _LAKE),
     "lakehouse.compaction.min-files": (lambda v: True, _LAKE),
     "lakehouse.orphan-ttl-s": (lambda v: True, _LAKE),
-    "exchange.ici-enabled": (_truthy, _ICI),
-}
-
-#: session properties likewise, refused at ``SET SESSION``
-_REFUSED_SESSION = {
-    "exchange_ici_enabled": (_truthy, _ICI),
 }
 
 
@@ -514,8 +513,6 @@ class CoordinatorServer:
                 config.get("history.max-entries", 256) if config else 256
             ),
         )
-        # a session handed in is held to the same refusals as SET SESSION
-        refuse_later_planes(_REFUSED_SESSION, self.local.session.get)
         prefetch = (
             config.get("staging.prefetch-depth") if config else None
         )
@@ -600,11 +597,15 @@ class CoordinatorServer:
         rp = config.get("retry-policy") if config else None
         if rp is not None:
             self.local.session.set("retry_policy", rp)
-        # the ICI gate (off only) was checked above. Single-program
-        # collective stages:
-        # tier-1 exchange.single-program seeds the session default (on
-        # by default; meaningful only behind the ICI gate, so accepted
-        # here and changing nothing, as in the reference)
+        # in-slice shuffle (server/exchange_spi.py): tier-1
+        # exchange.ici-enabled seeds the session default; off (the
+        # default) keeps the HTTP shuffle bit-exact
+        ici_on = config.get("exchange.ici-enabled") if config else None
+        if ici_on is not None:
+            self.local.session.set("exchange_ici_enabled", bool(ici_on))
+        # single-program collective stages: tier-1
+        # exchange.single-program seeds the session default (on by
+        # default; meaningful only with the ICI gate above on)
         sp_on = (
             config.get("exchange.single-program") if config else None
         )
@@ -612,6 +613,14 @@ class CoordinatorServer:
             self.local.session.set(
                 "exchange_single_program", bool(sp_on)
             )
+        # the coordinator's own slice: the ICI gather edge
+        # (exchange_spi.ici_gather) compares it with the root stage's
+        # planned slice; the config override first, so topologies can
+        # be pinned
+        self.slice_id = str(
+            (config.get("exchange.slice-id") if config else None)
+            or exchange_spi.default_slice_id(self.local.device)
+        )
         # parameterized plan cache (plan/canonical.py): tier-1 keys
         # bound the statement-level LRU and seed the session default
         pce = config.get("plan.cache-entries") if config else None
@@ -2126,11 +2135,6 @@ class CoordinatorServer:
         from presto_tpu_torch.sql import ast, parse_statement
 
         stmt = parse_statement(q.sql)
-        if isinstance(stmt, ast.SetSession):
-            refuse_later_planes(
-                _REFUSED_SESSION,
-                lambda k: stmt.value if k == stmt.name else None,
-            )
         if isinstance(stmt, (ast.Prepare, ast.Execute, ast.Deallocate)):
             return self._run_prepared_stmt(q, stmt)
         workers = self.active_workers()
@@ -4818,7 +4822,15 @@ class CoordinatorServer:
         """Token-acked page pulls until X-Complete (exchange client):
         the shared rpc.pull_pages loop, with a stall hook that polls
         task status so a FAILED task surfaces its worker-side error
-        text. Monotonic-clock deadline (see _wait_task)."""
+        text. Monotonic-clock deadline (see _wait_task).
+
+        ICI gather edge: when the task's stage was planned on this
+        coordinator's own slice (single-partition root output,
+        single-program mode), its output is taken straight from the
+        in-slice segment, with no serialization and no HTTP page loop.
+        The HTTP pull stays the fallback (a worker whose output missed
+        the lane materializes it on the first read), and the caller
+        still DELETEs the task."""
 
         def stall():
             st = self._rpc_json(
@@ -4829,6 +4841,44 @@ class CoordinatorServer:
                     f"task on {w.node_id} failed: {st.get('error')}"
                 )
             time.sleep(0.05)
+
+        if (
+            spec.ici_slice
+            and spec.ici_slice == self.slice_id
+            and bool(self.local.session.get("exchange_single_program"))
+        ):
+            def probe() -> bool:
+                # liveness and terminality for the segment wait: FAILED
+                # surfaces the worker's error; FINISHED answers False so
+                # the gather re-checks seal-or-never at once
+                try:
+                    st = self._rpc_json(
+                        "GET", f"{w.uri}/v1/task/{spec.task_id}/status"
+                    )
+                except Exception:
+                    return False
+                if st.get("state") == "FAILED":
+                    raise RuntimeError(
+                        f"task on {w.node_id} failed: {st.get('error')}"
+                    )
+                return st.get("state") not in ("FINISHED", "ABORTED")
+
+            got = exchange_spi.ici_gather(
+                self.slice_id,
+                spec,
+                time.monotonic()
+                + float(self.local.session.get("query_max_run_time_s")),
+                probe,
+            )
+            if got is not None:
+                q = self.queries.get(spec.query_id)
+                if q is not None:
+                    # a coordinator-side consume: fold it under the
+                    # delta-guard lock like the other coordinator-local
+                    # stat additions
+                    with q.stats._roll_lock:
+                        q.stats.exchange_ici_edges += 1
+                return got
 
         try:
             return rpc.pull_pages(

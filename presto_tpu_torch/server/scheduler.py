@@ -5,8 +5,8 @@ The PyTorch counterpart of the stage-cut part of
 ``presto_tpu/server/scheduler.py`` (``StagePlan``, ``plan_stage`` and
 its helpers) and the server's placement helpers: ``stable_workers``,
 the transport choice (``select_exchange_transport`` and
-``select_exchange_edges``; the port's server refuses the ICI gate, so
-they answer "" there) and ``assign_ranges``.
+``select_exchange_edges``: the in-slice lane or the HTTP wire per
+partitioned stage) and ``assign_ranges``.
 
 One scan of the fragment is split by row ranges; every other scan is
 replicated (each split sees it whole). The split scan must reach the
@@ -25,11 +25,8 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 from presto_tpu_torch.parallel.agg_split import split_aggregation
+from presto_tpu_torch.parallel.exchange import MAX_ICI_PARTS  # noqa: F401
 from presto_tpu_torch.plan import nodes as N
-
-#: partition fan-outs beyond this take the HTTP wire path (the
-#: reference's ``parallel/exchange.py`` bound for its in-slice lane)
-MAX_ICI_PARTS = 64
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,8 +31,16 @@ stable nodes, and a preemption notice (``preempt``; SIGTERM in the
 launcher, or the ``kill_worker_preempt`` fault rule) drains it within
 ``pool.preempt-grace-s``.
 
-Not in this slice: the in-slice ICI lane. A worker config or a task spec
-that asks for it is refused with an error that names the later slice.
+The in-slice (ICI) lane (``exchange_spi``): a task planned on this
+worker's slice (``FragmentSpec.ici_slice``, the announced
+``exchange.slice-id``) keeps its partitioned output on the device and
+publishes it, with each row's destination, to the process's segment,
+sealed before FINISHED is visible; a merge task takes its partition out
+of the co-located producers' pages (one routing pass per stage with
+``exchange.single-program``, else a gather per source) and falls back to
+the HTTP pull, then the spool, when a producer's entry is missing. A
+draining worker, and an HTTP pull of a FINISHED in-slice task,
+materialize the entry into the serialized buffers first.
 """
 
 from __future__ import annotations
@@ -55,7 +63,6 @@ from presto_tpu_torch.exec.staging import (
 from presto_tpu_torch.exec.stats import TaskStats
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.server import exchange_spi, pages_wire, rpc, task_ids
-from presto_tpu_torch.server.coordinator import _ICI, refuse_later_planes
 from presto_tpu_torch.server.protocol import FragmentSpec
 from presto_tpu_torch.server.spool import (
     DEFAULT_DRAIN_DEPTH,
@@ -153,6 +160,13 @@ class _Task:
         #: dynamic-filter summary (JSON dict) of a dynfilter_keys task,
         #: set when the task finishes; shipped on the status response
         self.dynfilter: Optional[dict] = None
+        #: the in-slice lane: its entry is degraded to the serialized
+        #: buffers at most once (drain, or an HTTP pull of a FINISHED
+        #: task), and a gather task seals only when its output rode the
+        #: lane
+        self._ici_mat_lock = threading.Lock()
+        self._ici_mat_done = False
+        self._ici_gather = False
 
     def add_sources(self, sources, done: bool) -> None:
         with self.cond:
@@ -270,13 +284,6 @@ class _Task:
             self.cond.notify_all()
 
 
-#: worker config keys that turn on a plane of a later server slice:
-#: key -> (is the value on?, the later slice)
-_REFUSED_CONFIG = {
-    "exchange.ici-enabled": (bool, _ICI),
-}
-
-
 class WorkerServer:
     """One worker process: HTTP host agent + local device execution."""
 
@@ -295,8 +302,6 @@ class WorkerServer:
 
         from presto_tpu_torch.exec.staging import DEFAULT_CACHE_BYTES
 
-        if config is not None:
-            refuse_later_planes(_REFUSED_CONFIG, config.get)
         self.node_id = node_id or f"worker-{uuid.uuid4().hex[:8]}"
         # memory accounting is ALWAYS on (reference: MemoryPool wired
         # unconditionally in the worker; limit from tier-1 config)
@@ -388,6 +393,9 @@ class WorkerServer:
         self.tasks: Dict[str, _Task] = {}
         self._lock = threading.Lock()
         self._shutting_down = False
+        #: set by the fault plane's crash (``_fault_kill``): the worker's
+        #: device memory counts as lost, so nothing it runs on seals
+        self._killed = False
         # multi-coordinator discovery: one URI, a comma-separated
         # string, or a sequence — the worker heartbeats EVERY
         # coordinator (each runs its own arbiter/scheduler view), so
@@ -458,9 +466,18 @@ class WorkerServer:
             if self.spool is not None
             else None
         )
-        # slice identity announced on discovery (the reference's
-        # in-slice lane groups workers by it; the port refuses that
-        # lane, so it is observability only here)
+        # single-program collective stages: the one routing pass per
+        # merge stage and the ICI coordinator-gather publish (the
+        # collective path always falls back to the per-source gather)
+        self.single_program = bool(
+            config.get("exchange.single-program", True) if config else True
+        )
+        # in-slice shuffle (server/exchange_spi.py): the slice identity
+        # this worker announces. Workers of one slice exchange
+        # partitioned output device to device through the process-local
+        # segment; the default identity IS that co-location (device type
+        # + process). A wrong override is safe (a segment miss pulls
+        # HTTP).
         self.slice_id = str(
             (config.get("exchange.slice-id") if config else None)
             or exchange_spi.default_slice_id(self.runner.device)
@@ -555,6 +572,25 @@ class WorkerServer:
         # protocol must stay recoverable — consumers fall back to the
         # spool / task retry)
         faults.maybe_inject_drain(self.node_id, kill=self._fault_kill)
+        # ICI edges degrade to HTTP: serialize every FINISHED task's
+        # device-resident partitions into its output buffers, so a
+        # consumer that has not taken its partition in the slice can
+        # pull it over the wire (still-RUNNING tasks materialize
+        # themselves at seal time: they observe _draining)
+        with self._lock:
+            tasks = list(self.tasks.values())
+        for t in tasks:
+            if t.spec.ici_slice:
+                with t.cond:
+                    finished = t.state == "FINISHED"
+                if finished:
+                    try:
+                        self._materialize_ici(t)
+                    except Exception:
+                        log.warning(
+                            "node=%s drain ICI materialize failed for %s",
+                            self.node_id, t.spec.task_id, exc_info=True,
+                        )
         grace = self._drain_grace_s if grace_s is None else grace_s
         deadline = time.monotonic() + grace
         while time.monotonic() < deadline and not self._shutting_down:
@@ -777,12 +813,19 @@ class WorkerServer:
         in-flight coordinator RPC sees a dead peer (connection refused)
         — a real crash, not the graceful SHUTTING_DOWN protocol."""
         self._shutting_down = True
+        self._killed = True
         try:
             if self._serve_thread.is_alive():
                 self.httpd.shutdown()
             self.httpd.server_close()
         except Exception:
             pass
+        # a crash loses the worker's device memory: its in-slice entries
+        # go, and its still-running tasks seal none (_run_task)
+        with self._lock:
+            doomed = list(self.tasks)
+        for tid in doomed:
+            exchange_spi.discard_task(tid)
         log.warning("node=%s fault plane killed this worker", self.node_id)
 
     # ---------------------------------------------------------- task exec
@@ -790,12 +833,6 @@ class WorkerServer:
     def create_task(self, spec: FragmentSpec) -> str:
         if self._draining or self._shutting_down:
             raise WorkerDraining("worker is draining")
-        if spec.ici_slice:
-            raise ValueError(
-                "the in-slice exchange comes with a later server slice "
-                "(the multi-device exchange); this worker serves the "
-                "HTTP exchange and the spool only"
-            )
         task = _Task(
             spec, pool=self.memory_pool, node_id=self.node_id,
             spool=self.spool, drain=self.spool_drain,
@@ -886,6 +923,39 @@ class WorkerServer:
                         task._spool.discard(task.spec.task_id)
                     except Exception:
                         pass
+            # in-slice segment: seal BEFORE the terminal state is
+            # visible (FINISHED implies the device copy is complete, the
+            # spool-commit ordering). A DRAINING worker degrades its ICI
+            # edges to HTTP at once. A gather task seals only when its
+            # output rode the lane: an empty sealed entry beside real
+            # pages in the serialized buffer would read as 'complete,
+            # zero rows' to the coordinator's in-slice gather
+            if (
+                task.spec.ici_slice
+                and task.spec.ici_slice == self.slice_id
+                and (task.spec.n_partitions > 1 or task._ici_gather)
+            ):
+                try:
+                    if (
+                        outcome == "FINISHED"
+                        and task.state != "ABORTED"
+                        and not self._killed
+                    ):
+                        exchange_spi.seal_task(
+                            self.slice_id, task.spec.task_id,
+                            max(task.spec.n_partitions, 1),
+                        )
+                        if self._draining:
+                            self._materialize_ici(task)
+                    else:
+                        freed = exchange_spi.discard_task(task.spec.task_id)
+                        if freed:
+                            self.memory_pool.release(task.buf_key, freed)
+                except Exception:
+                    log.warning(
+                        "node=%s ici seal failed for %s",
+                        self.node_id, task.spec.task_id, exc_info=True,
+                    )
             # publish the terminal state LAST: it flips X-Complete on
             # the result stream, and the coordinator reads the final
             # status (stats + spans above) as soon as it sees it
@@ -991,6 +1061,17 @@ class WorkerServer:
                 )
             return page, release
 
+        # the in-slice lane keeps a partitioned batch's output on the
+        # device (the segment holds device pages); every other emit
+        # reads the result on the host
+        on_device = (
+            bool(spec.ici_slice)
+            and spec.ici_slice == self.slice_id
+            and spec.n_partitions > 1
+            and not spec.dynfilter_keys
+            and not pushed_ops
+        )
+
         def exec_batch(split_page, release):
             pages = [
                 split_page if s is part_scan else repl_pages[id(s)]
@@ -998,7 +1079,9 @@ class WorkerServer:
             ]
             t_exec = time.perf_counter()
             try:
-                out = self.runner._run_with_pages(root, scans, pages)
+                out = self.runner._run_with_pages(
+                    root, scans, pages, fetch_result=not on_device
+                )
                 if pushed_ops:
                     out = apply_host_ops(out, pushed_ops)
                 return out
@@ -1035,8 +1118,15 @@ class WorkerServer:
                     summary_cell.append(s)
                 return
             if spec.n_partitions > 1:
-                # partitioned output: the exchange SPI's HTTP lane
-                return exchange_spi.emit_partitioned(task, out)
+                # partitioned output rides the exchange SPI: the
+                # scheduler-chosen transport (the device-resident ICI
+                # publish for in-slice stages, the serialized HTTP
+                # buffers otherwise), the spool tee included
+                return exchange_spi.emit_partitioned(
+                    task, out,
+                    slice_id=self.slice_id, pool=self.memory_pool,
+                    fold=self.runner._fold_device_stat,
+                )
             self._emit_result(task, out)
 
         def finish_summary() -> None:
@@ -1109,11 +1199,153 @@ class WorkerServer:
         finish_summary()
 
     def _emit_result(self, task: "_Task", out) -> None:
-        """Root-stage (single-partition) result emit: the serialized
+        """Root-stage (single-partition) result emit: when the
+        coordinator's gather is co-located and the single-program gate
+        is on, the page enters the in-slice segment and the final gather
+        is one more ICI edge. Everything else keeps the serialized
         chunk-and-offer buffer (``page_to_wire_columns`` reads the
-        runner's host result page in place)."""
+        runner's host result page in place); an HTTP pull of an
+        ICI-published task still sees real pages through the lazy
+        materialize of the results handler."""
+        if (
+            task.spec.ici_slice
+            and self.single_program
+            and exchange_spi.emit_gather(
+                task, out, slice_id=self.slice_id, pool=self.memory_pool
+            )
+        ):
+            # seal-eligibility latch: only a task whose output rode the
+            # lane seals at FINISH (see _run_task)
+            task._ici_gather = True
+            return
         cols, n = pages_wire.page_to_wire_columns(out)
         _offer_chunked(task, cols, n)
+
+    def _ici_probe(self, uri: str, src_task: str):
+        """Liveness probe for the in-slice fetch wait: is the producer
+        attempt still working toward a seal? One small status GET
+        between waits; any doubt answers False and the consumer pulls
+        the wire, which has its own retry discipline."""
+        def probe():
+            try:
+                st = rpc.call_json(
+                    "GET", f"{uri}/v1/task/{src_task}/status",
+                    policy=rpc.RpcPolicy(timeout_s=2.0, retries=0),
+                )
+                return st.get("state") in ("QUEUED", "RUNNING")
+            except Exception:
+                return False
+
+        return probe
+
+    def _merge_group_page(self, task: "_Task", entries, rschema, nparts):
+        """Resolve one merge group's tagged transport entries into its
+        RemoteSource leaf's input. An all-ICI group merges ON the
+        device: first through the stage's single routing pass
+        (``exchange_spi.collective_merge``, shared by every partition of
+        the stage), else the per-source ``device_merge`` gather (the
+        same union dictionary, row order and capacity bucket either
+        way). A mixed or oversized group becomes host payloads, the ICI
+        sources' share still spliced out of the routing pass when it
+        can be. ``nparts`` is the producers' partition count. Returns
+        ``(page, None)`` for the device lane or ``(None, payloads)`` for
+        the host lanes."""
+        max_rows = int(self.runner.session.get("max_device_rows"))
+        fold = self.runner._fold_device_stat
+        device = self.runner.device
+        ici_srcs = tuple(s for k, _, s in entries if k == "ici")
+        if entries and len(ici_srcs) == len(entries):
+            res = None
+            if self.single_program:
+                try:
+                    res = exchange_spi.collective_merge(
+                        self.slice_id, ici_srcs,
+                        [b for _, b, _ in entries],
+                        task.spec.partition, rschema, nparts, device,
+                        max_rows=max_rows, fold=fold,
+                    )
+                except Exception:
+                    REGISTRY.counter("exchange.collective_fallbacks").update()
+                    log.warning(
+                        "node=%s collective merge failed; degrading to "
+                        "the per-source gather", self.node_id,
+                        exc_info=True,
+                    )
+                    res = None
+            if res is None:
+                try:
+                    res = exchange_spi.device_merge(
+                        [b for _, b, _ in entries],
+                        task.spec.partition, rschema, device,
+                        max_rows=max_rows, fold=fold,
+                    )
+                except Exception:
+                    REGISTRY.counter("exchange.ici_merge_errors").update()
+                    log.warning(
+                        "node=%s device merge failed; degrading to the "
+                        "host merge", self.node_id, exc_info=True,
+                    )
+                    res = None
+            if res is not None:
+                page, total = res
+                with task.cond:
+                    task.stats.input_rows += total
+                return page, None
+        spliced = None
+        if self.single_program and ici_srcs:
+            try:
+                spliced = exchange_spi.collective_payloads(
+                    self.slice_id, ici_srcs,
+                    [b for k, b, _ in entries if k == "ici"],
+                    task.spec.partition, rschema, nparts, fold=fold,
+                )
+            except Exception:
+                REGISTRY.counter("exchange.collective_fallbacks").update()
+                log.warning(
+                    "node=%s collective splice failed; per-source "
+                    "fallback", self.node_id, exc_info=True,
+                )
+                spliced = None
+        payloads = []
+        si = 0
+        for kind, val, _src in entries:
+            if kind == "http":
+                payloads.extend(val)
+                continue
+            if spliced is not None:
+                conv = spliced[si]
+                si += 1
+            else:
+                conv = exchange_spi.ici_batches_to_payloads(
+                    val, task.spec.partition
+                )
+            with task.cond:
+                task.stats.input_rows += sum(n for _, _, n in conv)
+            payloads.extend(conv)
+        return None, payloads
+
+    def _materialize_ici(self, task: "_Task") -> None:
+        """Degrade one task's ICI edges to HTTP, exactly once: the drain
+        and the lazy results-handler path both land here, and concurrent
+        pulls block until the serialized buffers are complete (a
+        half-materialized buffer must never flip X-Complete under a
+        puller). Serializing is the pure half: raising there leaves
+        nothing torn and a later call retries."""
+        with task._ici_mat_lock:
+            if task._ici_mat_done:
+                return
+            frames = exchange_spi.serialize_ici_frames(task)
+            if frames is not None:
+                exchange_spi.buffer_frames(task, frames, self.memory_pool)
+            task._ici_mat_done = True
+        # a DELETE may have raced the materialize: its release-all can
+        # run BEFORE buffer_frames' reservation, and a task no longer
+        # registered gets no later DELETE, so drop everything now
+        with self._lock:
+            gone = task.spec.task_id not in self.tasks
+        if gone:
+            exchange_spi.discard_task(task.spec.task_id)
+            task.drop_buffers()
 
     def _spool_partition(self, task: "_Task", logical_key: str):
         """Recovery read: one committed attempt's pages for this merge
@@ -1163,11 +1395,20 @@ class WorkerServer:
         # producer stage to one RemoteSourceNode leaf (a partitioned
         # JOIN stage has two producer stages — group 0 probe, group 1
         # build); untagged sources are group 0.
-        #: per-group pulled pages, in source order: [(payload, schema,
-        #: nrows), ...] for each RemoteSource leaf (the reference's
-        #: device-merged in-slice entries come with the ICI lane)
+        #: per-group tagged transport entries, in source order:
+        #: ("http", [(payload, schema, nrows), ...]) from the wire or the
+        #: spool, ("ici", [(page, dest), ...]) from the in-slice segment;
+        #: _merge_group_page resolves them into each leaf's input
         by_group: Dict[int, list] = {}
         pulled = set()
+        # the in-slice transport applies only when the scheduler planned
+        # it AND this attempt runs on that slice (a retry that landed
+        # cross-slice keeps the wire)
+        use_ici = bool(spec.ici_slice) and spec.ici_slice == self.slice_id
+        #: per group, the producers' partition count (the fan-out of the
+        #: stage's single routing pass; this task's own n_partitions is
+        #: its output's)
+        ici_fanout: Dict[int, int] = {}
         # attempt-id dedup (fault-tolerant execution): every attempt of
         # one logical upstream task shares a logical key, and exactly
         # ONE attempt's pages may be consumed — a retried producer and
@@ -1204,6 +1445,31 @@ class WorkerServer:
                     pulled.add(tuple(src))
                     continue
                 t_pull = time.perf_counter()
+                if use_ici:
+                    # in-slice lane: this partition straight out of the
+                    # producer's device-resident entry; a miss (the
+                    # producer died, drained or fell back itself) pulls
+                    # the wire below, then the spool
+                    got_ici = exchange_spi.ici_fetch(
+                        self.slice_id, spec, src_task, deadline,
+                        probe=self._ici_probe(uri, src_task),
+                    )
+                    if got_ici is not None:
+                        batches, fanout = got_ici
+                        by_group.setdefault(group, []).append(
+                            ("ici", batches, src_task)
+                        )
+                        ici_fanout[group] = max(
+                            ici_fanout.get(group, 0), fanout
+                        )
+                        task.stats.staging_ms += (
+                            time.perf_counter() - t_pull
+                        ) * 1000.0
+                        task.stats.exchange_ici_edges += 1
+                        abandoned.pop(lk, None)
+                        pulled.add(tuple(src))
+                        pulled_logical.add(lk)
+                        continue
                 try:
                     got = _pull_partition(
                         uri, src_task, spec.partition,
@@ -1229,7 +1495,7 @@ class WorkerServer:
                         raise
                     task.stats.exchange_spool_edges += 1
                 abandoned.pop(lk, None)
-                by_group.setdefault(group, []).extend(got)
+                by_group.setdefault(group, []).append(("http", got, src_task))
                 task.stats.staging_ms += (
                     time.perf_counter() - t_pull
                 ) * 1000.0
@@ -1251,24 +1517,30 @@ class WorkerServer:
         if len(remotes) > 1:
             # multi-source fragment (partitioned join stage): group i
             # feeds the i-th RemoteSourceNode in walk order; each
-            # group's entries merge + stage separately, then the
+            # group's entries merge + stage separately (on the device
+            # when the whole group arrived in the slice), then the
             # fragment runs once over all leaves
             import numpy as np
 
             pages = []
             for i, r in enumerate(remotes):
                 rschema = dict(r.fragment_root.output_schema())
-                payloads = by_group.get(i, [])
-                if payloads:
-                    merged = pages_wire.merge_payloads(payloads, rschema)
-                else:  # no rows from this side in this partition
-                    merged = {
-                        nm: np.empty(0, t.np_dtype)
-                        for nm, t in rschema.items()
-                    }
-                pages.append(
-                    stage_page(merged, rschema, device=self.runner.device)
+                page, payloads = self._merge_group_page(
+                    task, by_group.get(i, []), rschema,
+                    ici_fanout.get(i, 0),
                 )
+                if page is None:
+                    if payloads:
+                        merged = pages_wire.merge_payloads(payloads, rschema)
+                    else:  # no rows from this side in this partition
+                        merged = {
+                            nm: np.empty(0, t.np_dtype)
+                            for nm, t in rschema.items()
+                        }
+                    page = stage_page(
+                        merged, rschema, device=self.runner.device
+                    )
+                pages.append(page)
             # same accounting as the single-remote path: a too-big
             # (skewed) join partition fails on MemoryPool accounting
             # (kill-largest policy visible), not device OOM
@@ -1295,7 +1567,25 @@ class WorkerServer:
                 f"got {len(remotes)}"
             )
         schema = dict(remotes[0].fragment_root.output_schema())
-        payloads = by_group.get(0, [])
+        page0, payloads = self._merge_group_page(
+            task, by_group.get(0, []), schema, ici_fanout.get(0, 0)
+        )
+        if page0 is not None:
+            # all-in-slice merge: the input page was assembled on the
+            # device (bit-compatible with the wire path's staged page)
+            staged = sum(int(b.data.nbytes) for b in page0.blocks)
+            self.memory_pool.reserve(spec.query_id, staged)
+            task.stats.input_bytes += staged
+            t_exec = time.perf_counter()
+            try:
+                out = self.runner._run_with_pages(root, remotes, [page0])
+            finally:
+                task.stats.execute_ms += (
+                    time.perf_counter() - t_exec
+                ) * 1000.0
+                self.memory_pool.release(spec.query_id, staged)
+            self._emit_result(task, out)
+            return
         # same grouped-execution discipline as the coordinator gather:
         # a partition beyond max_device_rows sub-buckets and merges one
         # bucket at a time (or fails under spill_enabled=false) instead
@@ -1357,6 +1647,10 @@ class WorkerServer:
         if t is None:
             return False
         t.abort()
+        # in-slice entries die with the task (shuffle partitions must not
+        # outlive the query); the buffer-key release below covers their
+        # reservation
+        exchange_spi.discard_task(task_id)
         t.drop_buffers()
         return True
 
@@ -1484,18 +1778,36 @@ def _make_handler(worker: WorkerServer):
                 # X-Complete=true would silently drop the last page
                 # (pipelined pulls keep a beyond-the-end token in
                 # flight, so the race window is hit on every pull)
-                with t.cond:
-                    pages = t.parts[part]
-                    body = pages[token] if token < len(pages) else None
-                    n_pages = len(pages)
-                    complete = t.state == "FINISHED" and (
-                        token + (1 if body is not None else 0) >= n_pages
-                    )
-                    if complete:
-                        # drain protocol: this consumer has seen the
-                        # whole stream — the buffer no longer pins a
-                        # draining worker alive
-                        t.complete_served[part] = True
+                # The lazy ICI degrade rides the SAME snapshot: a wire
+                # pull of a FINISHED in-slice task (a merge retry that
+                # landed cross-slice) must see the real pages, since its
+                # serialized buffers are empty until materialized and
+                # FINISHED + empty would read as a complete zero-row
+                # partition. The decision is made on the locked state,
+                # then the snapshot re-runs.
+                while True:
+                    with t.cond:
+                        pages = t.parts[part]
+                        body = pages[token] if token < len(pages) else None
+                        n_pages = len(pages)
+                        state = t.state
+                        complete = state == "FINISHED" and (
+                            token + (1 if body is not None else 0)
+                            >= n_pages
+                        )
+                        need_mat = (
+                            state == "FINISHED"
+                            and bool(t.spec.ici_slice)
+                            and not t._ici_mat_done
+                        )
+                        if complete and not need_mat:
+                            # drain protocol: this consumer has seen the
+                            # whole stream — the buffer no longer pins a
+                            # draining worker alive
+                            t.complete_served[part] = True
+                    if not need_mat:
+                        break
+                    worker._materialize_ici(t)
                 if body is not None:
                     self.send_response(200)
                     self.send_header(

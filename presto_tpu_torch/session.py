@@ -574,11 +574,12 @@ class NodeConfig:
         "exchange.ici-enabled": bool,
         "exchange.slice-id": str,
         # single-program collective stages: when every producer
-        # of a partitioned stage shares the mesh, compile ONE
-        # shard_map/all_to_all program per stage instead of per-source
-        # gather passes, and publish single-partition (gather) root
-        # output on the ICI lane too (true by default; the collective
-        # path fails open to the per-source gather). The drain depth
+        # of a partitioned stage shares the slice, route the stage in
+        # ONE pass (parallel/exchange.py::collective_gather) instead of
+        # per-source gather passes, and publish single-partition
+        # (gather) root output on the ICI lane too (true by default;
+        # the collective path fails open to the per-source gather; the
+        # SHOW SESSION text below keeps the reference's words). The drain depth
         # bounds the background spool-tee queue (retry_policy=TASK)
         # before producers feel backpressure.
         "exchange.single-program": bool,

@@ -1225,3 +1225,74 @@ def test_pool_spawned_worker_stages_onto_the_card(cuda):
         for w in list(prov.workers.values()):
             w.shutdown(graceful=False)
         coord.shutdown()
+
+
+def test_distributed_q3_on_four_shards_of_the_card(cuda):
+    # the multi-device exchange on one card: four shards of
+    # cuda:0, low thresholds so tiny Q3's joins and GROUP BY take the
+    # all_to_all; the rows equal the single-device runner on the card,
+    # with one host read per fragment attempt
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.parallel import DistributedQueryRunner
+    from tpch_queries import QUERIES
+
+    r = DistributedQueryRunner(
+        devices=[cuda] * 4, broadcast_threshold=1 << 11,
+        repl_threshold=1 << 10,
+    )
+    assert all(d.type == "cuda" for d in r.devices)
+    res = r.execute(QUERIES[3])
+    assert r.collective_bytes["all_to_all"] > 0
+    assert r.fragment_reads == r.fragment_runs + r.balance_retries
+    want = LocalQueryRunner(device=cuda).execute(QUERIES[3]).rows()
+    _assert_rows_close(res.rows(), want)
+
+
+def test_ici_lane_q3_on_the_card_equals_http(cuda):
+    # the in-slice lane on the card: a coordinator and two workers with
+    # exchange.ici-enabled, a partitioned Q3 with the lane off then on:
+    # the same rows, ICI edges and no fallback or HTTP shuffle byte
+    import time
+
+    from presto_tpu_torch.server import (
+        CoordinatorServer,
+        PrestoTpuClient,
+        WorkerServer,
+    )
+    from presto_tpu_torch.session import NodeConfig
+    from presto_tpu_torch.utils.metrics import REGISTRY
+    from tpch_queries import QUERIES
+
+    cfg = NodeConfig({"staging.cache-bytes": "256MB",
+                      "query.max-memory-per-node": "4GB",
+                      "exchange.ici-enabled": "true"})
+    coord = CoordinatorServer(config=cfg, device="cuda").start()
+    workers = [
+        WorkerServer(coordinator_uri=coord.uri, config=cfg, device="cuda")
+        .start()
+        for _ in range(2)
+    ]
+
+    def count(name):
+        return REGISTRY.counter(f"exchange.{name}").total
+
+    try:
+        deadline = time.time() + 30
+        while len(coord.active_workers()) < 2 and time.time() < deadline:
+            time.sleep(0.05)
+        client = PrestoTpuClient(coord.uri, timeout_s=300)
+        client.execute("set session join_distribution_type = PARTITIONED")
+        client.execute("set session exchange_ici_enabled = false")
+        off = client.execute(QUERIES[3]).rows()
+        client.execute("set session exchange_ici_enabled = true")
+        edges, falls, http = (count("ici_edges"), count("ici_fallbacks"),
+                              count("http_shuffle_bytes"))
+        on = client.execute(QUERIES[3]).rows()
+        assert on == off
+        assert count("ici_edges") > edges
+        assert count("ici_fallbacks") == falls
+        assert count("http_shuffle_bytes") == http
+    finally:
+        for w in workers:
+            w.shutdown(graceful=False)
+        coord.shutdown()

@@ -12,11 +12,12 @@ aggregation with pipelined source attachment, the partitioned join
 (forced, chosen from stats, and a semi join), the ordered MERGE
 exchange and TopN, the dynamic-filter summary stage with split pruning,
 the adaptive broadcast<->partitioned switch, the session flag that
-disables the shuffle, and the refused ICI, QoS and lakehouse settings.
-The micro-batch, result-cache and ingest settings, refused by the
-server's first slice, and the retry-policy, spool, journal and peer
-settings, refused until fault-tolerant execution was ported, are
-accepted now and act (the same cases).
+disables the shuffle, and the refused lakehouse settings. The
+micro-batch, result-cache and ingest settings, refused by the server's
+first slice, the retry-policy, spool, journal and peer settings, refused
+until fault-tolerant execution was ported, and the ICI settings, refused
+until the in-slice lane was ported, are accepted now and act (the same
+cases).
 """
 
 from __future__ import annotations
@@ -473,7 +474,7 @@ def test_adaptive_switch_partitioned_to_broadcast(cluster, client, skewed):
 #: ``exchange.spool-path`` and ``coordinator.journal-path`` take a
 #: temporary directory
 _REFUSED_CONFIG = {
-    "exchange.ici-enabled": ("true", "ICI"),
+    "exchange.ici-enabled": ("true", None),
     "retry-policy": ("TASK", None),
     "exchange.spool-path": ("", None),
     "coordinator.journal-path": ("", None),
@@ -499,7 +500,8 @@ def _check_plane_acts(key, value, tmp_path):
     read; a query runs under the retry policy; the spool has its
     ``runtime.caches`` row; a query's submit and finish frames replay
     closed; the peer lease is published; a query is admitted by its QoS
-    lane; the autoscaler spawns a worker that announces itself)."""
+    lane; the autoscaler spawns a worker that announces itself; two
+    co-located workers exchange a shuffled aggregation in the slice)."""
     import json
     import os
     import threading
@@ -534,6 +536,30 @@ def _check_plane_acts(key, value, tmp_path):
                 assert q.stats.retry_policy == "TASK"
             finally:
                 w.shutdown(graceful=False)
+        elif key == "exchange.ici-enabled":
+            assert coord.local.session.get("exchange_ici_enabled") is True
+            ws = [
+                WorkerServer(coordinator_uri=coord.uri, device="cpu").start()
+                for _ in range(2)
+            ]
+            try:
+                _wait_workers(coord, 2)
+                edges = _counter("exchange.ici_edges")
+                agg = (
+                    "select l_returnflag, count(*) as n "
+                    "from tpch.tiny.lineitem group by l_returnflag "
+                    "order by l_returnflag"
+                )
+                q = coord.submit(agg)
+                assert q.done.wait(60)
+                assert [tuple(r) for r in q.rows] == [
+                    tuple(r) for r in coord.local.execute(agg).rows()
+                ]
+                assert q.stats.exchange_ici_edges > 0
+                assert _counter("exchange.ici_edges") > edges
+            finally:
+                for w in ws:
+                    w.shutdown(graceful=False)
         elif key == "exchange.spool-path":
             assert coord.spool is not None and coord.spool.path == value
             rows = coord.local.execute(
@@ -639,10 +665,43 @@ def test_coordinator_refuses_later_plane_config(key, tmp_path):
      ("node.preemptible", "true")],
 )
 def test_worker_refuses_later_plane_config(key, value, tmp_path):
-    """A later plane's key is refused; the spool path (value None: a
+    """Every key is accepted and acts: the spool path (value None: a
     temporary directory), ported with fault-tolerant execution, builds
     the worker's spool and its tee drain; a preemptible worker reports
-    the flag and drains on a preemption notice."""
+    the flag and drains on a preemption notice; two workers booted with
+    the ICI key announce one slice and take a shuffled aggregation's
+    edges in it."""
+    if key == "exchange.ici-enabled":
+        coord = CoordinatorServer(
+            config=NodeConfig({key: value}), device="cpu"
+        ).start()
+        ws = [
+            WorkerServer(
+                coordinator_uri=coord.uri, config=NodeConfig({key: value}),
+                device="cpu",
+            ).start()
+            for _ in range(2)
+        ]
+        try:
+            _wait_workers(coord, 2)
+            assert len({w.slice_id for w in coord.active_workers()}) == 1
+            assert all(w.single_program for w in ws)
+            edges = _counter("exchange.ici_edges")
+            client = PrestoTpuClient(coord.uri, timeout_s=120)
+            agg = (
+                "select l_linestatus, count(*) as n from tpch.tiny.lineitem "
+                "group by l_linestatus order by l_linestatus"
+            )
+            res = client.execute(agg)
+            assert res.rows() == [
+                tuple(r) for r in coord.local.execute(agg).rows()
+            ]
+            assert _counter("exchange.ici_edges") > edges
+        finally:
+            for w in ws:
+                w.shutdown(graceful=False)
+            coord.shutdown()
+        return
     if key == "node.preemptible":
         w = WorkerServer(
             config=NodeConfig({key: value, "pool.preempt-grace-s": "0.5"}),
@@ -670,8 +729,7 @@ def test_worker_refuses_later_plane_config(key, value, tmp_path):
         finally:
             w.shutdown(graceful=False)
         return
-    with pytest.raises(ValueError, match="later"):
-        WorkerServer(config=NodeConfig({key: value}), device="cpu")
+    raise AssertionError(f"no case for {key}")
 
 
 def test_off_values_are_accepted_and_change_nothing(oracle):
@@ -704,7 +762,11 @@ def test_off_values_are_accepted_and_change_nothing(oracle):
         ("retry_policy = 'QUERY'", None),
         ("microbatch_wait_ms = 5", None),
         ("enable_result_cache = true", None),
-        ("exchange_ici_enabled = true", "ICI"),
+        # accepted since the in-slice lane was ported (the id kept)
+        pytest.param(
+            "exchange_ici_enabled = true", None,
+            id="exchange_ici_enabled = true-ICI",
+        ),
     ],
 )
 def test_set_session_refuses_later_planes(cluster, client, setting, slice_word):
@@ -712,7 +774,8 @@ def test_set_session_refuses_later_planes(cluster, client, setting, slice_word):
     ported plane's value (slice word None) is accepted and acts: the
     micro-batch window is set; with the result cache on a repeated
     distributed SELECT is a hit; a distributed query runs under the
-    retry policy. Each is restored afterwards."""
+    retry policy; with the ICI gate on a shuffled aggregation's edges
+    stay in the slice. Each is restored afterwards."""
     coord, _ = cluster
     name = setting.split(" = ")[0]
     before = coord.local.session.get(name)
@@ -725,6 +788,22 @@ def test_set_session_refuses_later_planes(cluster, client, setting, slice_word):
         client.execute(f"set session {setting}")
         if name == "microbatch_wait_ms":
             assert coord.local.session.get(name) == 5.0
+        elif name == "exchange_ici_enabled":
+            assert coord.local.session.get(name) is True
+            edges = _counter("exchange.ici_edges")
+            http = _counter("exchange.http_shuffle_bytes")
+            sql = (
+                "select l_returnflag, l_linestatus, count(*) as n "
+                "from tpch.tiny.lineitem group by l_returnflag, "
+                "l_linestatus order by l_returnflag, l_linestatus"
+            )
+            res = client.execute(sql)
+            assert res.rows() == [
+                tuple(r) for r in coord.local.execute(sql).rows()
+            ]
+            assert _counter("exchange.ici_edges") > edges
+            assert _counter("exchange.http_shuffle_bytes") == http
+            assert client.query_info(res.query_id)["exchange"]["ici_edges"]
         elif name == "retry_policy":
             policy = setting.split("'")[1]
             assert coord.local.session.get(name) == policy
@@ -746,22 +825,32 @@ def test_set_session_refuses_later_planes(cluster, client, setting, slice_word):
 
 
 def test_worker_refuses_spooled_and_in_slice_tasks(cluster):
-    """An in-slice task is refused; a spooled one, ported with
-    fault-tolerant execution, is accepted (this worker has no spool, so
-    it tees nothing) and its status answers."""
+    """Both are accepted now: an in-slice task, ported with the ICI lane
+    (planned on another slice than this worker's, so its edges would
+    ride HTTP), and a spooled one, ported with fault-tolerant execution
+    (this worker has no spool, so it tees nothing); each status
+    answers."""
     _, workers = cluster
     policy = rpc.RpcPolicy(timeout_s=5.0, retries=0)
     spec = FragmentSpec(
         task_id="q_x.s.0.0", query_id="q_x", fragment=None,
         partition_scan=0, split_start=0, split_end=0, ici_slice="cuda-1",
     )
-    with pytest.raises(Exception) as info:
-        rpc.call_json(
-            "POST", workers[0].uri + "/v1/task", spec.to_json(),
+    rpc.call_json(
+        "POST", workers[0].uri + "/v1/task", spec.to_json(), policy=policy
+    )
+    try:
+        assert workers[0].tasks["q_x.s.0.0"].spec.ici_slice == "cuda-1"
+        assert workers[0].slice_id != "cuda-1"
+        st = rpc.call_json(
+            "GET", workers[0].uri + "/v1/task/q_x.s.0.0/status",
             policy=policy,
         )
-    assert getattr(info.value, "code", None) == 400
-    assert not [t for t in workers[0].tasks if t == "q_x.s.0.0"]
+        assert st["task_id"] == "q_x.s.0.0"
+    finally:
+        rpc.call(
+            "DELETE", workers[0].uri + "/v1/task/q_x.s.0.0", policy=policy
+        )
     spec = FragmentSpec(
         task_id="q_x.s.1.0", query_id="q_x", fragment=None,
         partition_scan=0, split_start=0, split_end=0, spool=True,
@@ -783,8 +872,8 @@ def test_worker_refuses_spooled_and_in_slice_tasks(cluster):
 
 
 def test_exchange_is_http_with_the_gate_off(cluster):
-    """The transport choice stays the HTTP wire: no spec ever carries a
-    slice while the ICI gate is refused."""
+    """With the ICI gate at its default (off) the transport choice
+    stays the HTTP wire: no spec carries a slice."""
     coord, workers = cluster
     from presto_tpu_torch import types as T
 
