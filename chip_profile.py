@@ -7,7 +7,7 @@
 For Q1 and then Q6 on tpch.sf1, then Q3 and Q5 on tpch.sf10 with
 ``max_device_rows`` 2^26 (the texts and session of chip_smoke.py; or
 the ``--queries`` named, out of those and ``window`` (BASELINE.json's
-window query over tpch.sf10.orders, default session), ``q9`` and
+window query over tpch.sf1.orders, default session), ``q9`` and
 ``q22`` (on tpch.sf10 in the joins session), the streamed
 ``q1_stream`` and ``q18_stream`` (Q1 and Q18 on tpch.sf10 under the
 default session: lineitem streams in 2^20-row batches with host-RAM

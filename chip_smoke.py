@@ -58,8 +58,9 @@ non-zero, and only a run where every phase passed prints the final
               ``system`` tables read by SQL on the card (runtime.queries,
               metrics, caches, memory, and nodes, whose backend_diag
               names the card with all three probe phases ok).
-7. rest     - the third slice: BASELINE.json's window query over SF10
-              orders (15,000,000 rows, default session), every row's rn
+7. rest     - the third slice: BASELINE.json's window query over SF1
+              orders (1,500,000 rows, default session; SF10 until the
+              fuzz and files phases needed the time), every row's rn
               and rk held exactly against a numpy evaluation; TPC-H Q9
               (LIKE, EXTRACT, a six-way join), Q22 and Q22 without its NOT
               EXISTS (a transformed-dictionary key: exactly one
@@ -79,11 +80,12 @@ non-zero, and only a run where every phase passed prints the final
               Q18 also without its LIMIT (every order over 300 as a set)
               and once more with ``staging_prefetch_depth`` 0 (the
               serial loop, bit-identical to the prefetched runs);
-              then Q18 at SF30 (``max_device_rows`` 2^25, batches of
-              2^23: lineitem's 179,999,994 rows and orders' 45,000,000
+              then Q18 at SF10 under ``max_device_rows`` 2^23, batches
+              of 2^22: lineitem's 59,999,997 rows and orders' 15,000,000
               both exceed the budget, so the outer join takes the
-              partitioned build-side spill; SF100 until the distrib and
-              ici phases needed the time), once.
+              partitioned build-side spill (SF100 until the distrib and
+              ici phases needed the time, then SF30 until the fuzz and
+              files phases did), once.
               Every run is exact
               against numpy over the generator's own columns and prints
               its batches, buckets, spilled bytes, retries, host syncs,
@@ -93,15 +95,14 @@ non-zero, and only a run where every phase passed prints the final
               at SF1 in the joins phase's session, each cold then twice
               warm and equal to the port's CPU runner on the same SQL
               (decimals, integers and strings exact, doubles within rel
-              1e-9); Q64 at SF10 whole-table (store_sales 28,800,000
-              rows), warm runs bit-identical and equal to the CPU
-              runner; Q95 at SF10 whole-table, then streamed under
-              ``max_device_rows`` 2^22 (web_sales 7,200,000 rows), then
-              at SF30 streamed (web_sales 21,600,000 rows over a 2^24
-              budget: the ws_wh self-join takes the partitioned spill;
-              SF100 until the recover phase needed the time), each exact
+              1e-9); Q95 at SF10 whole-table, then streamed under
+              ``max_device_rows`` 2^22 (web_sales 7,200,000 rows; the
+              ws_wh self-join takes the partitioned spill), each exact
               against a numpy evaluation over the generator's own
-              columns.
+              columns. Q64 at SF10 against the CPU runner and Q95
+              streamed at SF30 (SF100 until the recover phase needed
+              the time) left the phase when the fuzz and files phases
+              needed it; Q64 at SF10 still runs in the cache phase.
 10. cache   - the sixth slice, the runner's caches, through CUDA
               runners: streamed Q1 and Q18 at SF10 in the stream phase's
               default session with ``stream_split_cache`` on and a
@@ -284,9 +285,35 @@ non-zero, and only a run where every phase passed prints the final
               FINISHED ICI task of it materialized, no query fails); I4 a
               co-located worker killed mid-join (the query completes over
               the spool with the same rows).
-19. a ``{"kernels": [...]}`` line (K1, K1 through its batching rule, a
-    distributed shard's K1 call and an ICI merge task's), then
-    ``{"ok": true, "device": ...}``.
+19. fuzz    - the port's own differential fuzzer (``fuzz.py``) against
+              its own sqlite oracle (``verifier.py``) over tiny: Z1 seeds
+              0-199 on a CUDA runner, Z2 seeds 0-59 over four shards of
+              the card, Z3 seeds 450-509 under ``max_device_rows`` 8,192,
+              where seeds 738, 1335 and 1961 must raise the known
+              ``StreamingError`` (no streaming cut, in both packages) and
+              nothing else may fail; seed counts, the median seed's
+              seconds and the K1 launches.
+20. files   - when pyarrow is installed (else one line says the phase
+              did not run): F1 SF10 lineitem's Q1 and Q6 columns
+              (59,999,997 rows) written to parquet, the write timed
+              apart, then Q1 and Q6 over the file, cold then warm, exact
+              against numpy (Q1's one-hot call held against its plain
+              version); F2 SF1 orders as ORC, a GROUP BY
+              o_orderpriority; F3 SF1 lineitem as a hive tree
+              partitioned by ``l_shipmode``, where ``IN ('AIR',
+              'MAIL')`` reads 2 of the 7 partitions (F2, F3 equal to the
+              same queries over tpch.sf1); F4 a coordinator and two
+              workers with ``ingest.wal-path`` and ``lakehouse.path``:
+              1,000,000 lineitem rows POSTed in 40 commits, a
+              Q1-shaped GROUP BY held to numpy, a restart restoring rows
+              and snapshot lineage from the manifest tip, FOR VERSION AS
+              OF the 20th commit equal to that prefix, a forced
+              compaction under that pinned reader, and the table's
+              ``system.runtime.snapshots`` row. Files go to a temporary
+              directory the phase removes.
+21. a ``{"kernels": [...]}`` line (K1, K1 through its batching rule, a
+    distributed shard's K1 call, an ICI merge task's and Q1's over the
+    parquet file), then ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.
@@ -297,6 +324,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import importlib.util
 import json
 import os
 import resource
@@ -1216,10 +1244,10 @@ def result_rows(res, names):
 
 # -------------------------------------------------------------- rest phase
 
-#: BASELINE.json's window configuration (bench.py's window query) at the
-#: joins phase's scale: SF10 orders, 15,000,000 rows, fits the default
-#: ``max_device_rows`` (2^24) whole
-WINDOW_SCHEMA = JOINS_SCHEMA
+#: BASELINE.json's window configuration (bench.py's window query) over
+#: SF1 orders, 1,500,000 rows, whole under the default ``max_device_rows``
+#: (2^24); at SF10 (15,000,000 rows) its numpy check alone took 32-36 s
+WINDOW_SCHEMA = "sf1"
 WINDOW = f"""
 select o_orderkey, o_custkey,
   row_number() over (partition by o_custkey order by o_orderdate) as rn,
@@ -1510,9 +1538,9 @@ def numpy_q22(d, not_exists: bool):
 
 def rest_phase(card: str, dev=None):
     """The third slice's path on ``dev`` (the card unless a CPU rehearsal
-    passes another): the window query and Q9/Q22 at SF10, exact against
-    numpy; Q2/Q7/Q8/Q13/Q14/Q16/Q20 at SF1 against the port's CPU
-    runner. Each query runs cold then twice warm. Returns (the
+    passes another): the window query at SF1 and Q9/Q22 at SF10, exact
+    against numpy; Q2/Q7/Q8/Q13/Q14/Q16/Q20 at SF1 against the port's
+    CPU runner. Each query runs cold then twice warm. Returns (the
     onehot_reduce launches of the phase's counted runs, the records)."""
     import torch
 
@@ -1522,13 +1550,14 @@ def rest_phase(card: str, dev=None):
     dev = torch.device("cuda") if dev is None else dev
     queries = tpch_queries()
     t0 = time.perf_counter()
-    d = rest_columns(WINDOW_SCHEMA)
-    n_orders, n_lineitem = len(d["orders"]["o_orderkey"]), len(
+    d = rest_columns(JOINS_SCHEMA)
+    window_orders = rest_columns(WINDOW_SCHEMA)["orders"]
+    n_orders, n_lineitem = len(window_orders["o_orderkey"]), len(
         d["lineitem"]["l_orderkey"])
     want_q9 = numpy_q9(d)
     want_q22 = {name: numpy_q22(d, name == "Q22")
                 for name in ("Q22", "Q22 without not exists")}
-    print(f"numpy evaluation of Q9/Q22 at {WINDOW_SCHEMA}: "
+    print(f"numpy evaluation of Q9/Q22 at {JOINS_SCHEMA}: "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     launches, records = 0, []
 
@@ -1538,7 +1567,7 @@ def rest_phase(card: str, dev=None):
     res, rec = run_three(runner, "window", WINDOW, dev, card, n_orders)
     launches += sum(rec["onehot_reduce_launches"])
     t0 = time.perf_counter()
-    check_window(res, d["orders"])
+    check_window(res, window_orders)
     print(f"window {WINDOW_SCHEMA}: rn and rk of all {n_orders} orders "
           f"equal numpy's ({time.perf_counter() - t0:.2f} s)", flush=True)
     records.append(rec)
@@ -1609,16 +1638,16 @@ def rest_phase(card: str, dev=None):
 #: the stream phase's sessions: SF10 under the default session
 #: (``max_device_rows`` 2^24, batches of 2^20), and the large Q18 at
 #: ``STREAM_BIG`` (a CPU rehearsal at a small scale sets smaller budgets
-#: here). The large run is at SF30, cut from SF100 (187 s of the smoke
-#: and 21 s of numpy) to make room for the distrib and ici phases; its
-#: budget keeps the SF100 run's shape: lineitem's
-#: 179,999,994 rows and orders' 45,000,000 both exceed it, so the outer
+#: here). The large run was at SF100, then SF30 (51.10 s and 7.73 s of
+#: numpy in the smoke of PR 16's run 2), cut to make room for the later
+#: phases; its budget keeps the SF100 run's shape at SF10: lineitem's
+#: 59,999,997 rows and orders' 15,000,000 both exceed it, so the outer
 #: join's build side takes the partitioned spill
 STREAM_SF10_PROPS: dict = {}
-STREAM_BIG = "sf30"
-STREAM_BIG_PROPS = {"max_device_rows": 1 << 25, "page_capacity": 1 << 23}
+STREAM_BIG = "sf10"
+STREAM_BIG_PROPS = {"max_device_rows": 1 << 23, "page_capacity": 1 << 22}
 #: tpch scales the connector names no schema for
-TPCH_SCALES = {"sf30": 30.0}
+TPCH_SCALES: dict = {}
 #: chip_profile.py's SF100 session (Q95 at SF100): the joins phase's
 #: budget with batches of 2^24
 STREAM_SF100_PROPS = {"max_device_rows": JOINS_MAX_DEVICE_ROWS,
@@ -2034,16 +2063,12 @@ def stream_phase(card: str, dev=None, records=None, big: str = STREAM_BIG):
 # ------------------------------------------------------------- tpcds phase
 
 #: the tpcds phase's scales (a CPU rehearsal passes smaller ones). Q95's
-#: large streamed run is at SF30 (web_sales 21.6 M rows), cut from SF100
-#: (88-105 s) to keep the smoke inside its budget: Q18 at SF100 covers a
-#: streamed SF100 shape. The connector names no SF30 schema, so the phase
-#: registers it
-TPCDS_SF1, TPCDS_SF10, TPCDS_BIG = "sf1", "sf10", "sf30"
-TPCDS_SCALES = {"sf30": 30.0}
+#: streamed run is at SF10 alone: its large run went from SF100 (88-105
+#: s) to SF30, then, with Q64's SF10 run, out of the phase to keep the
+#: smoke inside its budget (Q64 at SF10 still runs in the cache phase)
+TPCDS_SF1, TPCDS_SF10 = "sf1", "sf10"
 #: web_sales has 7.2 M rows at SF10: this budget streams it
 Q95_STREAM_SF10_PROPS = {"max_device_rows": 1 << 22}
-#: and 21.6 M at SF30: this one streams it
-Q95_STREAM_BIG_PROPS = {"max_device_rows": 1 << 24}
 #: Q95's ship-date window: date '1999-02-01' and 60 days on, epoch days
 Q95_FROM = 10623
 Q95_TO = Q95_FROM + 60
@@ -2132,13 +2157,12 @@ def check_q95(label, res, want):
 
 
 def tpcds_phase(card: str, dev=None, sf1: str = TPCDS_SF1,
-                sf10: str = TPCDS_SF10, big: str = TPCDS_BIG):
+                sf10: str = TPCDS_SF10):
     """The fifth slice's path on ``dev`` (the card unless a CPU
     rehearsal passes another): TPC-DS Q64 and Q95 at ``sf1`` against
-    the port's CPU runner; Q64 at ``sf10`` whole-table, against the CPU
-    runner too; Q95 at ``sf10`` whole-table and streamed, and at
-    ``big`` streamed, each exact against numpy. Returns (the
-    onehot_reduce launches of the counted runs, the records)."""
+    the port's CPU runner; Q95 at ``sf10`` whole-table and streamed,
+    each exact against numpy. Returns (the onehot_reduce launches of
+    the counted runs, the records)."""
     import torch
 
     from presto_tpu_torch.exec.local_runner import LocalQueryRunner
@@ -2172,15 +2196,10 @@ def tpcds_phase(card: str, dev=None, sf1: str = TPCDS_SF1,
         out.append(rec)
     del runner
 
-    # SF10, whole tables in the joins session: Q64, then Q95
-    q64, q95 = tpcds_queries(sf10)
+    # SF10, whole tables in the joins session: Q95
+    q95 = tpcds_queries(sf10)[1]
     runner = LocalQueryRunner(device=dev, session=Session(
         schema=sf10, properties=joins), staging_cache_bytes=cache_budget(dev))
-    res, rec = run_three(runner, f"Q64 {sf10}", q64, dev, card)
-    check(rec["rows"] > 0, f"Q64 {sf10}: no row")
-    rec["cpu_s"] = against_cpu(f"Q64 {sf10}", res, sf10, q64)
-    launches += sum(rec["onehot_reduce_launches"])
-    out.append(rec)
     t0 = time.perf_counter()
     want = numpy_q95(sf10)
     print(f"numpy evaluation of Q95 at {sf10}: {want} "
@@ -2203,26 +2222,7 @@ def tpcds_phase(card: str, dev=None, sf1: str = TPCDS_SF1,
     check_q95(f"Q95 stream {sf10}", res, want)
     launches += rec["onehot_reduce_launches"]
     out.append(rec)
-    del streamed, res
-
-    # Q95 at the large scale, streamed
-    for name, scale in TPCDS_SCALES.items():
-        SCHEMAS.setdefault(name, scale)
-    t0 = time.perf_counter()
-    want = numpy_q95(big)
-    print(f"numpy evaluation of Q95 at {big}: {want} "
-          f"({time.perf_counter() - t0:.2f} s)", flush=True)
-    streamed = LocalQueryRunner(device=dev, session=Session(
-        schema=big, properties=Q95_STREAM_BIG_PROPS),
-        staging_cache_bytes=cache_budget(dev))
-    n_ws = TpcdsGenerator(SCHEMAS[big]).counts["web_sales"]
-    res, rec = stream_run(streamed, tpcds_queries(big)[1], dev,
-                          f"Q95 stream {big}", card, n_ws, None)
-    check_q95(f"Q95 stream {big}", res, want)
-    launches += rec["onehot_reduce_launches"]
-    out.append(rec)
-    print(f"Q95 {sf10} (whole and streamed) and {big} (streamed) equal "
-          f"numpy's", flush=True)
+    print(f"Q95 {sf10} (whole and streamed) equals numpy's", flush=True)
     return launches, out
 
 
@@ -2894,7 +2894,9 @@ def nested_phase(card: str, dev=None, records=None):
         return real(gid, requests, nseg)
 
     runs = []
-    for label in ("cold", "warm", "warm"):
+    # cold, then one warm run (a second warm run until PR 16's run 2,
+    # whose smoke took 1,103 s of its 1,200)
+    for label in ("cold", "warm"):
         calls.clear()
         PA.onehot_reduce_many = record
         try:
@@ -2916,7 +2918,7 @@ def nested_phase(card: str, dev=None, records=None):
     for other in runs[1:] + [n1_whole]:
         diff = results_differ(runs[0], other)
         check(diff is None, f"N1 stream: runs differ ({diff})")
-    print("N1 streamed: three runs bit-identical to the whole-table run",
+    print("N1 streamed: two runs bit-identical to the whole-table run",
           flush=True)
     del runner, runs
 
@@ -2998,24 +3000,6 @@ order by l_returnflag, l_linestatus"""
 WRITE_REWRITTEN = """select l_returnflag, l_linestatus,
   sum(l_extendedprice) as sum_price, count(*) as n
 from mem.default.li group by l_returnflag, l_linestatus"""
-
-
-def written_decimal(unscaled: int, scale: int) -> int:
-    """The scaled value a short decimal reads back after a write: the
-    write path holds it as a Python float (``int / 10**scale``, as the
-    reference's ``Page.to_pylist`` decodes it) and stages it back through
-    its shortest repr, rounded half up to the scale. Above 2^53 that may
-    move it (a fault shared with the reference, ROADMAP §3)."""
-    import decimal
-
-    with decimal.localcontext() as ctx:
-        ctx.prec = 50
-        q = decimal.Decimal(1).scaleb(-scale)
-        return int(
-            decimal.Decimal(str(unscaled / 10**scale))
-            .quantize(q, rounding=decimal.ROUND_HALF_UP)
-            .scaleb(scale)
-        )
 
 
 def write_columns(schema: str):
@@ -3264,7 +3248,6 @@ def write_phase(card: str, want_q1_big=None, dev=None, records=None,
     wants += [want_q1_sf1[k] for k in sorted(want_q1_sf1)]
     keys = sorted(want_q1_big) + sorted(want_q1_sf1)
     check(n == len(wants), f"W1: {n} rows read back, expected {len(wants)}")
-    moved = 0
     scales = {"sum_qty": 2, "sum_base_price": 2, "sum_disc_price": 4,
               "sum_charge": 6}
     for i, (key, exp) in enumerate(zip(keys, wants)):
@@ -3273,21 +3256,16 @@ def write_phase(card: str, want_q1_big=None, dev=None, records=None,
               f"{cols['l_linestatus'][i]} != {key}")
         check(int(cols["count_order"][i]) == exp["count_order"],
               f"W1 {key}: count_order")
-        for name, scale in scales.items():
-            want = written_decimal(exp[name], scale)
-            moved += want != exp[name]
-            check(int(cols[name][i]) == want,
-                  f"W1 {key} {name}: {cols[name][i]} != {want} (numpy "
-                  f"{exp[name]} through the write path)")
+        for name in scales:
+            check(int(cols[name][i]) == exp[name],
+                  f"W1 {key} {name}: {cols[name][i]} != numpy "
+                  f"{exp[name]} through the write path")
         for name in ("avg_qty", "avg_price", "avg_disc"):
             got = float(cols[name][i])
             check(abs(got - exp[name]) <= 1e-12 * abs(exp[name]),
                   f"W1 {key} {name}: {got} vs {exp[name]}")
-    print(f"W1: {n} rows read back exact against numpy; {moved} of "
-          f"{n * len(scales)} decimal sums moved through the write path's "
-          f"float (scaled values above 2^53) [{card}]", flush=True)
-    rec = out[-1]
-    rec["decimal_sums_moved"] = moved
+    print(f"W1: {n} rows read back exact against numpy, "
+          f"{n * len(scales)} decimal sums among them [{card}]", flush=True)
 
     # W2: the working table, and Q1 over it cold then twice warm
     cols_sql = ", ".join(WRITE_COLUMNS)
@@ -5204,13 +5182,6 @@ QOS_POOL = {"pool.min-workers": "1", "pool.max-workers": "3",
             "pool.cooldown-s": "0.5"}
 QOS_CACHE_BYTES = {"coordinator": 4 << 30, "worker": 8 << 30}
 QOS_POOL_BYTES = "16GB"
-#: the qos phase's per-request RPC timeout (the default is 30 s). On the
-#: H100 machine a new connection to the port of a worker killed in this
-#: process can go unanswered rather than refused, as a powered-off
-#: host's would: each such request then waits out the timeout (P3 took
-#: 43-63 s in 3 of 4 runs under the default). 5 s is a LAN's setting;
-#: every request of these nodes is answered at once when its peer lives
-RPC_TIMEOUT_S = 5
 
 
 def qos_phase(card: str, want_q1_big=None, dev=None, big: str = JOINS_SCHEMA,
@@ -5221,8 +5192,9 @@ def qos_phase(card: str, want_q1_big=None, dev=None, big: str = JOINS_SCHEMA,
     that the phase removes. Cluster A: a coordinator with ``qos.enabled``
     and one admission slot (lanes ``interactive``, priority 10, and
     ``batch``, priority 0), ``retry-policy=TASK`` over a shared spool and
-    a journal, two stable workers; every node's requests time out after
-    ``RPC_TIMEOUT_S``. P0 Q1 over ``big`` and Q6 over ``small``
+    a journal, two stable workers, at the default RPC timeouts (a connect
+    to a killed worker's port is bounded by ``rpc.CONNECT_TIMEOUT_S``).
+    P0 Q1 over ``big`` and Q6 over ``small``
     unpreempted (the warm-up). P1 Q1 over ``big`` in the batch lane
     (its producers held ``QOS_PRODUCER_DELAY_S`` each), then
     ``QOS_BURST`` concurrent Q6 over ``small`` in the interactive lane:
@@ -5285,6 +5257,7 @@ def qos_phase(card: str, want_q1_big=None, dev=None, big: str = JOINS_SCHEMA,
         "workers_drained": "pool.scale_down",
         "preemptions": "pool.preemptions",
         "drain_reroutes": "coordinator.drain_reroutes",
+        "rpc_retries": "rpc.retries",
     }
     spool = os.path.join(root, "spool")
 
@@ -5294,7 +5267,6 @@ def qos_phase(card: str, want_q1_big=None, dev=None, big: str = JOINS_SCHEMA,
             "query.max-memory-per-node": QOS_POOL_BYTES,
             "exchange.spool-path": spool,
             "pool.preempt-grace-s": str(QOS_PREEMPT_GRACE_S),
-            "rpc.request-timeout-s": str(RPC_TIMEOUT_S),
             **(extra or {}),
         })
 
@@ -5972,12 +5944,9 @@ def distrib_phase(card: str, dev=None, want=None, records=None,
 
 # --------------------------------------------------------------- ici phase
 
-#: the ici phase's nodes: split caches and pools as the server phase's,
-#: a 5 s RPC timeout (a killed in-process worker's port can leave new
-#: connections unanswered; the qos phase's finding)
+#: the ici phase's nodes: split caches and pools as the server phase's
 ICI_NODE = {"staging.cache-bytes": str(4 << 30),
-            "query.max-memory-per-node": "16GB",
-            "rpc.request-timeout-s": "5"}
+            "query.max-memory-per-node": "16GB"}
 
 
 def ici_phase(card: str, dev=None, want_q1_big=None, records=None,
@@ -6348,6 +6317,517 @@ def ici_phase(card: str, dev=None, want_q1_big=None, records=None,
     return launches, out
 
 
+# -------------------------------------------------------------- fuzz phase
+
+#: the fuzz phase's seeds: the default session from seed 0, four shards
+#: of the card, and the tight streaming budget from seed 450
+FUZZ_LOCAL = range(0, 200)
+FUZZ_DISTRIBUTED = range(0, 60)
+FUZZ_STREAMED = range(450, 510)
+FUZZ_STREAM_ROWS = 8192
+#: seeds whose plans admit no streaming cut under FUZZ_STREAM_ROWS, in
+#: both packages (lineitem joined to orders joined to customer): each
+#: must fail with NO_CUT_ERROR and nothing else
+FUZZ_NO_CUT = (738, 1335, 1961)
+NO_CUT_ERROR = ("StreamingError: fragment exceeds max_device_rows and admits "
+                "no semantics-preserving streaming cut")
+
+
+def fuzz_phase(card: str, dev=None, local=FUZZ_LOCAL,
+               distributed=FUZZ_DISTRIBUTED, streamed=FUZZ_STREAMED):
+    """The port's own differential fuzzer on ``dev`` (the card unless a
+    CPU rehearsal passes another): each seed's query
+    (``presto_tpu_torch/fuzz.py::generate_query``, under its
+    ``session_draw``) against the port's ``SqliteOracle("tiny")``. Z1
+    ``local`` seeds on a ``LocalQueryRunner``; Z2 ``distributed`` seeds
+    on a ``DistributedQueryRunner`` over four shards of the card; Z3
+    ``streamed`` seeds and ``FUZZ_NO_CUT`` under ``max_device_rows``
+    ``FUZZ_STREAM_ROWS``, where exactly the no-cut seeds fail, with
+    ``NO_CUT_ERROR``. Any other failure fails the phase. Returns (the
+    onehot_reduce launches, the records)."""
+    import statistics
+
+    import torch
+
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.fuzz import run_fuzz
+    from presto_tpu_torch.ops import aggregation as PA
+    from presto_tpu_torch.parallel import DistributedQueryRunner
+    from presto_tpu_torch.session import Session
+    from presto_tpu_torch.verifier import SqliteOracle
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    phase_t0 = time.perf_counter()
+    oracle = SqliteOracle("tiny")
+    out, launches = [], 0
+
+    def run(label, runner, seeds, expect=()):
+        nonlocal launches
+        seeds = list(seeds)
+        per_seed, fails = [], []
+        PA.onehot_reduce.launches = 0
+        t0 = time.perf_counter()
+        for s in seeds:
+            t = time.perf_counter()
+            fails += run_fuzz([s], runner=runner, oracle=oracle)
+            per_seed.append(time.perf_counter() - t)
+        secs = time.perf_counter() - t0
+        n_launch = PA.onehot_reduce.launches
+        launches += n_launch
+        got = {s: d for s, _, d in fails}
+        unexpected = {s: d for s, d in got.items()
+                      if s not in expect or d != NO_CUT_ERROR}
+        missing = [s for s in expect if s not in got]
+        rec = {"step": label, "seeds": len(seeds), "s": secs,
+               "median_seed_s": statistics.median(per_seed),
+               "max_seed_s": max(per_seed), "failures": len(fails),
+               "expected_failures": sorted(got) if not unexpected else [],
+               "onehot_reduce_launches": n_launch}
+        out.append(rec)
+        print(f"{label}: {len(seeds)} seeds in {secs:.2f} s, median "
+              f"{rec['median_seed_s'] * 1000:.1f} ms per seed, max "
+              f"{rec['max_seed_s']:.2f} s, {len(fails)} failures "
+              f"({len(expect)} expected), onehot_reduce launches "
+              f"{n_launch} [{card}]", flush=True)
+        check(not unexpected, f"{label}: unexpected failures {unexpected}")
+        check(not missing, f"{label}: seeds {missing} did not raise "
+              f"{NO_CUT_ERROR!r}")
+        check(n_launch > 0 or not on_card,
+              f"{label}: no onehot_reduce launch in {len(seeds)} seeds")
+
+    run(f"Z1 local seeds {local.start}-{local.stop - 1}",
+        LocalQueryRunner(device=dev), local)
+    run(f"Z2 4 shards seeds {distributed.start}-{distributed.stop - 1}",
+        DistributedQueryRunner(devices=[dev] * 4), distributed)
+    run(f"Z3 max_device_rows {FUZZ_STREAM_ROWS} seeds {streamed.start}-"
+        f"{streamed.stop - 1} and {list(FUZZ_NO_CUT)}",
+        LocalQueryRunner(device=dev, session=Session(
+            properties={"max_device_rows": FUZZ_STREAM_ROWS})),
+        list(streamed) + list(FUZZ_NO_CUT), expect=FUZZ_NO_CUT)
+    print(f"fuzz phase: {time.perf_counter() - phase_t0:.2f} s, "
+          f"onehot_reduce launches {launches} [{card}]", flush=True)
+    return launches, out
+
+
+# ------------------------------------------------------------- files phase
+
+#: the files phase's scales: F1's lineitem, F2's orders and F3's
+#: lineitem, and F4's ingested rows in their commits
+FILES_BIG = "sf10"
+FILES_SMALL = "sf1"
+F4_ROWS = 1_000_000
+F4_COMMITS = 40
+#: the columns F1 writes: those Q1 and Q6 read
+F1_COLUMNS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
+              "l_returnflag", "l_linestatus", "l_shipdate"]
+Q6_ARGS = ("1994-01-01", "1995-01-01", "0.05", "0.07", "24")
+
+
+def arrow_columns(d, table: str, cols):
+    """The generator's columns ``d`` of ``table`` as an arrow table of
+    the port's types: decimals from their scaled int64 (16-byte
+    little-endian words), dates as date32, dictionary strings decoded
+    by arrow."""
+    import numpy as np
+    import pyarrow as pa
+
+    from presto_tpu_torch.connectors.tpch import TABLE_SCHEMAS, DictColumn
+
+    arrays = []
+    for c in cols:
+        t, v = TABLE_SCHEMAS[table][c], d[c]
+        if isinstance(v, DictColumn):
+            arrays.append(pa.DictionaryArray.from_arrays(
+                pa.array(np.asarray(v.ids, dtype=np.int32)),
+                pa.array([str(x) for x in v.values])).cast(pa.string()))
+        elif t.is_decimal:
+            v = np.asarray(v, dtype=np.int64)
+            words = np.stack([v, v >> 63], axis=1).tobytes()
+            arrays.append(pa.Array.from_buffers(
+                pa.decimal128(t.precision, t.scale), len(v),
+                [None, pa.py_buffer(words)]))
+        elif t.name == "date":
+            arrays.append(pa.array(np.asarray(v, dtype=np.int32),
+                                   type=pa.date32()))
+        else:
+            arrays.append(pa.array(np.asarray(v)))
+    return pa.table(arrays, names=list(cols))
+
+
+def files_phase(card: str, dev=None, records=None, want_q1_big=None,
+                big: str = FILES_BIG, small: str = FILES_SMALL,
+                f4_rows: int = F4_ROWS, f4_commits: int = F4_COMMITS):
+    """The file connectors and the durable lakehouse tee on ``dev`` (the
+    card unless a CPU rehearsal passes another), every file under one
+    temporary directory that the phase removes. F1 ``big`` lineitem's Q1
+    and Q6 columns written to one parquet file (row groups of 2^20
+    rows), then Q1 and Q6 over it, cold then warm, equal to numpy over
+    the generator's columns (and Q1 to ``want_q1_big``, the port's Q1
+    over ``tpch.<big>``; Q1's one-hot call held against its plain
+    version). F2 ``small`` orders as ORC, a GROUP BY o_orderpriority
+    equal to the same query over ``tpch.<small>``. F3 ``small``
+    lineitem as a hive tree partitioned by ``l_shipmode``:
+    ``IN ('AIR', 'MAIL')`` reads 2 of the 7 partitions and equals the
+    same query over ``tpch.<small>``. F4 a coordinator and two workers
+    (sharing the coordinator's catalogs) with ``ingest.wal-path`` and
+    ``lakehouse.path``: ``f4_rows`` rows of ``small`` lineitem POSTed in
+    ``f4_commits`` commits, a Q1-shaped GROUP BY held to numpy; a
+    coordinator restart restores the rows and the snapshot lineage
+    from the manifest tip; FOR VERSION AS OF the middle commit equals
+    that prefix; a forced compaction leaves that pinned reader and the
+    tip bit-equal; ``system.runtime.snapshots`` lists the table.
+    Returns (the onehot_reduce launches, the records)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import pyarrow.orc as orc
+    import pyarrow.parquet as pq
+    import torch
+
+    from presto_tpu_torch.connectors import create_connector
+    from presto_tpu_torch.connectors import hive as hive_mod
+    from presto_tpu_torch.connectors.tpch import (
+        SCHEMAS,
+        DictColumn,
+        TpchGenerator,
+    )
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.exec.staging import CatalogManager
+    from presto_tpu_torch.ops import aggregation as PA
+    from presto_tpu_torch.server import (
+        CoordinatorServer,
+        PrestoTpuClient,
+        WorkerServer,
+        rpc,
+    )
+    from presto_tpu_torch.session import NodeConfig, Session
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    out, launches = [], 0
+    root = tempfile.mkdtemp(prefix="files-")
+
+    def step(label, runner, sql, want_launches=None):
+        nonlocal launches
+        PA.onehot_reduce.launches = 0
+        t0 = time.perf_counter()
+        res = runner.execute(sql)
+        secs = time.perf_counter() - t0
+        n_launch = PA.onehot_reduce.launches
+        launches += n_launch
+        rec = {"step": label, "s": secs, "onehot_reduce_launches": n_launch}
+        out.append(rec)
+        print(f"{label}: {secs:.4f} s, onehot_reduce launches {n_launch} "
+              f"[{card}]", flush=True)
+        if want_launches is not None and on_card:
+            check(n_launch == want_launches, f"{label}: {n_launch} "
+                  f"onehot_reduce launches, expected {want_launches}")
+        return res, rec
+
+    try:
+        # F1: big lineitem's Q1 and Q6 columns as parquet
+        gen = TpchGenerator(SCHEMAS[big])
+        n_li = gen.counts["lineitem"]
+        os.makedirs(os.path.join(root, "lake", "tpch"))
+        path = os.path.join(root, "lake", "tpch", "lineitem.parquet")
+        t0 = time.perf_counter()
+
+        def part(lo, hi):
+            d = gen.generate("lineitem", lo, hi, F1_COLUMNS)
+            return numpy_q6_of(d, Q6_ARGS), arrow_columns(
+                d, "lineitem", F1_COLUMNS)
+
+        chunks = parallel_chunks(n_li, 1 << 22, part)
+        want_q6 = sum(q for q, _ in chunks)
+        with pq.ParquetWriter(path, chunks[0][1].schema) as w:
+            for _, tbl in chunks:
+                w.write_table(tbl, row_group_size=1 << 20)
+        del chunks
+        write_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        out.append({"step": f"F1 write {big} lineitem", "s": write_s,
+                    "rows": n_li, "bytes": nbytes})
+        print(f"F1 write: {n_li} rows of {big} lineitem, "
+              f"{len(F1_COLUMNS)} columns, to parquet in {write_s:.2f} s "
+              f"({nbytes} bytes) [{card}]", flush=True)
+        catalogs = CatalogManager()
+        catalogs.register("tpch", create_connector("tpch"))
+        catalogs.register("lake", create_connector(
+            "parquet", root=os.path.join(root, "lake")))
+        runner = LocalQueryRunner(
+            catalogs=catalogs, device=dev,
+            session=Session(properties={
+                "max_device_rows": JOINS_MAX_DEVICE_ROWS}),
+            staging_cache_bytes=cache_budget(dev))
+        q1 = Q1.replace("tpch.sf1.lineitem", "lake.tpch.lineitem")
+        q6 = Q6.replace("tpch.sf1.lineitem", "lake.tpch.lineitem")
+        if want_q1_big is None:
+            want_q1_big = numpy_q1_stream(big)[1]
+        q1_runs = []
+        for run in ("cold", "warm"):
+            with onehot_calls() as seen:
+                res, rec = step(f"F1 Q1 parquet {big} {run}", runner, q1,
+                                want_launches=1)
+            check_q1_stream(rec["step"], res, want_q1_big)
+            q1_runs.append(res)
+            res, _ = step(f"F1 Q6 parquet {big} {run}", runner, q6)
+            n, cols = result_columns(res)
+            check(n == 1 and int(cols["revenue"][0]) == want_q6,
+                  f"F1 Q6: {cols['revenue'][0]} != numpy {want_q6}")
+        check(results_differ(*q1_runs) is None, "F1 Q1: cold and warm differ")
+        if records is not None and on_card:
+            records.append(fused_case("files q1 parquet fused", *seen[0],
+                                      card))
+        del runner, q1_runs
+        gc.collect()
+
+        # F2: small orders as ORC
+        gen = TpchGenerator(SCHEMAS[small])
+        ocols = ["o_orderkey", "o_custkey", "o_orderstatus", "o_totalprice",
+                 "o_orderdate", "o_orderpriority", "o_shippriority"]
+        os.makedirs(os.path.join(root, "orc", "tpch"))
+        t0 = time.perf_counter()
+        orc.write_table(
+            arrow_columns(gen.generate("orders", 0, gen.counts["orders"],
+                                       ocols), "orders", ocols),
+            os.path.join(root, "orc", "tpch", "orders.orc"))
+        print(f"F2 write: {gen.counts['orders']} rows of {small} orders to "
+              f"ORC in {time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+        catalogs.register("orc", create_connector(
+            "orc", root=os.path.join(root, "orc")))
+        runner = LocalQueryRunner(catalogs=catalogs, device=dev)
+        f2 = ("select o_orderpriority, count(*) as n, sum(o_totalprice) as s, "
+              "min(o_orderdate) as d0, max(o_custkey) as c1 from {} "
+              "group by o_orderpriority order by o_orderpriority")
+        got, _ = step("F2 ORC group by o_orderpriority", runner,
+                      f2.format("orc.tpch.orders"))
+        want = runner.execute(f2.format(f"tpch.{small}.orders"))
+        diff = results_differ(got, want)
+        check(diff is None and len(got.rows()) == 5, f"F2: {diff}")
+
+        # F3: small lineitem as a hive tree partitioned by l_shipmode
+        hcols = ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount",
+                 "l_shipdate", "l_shipmode"]
+        t0 = time.perf_counter()
+        d = gen.generate("lineitem", 0, gen.counts["lineitem"], hcols)
+        modes = d.pop("l_shipmode")
+        check(isinstance(modes, DictColumn), "F3: l_shipmode not a dictionary")
+        tbl = arrow_columns(d, "lineitem", hcols[:-1])
+        for i, mode in enumerate(modes.values):
+            part_dir = os.path.join(root, "hive", "tpch", "lineitem",
+                                    f"l_shipmode={mode}")
+            os.makedirs(part_dir)
+            rows = np.nonzero(np.asarray(modes.ids) == i)[0]
+            pq.write_table(tbl.take(rows),
+                           os.path.join(part_dir, "part-0.parquet"))
+        del d, tbl
+        print(f"F3 write: {gen.counts['lineitem']} rows of {small} lineitem "
+              f"in {len(modes.values)} l_shipmode partitions in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+        catalogs.register("hive", create_connector(
+            "hive", root=os.path.join(root, "hive")))
+        opened = set()
+        real = hive_mod.HiveConnector._append_file_range
+
+        def spy(self, f, *args):
+            opened.add(f.keys.get("l_shipmode"))
+            return real(self, f, *args)
+
+        f3 = ("select l_shipmode, count(*) as n, sum(l_quantity) as q, "
+              "sum(l_extendedprice * (1 - l_discount)) as r, "
+              "max(l_shipdate) as d1 from {} where l_shipmode in "
+              "('AIR', 'MAIL') group by l_shipmode order by l_shipmode")
+        hive_mod.HiveConnector._append_file_range = spy
+        try:
+            got, rec = step("F3 hive IN ('AIR', 'MAIL')", runner,
+                            f3.format("hive.tpch.lineitem"))
+        finally:
+            hive_mod.HiveConnector._append_file_range = real
+        rec["partitions_read"] = sorted(opened)
+        rec["partitions"] = len(modes.values)
+        want = runner.execute(f3.format(f"tpch.{small}.lineitem"))
+        diff = results_differ(got, want)
+        check(diff is None and len(got.rows()) == 2, f"F3: {diff}")
+        print(f"F3: partitions read {sorted(opened)} of {len(modes.values)} "
+              f"[{card}]", flush=True)
+        check(opened == {"AIR", "MAIL"} and len(modes.values) == 7,
+              f"F3: read partitions {sorted(opened)} of {len(modes.values)}")
+        del runner, catalogs
+        gc.collect()
+
+        # F4: the lakehouse tee under a coordinator and two workers
+        lcols = ["l_orderkey", "l_returnflag", "l_linestatus", "l_quantity",
+                 "l_extendedprice", "l_discount", "l_tax", "l_shipdate"]
+        d = gen.generate("lineitem", 0, f4_rows, lcols)
+        for c in ("l_returnflag", "l_linestatus"):
+            d[c] = np.asarray([str(v) for v in d[c].values])[d[c].ids]
+        d = {c: (v if c in ("l_returnflag", "l_linestatus")
+                 else np.asarray(v, dtype=np.int64)) for c, v in d.items()}
+        iso = (np.datetime64("1970-01-01")
+               + d["l_shipdate"].astype("timedelta64[D]")).astype(str)
+
+        def dec(v):
+            return [f"{x // 100}.{x % 100:02d}" for x in v.tolist()]
+
+        cfg = NodeConfig({"ingest.wal-path": os.path.join(root, "wal"),
+                          "lakehouse.path": os.path.join(root, "lakehouse"),
+                          "staging.cache-bytes": str(1 << 30)})
+        tk = ("mem", "default", "li")
+        q1_li = Q1.replace("tpch.sf1.lineitem", "mem.default.li")
+
+        def cluster():
+            cats = CatalogManager()
+            cats.register("mem", create_connector("memory"))
+            coord = CoordinatorServer(config=cfg, catalogs=cats,
+                                      device=dev).start()
+            workers = [WorkerServer(coordinator_uri=coord.uri, catalogs=cats,
+                                    device=dev).start() for _ in range(2)]
+            deadline = time.monotonic() + 60
+            while (len(coord.active_workers()) < 2
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            check(len(coord.active_workers()) == 2,
+                  "F4: the workers did not announce themselves")
+            return coord, workers, PrestoTpuClient(coord.uri, timeout_s=900)
+
+        def shut(coord, workers):
+            for w in workers:
+                w.shutdown(graceful=False)
+            coord.shutdown()
+
+        def q1_rows(client, sql, label, want):
+            nonlocal launches
+            PA.onehot_reduce.launches = 0
+            t0 = time.perf_counter()
+            res = client.execute(sql)
+            secs = time.perf_counter() - t0
+            n_launch = PA.onehot_reduce.launches
+            launches += n_launch
+            rows = res.rows()
+            out.append({"step": label, "s": secs,
+                        "onehot_reduce_launches": n_launch})
+            print(f"{label}: {secs:.4f} s, onehot_reduce launches "
+                  f"{n_launch} [{card}]", flush=True)
+            check(n_launch > 0 or not on_card,
+                  f"{label}: no onehot_reduce launch")
+            check(len(rows) == len(want), f"{label}: {len(rows)} groups, "
+                  f"numpy {len(want)}")
+            names = ("sum_qty", "sum_base_price", "sum_disc_price",
+                     "sum_charge")
+            scales = (2, 2, 4, 6)
+            for r in rows:
+                exp = want[(r[0], r[1])]
+                check(r[9] == exp["count_order"], f"{label} {r[:2]}: count")
+                for v, name, sc in zip(r[2:6], names, scales):
+                    check(abs(float(v) - exp[name] / 10 ** sc)
+                          <= 1e-12 * abs(exp[name] / 10 ** sc),
+                          f"{label} {r[:2]} {name}: {v} vs {exp[name]}")
+            return rows
+
+        coord, workers, client = cluster()
+        try:
+            client.execute(
+                "create table mem.default.li (l_orderkey bigint, "
+                "l_returnflag varchar, l_linestatus varchar, l_quantity "
+                "decimal(15,2), l_extendedprice decimal(15,2), l_discount "
+                "decimal(15,2), l_tax decimal(15,2), l_shipdate date)")
+            per = f4_rows // f4_commits
+            sids = []
+            t0 = time.perf_counter()
+            for i in range(f4_commits):
+                lo, hi = i * per, (i + 1) * per if i < f4_commits - 1 else f4_rows
+                body = {"columns": {
+                    "l_orderkey": d["l_orderkey"][lo:hi].tolist(),
+                    "l_returnflag": d["l_returnflag"][lo:hi].tolist(),
+                    "l_linestatus": d["l_linestatus"][lo:hi].tolist(),
+                    "l_quantity": dec(d["l_quantity"][lo:hi]),
+                    "l_extendedprice": dec(d["l_extendedprice"][lo:hi]),
+                    "l_discount": dec(d["l_discount"][lo:hi]),
+                    "l_tax": dec(d["l_tax"][lo:hi]),
+                    "l_shipdate": iso[lo:hi].tolist()}, "commit": True}
+                ack = rpc.call_json("POST", f"{coord.uri}/v1/ingest/"
+                                    "mem.default.li", body)
+                check(ack.get("committed"), f"F4 commit {i}: {ack}")
+                sids.append(coord.ingest.store.current_sid(tk))
+            ingest_s = time.perf_counter() - t0
+            store = coord.ingest.store
+            files = len(store.manifest(tk).files)
+            out.append({"step": "F4 ingest", "s": ingest_s, "rows": f4_rows,
+                        "commits": f4_commits, "files": files})
+            print(f"F4 ingest: {f4_rows} rows in {f4_commits} POSTed "
+                  f"commits in {ingest_s:.2f} s, {files} data files, "
+                  f"snapshots {sids[0]}..{sids[-1]} [{card}]", flush=True)
+            check(len(set(sids)) == f4_commits and files == f4_commits,
+                  f"F4: snapshots {sids}, {files} files")
+            want_all = numpy_q1_of(d)
+            q1_rows(client, q1_li, "F4 Q1 over the ingested rows", want_all)
+        finally:
+            shut(coord, workers)
+        gc.collect()
+
+        # the restart: fresh catalogs, the same WAL and lakehouse
+        t0 = time.perf_counter()
+        coord, workers, client = cluster()
+        try:
+            restart_s = time.perf_counter() - t0
+            store = coord.ingest.store
+            n = client.execute("select count(*) from mem.default.li").rows()
+            check(n == [[f4_rows]] or n == [(f4_rows,)],
+                  f"F4 restart: {n} rows")
+            check(store.sids(tk)[-f4_commits:] == sids,
+                  f"F4 restart: lineage {store.sids(tk)} != {sids}")
+            print(f"F4 restart: coordinator and workers up in "
+                  f"{restart_s:.2f} s, {f4_rows} rows and "
+                  f"{len(store.sids(tk))} snapshots restored [{card}]",
+                  flush=True)
+            out.append({"step": "F4 restart", "s": restart_s})
+            q1_rows(client, q1_li, "F4 Q1 after the restart", want_all)
+            mid = f4_commits // 2
+            pin = sids[mid - 1]
+            prefix = {c: v[:mid * (f4_rows // f4_commits)]
+                      for c, v in d.items()}
+            q1_pin = q1_li.replace("mem.default.li",
+                                   f"mem.default.li for version as of {pin}")
+            before = q1_rows(client, q1_pin, f"F4 Q1 for version as of {pin}",
+                             numpy_q1_of(prefix))
+            tip = client.execute(q1_li).rows()
+            t0 = time.perf_counter()
+            done = coord.ingest.compaction_tick(force=True)
+            compact_s = time.perf_counter() - t0
+            m = store.manifest(tk)
+            print(f"F4 compaction: {done} table in {compact_s:.2f} s, tip "
+                  f"{m.snapshot} with {len(m.files)} files [{card}]",
+                  flush=True)
+            out.append({"step": "F4 compaction", "s": compact_s,
+                        "files": len(m.files)})
+            check(done == 1 and m.compaction and len(m.files) < f4_commits,
+                  f"F4 compaction: {done}, files {len(m.files)}")
+            check(client.execute(q1_pin).rows() == before,
+                  "F4: the pinned reader moved through compaction")
+            check(client.execute(q1_li).rows() == tip,
+                  "F4: the tip moved through compaction")
+            snaps = client.execute(
+                'select "table", snapshot_id, "rows", compaction from '
+                "system.runtime.snapshots").rows()
+            print(f"F4 system.runtime.snapshots: {snaps} [{card}]",
+                  flush=True)
+            check([tuple(r) for r in snaps] == [
+                ("mem.default.li", m.snapshot, f4_rows, "compacted")],
+                f"F4: system.runtime.snapshots {snaps}")
+        finally:
+            shut(coord, workers)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"files phase: {time.perf_counter() - phase_t0:.2f} s, "
+          f"onehot_reduce launches {launches} [{card}]", flush=True)
+    return launches, out
+
+
 def bucket_of(n: int) -> int:
     """The staging bucket of ``n`` rows (a power of two, at least 1024)."""
     cap = 1024
@@ -6458,6 +6938,18 @@ def main() -> int:
     ici_launches, ici_records = ici_phase(
         card, want_q1_big=baseline["Q1"][1].rows(), records=records)
 
+    phase("fuzz")
+    fuzz_launches, fuzz_records = fuzz_phase(card)
+
+    phase("files")
+    files_launches, files_records = 0, []
+    if importlib.util.find_spec("pyarrow") is None:
+        print("files: not run: pyarrow is not installed on this machine",
+              flush=True)
+    else:
+        files_launches, files_records = files_phase(
+            card, records=records, want_q1_big=baseline["Q1"][0])
+
     headline = next(r for r in records if r["label"] == "q1 fused")
     lanes = next(r for r in records if r["label"] == "q1 microbatch fused")
     shard = next(r for r in records if r["label"] == "distrib q1 shard fused")
@@ -6477,7 +6969,8 @@ def main() -> int:
                              + write_launches + server_launches
                              + serve_launches + recover_launches
                              + qos_launches + distrib_launches
-                             + ici_launches),
+                             + ici_launches + fuzz_launches
+                             + files_launches),
                 "max_abs_err": headline["max_abs_err"],
                 "ms": headline["ms"],
                 "plain_ms": headline["plain_ms"],
@@ -6521,6 +7014,24 @@ def main() -> int:
                 "library_ms": rec["library_ms"],
             }
             for rec, n in ((shard, distrib_launches), (merge, ici_launches))
+        ] + [
+            {
+                # K1 over a file connector's pages: Q1's one call over the
+                # parquet lineitem (launches: the files phase's, F1-F4)
+                "name": "onehot_reduce",
+                "case": rec["label"],
+                "route": "cuda",
+                "source": "presto_tpu_torch/csrc/onehot_reduce.cu",
+                "replaces": "tools/pallas_groupby.py:96",
+                "launches": files_launches,
+                "max_abs_err": rec["max_abs_err"],
+                "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"],
+            }
+            for rec in records if rec["label"] == "files q1 parquet fused"
         ]
     }
     print(json.dumps({"cases": records, "slice": counts,
@@ -6550,6 +7061,10 @@ def main() -> int:
                       "distrib_onehot_reduce": distrib_launches,
                       "ici": ici_records,
                       "ici_onehot_reduce": ici_launches,
+                      "fuzz": fuzz_records,
+                      "fuzz_onehot_reduce": fuzz_launches,
+                      "files": files_records,
+                      "files_onehot_reduce": files_launches,
                       "native": status, "card": card}))
     print(json.dumps(kernels_line))
     print(

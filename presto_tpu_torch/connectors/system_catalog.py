@@ -16,8 +16,10 @@ autoscaler's last decision, ``runtime.tasks`` the coordinator's per-task
 stats rollups, and ``runtime.qos`` one row per QoS lane (with
 ``qos.enabled``). Tables served empty, as the reference's are without
 the planes that feed them: ``runtime.qos`` with the plane off,
-``runtime.snapshots`` and ``runtime.metrics_history``, and
-``runtime.tasks`` on a plain local runner. ``runtime.caches`` has no
+``runtime.metrics_history``, and ``runtime.tasks`` on a plain local
+runner. ``runtime.snapshots`` lists the tip of every table of each
+mounted manifest store (the ingest lane's lakehouse store and any
+lakehouse file connector's). ``runtime.caches`` has no
 ``compile.programs`` row (the port compiles no program per query); its
 ``exchange.ici`` row is the process's in-slice exchange segment.
 """
@@ -199,10 +201,7 @@ _SCHEMAS: Dict[str, Dict[str, Dict[str, T.DataType]]] = {
 
 
 #: tables only a server feeds
-_SERVER_TABLES = {
-    ("runtime", t)
-    for t in ("metrics_history", "snapshots")
-}
+_SERVER_TABLES = {("runtime", "metrics_history")}
 
 
 class _SystemMetadata(ConnectorMetadata):
@@ -313,12 +312,43 @@ class SystemConnector(Connector):
             # plane off (or plain local runner): an empty view, not an
             # error — dashboards can always select from it
             return qos.view_rows() if qos is not None else []
+        if key == ("runtime", "snapshots"):
+            return self._snapshot_rows()
         if key in _SERVER_TABLES:
             # fed by the server or the telemetry sampler, which a local
             # runner has not: an empty view, as the reference's local
             # runner serves
             return []
         raise KeyError(f"system table {handle.schema}.{handle.table}")
+
+    def _snapshot_rows(self):
+        """Per-table tip state of every mounted manifest store
+        (server/manifests.py): the ingest lane's store plus any
+        lakehouse-configured file connector, deduplicated by root —
+        the common deployment points them at the SAME directory.
+        Empty when no lakehouse is configured (plain WAL ingest or
+        no ingest at all): a view, never an error."""
+        if self._runner is None:
+            return []
+        stores = {}
+        ing = getattr(self._runner, "ingest", None)
+        store = getattr(ing, "store", None)
+        if store is not None:
+            stores[store.root] = store
+        for name in self._runner.catalogs.names():
+            conn = self._runner.catalogs.get(name)
+            cstore = getattr(conn, "manifest_store", None)
+            if cstore is not None:
+                stores.setdefault(cstore.root, cstore)
+        out = []
+        for store in stores.values():
+            for tk in store.tables():
+                try:
+                    out.append(store.table_stats(tk))
+                except OSError:
+                    continue  # torn directory mid-GC: skip the row
+        out.sort(key=lambda r: r["table"])
+        return out
 
     def _cache_rows(self):
         """Live occupancy of the engine caches (reference: the jmx

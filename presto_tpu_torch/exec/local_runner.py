@@ -177,6 +177,12 @@ class QueryResult:
             tuple(r[c] for c in self.columns) for r in self.page.to_pylist()
         ]
 
+    def exact_rows(self) -> List[tuple]:
+        """``rows()`` with short decimals as ``decimal.Decimal``: the
+        write path's values, exact where a float would round."""
+        cols = _result_columns(self)
+        return list(zip(*(cols[c] for c in self.columns)))
+
     def row_dicts(self) -> List[dict]:
         return self.page.to_pylist()
 
@@ -1561,15 +1567,9 @@ class LocalQueryRunner:
             t_disped = time.perf_counter()
             control = _in_order(control_t.cpu().tolist(), order)
             t_fetched = time.perf_counter()
-            if DEVICE.enabled:
-                # one attempt of the plan's operators (an overflowed one
-                # ran too) and the bytes of its control read
-                d2h = int(control_t.nbytes)
-                DEVICE.count_dispatch()
-                DEVICE.count_d2h(d2h)
-                self._fold_device_stat(
-                    device_dispatches=1, device_d2h_bytes=d2h
-                )
+            # one attempt of the plan's operators (an overflowed one ran
+            # too) and the bytes of its control read
+            self._count_control_read(control_t)
             nf, ne, nc = len(ctx.flags), len(ctx.errors), len(counts)
             for (msg, _), bit in zip(ctx.errors, control[nf:nf + ne]):
                 if bit:
@@ -1705,6 +1705,17 @@ class LocalQueryRunner:
                     setattr(qs, attr, getattr(qs, attr) + n)
             else:
                 setattr(qs, attr, getattr(qs, attr) + n)
+
+    def _count_control_read(self, control_t: torch.Tensor) -> None:
+        """Count one dispatch and the bytes of its control read on the
+        device plane and the active query's sink: the seam through which
+        every runner tier (the distributed runner's fragments too)
+        counts its host reads."""
+        if DEVICE.enabled:
+            d2h = int(control_t.nbytes)
+            DEVICE.count_dispatch()
+            DEVICE.count_d2h(d2h)
+            self._fold_device_stat(device_dispatches=1, device_d2h_bytes=d2h)
 
     def _fold_device_stat(self, **fields) -> None:
         """Add device-plane quantities (utils/telemetry.py families) to
@@ -2446,15 +2457,21 @@ def _result_columns(res: QueryResult) -> Dict[str, np.ndarray]:
     """QueryResult -> {column: object ndarray of Python values}, the
     write SPI's row format (None = NULL). Built column by column from
     the host page through the decoder ``Page.to_pylist`` uses, with the
-    values and types of the reference's row-wise build. As there, a
-    name the page holds twice reads its last block."""
+    values and types of the reference's row-wise build, except that a
+    short decimal is the exact ``decimal.Decimal`` of its scaled integer
+    where the reference writes a float (which loses digits above
+    2^53). As there, a name the page holds twice reads its last
+    block."""
     page = res.page
     if page.live is not None:
         idx = np.nonzero(page.live.cpu().numpy())[0]
     else:
         idx = np.arange(int(page.num_valid))
     blocks = dict(zip(page.names, page.blocks))
-    return {c: obj_array(decode_column(blocks[c], idx)) for c in res.columns}
+    return {
+        c: obj_array(decode_column(blocks[c], idx, exact=True))
+        for c in res.columns
+    }
 
 
 def _literal_value(e):

@@ -534,7 +534,7 @@ class MViewRegistry:
                     (tmp.catalog, tmp.schema, tmp.table)
                 ),
             )
-            rows = self._run(delta_q).rows()
+            rows = self._run(delta_q).exact_rows()
         finally:
             if hasattr(conn, "drop_table"):
                 conn.drop_table(tmp)
@@ -610,7 +610,7 @@ class MViewRegistry:
             else None
         )
         if mv.eligible:
-            rows = self._run(mv.state_query).rows()
+            rows = self._run(mv.state_query).exact_rows()
             n_keys = sum(1 for kind, _ in mv.shape if kind == "key")
             new_state = {
                 tuple(row[:n_keys]): list(row[n_keys:]) for row in rows
@@ -640,7 +640,7 @@ class MViewRegistry:
                 mv.state = new_state
                 self._materialize(mv)
             else:
-                out_rows = res.rows()
+                out_rows = res.exact_rows()
                 idx = [
                     list(res.columns).index(c)
                     for c in mv.visible_names

@@ -422,11 +422,15 @@ class DictTransform(Expr):
     """String-valued function of a dictionary column, evaluated host-side
     over the dictionary entries (substring, lower, ...). On device it is
     an int32 LUT gather old-id -> new-id; the result column carries the
-    transformed (re-sorted) dictionary. ``fn`` maps str -> str."""
+    transformed (re-sorted) dictionary. ``fn`` maps str -> str.
+
+    ``fn_key`` names the transform; the repr prints it and never ``fn``,
+    a fresh closure per planning whose address would change a plan's
+    history fingerprint every time (the reference prints it)."""
 
     arg: Expr  # string-typed
     fn_key: str
-    fn: object = dataclasses.field(hash=False, compare=False)
+    fn: object = dataclasses.field(hash=False, compare=False, repr=False)
 
     def children(self):
         return (self.arg,)

@@ -68,7 +68,11 @@ def load(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         so = BUILD / f"lib{name}.so"
-        build(CSRC / f"{name}.cu", so, [_nvcc(), *NVCC_FLAGS])
+        # one-time lazy build under the load lock, so two first callers
+        # never race one compile
+        build(  # lint: disable=blocking-under-lock
+            CSRC / f"{name}.cu", so, [_nvcc(), *NVCC_FLAGS]
+        )
         lib = ctypes.CDLL(str(so))
         _loaded[name] = lib
         return lib

@@ -493,8 +493,10 @@ def _np(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
     return None if t is None else t.cpu().numpy()
 
 
-def decode_column(blk: Block, idx: np.ndarray) -> list:
-    """Rows ``idx`` of one block as Python values (None = NULL)."""
+def decode_column(blk: Block, idx: np.ndarray, exact: bool = False) -> list:
+    """Rows ``idx`` of one block as Python values (None = NULL).
+    ``exact`` decodes short decimals as ``decimal.Decimal`` (the write
+    path's row format) instead of floats."""
     rvalid = _np(blk.valid)
     if blk.dtype.is_row:
         fields = [
@@ -505,6 +507,7 @@ def decode_column(blk: Block, idx: np.ndarray) -> list:
                     ftype,
                     ch.dictionary,
                     None if ch.valid is None else _np(ch.valid)[idx],
+                    exact,
                 ),
             )
             for (fname, ftype), ch in zip(blk.dtype.fields, blk.children)
@@ -541,7 +544,8 @@ def decode_column(blk: Block, idx: np.ndarray) -> list:
             ]
         else:
             elems = _decode_values(
-                blk.data.cpu().numpy()[pos], blk.dtype.element, blk.dictionary
+                blk.data.cpu().numpy()[pos], blk.dtype.element, blk.dictionary,
+                exact=exact,
             )
             kept = [elems[a:b] for a, b in zip(starts, ends)]
         if rvalid is None:
@@ -555,6 +559,7 @@ def decode_column(blk: Block, idx: np.ndarray) -> list:
         blk.dtype,
         blk.dictionary,
         None if rvalid is None else rvalid[idx],
+        exact,
     )
 
 
@@ -571,15 +576,19 @@ def _decode_values(
     t: T.DataType,
     dictionary: Optional[Dictionary],
     valid: Optional[np.ndarray] = None,
+    exact: bool = False,
 ) -> list:
     """Stored values of one flat type -> Python values, None where
     ``valid`` is False; one numpy conversion per column. Short decimals
     are ``int / 10**scale`` in Python arithmetic (a float: a scaled
-    value above 2^53 loses digits), long decimals ``decimal.Decimal``."""
+    value above 2^53 loses digits, as the reference's rows do), or
+    with ``exact`` the ``decimal.Decimal`` of the scaled integer; long
+    decimals are always ``decimal.Decimal``."""
     if valid is not None and not valid.all():
         out = [None] * len(data)
         pos = np.nonzero(valid)[0]
-        for k, v in zip(pos.tolist(), _decode_values(data[pos], t, dictionary)):
+        vals = _decode_values(data[pos], t, dictionary, exact=exact)
+        for k, v in zip(pos.tolist(), vals):
             out[k] = v
         return out
     if len(data) == 0:
@@ -596,6 +605,10 @@ def _decode_values(
                 for hi, lo in data
             ]
     if t.is_decimal:
+        if exact:
+            import decimal as _dec
+
+            return [_dec.Decimal(v).scaleb(-t.scale) for v in data.tolist()]
         scale = 10 ** t.scale
         return [v / scale for v in data.tolist()]
     if t.name == "date":

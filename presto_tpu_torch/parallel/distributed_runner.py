@@ -79,7 +79,6 @@ from presto_tpu_torch.parallel.exchange import (
 from presto_tpu_torch.parallel.fragmenter import insert_gathers
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.session import Session
-from presto_tpu_torch.utils.telemetry import DEVICE
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -231,11 +230,7 @@ class DistributedQueryRunner(LocalQueryRunner):
         control_t, order = _control_vector(scalars)
         control = _in_order(control_t.cpu().tolist(), order)
         self.fragment_reads += 1
-        if DEVICE.enabled:
-            d2h = int(control_t.nbytes)
-            DEVICE.count_dispatch()
-            DEVICE.count_d2h(d2h)
-            self._fold_device_stat(device_dispatches=1, device_d2h_bytes=d2h)
+        self._count_control_read(control_t)
         return control
 
     def _execute_fragment(self, root, scans, tables, balance):

@@ -38,8 +38,9 @@ of the exchange SPI (``exchange_spi``, ``exchange.ici-enabled``,
 exchange partitioned output as device pages, and the root gather rides
 the lane when the coordinator shares the slice.
 
-Refused with an error naming the later slice: the lakehouse tee
-(``lakehouse.*``, with the file connectors, ROADMAP queue 3).
+The durable lakehouse tee (``manifests``, ``lakehouse.*``): ingest
+commits publish manifest snapshots over immutable parquet files, with
+time travel, compaction and the orphan GC.
 """
 
 from presto_tpu_torch.server.client import PrestoTpuClient  # noqa: F401

@@ -54,10 +54,10 @@ it, its edges move device pages between co-located workers, and the
 root stage's gather is one more in-slice edge when the coordinator
 shares the slice (``exchange.single-program``).
 
-Not in this slice, refused with an error that names the later slice
-when a config key turns it on: the lakehouse tee (``lakehouse.*``, with
-the file connectors: ROADMAP queue 3). Its defaults behave as the
-reference's do with that plane off.
+The durable lakehouse tee (``lakehouse.*`` beside
+``ingest.wal-path``): each ingest commit publishes a manifest snapshot
+(``server/manifests.py``) before its WAL commit frame, and compaction
+and the orphan GC run in the ingest lane.
 """
 
 from __future__ import annotations
@@ -257,39 +257,6 @@ def _truthy(v) -> bool:
     return bool(v)
 
 
-_LAKE = (
-    "the lakehouse tee, with the file connectors and manifests, "
-    "which need pyarrow; ROADMAP queue 3"
-)
-
-#: config keys that turn on a plane of a later server slice:
-#: key -> (is the value on?, the later slice)
-_REFUSED_CONFIG = {
-    "lakehouse.path": (bool, _LAKE),
-    "lakehouse.target-file-bytes": (lambda v: True, _LAKE),
-    "lakehouse.compaction.interval-s": (lambda v: True, _LAKE),
-    "lakehouse.compaction.min-files": (lambda v: True, _LAKE),
-    "lakehouse.orphan-ttl-s": (lambda v: True, _LAKE),
-}
-
-
-class LaterSliceError(ValueError):
-    """A setting turns on a server plane this slice does not port."""
-
-
-def refuse_later_planes(table, get) -> None:
-    """Raise on the first setting of ``table`` that ``get`` (a key ->
-    value-or-None lookup) turns on; at its off value a key is accepted
-    and changes nothing, as the reference's defaults do."""
-    for key, (is_on, later) in table.items():
-        v = get(key)
-        if v is not None and is_on(v):
-            raise LaterSliceError(
-                f"{key}={v}: comes with a later slice of the port "
-                f"({later}); the port's server does not run it yet"
-            )
-
-
 class _MicrobatchMember:
     """One statement parked in the batch queue: its cached canonical
     plan (bound values included), its stats sink, and the event the
@@ -467,9 +434,6 @@ class CoordinatorServer:
     ):
         from presto_tpu_torch.exec.local_runner import LocalQueryRunner
         from presto_tpu_torch.utils.memory import MemoryPool, parse_bytes
-
-        if config is not None:
-            refuse_later_planes(_REFUSED_CONFIG, config.get)
 
         # memory accounting ALWAYS on (reference: MemoryPool +
         # ClusterMemoryManager kill-largest policy; limit from tier-1
@@ -705,10 +669,30 @@ class CoordinatorServer:
         # resolves tables through them). Unset = none of it is built
         self.ingest = None
         ing_path = config.get("ingest.wal-path") if config else None
+        lake_fb = (
+            config.get("lakehouse.target-file-bytes") if config else None
+        )
         self._ingest_cfg = (
             (
                 ing_path,
                 float(config.get("ingest.commit-interval-ms", 50.0)),
+                {
+                    "lakehouse_path": config.get("lakehouse.path"),
+                    "lakehouse_target_file_bytes": (
+                        parse_bytes(lake_fb)
+                        if lake_fb is not None
+                        else None
+                    ),
+                    "lakehouse_compaction_interval_s": float(
+                        config.get("lakehouse.compaction.interval-s", 0.0)
+                    ),
+                    "lakehouse_compaction_min_files": int(
+                        config.get("lakehouse.compaction.min-files", 4)
+                    ),
+                    "lakehouse_orphan_ttl_s": float(
+                        config.get("lakehouse.orphan-ttl-s", 86400.0)
+                    ),
+                },
             )
             if ing_path
             else None
@@ -945,9 +929,9 @@ class CoordinatorServer:
         if self._ingest_cfg is not None and self.ingest is None:
             from presto_tpu_torch.server.ingest import IngestManager
 
-            path, interval = self._ingest_cfg
+            path, interval, lake_kw = self._ingest_cfg
             self.ingest = IngestManager(
-                self.local, path, commit_interval_ms=interval
+                self.local, path, commit_interval_ms=interval, **lake_kw
             )
         # time-series sampler (telemetry.sample-interval-s > 0): a
         # daemon loop folding node scrapes into the metrics_history

@@ -45,9 +45,7 @@ of an eligible aggregate view on the card). ``ingest.wal-path`` unset
 means none of this is built and the INSERT/CTAS write path is
 unchanged.
 
-The PyTorch port's copy of ``presto_tpu/server/ingest.py`` without the
-lakehouse tee (the manifest store and its compaction, which need
-pyarrow and come with the file connectors).
+The PyTorch port's copy of ``presto_tpu/server/ingest.py``.
 """
 
 from __future__ import annotations
@@ -61,7 +59,7 @@ import zlib
 from typing import Dict, List, Optional, Tuple
 
 from presto_tpu_torch import types as T
-from presto_tpu_torch.connectors.spi import TableHandle
+from presto_tpu_torch.connectors.spi import ConnectorSplit, TableHandle
 from presto_tpu_torch.utils import faults
 from presto_tpu_torch.utils.metrics import REGISTRY
 
@@ -164,11 +162,38 @@ class IngestManager:
         wal_path: str,
         commit_interval_ms: float = DEFAULT_COMMIT_INTERVAL_MS,
         start_thread: bool = True,
+        lakehouse_path: Optional[str] = None,
+        lakehouse_target_file_bytes: Optional[int] = None,
+        lakehouse_compaction_interval_s: float = 0.0,
+        lakehouse_compaction_min_files: int = 4,
+        lakehouse_orphan_ttl_s: float = 86400.0,
     ):
         self.runner = runner
         self.path = wal_path
         self.commit_interval_ms = float(commit_interval_ms)
         os.makedirs(wal_path, exist_ok=True)
+        # the durable lakehouse tee (lakehouse.path): commits publish
+        # a manifest snapshot BEFORE the WAL commit frame, so restart
+        # restores volatile tables from the manifest tip instead of
+        # replaying batch frames. Unset = bit-exact legacy behavior
+        # (no store constructed, no compaction thread)
+        self.store = None
+        self._compact_min_files = int(lakehouse_compaction_min_files)
+        self._compact_interval = float(lakehouse_compaction_interval_s)
+        self._orphan_ttl = float(lakehouse_orphan_ttl_s)
+        if lakehouse_path:
+            from presto_tpu_torch.server.manifests import (
+                DEFAULT_TARGET_FILE_BYTES,
+                ManifestStore,
+            )
+
+            self.store = ManifestStore(
+                lakehouse_path,
+                target_file_bytes=(
+                    lakehouse_target_file_bytes
+                    or DEFAULT_TARGET_FILE_BYTES
+                ),
+            )
         #: dotted 3-part name -> lane
         self._lanes: Dict[str, _TableLane] = {}
         self._lanes_mu = threading.Lock()
@@ -186,6 +211,7 @@ class IngestManager:
         runner.ingest = self
         self._replay()
         self._thread = None
+        self._compact_thread = None
         if start_thread and self.commit_interval_ms > 0:
             self._thread = threading.Thread(
                 target=self._commit_loop,
@@ -193,6 +219,18 @@ class IngestManager:
                 daemon=True,
             )
             self._thread.start()
+        if (
+            start_thread
+            and self.store is not None
+            and self._compact_interval > 0
+        ):
+            self._compact_thread = threading.Thread(
+                target=self._compaction_loop,
+                name="lakehouse-compaction",
+                daemon=True,
+            )
+            self._compact_thread.start()
+
     # --------------------------------------------------------- resolve
 
     def _resolve(self, table) -> Tuple[str, str, str]:
@@ -372,8 +410,10 @@ class IngestManager:
                 lane.pending = []
                 upto = batches[-1][0]
                 # sid == the last folded seq, so ids are per-table
-                # monotone: the commit frame is the durability point
-                # AND the id mint
+                # monotone. Legacy (no lakehouse): the commit frame is
+                # the durability point AND the id mint. Lakehouse: the
+                # manifest ``_current`` swap below is the durability
+                # point — the frame just lets replay skip the tail
                 sid = upto
             handle = lane.handle
             conn = self.runner.catalogs.get(handle.catalog)
@@ -382,6 +422,26 @@ class IngestManager:
                 c: [v for _seq, cols, _n in batches for v in cols[c]]
                 for c in tschema
             }
+            # durable publish FIRST (manifest-backed tables): a disk
+            # failure at ANY stage leaves the old tip reachable — the
+            # batches go back to the pending front and the whole
+            # commit retries cleanly. The acked WAL frames are
+            # untouched either way: never an acked-batch loss
+            published = folded = False
+            try:
+                published, folded = self._publish_durable(
+                    handle, conn, tschema, delta, sid
+                )
+            except (OSError, RuntimeError):
+                REGISTRY.counter("lakehouse.commit_retries").update()
+                log.warning(
+                    "lakehouse publish of %s@%s failed — commit will "
+                    "retry", ".".join(handle.table_key), sid,
+                    exc_info=True,
+                )
+                with lane.lock:
+                    lane.pending = batches + lane.pending
+                return False
             try:
                 with lane.lock:
                     self._write_frame(
@@ -390,14 +450,28 @@ class IngestManager:
                     )
                     lane.committed = upto
             except OSError:
-                # the frame IS the durability point: nothing committed,
-                # the whole batch set retries (the acked batch frames
-                # are untouched: never an acked-batch loss)
+                if not published:
+                    # legacy mode: the frame WAS the durability point
+                    # — nothing committed, retry the whole batch set
+                    with lane.lock:
+                        lane.pending = batches + lane.pending
+                    return False
+                # the manifest tip is durable; replay reconciles
+                # ``committed = max(wal upto, manifest tip)`` without
+                # the frame, so the commit stands
                 with lane.lock:
-                    lane.pending = batches + lane.pending
-                return False
-            # fold the delta into the connector: visible from here on
-            conn.commit_snapshot(handle, delta, sid)
+                    lane.committed = upto
+                log.warning(
+                    "WAL commit frame for %s@%s lost (manifest tip "
+                    "carries the commit)", ".".join(handle.table_key),
+                    sid, exc_info=True,
+                )
+            if not folded:
+                # fold the delta into the connector for visibility —
+                # the lakehouse tee above was durability only (native
+                # manifest connectors already folded inside their own
+                # commit_snapshot)
+                conn.commit_snapshot(handle, delta, sid)
             # drop staged pages + cached plans of every snapshot of
             # the table (and bump the MV staleness epoch through the
             # same audited seam)
@@ -431,6 +505,189 @@ class IngestManager:
             (time.perf_counter() - t0) * 1000.0
         )
         return True
+
+    # ------------------------------------------------------- lakehouse
+
+    def _publish_durable(
+        self, handle, conn, tschema, delta, sid
+    ) -> Tuple[bool, bool]:
+        """Durably publish one commit's delta as manifest snapshot
+        ``sid`` BEFORE the WAL commit frame. Returns ``(published,
+        folded)``: native manifest connectors fold visibility inside
+        their own ``commit_snapshot`` (folded=True); volatile tables
+        tee through the ingest-level store (folded=False); no store
+        anywhere = legacy WAL-only commit (False, False). Raises on
+        I/O failure — the caller restores the batches and retries."""
+        if getattr(conn, "manifest_store", None) is not None:
+            conn.commit_snapshot(handle, delta, sid)
+            return True, True
+        if self.store is None:
+            return False, False
+        tk = handle.table_key
+        if not self.store.has_table(tk):
+            # first lakehouse commit of this table: bootstrap the
+            # manifest from the connector's live committed rows, so
+            # pre-lakehouse history survives the first restart too
+            pre = self._connector_rows(conn, handle, tschema)
+            if pre is not None and any(
+                len(v) for v in pre.values()
+            ):
+                delta = {
+                    c: list(pre.get(c, ())) + list(delta.get(c, ()))
+                    for c in tschema
+                }
+        self.store.commit(tk, tschema, delta, sid)
+        return True, False
+
+    def _connector_rows(self, conn, handle, tschema):
+        """Full committed contents of a volatile table as python
+        values (the manifest bootstrap input); None when unreadable."""
+        try:
+            nrows = int(
+                conn.metadata().get_table_stats(handle).row_count or 0
+            )
+            if nrows == 0:
+                return None
+            page = conn.create_page_source(
+                ConnectorSplit(handle, 0, nrows), list(tschema)
+            )
+            return {c: list(page[c]) for c in tschema}
+        except Exception:
+            log.warning(
+                "lakehouse bootstrap read of %s failed",
+                ".".join(handle.table_key), exc_info=True,
+            )
+            return None
+
+    def _restore_from_tip(
+        self, conn, handle, store, tip, batches, upto
+    ) -> bool:
+        """Restart recovery for a manifest-backed volatile table:
+        rebuild the committed rows from the durable tip (bit-equal to
+        what was committed — parquet round-trips the engine's value
+        domain exactly), re-register the snapshot lineage so time
+        travel survives the restart, then fold any WAL-only committed
+        batches past the tip (commits from before the lakehouse was
+        enabled). Returns False to fall back to pure-WAL restore."""
+        tk = handle.table_key
+        try:
+            vals = store.read_values(tk, tip)
+        except OSError:
+            vals = None
+        if vals is None:
+            log.warning(
+                "lakehouse restore of %s@%s failed — falling back to "
+                "WAL replay", ".".join(tk), tip,
+            )
+            return False
+        meta_schema = conn.metadata().get_table_schema(handle)
+        conn.commit_snapshot(
+            handle, {c: vals.get(c, []) for c in meta_schema}, tip
+        )
+        restore = getattr(conn, "restore_snapshots", None)
+        if restore is not None:
+            pairs = []
+            for s in store.sids(tk):
+                m = store.manifest(tk, s)
+                if m is not None:
+                    pairs.append((s, m.row_count))
+            restore(handle, pairs)
+        extra = [
+            (s, batches[s]) for s in sorted(batches) if tip < s <= upto
+        ]
+        if extra:
+            delta = {
+                c: [
+                    _coerce_value(v, meta_schema[c])
+                    for _s, cols in extra
+                    for v in cols.get(c, ())
+                ]
+                for c in meta_schema
+            }
+            conn.commit_snapshot(handle, delta, upto)
+        REGISTRY.counter("lakehouse.restores").update()
+        return True
+
+    def _compaction_loop(self) -> None:
+        interval = max(self._compact_interval, 0.05)
+        while not self._stop.wait(interval):
+            try:
+                self.compaction_tick()
+            except Exception:
+                log.warning(
+                    "lakehouse compaction tick failed", exc_info=True
+                )
+
+    def compaction_tick(self, force: bool = False) -> int:
+        """Rewrite small commit files into ~target-file-bytes chunks,
+        one new snapshot per table — background housekeeping that
+        DEFERS to foreground queries (PR 13's low-priority lane:
+        while any QoS lane has queued work, the tick yields). Also
+        runs the TTL'd orphan GC. Returns tables compacted."""
+        if self.store is None:
+            return 0
+        cluster = getattr(self.runner, "cluster", None)
+        qos = getattr(cluster, "qos", None) if cluster else None
+        if qos is not None and not force:
+            idle = getattr(qos, "background_idle", None)
+            if idle is not None and not idle():
+                REGISTRY.counter(
+                    "lakehouse.compaction_deferred"
+                ).update()
+                return 0
+        with self._lanes_mu:
+            lanes = list(self._lanes.values())
+        done = 0
+        for lane in lanes:
+            handle = lane.handle
+            try:
+                conn = self.runner.catalogs.get(handle.catalog)
+            except KeyError:
+                continue
+            store = getattr(conn, "manifest_store", None) or self.store
+            tk = handle.table_key
+            if not store.has_table(tk):
+                continue
+            with self._commit_mu:
+                with lane.lock:
+                    if lane.pending:
+                        continue  # commit the tail first
+                    # mint the compaction snapshot id from the lane's
+                    # seq space (id minting stays confined here); a
+                    # no-op tick just leaves a gap, which monotone
+                    # per-table ids tolerate by design
+                    lane.seq += 1
+                    sid = lane.seq
+                try:
+                    m = store.compact(
+                        tk, sid, min_files=self._compact_min_files
+                    )
+                except (OSError, RuntimeError):
+                    log.warning(
+                        "lakehouse compaction of %s failed",
+                        ".".join(tk), exc_info=True,
+                    )
+                    continue
+                if m is None:
+                    continue
+                if getattr(conn, "manifest_store", None) is None:
+                    # register the compaction snapshot in the volatile
+                    # store's history (empty delta: same rows, new id)
+                    # so FOR VERSION AS OF the compacted snapshot pins
+                    tschema = conn.metadata().get_table_schema(handle)
+                    conn.commit_snapshot(
+                        handle, {c: [] for c in tschema}, sid
+                    )
+                done += 1
+            # pinned readers keep serving the old files — only the
+            # TTL'd GC reclaims compacted-away snapshots
+            self.runner._invalidate_table_caches(handle)
+        if self._orphan_ttl > 0:
+            try:
+                self.store.gc_orphans(self._orphan_ttl)
+            except OSError:
+                pass
+        return done
 
     # ------------------------------------------------ materialized views
 
@@ -544,6 +801,20 @@ class IngestManager:
             tschema = {
                 c: T.parse_type(t) for c, t in tschema_txt.items()
             }
+            # lakehouse reconciliation: the manifest ``_current`` tip
+            # may be AHEAD of the last WAL commit frame (a crash hit
+            # the window between the durable publish and the frame) —
+            # the tip wins, and the watermarks move up so the covered
+            # batches are NOT re-admitted (exactly-once tail replay)
+            cstore = getattr(conn, "manifest_store", None)
+            store = cstore if cstore is not None else self.store
+            tk = handle.table_key
+            tip = None
+            if store is not None and store.has_table(tk):
+                tip = store.current_sid(tk)
+            if tip is not None:
+                lane.seq = max(lane.seq, tip)
+                lane.committed = max(upto, tip)
             try:
                 existing = handle.table in conn.metadata().list_tables(
                     handle.schema
@@ -569,7 +840,21 @@ class IngestManager:
                     )
                 except Exception:
                     table_rows = 0.0
-            if upto and table_rows == 0.0:
+            restored_from_tip = False
+            if (
+                tip is not None
+                and cstore is None
+                and table_rows == 0.0
+            ):
+                restored_from_tip = self._restore_from_tip(
+                    conn, handle, store, tip, batches, upto
+                )
+            if (
+                upto
+                and table_rows == 0.0
+                and not restored_from_tip
+                and cstore is None
+            ):
                 committed = [
                     (s, batches[s]) for s in sorted(batches) if s <= upto
                 ]
@@ -685,6 +970,8 @@ class IngestManager:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=5.0)
+        if self._compact_thread is not None:
+            self._compact_thread.join(timeout=5.0)
         if final_flush:
             try:
                 self.commit_tick()

@@ -9,9 +9,10 @@ tier 2 ``etc/catalog/*.properties`` (one connector instance per file,
 
 The PyTorch counterpart of ``presto_tpu/server/launcher.py``. A node
 boots on the CUDA device (``launch(..., device="cpu")`` for tests).
-The connectors are the port's: an ``etc/`` that names one the port does
-not have yet (``hive``, ``parquet``) fails fast with "unknown
-connector", never skipping the catalog. A coordinator with
+The connectors are the port's, the file connectors (``parquet``,
+``orc``, ``hive``) among them; an ``etc/`` that names an unknown one
+fails fast with "unknown connector", never skipping the catalog. A
+coordinator with
 ``pool.max-workers`` runs the elastic pool through
 :class:`LocalWorkerPoolProvider`: its workers are threads of the
 coordinator's process on the coordinator's device.

@@ -7,11 +7,16 @@ node failure detection / recoverable execution as coordinator duties
 ``urllib.request.urlopen`` call sites (``tools/check_rpc_calls.py``
 enforces that) and adds what raw urlopen lacks:
 
-- per-call, config-driven timeouts on a **monotonic** clock,
+- per-call, config-driven timeouts on a **monotonic** clock, with a
+  connect bounded apart from the read (``CONNECT_TIMEOUT_S``), so a
+  dead peer whose port leaves connects unanswered costs that bound, not
+  a whole request timeout,
 - bounded retries with exponential backoff + **full jitter** for
-  connection-level failures on idempotent calls (POSTs are never
-  retried here — task creation is made idempotent one level up, where
-  the coordinator mints a fresh task id per attempt),
+  connection-level failures on idempotent calls, and on a POST only
+  when its connect failed (no byte of it was sent; a POST that reached
+  its peer is never retried here — task creation is made idempotent
+  one level up, where the coordinator mints a fresh task id per
+  attempt),
 - fault-plane hooks (:mod:`presto_tpu_torch.utils.faults`) before every
   attempt, so chaos tests inject at the one choke point,
 - ``rpc.*`` metrics (requests / failures / retries / time).
@@ -25,6 +30,7 @@ scheduling next to the discovery TTL.
 from __future__ import annotations
 
 import dataclasses
+import http.client
 import json
 import random
 import threading
@@ -78,6 +84,11 @@ def is_task_recoverable(exc: BaseException) -> bool:
     )
 
 
+#: the bound of a TCP connect: a live peer on a LAN accepts in well under
+#: a second, a dead one may leave the connect unanswered
+CONNECT_TIMEOUT_S = 3.0
+
+
 @dataclasses.dataclass(frozen=True)
 class RpcPolicy:
     """Per-call knobs, config-driven (reference: airlift HttpClient
@@ -109,6 +120,40 @@ class RpcPolicy:
 
 
 DEFAULT_POLICY = RpcPolicy()
+
+
+class _Connection(http.client.HTTPConnection):
+    """An HTTP connection whose connect is bounded by
+    ``CONNECT_TIMEOUT_S``: the socket then takes the request's timeout
+    for every read. A connect that fails is marked ``unsent`` (no byte
+    of the request left), which lets :func:`call` retry even a POST."""
+
+    def connect(self) -> None:
+        read_timeout = self.timeout
+        self.timeout = min(CONNECT_TIMEOUT_S, read_timeout)
+        try:
+            super().connect()
+        except OSError as e:
+            e.unsent = True
+            raise
+        finally:
+            self.timeout = read_timeout
+        self.sock.settimeout(read_timeout)
+
+
+class _Handler(urllib.request.HTTPHandler):
+    def http_open(self, req):
+        return self.do_open(_Connection, req)
+
+
+_OPENER = urllib.request.build_opener(_Handler())
+
+
+def _unsent(exc: BaseException) -> bool:
+    """Did ``exc`` end the call before any byte of it was sent?"""
+    reason = getattr(exc, "reason", exc)
+    return bool(getattr(reason, "unsent", False))
+
 
 #: shared executor for pipelined page pulls: one process-wide pool
 #: instead of a fresh ThreadPoolExecutor per pull (no thread churn per
@@ -173,8 +218,9 @@ def call(
 ) -> RpcResponse:
     """One RPC with bounded retries.
 
-    Retries apply only to idempotent calls (default: every method but
-    POST) and only for connection-level failures — an HTTP error
+    Retries apply only to connection-level failures, and only to
+    idempotent calls (default: every method but POST) or to a call
+    whose connect failed before it sent a byte — an HTTP error
     status or an application exception propagates immediately. Sleeps
     between attempts follow :func:`compute_backoff`.
     """
@@ -184,7 +230,7 @@ def call(
     if traceparent:
         hdrs["traceparent"] = traceparent
     timeout = policy.timeout_s if timeout_s is None else timeout_s
-    attempts = (policy.retries if idempotent else 0) + 1
+    attempts = policy.retries + 1
     last: Optional[BaseException] = None
     for attempt in range(attempts):
         if attempt:
@@ -196,14 +242,14 @@ def call(
                 url, data=body, method=method, headers=hdrs
             )
             with REGISTRY.timer("rpc.time").time():
-                with urllib.request.urlopen(req, timeout=timeout) as r:
+                with _OPENER.open(req, timeout=timeout) as r:
                     out = RpcResponse(r.status, r.headers, r.read())
             REGISTRY.counter("rpc.requests").update()
             return out
         except Exception as e:
             REGISTRY.counter("rpc.failures").update()
             last = e
-            if not (idempotent and is_retryable(e)):
+            if not (is_retryable(e) and (idempotent or _unsent(e))):
                 raise
     assert last is not None
     raise last

@@ -499,7 +499,7 @@ class WorkerServer:
         )
 
         handler = _make_handler(self)
-        self.httpd = ThreadingHTTPServer(("127.0.0.1", port), handler)
+        self.httpd = _Server(("127.0.0.1", port), handler)
         self.port = self.httpd.server_address[1]
         self.uri = f"http://127.0.0.1:{self.port}"
         self._serve_thread = threading.Thread(
@@ -1693,6 +1693,13 @@ def _pull_partition(
         deadline_s=float(session.get("query_max_run_time_s")),
         timeout_msg=f"shuffle pull of {src_task}[{part}] timed out",
     )
+
+
+class _Server(ThreadingHTTPServer):
+    #: listen backlog, the coordinator's: a burst of task POSTs and page
+    #: pulls must queue for accept, not lose its SYN (socketserver's
+    #: default is 5)
+    request_queue_size = 128
 
 
 def _make_handler(worker: WorkerServer):

@@ -1296,3 +1296,60 @@ def test_ici_lane_q3_on_the_card_equals_http(cuda):
         for w in workers:
             w.shutdown(graceful=False)
         coord.shutdown()
+
+
+def test_parquet_group_by_on_the_card_equals_the_cpu(cuda, tmp_path):
+    # a GROUP BY over a parquet file (strings with nulls, decimals,
+    # dates): one K1 launch on the card, the CPU runner's rows
+    pa = pytest.importorskip("pyarrow")
+    import decimal
+
+    import pyarrow.parquet as pq
+
+    from presto_tpu_torch.connectors import create_connector
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.exec.staging import CatalogManager
+
+    rng = np.random.default_rng(16)
+    n = 50_000
+    (tmp_path / "s").mkdir()
+    pq.write_table(pa.table({
+        "k": pa.array(rng.choice(["a", "b", "c", None], n).tolist()),
+        "q": pa.array(rng.integers(1, 100, n)),
+        "p": pa.array([decimal.Decimal(int(v)).scaleb(-2)
+                       for v in rng.integers(1, 10**6, n)],
+                      type=pa.decimal128(12, 2)),
+        "d": pa.array(rng.integers(8000, 10000, n).astype(np.int32),
+                      type=pa.date32()),
+    }), tmp_path / "s" / "t.parquet", row_group_size=8192)
+    sql = ("select k, count(*) as n, sum(q) as q, sum(p) as p, max(d) as d "
+           "from lake.s.t group by k order by k nulls last")
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        catalogs = CatalogManager()
+        catalogs.register("lake", create_connector("parquet", root=str(tmp_path)))
+        before = onehot_reduce.launches
+        rows[dev] = LocalQueryRunner(catalogs=catalogs, device=dev).execute(
+            sql).rows()
+        if dev == "cuda":
+            assert onehot_reduce.launches == before + 1
+    assert rows["cuda"] == rows["cpu"] and len(rows["cpu"]) == 4
+
+
+def test_fuzz_seed_on_the_card_equals_the_cpu(cuda):
+    # a grouping fuzz seed through the port's own fuzzer: no failure on
+    # either device, the same rows, K1 launched on the card
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from presto_tpu_torch.fuzz import generate_query, run_fuzz
+    from presto_tpu_torch.verifier import SqliteOracle
+
+    seed = 10  # a GROUP BY o_orderstatus: one-hot, K1 on the card
+    assert "group by o_orderstatus" in generate_query(seed)
+    oracle = SqliteOracle("tiny")
+    gpu, cpu = LocalQueryRunner(device="cuda"), LocalQueryRunner(device="cpu")
+    before = onehot_reduce.launches
+    assert run_fuzz([seed], runner=gpu, oracle=oracle) == []
+    assert onehot_reduce.launches > before
+    assert run_fuzz([seed], runner=cpu, oracle=oracle) == []
+    sql = generate_query(seed)
+    assert _rows_agree(gpu.execute(sql).rows(), cpu.execute(sql).rows())

@@ -45,18 +45,22 @@ SKEW_SQL = (
 
 
 _ADDR = re.compile(r" at 0x[0-9a-f]+")
+#: the closure a reference ``DictTransform`` prints beside its fn_key
+_FN = re.compile(r", fn=<function \S+ at 0x[0-9a-f]+>")
 
 
 def _signatures(hist, nodes_mod, root):
-    """Per node in walk order: (its canonical signature with object
-    addresses masked, its fingerprint or None when the signature holds
-    an address)."""
-    out = []
-    for n in nodes_mod.walk(root):
-        sig = hist._signature(n, {})
-        fp = hist.node_fingerprint(n)
-        out.append((_ADDR.sub(" at 0x", sig), None if _ADDR.search(sig) else fp))
-    return out
+    """Per node in walk order: (its canonical signature, its
+    fingerprint)."""
+    return [
+        (hist._signature(n, {}), hist.node_fingerprint(n))
+        for n in nodes_mod.walk(root)
+    ]
+
+
+def _port_root(port, q):
+    pplan = plan_statement(parse_statement(QUERIES[q]), port.catalogs, port.session)
+    return push_scan_constraints(prune_columns(pplan.root))
 
 
 @pytest.fixture(scope="module")
@@ -66,19 +70,26 @@ def runners():
 
 @pytest.mark.parametrize("q", sorted(QUERIES))
 def test_node_fingerprints_equal_the_reference(runners, q):
-    """Every node's fingerprint equals the reference's. A node whose
-    signature prints a function object (Q22's ``substring`` predicate,
-    a ``DictTransform``) has a fingerprint that changes with each
-    planning in the reference too (ROADMAP §3): for those the signatures
-    are compared with the address masked."""
+    """Every node's signature equals the reference's and its
+    fingerprint too, but where the reference's signature prints a
+    function object (Q22's ``substring`` predicate, a
+    ``DictTransform``): the reference's then changes with each planning
+    (ROADMAP §3), while the port prints the transform's ``fn_key`` only.
+    There the port's signature is the reference's with the closure taken
+    out, and its fingerprint is the same at every planning."""
     ref, port = runners
     rplan = ref_plan(ref_parse(QUERIES[q]), ref.catalogs, ref.session)
     rroot = ref_push(ref_prune(rplan.root))
-    pplan = plan_statement(parse_statement(QUERIES[q]), port.catalogs, port.session)
-    proot = push_scan_constraints(prune_columns(pplan.root))
+    proot = _port_root(port, q)
     want = _signatures(ref_history, RN, rroot)
     got = _signatures(history, N, proot)
-    assert got == want
+    again = _signatures(history, N, _port_root(port, q))
+    assert [s for s, _ in got] == [_FN.sub("", s) for s, _ in want]
+    assert not any(_ADDR.search(s) for s, _ in got)
+    assert got == again
+    for (_, gfp), (rsig, rfp) in zip(got, want):
+        if not _ADDR.search(rsig):
+            assert gfp == rfp
     if q != 22:
         assert history.plan_fingerprint(proot) == ref_history.plan_fingerprint(rroot)
         # the cached canonical plan (literals as RuntimeParam slots)
@@ -87,6 +98,29 @@ def test_node_fingerprints_equal_the_reference(runners, q):
         plan, _hit = port.plan_cached(parse_statement(QUERIES[q]))
         if plan.preoptimized:
             assert history.plan_fingerprint(plan.root) == history.plan_fingerprint(proot)
+
+
+def test_q22_planned_twice_hits_the_history_store(tmp_path):
+    """Q22's ``DictTransform`` filter keys one history record across
+    plannings in the port: the second EXPLAIN ANALYZE estimates the
+    filter's ancestors from history. The reference's filter
+    fingerprint changes with each planning, so its ancestors stay on
+    the stats estimate."""
+    sql = "explain analyze " + QUERIES[22]
+    warm = {}
+    for name, r in (
+        ("ref", RefRunner(history_path=str(tmp_path / "r"))),
+        ("port", LocalQueryRunner(device="cpu", history_path=str(tmp_path / "p"))),
+    ):
+        r.execute(sql)
+        warm[name] = _text(r, sql)
+    for name, prov in (("port", "(history, error ×1.0)"), ("ref", "(stats")):
+        join = next(x for x in warm[name].splitlines() if "AntiJoin" in x)
+        assert prov in join, (name, join)
+    hits = REGISTRY.counter("history.hit").total
+    port = LocalQueryRunner(device="cpu", history_path=str(tmp_path / "p"))
+    _text(port, "explain " + QUERIES[22])
+    assert REGISTRY.counter("history.hit").total > hits
 
 
 def _load_skew(runners):

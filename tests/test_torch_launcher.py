@@ -2,10 +2,9 @@
 following the reference's ``tests/test_launcher.py``: ``etc/``
 directories boot real coordinator and worker nodes (``device="cpu"``
 here; ``python -m presto_tpu_torch.server.launcher --etc-dir DIR`` boots
-on the card), with the ``tpch``, ``tpcds`` and ``memory`` catalogs. An
-``etc/`` that names a connector the port does not have yet (the repo's
-own names ``parquet`` and ``hive``) fails fast instead of skipping the
-catalog."""
+on the card), with the ``tpch``, ``tpcds``, ``memory``, ``parquet`` and
+``hive`` catalogs. An ``etc/`` that names a connector the port does not
+have fails fast instead of skipping the catalog."""
 
 from __future__ import annotations
 
@@ -71,17 +70,49 @@ def test_missing_config_fails(tmp_path):
         load_etc(str(tmp_path / "nowhere"))
 
 
-def test_repo_etc_fails_fast_on_a_connector_not_ported_yet():
-    with pytest.raises(KeyError, match="unknown connector: parquet"):
-        load_etc(str(REPO_ETC))
+def test_repo_etc_fails_fast_on_a_connector_not_ported_yet(tmp_path):
+    """The repo's own ``etc/`` mounts every catalog, its ``parquet`` and
+    ``hive`` ones among them; a connector name the port does not have
+    still fails fast."""
+    _config, catalogs = load_etc(str(REPO_ETC))
+    assert sorted(catalogs.names()) == sorted(
+        ["lake", "memory", "tpcds", "tpch", "warehouse"]
+    )
+    assert type(catalogs.get("lake")).__name__ == "ParquetConnector"
+    assert type(catalogs.get("warehouse")).__name__ == "HiveConnector"
+    etc = _write_etc(
+        tmp_path, "unknown", ["coordinator=true"],
+        {"odd": ["connector.name=no-such-connector"]},
+    )
+    with pytest.raises(KeyError, match="unknown connector: no-such-connector"):
+        load_etc(etc)
 
 
 def test_hive_catalog_fails_fast(tmp_path):
+    """A hive catalog mounts over a partitioned warehouse (``root=``)
+    and answers a query through it."""
+    pa = pytest.importorskip("pyarrow")
+    import pyarrow.parquet as pq
+
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+
+    wh = tmp_path / "wh"
+    for region, vals in (("east", [1, 2, 3]), ("west", [4, 5])):
+        part = wh / "sales" / "events" / f"region={region}"
+        part.mkdir(parents=True)
+        pq.write_table(pa.table({"v": vals}), str(part / "000.parquet"))
     etc = tmp_path / "hive"
     shutil.copytree(REPO_ETC, etc)
     (etc / "catalog" / "lake.properties").unlink()
-    with pytest.raises(KeyError, match="unknown connector: hive"):
-        load_etc(str(etc))
+    (etc / "catalog" / "warehouse.properties").write_text(
+        f"connector.name=hive\nroot={wh}\n"
+    )
+    _config, catalogs = load_etc(str(etc))
+    runner = LocalQueryRunner(catalogs=catalogs, device="cpu")
+    assert runner.execute(
+        "select region, sum(v) as s from warehouse.sales.events "
+        "group by region order by region"
+    ).rows() == [("east", 6), ("west", 9)]
 
 
 def test_worker_config_requires_discovery(tmp_path):

@@ -491,13 +491,14 @@ def test_mview_rewrite_staleness_gate_discipline(runners):
 
 
 def test_decimal_average_state_moves_by_an_ulp(runners):
-    """An AVG over a short decimal keeps its SUM state as a Python float
-    (the maintenance query's rows decode decimals as ``int /
-    10**scale``), so an incremental merge adds two rounded floats where
-    a full refresh rounds once: 0.10 then a delta of 0.20 averages to
-    0.15000000000000002 incrementally and to 0.15 after REFRESH, in
-    both packages (ROADMAP §3). The stored SUM itself is requantized to
-    the column's scale and stays exact."""
+    """The reference keeps an AVG's SUM state over a short decimal as a
+    Python float (the maintenance query's rows decode decimals as ``int
+    / 10**scale``), so an incremental merge adds two rounded floats
+    where a full refresh rounds once: 0.10 then a delta of 0.20
+    averages to 0.15000000000000002 incrementally and to 0.15 after
+    REFRESH. The port keeps the state as exact ``decimal.Decimal``
+    values, so both modes give 0.15. The stored SUM is requantized to
+    the column's scale and is exact in both packages."""
     both(runners, "create table mem.default.ev_dec (k bigint, p decimal(12,2))")
     both(runners, "insert into mem.default.ev_dec values (1, 0.10)")
     both(
@@ -509,8 +510,9 @@ def test_decimal_average_state_moves_by_an_ulp(runners):
           for Handle in (RefHandle, TableHandle)]
     commit_both(runners, hs, {"k": [1], "p": [0.20]}, 1)
     read = "select k, ap, sp from mem.default.mv_dec"
-    for runner in runners:  # exact: ``both`` allows rel 1e-9
-        assert runner.execute(read).rows() == [(1, 0.15000000000000002, 0.3)]
+    ref, port = runners  # exact: ``both`` allows rel 1e-9
+    assert ref.execute(read).rows() == [(1, 0.15000000000000002, 0.3)]
+    assert port.execute(read).rows() == [(1, 0.15, 0.3)]
     both(runners, "refresh materialized view mem.default.mv_dec")
     for runner in runners:
         assert runner.execute(read).rows() == [(1, 0.15, 0.3)]

@@ -44,7 +44,6 @@ from presto_tpu_torch.server import coordinator as coord_mod
 from presto_tpu_torch.server import rpc
 from presto_tpu_torch.server import worker as worker_mod
 from presto_tpu_torch.server.client import QueryFailed
-from presto_tpu_torch.server.coordinator import LaterSliceError
 from presto_tpu_torch.server.protocol import FragmentSpec
 from presto_tpu_torch.session import NodeConfig
 from presto_tpu_torch.utils.metrics import REGISTRY
@@ -468,24 +467,24 @@ def test_adaptive_switch_partitioned_to_broadcast(cluster, client, skewed):
 # ------------------------------------------------- refused later planes
 
 
-#: key -> (value, the word its refusal names); a word of None marks a
-#: plane a later slice ported: the case turns it on and checks that it
-#: acts (``_check_plane_acts``). ``ingest.wal-path``,
-#: ``exchange.spool-path`` and ``coordinator.journal-path`` take a
-#: temporary directory
+#: key -> value: every plane a later slice ported; each case
+#: turns it on and checks that it acts (``_check_plane_acts``).
+#: ``ingest.wal-path``, ``exchange.spool-path``,
+#: ``coordinator.journal-path`` and ``lakehouse.path`` take a temporary
+#: directory
 _REFUSED_CONFIG = {
-    "exchange.ici-enabled": ("true", None),
-    "retry-policy": ("TASK", None),
-    "exchange.spool-path": ("", None),
-    "coordinator.journal-path": ("", None),
-    "coordinator.peers": ("http://127.0.0.1:1", None),
-    "serving.microbatch-wait-ms": ("5000", None),
-    "result-cache.enabled": ("true", None),
-    "ingest.wal-path": ("", None),
-    "lakehouse.path": ("/nonexistent/lake", "pyarrow"),
-    "lakehouse.target-file-bytes": ("64MB", "pyarrow"),
-    "qos.enabled": ("true", None),
-    "pool.max-workers": ("2", None),
+    "exchange.ici-enabled": "true",
+    "retry-policy": "TASK",
+    "exchange.spool-path": "",
+    "coordinator.journal-path": "",
+    "coordinator.peers": "http://127.0.0.1:1",
+    "serving.microbatch-wait-ms": "5000",
+    "result-cache.enabled": "true",
+    "ingest.wal-path": "",
+    "lakehouse.path": "",
+    "lakehouse.target-file-bytes": "64MB",
+    "qos.enabled": "true",
+    "pool.max-workers": "2",
 }
 
 POINT = (
@@ -499,8 +498,9 @@ def _check_plane_acts(key, value, tmp_path):
     repeated SELECT is a cache hit; a POSTed batch is committed and
     read; a query runs under the retry policy; the spool has its
     ``runtime.caches`` row; a query's submit and finish frames replay
-    closed; the peer lease is published; a query is admitted by its QoS
-    lane; the autoscaler spawns a worker that announces itself; two
+    closed; the peer lease is published; a POSTed row is committed through
+    a lakehouse manifest snapshot and read back from it; a query is
+    admitted by its QoS lane; the autoscaler spawns a worker that announces itself; two
     co-located workers exchange a shuffled aggregation in the slice)."""
     import json
     import os
@@ -514,6 +514,10 @@ def _check_plane_acts(key, value, tmp_path):
     ):
         value = str(tmp_path)
     settings = {key: value}
+    if key.startswith("lakehouse."):
+        # the tee rides the ingest lane
+        settings["lakehouse.path"] = str(tmp_path / "lake")
+        settings["ingest.wal-path"] = str(tmp_path / "wal")
     if key == "coordinator.peers":
         # the lease plane lives beside the journals it fails over
         settings["coordinator.journal-path"] = str(tmp_path)
@@ -634,6 +638,31 @@ def _check_plane_acts(key, value, tmp_path):
                 assert q.rows == [[25]]
                 status.append(q.stats.result_cache)
             assert status == ["miss", "hit"]
+        elif key.startswith("lakehouse."):
+            pytest.importorskip("pyarrow")
+            store = coord.ingest.store
+            assert store is not None
+            if key == "lakehouse.target-file-bytes":
+                assert store.target_file_bytes == 64 << 20
+            coord.local.execute("create table mem.default.t (k bigint)")
+            req = urllib.request.Request(
+                coord.uri + "/v1/ingest/mem.default.t",
+                data=json.dumps({"rows": [{"k": 4}], "commit": True}).encode(),
+            )
+            assert json.load(urllib.request.urlopen(req))["committed"]
+            tk = ("mem", "default", "t")
+            sid = store.current_sid(tk)
+            assert sid is not None
+            assert store.read_values(tk, sid) == {"k": [4]}
+            rows = coord.local.execute(
+                "select k from mem.default.t for version as of "
+                f"{sid}"
+            ).rows()
+            assert rows == [(4,)]
+            snaps = coord.local.execute(
+                "select \"table\" from system.runtime.snapshots"
+            ).rows()
+            assert ("mem.default.t",) in snaps
         else:
             assert coord.ingest is not None
             coord.local.execute("create table mem.default.t (k bigint)")
@@ -651,12 +680,8 @@ def _check_plane_acts(key, value, tmp_path):
 
 @pytest.mark.parametrize("key", sorted(_REFUSED_CONFIG))
 def test_coordinator_refuses_later_plane_config(key, tmp_path):
-    value, slice_word = _REFUSED_CONFIG[key]
-    if slice_word is None:
-        _check_plane_acts(key, value, tmp_path)
-        return
-    with pytest.raises(LaterSliceError, match=slice_word):
-        CoordinatorServer(config=NodeConfig({key: value}), device="cpu")
+    value = _REFUSED_CONFIG[key]
+    _check_plane_acts(key, value, tmp_path)
 
 
 @pytest.mark.parametrize(

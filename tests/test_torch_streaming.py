@@ -525,3 +525,60 @@ def test_grouped_final_merge_equals_the_references():
             out.append(convert.page_to_numpy(page))
     assert_columns_equal(*out)
     assert len(out[1]["l_orderkey"][0]) == 15_000
+
+
+# ------------------------------------ pins at the tight budget, tiny
+
+#: TPC-H queries whose joined orders and lineitem both exceed the tight
+#: budget below a join the partitioned cut cannot take: no streaming cut
+#: in either package
+NO_CUT_QUERIES = [5, 7, 8, 9, 21]
+
+
+@functools.lru_cache(maxsize=None)
+def _tight_runners():
+    props = {"max_device_rows": TIGHT_ROWS}
+    return (
+        RefRunner(session=RefSession(properties=dict(props))),
+        LocalQueryRunner(device="cpu", session=Session(properties=dict(props))),
+    )
+
+
+@pytest.mark.parametrize("q", NO_CUT_QUERIES)
+def test_tight_budget_admits_no_cut_in_either_package(q):
+    """Under ``max_device_rows`` 8,192 at tiny, Q5, Q7, Q8, Q9 and Q21
+    raise the same ``StreamingError`` text in both packages (beside the
+    TPC-DS pins in tests/test_torch_tpcds.py)."""
+    ref, port = _tight_runners()
+    with pytest.raises(ref_streaming.StreamingError) as want:
+        ref.execute(QUERIES[q])
+    with pytest.raises(streaming.StreamingError) as got:
+        port.execute(QUERIES[q])
+    assert str(got.value) == str(want.value)
+    assert "admits no semantics-preserving streaming cut" in str(got.value)
+
+
+def test_streamed_q22_reference_fails_port_answers():
+    """Under the same budget the reference's streamed Q22 raises
+    ``AttributeError`` (its ``DictTransform`` meets a column without a
+    dictionary, ``presto_tpu/expr.py::_transform``); the port's equals
+    the unstreamed answer of both packages. Q22's NOT EXISTS keeps
+    almost nothing at tiny (``o_custkey`` is uniform), so the query
+    also runs without it, where both packages stream it alike."""
+    ref, port = _tight_runners()
+    whole_ref, whole_port = RefRunner(), LocalQueryRunner(device="cpu")
+    with pytest.raises(AttributeError, match="values"):
+        ref.execute(QUERIES[22])
+    without = QUERIES[22].split("and not exists")[0] + (
+        ") as custsale group by cntrycode order by cntrycode"
+    )
+    for sql, streamed_ref in ((QUERIES[22], None), (without, ref)):
+        want = whole_ref.execute(sql).rows()
+        assert whole_port.execute(sql).rows() == want
+        got = port.execute(sql).rows()
+        if streamed_ref is not None:
+            assert want and streamed_ref.execute(sql).rows() == want
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g[:2] == w[:2]
+            assert abs(g[2] - w[2]) <= 1e-9 * abs(w[2])

@@ -292,7 +292,9 @@ def test_result_columns_equal_the_row_wise_build(runners, kinds, col):
     column through the decoder ``Page.to_pylist`` uses; the values and
     their Python types equal the row-wise build through ``to_pylist``
     element by element, and the reference's own row-wise
-    ``_result_columns`` on the same query. Dates
+    ``_result_columns`` on the same query, except a short decimal: the
+    port writes the exact ``decimal.Decimal`` of its scaled integer,
+    whose float is the row decoder's and the reference's value. Dates
     go through ``cast`` here: the reference stages no written date
     (``test_written_dates_read_back``)."""
     expr = f"cast(dt as date) as {col}" if col == "dt" else col
@@ -307,6 +309,11 @@ def test_result_columns_equal_the_row_wise_build(runners, kinds, col):
     for c in got:
         assert got[c].dtype == object and len(got[c]) == len(want[c])
         for a, b, w in zip(got[c], row_wise[c], want[c]):
+            if c == "dec" and a is not None:
+                assert isinstance(a, decimal.Decimal), (c, a)
+                assert a == a.quantize(decimal.Decimal("0.01")), (c, a)
+                assert float(a) == b == w, (c, a, b, w)
+                continue
             assert type(a) is type(b) and (a == b or a != a), (c, a, b)
             assert same_value(a, w), (c, a, w)
 
@@ -359,11 +366,12 @@ def test_blackhole_is_a_source_and_a_sink(runners):
 
 
 def test_short_decimal_above_2_53_changes_through_insert_select(runners):
-    """The write SPI's row format holds a short decimal as a Python
-    float (``int / 10**scale``, as ``Page.to_pylist`` decodes it), so a
-    decimal(18,2) whose scaled value is above 2^53 reads back another
-    value after INSERT ... SELECT: 90071992547409.93 comes back as
-    90071992547409.94 in both packages (ROADMAP §3)."""
+    """The reference's write row format holds a short decimal as a
+    Python float (``int / 10**scale``), so a decimal(18,2) whose scaled
+    value is above 2^53 reads back another value after INSERT ...
+    SELECT: 90071992547409.93 comes back as 90071992547409.94. The
+    port writes the exact ``decimal.Decimal`` of the scaled integer, so
+    the copy equals its source, through INSERT ... SELECT and CTAS."""
     exact = decimal.Decimal("90071992547409.93")  # 9007199254740993 scaled
     for runner, T, Handle in zip(runners, (RT, PT), (RefHandle, TableHandle)):
         mem = runner.catalogs.get("mem")
@@ -376,15 +384,32 @@ def test_short_decimal_above_2_53_changes_through_insert_select(runners):
         runners, "insert into mem.default.dedge select d, 'copy' "
         "from mem.default.dedge",
     ) == [(1,)]
-    # the difference is computed on the stored scaled integers
-    assert both(
-        runners, "select max(d) - min(d) as diff, count(*) as n "
-        "from mem.default.dedge",
-    ) == [(0.01, 2)]
-    assert both(
-        runners, "select tag from mem.default.dedge "
-        "where d = 90071992547409.94",
-    ) == [("copy",)]
+    ref, port = runners
+    # the difference is computed on the stored scaled integers: the
+    # reference's copy moved by one unit of the scale, the port's not
+    diff = "select max(d) - min(d) as diff, count(*) as n from mem.default.dedge"
+    assert ref.execute(diff).rows() == [(0.01, 2)]
+    assert port.execute(diff).rows() == [(0.0, 2)]
+    moved = "select tag from mem.default.dedge where d = 90071992547409.94"
+    assert ref.execute(moved).rows() == [("copy",)]
+    assert port.execute(moved).rows() == []
+    kept = (
+        "select tag from mem.default.dedge where d = 90071992547409.93 "
+        "order by tag"
+    )
+    assert ref.execute(kept).rows() == [("src",)]
+    assert port.execute(kept).rows() == [("copy",), ("src",)]
+    # CTAS carries the same exact value in the port
+    port.execute(
+        "create table mem.default.dedge_ctas as select d from "
+        "mem.default.dedge where tag = 'src'"
+    )
+    mem = port.catalogs.get("mem")
+    page = mem.create_page_source(
+        mem.get_splits(TableHandle("mem", "default", "dedge_ctas"))
+        .next_batch(1)[0], ["d"],
+    )
+    assert list(page["d"]) == [exact]
 
 
 def test_written_dates_read_back(runners):
