@@ -14,16 +14,20 @@ default session: lineitem streams in 2^20-row batches with host-RAM
 spill), ``q1_stream_cached`` (the same streamed Q1 with
 ``stream_split_cache`` on: after its cold pass fills the split cache,
 every profiled pass is served from it), ``q64_sf10`` (TPC-DS Q64 on
-tpcds.sf10 in the joins session)
-``q95_sf100`` (TPC-DS Q95 on tpcds.sf100 in chip_smoke.py's SF100
-streaming session: web_sales streams in 2^24-row batches), and the
-nested slice's ``n1_unnest_sf10`` (a static UNNEST into the one-hot
-GROUP BY), ``n2_array_agg_sf10`` (array_agg by order, unnested again)
-and ``n3_order_stats_sf10`` (global approx_percentile/min_by/max_by),
-chip_smoke.py's N1-N3 over tpch.sf10.lineitem in the joins session),
-each on one
+tpcds.sf10 in the joins session), ``q95_sf10_stream`` (TPC-DS Q95 on
+tpcds.sf10 in chip_smoke.py's Q95 streaming session: web_sales streams
+under ``max_device_rows`` 2^22), the nested slice's ``n1_unnest_sf10``
+(a static UNNEST into the one-hot GROUP BY), ``n2_array_agg_sf10``
+(array_agg by order, unnested again) and ``n3_order_stats_sf10``
+(global approx_percentile/min_by/max_by), chip_smoke.py's N1-N3 over
+tpch.sf10.lineitem in the joins session, and ``q1_microbatch``: the
+serve phase's V3 batch, Q1 over tpch.sf1 with its 8 shipdate cutoffs
+answered by one ``execute_plan_microbatch`` pass (8 lanes, one K1
+launch through ``onehot_reduce_lanes``, every lane held to the scalar
+Q1 of its cutoff), so the trace shows the lane call beside the
+operators around it), each on one
 ``LocalQueryRunner(device="cuda")``: one cold run and two warm runs
-(one for a streamed query at SF10, none at SF100), then ``--runs`` warm runs
+(one for a streamed query), then ``--runs`` warm runs
 under ``torch.profiler`` (CPU and CUDA activities). A streamed query also
 reports its stream counters over the profiled runs: batches, buckets,
 spilled bytes, host seconds in connector generation, staging,
@@ -49,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import sys
 import time
@@ -74,9 +79,10 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def host_functions(runner, sql: str, runs: int, top: int = 10):
+def host_functions(run, runs: int, top: int = 10):
     """The host's Python functions by own time over ``runs`` warm runs
-    under cProfile: where a host-bound query spends its wall time."""
+    (``run()`` each) under cProfile: where a host-bound query spends its
+    wall time."""
     import cProfile
     import pstats
 
@@ -85,7 +91,7 @@ def host_functions(runner, sql: str, runs: int, top: int = 10):
     prof = cProfile.Profile()
     prof.enable()
     for _ in range(runs):
-        runner.execute(sql)
+        run()
     torch.cuda.synchronize()
     prof.disable()
     stats = pstats.Stats(prof).stats
@@ -97,7 +103,42 @@ def host_functions(runner, sql: str, runs: int, top: int = 10):
     ]
 
 
-def profile_query(runner, sql: str, runs: int, warm: int = 2):
+def rows_of(res):
+    """A run's rows: a query's, or each lane's of a micro-batch."""
+    return [r.rows() for r in res] if isinstance(res, list) else res.rows()
+
+
+def microbatch_run(runner, shape: str, cutoffs):
+    """One micro-batch of ``shape`` (one ``?``) over ``cutoffs``, as the
+    coordinator's batch queue dispatches it: each member's statement
+    through the plan cache, then ONE ``execute_plan_microbatch`` pass.
+    Checks that the shape batches and that every lane equals its scalar
+    run; returns the function that runs the batch and its results."""
+    from presto_tpu_torch.sql import parse_statement
+
+    stmts = [parse_statement(shape.replace("?", f"date '{c}'"))
+             for c in cutoffs]
+    plan = runner.plan_cached_keyed(stmts[0])[0]
+    if not runner.microbatch_plan_eligible(plan):
+        raise AssertionError("the micro-batch shape is not eligible")
+
+    def run():
+        plans = [runner.plan_cached_keyed(st)[0] for st in stmts]
+        res = runner.execute_plan_microbatch(plans, [None] * len(plans))
+        if any(r is None for r in res):
+            raise AssertionError("a lane fell out of the micro-batch")
+        return res
+
+    want = [runner.execute(shape.replace("?", f"date '{c}'")).rows()
+            for c in cutoffs]
+    if rows_of(run()) != want:
+        raise AssertionError("a lane differs from its scalar run")
+    return run
+
+
+def profile_query(runner, sql: str, runs: int, warm: int = 2, run=None):
+    """Profile ``run()`` (by default ``runner.execute(sql)``); ``sql``
+    is also what the front end's parse and plan times take."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -106,12 +147,14 @@ def profile_query(runner, sql: str, runs: int, warm: int = 2):
     from presto_tpu_torch.plan.planner import plan_statement
     from presto_tpu_torch.sql import parse_statement
 
+    if run is None:
+        run = functools.partial(runner.execute, sql)
     t0 = time.perf_counter()
-    runner.execute(sql)
+    run()
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     for _ in range(warm):
-        runner.execute(sql)
+        run()
     torch.cuda.synchronize()
 
     runner.stream_stats = StreamStats()
@@ -121,7 +164,7 @@ def profile_query(runner, sql: str, runs: int, warm: int = 2):
     ) as prof:
         t0 = time.perf_counter()
         for _ in range(runs):
-            runner.execute(sql)
+            run()
         torch.cuda.synchronize()
         wall_s = (time.perf_counter() - t0) / runs
     stream = {k: v if k == "largest_merge_rows" else v / runs
@@ -133,7 +176,7 @@ def profile_query(runner, sql: str, runs: int, warm: int = 2):
     # unprofiled warm runs: the profiler's own cost stays out of warm_s
     t0 = time.perf_counter()
     for _ in range(runs):
-        runner.execute(sql)
+        run()
     torch.cuda.synchronize()
     warm_s = (time.perf_counter() - t0) / runs
 
@@ -178,7 +221,7 @@ def profile_query(runner, sql: str, runs: int, warm: int = 2):
         )
     return {
         "stream": stream if stream["batches"] else None,
-        "host_functions": host_functions(runner, sql, runs),
+        "host_functions": host_functions(run, runs),
         "cold_s": cold_s,
         "warm_s": warm_s,
         "plan_s": plan_s,
@@ -194,10 +237,10 @@ def profile_query(runner, sql: str, runs: int, warm: int = 2):
     }
 
 
-def stats_on_off(runner, sql: str, runs: int):
-    """Warm wall times (s, sorted) with session ``enable_operator_stats``
-    on and off, alternating run by run; every run's rows must equal the
-    first's."""
+def stats_on_off(runner, run, runs: int):
+    """Warm wall times (s, sorted) of ``run()`` with session
+    ``enable_operator_stats`` on and off, alternating run by run; every
+    run's rows must equal the first's."""
     import torch
 
     times = {"on": [], "off": []}
@@ -206,10 +249,10 @@ def stats_on_off(runner, sql: str, runs: int):
         mode = ("on", "off")[i % 2]
         runner.session.set("enable_operator_stats", mode == "on")
         t0 = time.perf_counter()
-        res = runner.execute(sql)
+        res = run()
         torch.cuda.synchronize()
         times[mode].append(time.perf_counter() - t0)
-        rows = res.rows()
+        rows = rows_of(res)
         if first is None:
             first = rows
         elif rows != first:
@@ -224,8 +267,9 @@ def main() -> int:
     ap.add_argument("--queries", default="q1,q6,q3,q5",
                     help="comma-separated subset of "
                     "q1,q6,q3,q5,window,q9,q22,q1_stream,q18_stream,"
-                    "q1_stream_cached,q64_sf10,q95_sf100,n1_unnest_sf10,"
-                    "n2_array_agg_sf10,n3_order_stats_sf10")
+                    "q1_stream_cached,q64_sf10,q95_sf10_stream,"
+                    "n1_unnest_sf10,n2_array_agg_sf10,n3_order_stats_sf10,"
+                    "q1_microbatch")
     ap.add_argument("--stats-on-off", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -237,8 +281,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (
-        JOINS_MAX_DEVICE_ROWS, JOINS_SCHEMA, N1, N2_UNNEST, N3, Q1, Q3, Q5, Q6,
-        STREAM_SF100_PROPS, TPCDS_SF10, TPCDS_SF100, WINDOW, WINDOW_SCHEMA,
+        JOINS_MAX_DEVICE_ROWS, JOINS_SCHEMA, N1, N2_UNNEST, N3, Q1, Q1_CUTOFFS,
+        Q1_CUT_SHAPE, Q3, Q5, Q6, Q95_STREAM_SF10_PROPS,
+        SERVE_FRAGMENT_WEIGHT, TPCDS_SF10, WINDOW, WINDOW_SCHEMA,
         cache_budget, card_line, stream_q1, stream_q18, tpcds_queries,
         tpch_queries,
     )
@@ -266,13 +311,24 @@ def main() -> int:
                         properties={"stream_split_cache": True}),
         staging_cache_bytes=budget,
     )
-    sf100_stream = LocalQueryRunner(
+    q95_stream = LocalQueryRunner(
         device="cuda",
-        session=Session(schema=TPCDS_SF100, properties=STREAM_SF100_PROPS),
+        session=Session(schema=TPCDS_SF10, properties=Q95_STREAM_SF10_PROPS),
+        staging_cache_bytes=budget,
+    )
+    # the serve phase's session for its micro-batch, apart from sf1's
+    # default one
+    batch = LocalQueryRunner(
+        device="cuda",
+        session=Session(
+            properties={"max_fragment_weight": SERVE_FRAGMENT_WEIGHT}),
         staging_cache_bytes=budget,
     )
     report = {"card": card, "runs": args.runs}
     wanted = args.queries.split(",")
+    batch_run = None
+    if "q1_microbatch" in wanted:
+        batch_run = microbatch_run(batch, Q1_CUT_SHAPE, Q1_CUTOFFS)
     tpch = tpch_queries()
     for name, schema, runner, sql in (
         ("q1", "sf1", sf1, Q1), ("q6", "sf1", sf1, Q6),
@@ -284,16 +340,20 @@ def main() -> int:
         ("q18_stream", JOINS_SCHEMA, stream, stream_q18()[0]),
         ("q1_stream_cached", JOINS_SCHEMA, stream_cached, stream_q1()),
         ("q64_sf10", TPCDS_SF10, joins, tpcds_queries(TPCDS_SF10)[0]),
-        ("q95_sf100", TPCDS_SF100, sf100_stream,
-         tpcds_queries(TPCDS_SF100)[1]),
+        ("q95_sf10_stream", TPCDS_SF10, q95_stream,
+         tpcds_queries(TPCDS_SF10)[1]),
         ("n1_unnest_sf10", JOINS_SCHEMA, joins, N1),
         ("n2_array_agg_sf10", JOINS_SCHEMA, joins, N2_UNNEST),
         ("n3_order_stats_sf10", JOINS_SCHEMA, joins, N3),
+        ("q1_microbatch", "sf1", batch,
+         Q1_CUT_SHAPE.replace("?", f"date '{Q1_CUTOFFS[-1]}'")),
     ):
         if name not in wanted:
             continue
-        warm = {stream: 1, stream_cached: 1, sf100_stream: 0}.get(runner, 2)
-        rec = profile_query(runner, sql, args.runs, warm=warm)
+        warm = {stream: 1, stream_cached: 1, q95_stream: 1}.get(runner, 2)
+        run = (batch_run if name == "q1_microbatch"
+               else functools.partial(runner.execute, sql))
+        rec = profile_query(runner, sql, args.runs, warm=warm, run=run)
         rec["schema"] = schema
         report[name] = rec
         share = rec["device_busy_share"]
@@ -322,7 +382,8 @@ def main() -> int:
                   f"{f['cum_s'] * 1e6:10.1f} us cum x{f['calls']:<4} "
                   f"{f['function']}")
         if args.stats_on_off:
-            rec["stats_on_off_s"] = times = stats_on_off(runner, sql, args.runs)
+            rec["stats_on_off_s"] = times = stats_on_off(runner, run,
+                                                         args.runs)
             for mode, ts in times.items():
                 print(f"  operator stats {mode}: warm s median "
                       f"{ts[len(ts) // 2]:.6f}, min {ts[0]:.6f}, all "

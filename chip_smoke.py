@@ -21,7 +21,9 @@ non-zero, and only a run where every phase passed prints the final
               single reductions at the TPU tool's and Q1's shapes over a
               random gid, then Q1's own aggregation at SF1 as the one
               launch the slice makes (the headline of the kernels line),
-              and single reductions over Q1's own gid.
+              single reductions over Q1's own gid, and small calls of
+              K = 19 and 40 requests over 5 to 4,096 rows (the direct
+              form: one launch each), beside an empty launch's time.
 4. slice    - TPC-H Q1 and Q6 at SF1 (lineitem 5,999,995 rows) through
               ``LocalQueryRunner(device="cuda")``, each cold then warm, with
               the kernels' launch counts reset just before and read just
@@ -193,8 +195,9 @@ non-zero, and only a run where every phase passed prints the final
               EXECUTEs with shipdate cutoffs from 1992 to 1998 (every
               member served by one batch, exactly one K1 launch through
               its batching rule, held against one plain reduction per lane
-              as "q1 microbatch fused"), then the same 8 one at a time (8
-              launches; host waits and seconds side by side); V4 the V3
+              as "q1 microbatch fused", timed beside two bounds and 8 x
+              the kernel phase's "q1 fused"), then the same 8 one at a
+              time (8 launches; host waits and seconds side by side); V4 the V3
               statements again (all result-cache hits: no launch, no
               dispatch) and a new literal (a miss); V5 8 seeded batches of
               65,536 rows through ``POST /v1/ingest/{table}`` into a memory
@@ -275,7 +278,8 @@ non-zero, and only a run where every phase passed prints the final
               off then on (the same rows; with it on, ICI edges, no
               fallback, no HTTP shuffle byte; the bytes elided and both
               walls printed; a merge task's final K1 call over its
-              device-merged page held against its plain version); I2 Q1
+              device-merged page held against its plain version: one
+              launch, timed beside an empty launch); I2 Q1
               at SF10 with ``exchange.single-program`` off (the
               per-source gather: the same rows, device dispatches per
               stage beside I1's); I5 a third worker announcing another
@@ -559,23 +563,27 @@ def onehot_calls():
 
 def fused_case(label, gid, reqs, nseg, card):
     """Hold ``onehot_reduce_many`` against its plain version on the card:
-    exact for integers, rel 1e-12 of each segment's sum of |x| for float64
-    sums; check that two launches agree bit for bit; time it beside its
-    bound and a library yardstick the port never calls (``index_add_``
-    over the sum requests' x, ``scatter_reduce_`` over the min and max
-    requests' x, stacked as columns, one call per op and dtype, in one
-    timed function; held equal to the kernel on the int64 requests over
-    the segments that hold rows)."""
+    exact for integers, within rel 1e-12 (float64) or 1e-5 (float32) of
+    each segment's sum of |x| for float sums; check that two launches
+    agree bit for bit; count the launches of one call; time it beside
+    its bound and a library yardstick the port never calls
+    (``index_add_`` over the sum requests' x, ``scatter_reduce_`` over
+    the min and max requests' x, stacked as columns, one call per op and
+    dtype, in one timed function; held equal to the kernel on the int64
+    requests over the segments that hold rows)."""
     import torch
 
     from presto_tpu_torch.ops.aggregation import (
+        onehot_reduce,
         onehot_reduce_many,
         onehot_reduce_many_plain,
         onehot_reduce_plain,
         onehot_results,
     )
 
+    before = onehot_reduce.launches
     out = onehot_reduce_many(gid, reqs, nseg)
+    launches = onehot_reduce.launches - before
     again = onehot_reduce_many(gid, reqs, nseg)
     want = onehot_reduce_many_plain(gid, reqs, nseg)
     torch.cuda.synchronize()
@@ -588,12 +596,18 @@ def fused_case(label, gid, reqs, nseg, card):
             check(torch.equal(got, exp), f"{label}: {op} kernel != plain")
             err = max(err, float((got - exp).abs().max()))
             continue
+        if op in ("min", "max"):
+            # exact, the identity (+-inf) of an empty segment included
+            same = (got == exp) | (torch.isnan(got) & torch.isnan(exp))
+            check(bool(same.all()), f"{label}: {op} kernel != plain")
+            continue
         scale = onehot_reduce_plain(gid, x.abs(), valid, nseg, "sum")
         diff = (got - exp).abs()
         err = max(err, float(diff.max()))
+        tol = 1e-12 if got.dtype == torch.float64 else 1e-5
         check(
-            bool((diff <= 1e-12 * scale).all()),
-            f"{label}: float sum off by {float(diff.max())} (rel 1e-12)",
+            bool((diff <= tol * scale).all()),
+            f"{label}: float {op} off by {float(diff.max())} (rel {tol})",
         )
 
     live = (gid >= 0) & (gid < nseg)
@@ -620,6 +634,7 @@ def fused_case(label, gid, reqs, nseg, card):
         "op": "+".join(op for op, _, _ in reqs),
         "dtype": "mixed",
         "k": len(reqs),
+        "launches_per_call": launches,
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -629,7 +644,8 @@ def fused_case(label, gid, reqs, nseg, card):
         "bytes": nbytes,
     }
     print(
-        f"{label}: ok (K={len(reqs)}, two launches bit-identical), "
+        f"{label}: ok (K={len(reqs)}, {launches} launch(es) a call, two "
+        f"launches bit-identical), "
         f"max_abs_err {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
         f"{nbytes} B) [{card}]",
@@ -684,6 +700,49 @@ def library_yardstick(label, idx, reqs, nseg, got_all):
             check(torch.equal(col[:nseg, j][held], got_all[k][held]),
                   f"{label}: library {op} disagrees")
     return library
+
+
+def empty_launch_ms() -> float:
+    """Device time of the least launch PyTorch makes on the current
+    stream (a one-element fill), timed as every case is: the floor any
+    kernel launch pays, beside the small calls' times. The port never
+    calls it."""
+    import torch
+
+    one = torch.empty(1, dtype=torch.int32, device="cuda")
+    return time_ms(one.zero_)
+
+
+#: the small calls' requests: every op and value type, a third masked
+SMALL_OPS = (
+    ("count", None), ("sum", "i64"), ("sum", "f64"), ("min", "i64"),
+    ("max", "f64"), ("sum", "f32"), ("min", "f32"), ("max", "i64"),
+    ("min", "f64"), ("max", "f32"),
+)
+
+
+def small_inputs(rng, n: int, k: int, nseg: int, dev):
+    """A small call's gid (a tenth of the rows dead) and ``k`` requests
+    cycling through SMALL_OPS, every third with a validity mask."""
+    import numpy as np
+    import torch
+
+    g = np.where(rng.random(n) < 0.9, rng.integers(0, nseg, n), nseg)
+    reqs = []
+    for i in range(k):
+        op, kind = SMALL_OPS[i % len(SMALL_OPS)]
+        valid = None
+        if i % 3 == 1:
+            valid = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+        x = None
+        if kind == "i64":
+            x = torch.from_numpy(
+                rng.integers(-(10 ** 12), 10 ** 12, n, dtype=np.int64))
+        elif kind is not None:
+            x = torch.from_numpy(rng.standard_normal(n) * 1e3).to(
+                torch.float64 if kind == "f64" else torch.float32)
+        reqs.append((op, None if x is None else x.to(dev), valid))
+    return torch.from_numpy(g.astype(np.int32)).to(dev), reqs
 
 
 def onehot_case(label, gid, x, valid, nseg, op, tol, card):
@@ -850,6 +909,21 @@ def kernel_phase(card: str):
     records.append(
         onehot_case("q1-gid i64 sum", g, price, None, nseg, "sum", None, card)
     )
+
+    # small calls (an ICI merge's final and its like): K = 19 and 40
+    # requests over a few rows to 4,096, each one launch of the direct
+    # form, beside the floor an empty launch pays
+    floor = empty_launch_ms()
+    print(f"empty launch: {floor:.4f} ms, the floor any kernel pays "
+          f"[{card}]", flush=True)
+    for k in (19, 40):
+        for n in (5, 100, 1000, 4096):
+            g, reqs = small_inputs(rng, n, k, 6, dev)
+            rec = fused_case(f"small k{k} n{n}", g, reqs, 6, card)
+            check(rec["launches_per_call"] == 1,
+                  f"small k{k} n{n}: {rec['launches_per_call']} launches")
+            rec["floor_ms"] = floor
+            records.append(rec)
     return records
 
 
@@ -4128,24 +4202,35 @@ def lane_calls():
         PA.onehot_reduce_lanes = real
 
 
-def lanes_case(label, gid, reqs, nseg, lanes, card):
-    """Hold K1's batching rule (``onehot_reduce_lanes``: one launch per
-    256 // nseg lanes over the lane-folded gid) against its plain
+def lanes_case(label, gid, reqs, nseg, lanes, card, single_ms=None):
+    """Hold K1's batching rule (``onehot_reduce_lanes``: one launch for
+    every lane, the lane a grid axis of the kernel) against its plain
     version (one plain reduction per lane) on the card: integers exact,
-    float64 sums within rel 1e-12 of each segment's sum of |x|; time it
-    beside its bound and a library yardstick over the lane-folded gid
-    (``index_add_``, ``scatter_reduce_``). The bound counts each
-    distinct input byte once: the shared x once (the rows some lane
-    keeps) and each lane's gid once; the kernel reads x once per lane."""
+    float64 sums within rel 1e-12 of each segment's sum of |x|; two
+    runs bit-identical; the launches of one call counted; time it beside
+    its bounds and a library yardstick over the lane-folded gid
+    (``index_add_``, ``scatter_reduce_``). Two bounds: ``bound_ms``
+    counts each distinct input byte once (the shared x once, for the
+    rows some lane keeps, and each lane's gid once), ``bound_lane_ms``
+    x once per lane, as ``page.tile_lanes`` lays it out and the kernel
+    reads it. ``one_by_one_ms`` times the lanes' scalar calls one at a
+    time (``onehot_reduce_many`` over each lane's slice of gid, x and
+    validity, held equal to the batch on the integer requests);
+    ``single_ms``, the time of one scalar call at a lane's shape in the
+    same run, is printed beside it as ``lanes`` times that call."""
     import torch
 
     from presto_tpu_torch.ops import aggregation as PA
 
+    before = PA.onehot_reduce.launches
     out = PA.onehot_reduce_lanes(gid, reqs, nseg, lanes)
+    launches = PA.onehot_reduce.launches - before
     again = PA.onehot_reduce_lanes(gid, reqs, nseg, lanes)
     want = PA.onehot_reduce_lanes_plain(gid, reqs, nseg, lanes)
     torch.cuda.synchronize()
     check(torch.equal(out, again), f"{label}: two runs differ")
+    check(launches == -(-len(reqs) // PA.K_MAX),
+          f"{label}: {launches} launches for {len(reqs)} requests")
     rows = gid.shape[0] // lanes
     err = 0.0
     for got, exp, (op, x, valid) in zip(
@@ -4171,35 +4256,64 @@ def lanes_case(label, gid, reqs, nseg, lanes, card):
     ).reshape(-1)
     library = library_yardstick(
         label, folded, reqs, lanes * nseg, PA.onehot_results(out, reqs))
+    per_lane = [
+        (gid[i * rows:(i + 1) * rows],
+         [(op, None if x is None else x[i * rows:(i + 1) * rows],
+           None if v is None else v[i * rows:(i + 1) * rows])
+          for op, x, v in reqs])
+        for i in range(lanes)
+    ]
+
+    def one_by_one():
+        return [PA.onehot_reduce_many(g, rs, nseg) for g, rs in per_lane]
+
+    batch = PA.onehot_results(out, reqs)
+    for i, lane_out in enumerate(one_by_one()):
+        for k, got in enumerate(PA.onehot_results(lane_out, per_lane[i][1])):
+            if not got.is_floating_point():
+                check(torch.equal(got, batch[k][i * nseg:(i + 1) * nseg]),
+                      f"{label}: lane {i}'s scalar call != the batch's")
     ms = time_ms(lambda: PA.onehot_reduce_lanes(gid, reqs, nseg, lanes))
+    one_by_one_ms = time_ms(one_by_one)
     plain_ms = time_ms(
         lambda: PA.onehot_reduce_lanes_plain(gid, reqs, nseg, lanes))
     library_ms = time_ms(library)
     n_any = int(live.any(dim=0).sum())
     n_live = int(live.sum())
-    nbytes = 4 * gid.numel() + 8 * len(reqs) * lanes * nseg
+    nbytes = nbytes_lane = 4 * gid.numel() + 8 * len(reqs) * lanes * nseg
     for op, x, valid in reqs:
         if valid is not None:
             nbytes += n_live
+            nbytes_lane += n_live
         if x is not None:
             nbytes += x.element_size() * n_any
+            nbytes_lane += x.element_size() * n_live
     b_ms, b_by = bound_ms(nbytes, n_live * len(reqs))
-    per = max(1, PA._ONEHOT_MAX_SEGMENTS // nseg)
+    lane_ms, lane_by = bound_ms(nbytes_lane, n_live * len(reqs))
+    times_single = None if single_ms is None else lanes * single_ms
     rec = {
         "label": label, "rows": gid.numel(), "lanes": lanes, "nseg": nseg,
         "op": "+".join(op for op, _, _ in reqs), "dtype": "mixed",
         "k": len(reqs), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "bytes": nbytes,
-        "launches_per_batch": -(-lanes // per) * -(-len(reqs) // PA.K_MAX),
+        "bytes": nbytes, "bound_lane_ms": lane_ms, "bound_lane_by": lane_by,
+        "bytes_lane": nbytes_lane, "launches_per_batch": launches,
+        "single_ms": single_ms, "one_by_one_ms": one_by_one_ms,
     }
+    versus = (f"{one_by_one_ms:.4f} ms, the batch "
+              f"{'within' if ms <= one_by_one_ms else 'OVER'} it")
+    if times_single is not None:
+        versus += (f"; {lanes} x the single call {times_single:.4f} ms "
+                   f"({lanes} x {single_ms:.4f} ms), the batch "
+                   f"{'within' if ms <= times_single else 'OVER'} it")
     print(
         f"{label}: ok ({lanes} lanes x {nseg} segments, K={len(reqs)}, "
-        f"{rec['launches_per_batch']} launch(es), two runs bit-identical), "
-        f"max_abs_err {err:.3g}; kernel {ms:.4f} ms, plain (per lane) "
-        f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}, {nbytes} B: x once, each lane's gid "
-        f"once) [{card}]",
+        f"{launches} launch(es), two runs bit-identical), max_abs_err "
+        f"{err:.3g}; kernel {ms:.4f} ms, plain (per lane) {plain_ms:.4f} "
+        f"ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{nbytes} B: x once, each lane's gid once), bound per lane "
+        f"{lane_ms:.4f} ms ({lane_by}, {nbytes_lane} B: x once per lane); "
+        f"the lanes one at a time {versus} [{card}]",
         flush=True,
     )
     return rec
@@ -4558,7 +4672,10 @@ def serve_phase(card: str, dev=None, records=None, schema: str = "sf1",
               f"(the arrivals into its window included) [{card}]",
               flush=True)
         if records is not None and on_card:
-            records.append(lanes_case("q1 microbatch fused", *seen[0], card))
+            single = next((r["ms"] for r in records
+                           if r["label"] == "q1 fused"), None)
+            records.append(lanes_case("q1 microbatch fused", *seen[0], card,
+                                      single_ms=single))
         del seen
         check(not coord.local._no_batch, "a shape was retired from batching")
 
@@ -6098,9 +6215,17 @@ def ici_phase(card: str, dev=None, want_q1_big=None, records=None,
             merges = [s for s in seen if len(s[1]) > 8]
             check(merges, "I1 Q1: no merge task's final GROUP BY seen")
             if records is not None and on_card:
-                # a merge task's final GROUP BY over its ICI-fed page
-                records.append(fused_case("ici q1 merge fused", *merges[0],
-                                          card))
+                # a merge task's final GROUP BY over its ICI-fed page: one
+                # launch, beside the floor an empty launch pays
+                rec = fused_case("ici q1 merge fused", *merges[0], card)
+                check(rec["launches_per_call"] == 1,
+                      f"I1: the merge's K1 call made "
+                      f"{rec['launches_per_call']} launches")
+                rec["floor_ms"] = empty_launch_ms()
+                print(f"ici q1 merge fused: kernel {rec['ms']:.4f} ms, "
+                      f"library {rec['library_ms']:.4f} ms, empty launch "
+                      f"{rec['floor_ms']:.4f} ms [{card}]", flush=True)
+                records.append(rec)
             del seen, merges
             client.execute(
                 "set session join_distribution_type = 'PARTITIONED'")
@@ -6980,7 +7105,7 @@ def main() -> int:
             },
             {
                 # K1's batching rule: the serve phase's Q1 batch of 8
-                # lanes, one launch over the lane-folded gid
+                # lanes, one launch for all of them
                 "name": "onehot_reduce_lanes",
                 "case": "q1 microbatch fused",
                 "route": "cuda",
@@ -6993,6 +7118,10 @@ def main() -> int:
                 "bound_ms": lanes["bound_ms"],
                 "bound_by": lanes["bound_by"],
                 "library_ms": lanes["library_ms"],
+                # x once per lane, as the kernel reads it; the 8 lanes'
+                # scalar calls one at a time, timed
+                "bound_lane_ms": lanes["bound_lane_ms"],
+                "one_by_one_ms": lanes["one_by_one_ms"],
             },
         ] + [
             {
@@ -7012,6 +7141,9 @@ def main() -> int:
                 "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"],
+                # the merge's floor: an empty launch's device time
+                **({"floor_ms": rec["floor_ms"]} if "floor_ms" in rec
+                   else {}),
             }
             for rec, n in ((shard, distrib_launches), (merge, ici_launches))
         ] + [

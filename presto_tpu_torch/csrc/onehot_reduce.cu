@@ -1,5 +1,6 @@
 // One-hot grouped reduction for Hopper (sm_90a), plain C interface: K
-// reductions over one segment id column in a single launch.
+// reductions over one segment id column, for one or many lanes, in a
+// single launch.
 //
 // Replaces the TPU kernel tools/pallas_groupby.py::pallas_onehot (the
 // pl.pallas_call at :96, body `kernel` at :78), the hand-blocked form of
@@ -7,9 +8,11 @@
 // _onehot_one_agg (:217/:298). The engine builds one (rows, nseg) mask
 // `oh` (:252) and hands every aggregate's masked reductions to XLA in one
 // program; this kernel does the same in one launch. Request q computes
-// out[q, s] = reduce over rows i with gid[i] == s (and valid_q[i]) of
-// x_q[i], for s in [0, nseg). gid == nseg marks a dead row; any gid
-// outside [0, nseg) contributes nothing.
+// out[q, l, s] = reduce over rows i of lane l with gid[i] == s (and
+// valid_q[i]) of x_q[i], for s in [0, nseg). Lane l owns rows
+// [l * rows, (l + 1) * rows): a micro-batch stacks its members' pages
+// that way (page.tile_lanes), a single GROUP BY is one lane. gid == nseg
+// marks a dead row; any gid outside [0, nseg) contributes nothing.
 //
 // What bounds it on the card: bytes. Each row costs one select and one
 // combine per request, about 1 us of the card's scalar rate for all of
@@ -20,19 +23,23 @@
 // 4 int64 sums, 3 float64 sums for the averages) over an 8,388,608-row
 // bucket of which ~5.9 M rows count: 4 B x 8,388,608 = 33.6 MB of gid
 // plus 7 x 8 B x ~5.9 M = ~330 MB of x, ~364 MB, ~0.109 ms at 3.35 TB/s.
-// chip_smoke.py computes this bound from its run's data.
+// A call of ~100 rows (a merge task's final GROUP BY) moves a few KB:
+// there the launch itself is the floor. chip_smoke.py computes both
+// bounds and times an empty launch.
 //
 // No tensor cores: the work is one select-and-add per row and request,
 // tensor cores have no int64, and Q1's sums must be exact.
 //
-// Design:
-//  - One launch for all K requests. A persistent grid (as many blocks per
-//    SM as fit, at most four) splits the rows into one contiguous span
-//    per block. The block walks its span in chunks of kChunkRows rows: it
-//    reads the chunk's gid from device memory once (16-byte loads), turns
-//    each into a uint16 segment code in shared memory (out of range ->
-//    the sink code nseg), then sweeps every request's x over the codes.
-//    So gid costs 4 B per row per launch, not per request.
+// Design, the large form (a lane of more than 4,096 rows):
+//  - One launch for all K requests and all lanes. A persistent grid (as
+//    many blocks per SM as fit, at most four) is split evenly over the
+//    lanes; each block owns one contiguous span of ONE lane's rows, so
+//    its per-thread slots hold that lane's nseg + 1 segments whatever the
+//    lane count is. The block walks its span in chunks of kChunkRows
+//    rows: it reads the chunk's gid from device memory once (16-byte
+//    loads), turns each into a uint16 segment code in shared memory (out
+//    of range -> the sink code nseg), then sweeps every request's x over
+//    the codes. So gid costs 4 B per row per launch, not per request.
 //  - No atomics on the per-row path. For nseg <= kPerThreadMaxSegments
 //    every thread owns one slot per segment (and one sink slot) at
 //    acc[c * kThreads + tid]: a row is one shared-memory read-modify-write
@@ -51,10 +58,20 @@
 //    any row count.
 //  - At the end of each request's sweep over a chunk the slots fold, in a
 //    fixed order, into the block's row of a [grid, K, nseg] scratch in
-//    device memory. The last block to finish (a ticket counter at the head
-//    of the scratch, after __threadfence) combines the rows in a fixed
-//    order into out and resets the ticket for the next launch. Float sums
-//    are therefore bit-identical from launch to launch for a given grid.
+//    device memory. The last block of each lane to finish (one ticket
+//    counter per lane, after __threadfence) combines that lane's rows in
+//    a fixed order into out and resets its ticket for the next launch, so
+//    the lanes combine in parallel. Float sums are therefore
+//    bit-identical from launch to launch for a given grid.
+// The direct form (every lane within kDirectMaxRows rows): one block per
+// (request, lane) pair, so the requests of a small call run side by side
+// instead of one after another in one block. Each thread starts the
+// reads of all its rows (gid, validity, x) before it updates a slot, so
+// the block waits for memory once; the slots fold straight into out: no
+// shared-memory codes, no scratch, no ticket, no second pass. In the
+// per-warp layout a dead row's lanes take no combine round.
+// The requests travel in the kernel's parameters (kMaxRequests of them,
+// 24 B each), so any K up to 64 is one launch.
 // Sums and counts accumulate in the input's own type (int64 wraps like
 // XLA's, float32 stays float32 like the Pallas kernel). Empty segments
 // give the identity: 0 for sums and counts, int64 max/min or +-inf for
@@ -77,10 +94,13 @@ enum Layout { PER_THREAD = 0, PER_WARP = 1 };
 constexpr int kLogThreads = 8;
 constexpr int kThreads = 1 << kLogThreads;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRequests = 16;
+constexpr int kMaxRequests = 64;
 constexpr int kMaxSegments = 256;
 constexpr int kPerThreadMaxSegments = 32;
 constexpr int kChunkRows = 16384;  // its codes: 32 KB of uint16
+constexpr int kDirectMaxRows = 4096;
+constexpr int kDirectUnroll = 4;  // a direct block's rows per thread in flight
+constexpr int kMaxGridY = 65535;
 constexpr int kUnroll = 4;         // 16-byte loads in flight per thread
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -91,7 +111,7 @@ struct Request {
   int xkind;
 };
 
-// Passed by value in the kernel's parameters (16 x 24 B).
+// Passed by value in the kernel's parameters (64 x 24 B = 1,536 B).
 struct Requests {
   Request r[kMaxRequests];
 };
@@ -219,9 +239,10 @@ __device__ __forceinline__ void update(A* slots, int nseg, int c, A v) {
   } else {
     const int lane = threadIdx.x & 31;
     A* w = slots + (threadIdx.x >> 5) * (nseg + 1);
+    // the sink's lanes (dead rows) set no round count and write nothing
     const unsigned grp = __match_any_sync(kFull, c);
-    const int rounds = static_cast<int>(
-        __reduce_max_sync(kFull, static_cast<unsigned>(__popc(grp))));
+    const int rounds = static_cast<int>(__reduce_max_sync(
+        kFull, c != nseg ? static_cast<unsigned>(__popc(grp)) : 0u));
     A total = identity<A, OP>();
     unsigned rem = grp;
     for (int i = 0; i < rounds; ++i) {
@@ -232,17 +253,73 @@ __device__ __forceinline__ void update(A* slots, int nseg, int c, A v) {
         rem &= rem - 1;
       }
     }
-    if (lane == __ffs(grp) - 1) w[c] = combine<A, OP>(w[c], total);
+    if (c != nseg && lane == __ffs(grp) - 1) {
+      w[c] = combine<A, OP>(w[c], total);
+    }
     __syncwarp();
   }
 }
 
-// One request over the chunk's rows [c0, c0 + rows), folded into the
-// block's partial parts[q, :]. `first` marks the block's first chunk.
+// Every slot of the block at the op's identity.
+template <int LAYOUT, typename A, int OP>
+__device__ __forceinline__ void init_slots(A* slots, int nseg) {
+  const A id = identity<A, OP>();
+  if constexpr (LAYOUT == PER_THREAD) {
+    for (int c = 0; c <= nseg; ++c) slots[c * kThreads + threadIdx.x] = id;
+  } else {
+    for (int i = threadIdx.x; i < kWarps * (nseg + 1); i += kThreads) {
+      slots[i] = id;
+    }
+    __syncthreads();
+  }
+}
+
+// After the rows: the slots fold in a fixed order (a tree over the
+// threads' slots of each segment, or the warp copies in warp order) into
+// dst. The large form folds into the block's partial dst = parts[b, q, :]
+// (`first` marks the block's first chunk); the direct form (DIRECT)
+// writes the result straight into its output row dst.
+template <int LAYOUT, bool DIRECT, typename A, int OP>
+__device__ void finish(A* slots, int nseg, unsigned long long* dst,
+                       bool first) {
+  const int tid = threadIdx.x;
+  __syncthreads();
+  if constexpr (LAYOUT == PER_THREAD) {
+    for (int lg = kLogThreads - 1; lg >= 0; --lg) {
+      const int h = 1 << lg;
+      for (int i = tid; i < nseg * h; i += kThreads) {
+        A* p = slots + (i >> lg) * kThreads + (i & (h - 1));
+        *p = combine<A, OP>(*p, p[h]);
+      }
+      __syncthreads();
+    }
+  }
+  for (int s = tid; s < nseg; s += kThreads) {
+    A r;
+    if constexpr (LAYOUT == PER_THREAD) {
+      r = slots[s * kThreads];
+    } else {
+      r = identity<A, OP>();
+      for (int w = 0; w < kWarps; ++w) {
+        r = combine<A, OP>(r, slots[w * (nseg + 1) + s]);
+      }
+    }
+    if constexpr (DIRECT) {
+      dst[s] = out_bits<A>(r);
+    } else {
+      if (!first) r = combine<A, OP>(from_bits<A>(dst[s]), r);
+      dst[s] = to_bits<A>(r);
+    }
+  }
+  __syncthreads();
+}
+
+// One request over the chunk's rows [c0, c0 + rows) of the large form,
+// their codes in shared memory, folded into the block's partial dst.
 template <int LAYOUT, typename X, typename A, int OP>
 __device__ void sweep(const Request& rq, const uint16_t* codes, long long c0,
                       int rows, int nseg, A* slots,
-                      unsigned long long* parts, bool first) {
+                      unsigned long long* dst, bool first) {
   constexpr bool kHasX = OP != OP_COUNT;
   constexpr int V = kHasX ? 16 / sizeof(X) : 4;  // rows per 16-byte load
   union Vec {
@@ -254,12 +331,7 @@ __device__ void sweep(const Request& rq, const uint16_t* codes, long long c0,
   const X* x = static_cast<const X*>(rq.x);
   const bool* valid = rq.valid;
 
-  if constexpr (LAYOUT == PER_THREAD) {
-    for (int c = 0; c <= nseg; ++c) slots[c * kThreads + tid] = id;
-  } else {
-    for (int i = tid; i < kWarps * (nseg + 1); i += kThreads) slots[i] = id;
-    __syncthreads();
-  }
+  init_slots<LAYOUT, A, OP>(slots, nseg);
 
   int head = 0;
   if constexpr (kHasX) {
@@ -316,53 +388,67 @@ __device__ void sweep(const Request& rq, const uint16_t* codes, long long c0,
       }
     }
   }
-  __syncthreads();
-
-  // fold the slots in a fixed order: a tree over the threads' slots of
-  // each segment, or the warp copies in warp order
-  if constexpr (LAYOUT == PER_THREAD) {
-    for (int lg = kLogThreads - 1; lg >= 0; --lg) {
-      const int h = 1 << lg;
-      for (int i = tid; i < nseg * h; i += kThreads) {
-        A* p = slots + (i >> lg) * kThreads + (i & (h - 1));
-        *p = combine<A, OP>(*p, p[h]);
-      }
-      __syncthreads();
-    }
-  }
-  for (int s = tid; s < nseg; s += kThreads) {
-    A r;
-    if constexpr (LAYOUT == PER_THREAD) {
-      r = slots[s * kThreads];
-    } else {
-      r = id;
-      for (int w = 0; w < kWarps; ++w) {
-        r = combine<A, OP>(r, slots[w * (nseg + 1) + s]);
-      }
-    }
-    if (!first) r = combine<A, OP>(from_bits<A>(parts[s]), r);
-    parts[s] = to_bits<A>(r);
-  }
-  __syncthreads();
+  finish<LAYOUT, false, A, OP>(slots, nseg, dst, first);
 }
 
-// The last block: out[q, s] combines parts[b, q, s] over blocks b in a
-// fixed order (lane b mod 32 in block order, then a butterfly).
+// One request over rows [c0, c0 + rows) of the direct form (rows <=
+// kDirectMaxRows), written straight into its output row dst. Each thread
+// takes rows tid, tid + kThreads, ...: it starts the reads of all of
+// them (gid, validity, x: independent of each other, no shared-memory
+// codes) before it updates a slot, so a small call waits for memory once.
+template <int LAYOUT, typename X, typename A, int OP>
+__device__ void sweep_direct(const Request& rq,
+                             const int32_t* __restrict__ gid, long long c0,
+                             int rows, int nseg, A* slots,
+                             unsigned long long* dst) {
+  constexpr bool kHasX = OP != OP_COUNT;
+  constexpr int U = kDirectUnroll;
+  const int tid = threadIdx.x;
+  const X* x = static_cast<const X*>(rq.x);
+  const bool* valid = rq.valid;
+
+  init_slots<LAYOUT, A, OP>(slots, nseg);
+  for (int r0 = 0; r0 < rows; r0 += kThreads * U) {
+    int cs[U];
+    A vs[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * kThreads + tid;
+      const bool in = r < rows;
+      const int g = in ? gid[c0 + r] : nseg;
+      const bool ok = in && (valid == nullptr || valid[c0 + r]);
+      vs[u] = A(1);
+      if constexpr (kHasX) {
+        vs[u] = in ? static_cast<A>(x[c0 + r]) : identity<A, OP>();
+      }
+      cs[u] = ok ? code_of(g, nseg) : nseg;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      update<LAYOUT, A, OP>(slots, nseg, cs[u], vs[u]);
+    }
+  }
+  finish<LAYOUT, true, A, OP>(slots, nseg, dst, true);
+}
+
+// The last block of a lane: row[s] combines parts[b, q, s] over that
+// lane's `blocks` blocks in a fixed order (lane b mod 32 in block order,
+// then a butterfly).
 template <typename A, int OP>
-__device__ void combine_blocks(const unsigned long long* parts, int k,
-                               int nseg, int q, int s,
-                               unsigned long long* out) {
+__device__ void combine_blocks(const unsigned long long* parts, int blocks,
+                               int k, int nseg, int q, int s,
+                               unsigned long long* row) {
   constexpr int kBatch = 8;  // loads in flight per lane
   const int lane = threadIdx.x & 31;
-  const int grid = static_cast<int>(gridDim.x);
   A r = identity<A, OP>();
-  for (int b0 = lane; b0 < grid; b0 += 32 * kBatch) {
+  for (int b0 = lane; b0 < blocks; b0 += 32 * kBatch) {
     A v[kBatch];
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) {
       const int b = b0 + 32 * j;
       const size_t idx = (static_cast<size_t>(b) * k + q) * nseg + s;
-      v[j] = b < grid ? from_bits<A>(__ldcg(parts + idx)) : identity<A, OP>();
+      v[j] = b < blocks ? from_bits<A>(__ldcg(parts + idx))
+                        : identity<A, OP>();
     }
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) r = combine<A, OP>(r, v[j]);
@@ -371,17 +457,24 @@ __device__ void combine_blocks(const unsigned long long* parts, int k,
   for (int off = 16; off > 0; off >>= 1) {
     r = combine<A, OP>(r, __shfl_xor_sync(kFull, r, off));
   }
-  if (lane == 0) out[static_cast<size_t>(q) * nseg + s] = out_bits<A>(r);
+  if (lane == 0) row[s] = out_bits<A>(r);
 }
 
-// Request dispatch: op and x kind are uniform across the block.
-template <int LAYOUT>
+// Request dispatch: op and x kind are uniform across the block. The
+// large form reads the chunk's codes, the direct form the gid itself.
+template <int LAYOUT, bool DIRECT>
 __device__ void sweep_request(const Request& rq, const uint16_t* codes,
-                              long long c0, int rows, int nseg, void* slots,
-                              unsigned long long* parts, bool first) {
+                              const int32_t* gid, long long c0, int rows,
+                              int nseg, void* slots, unsigned long long* dst,
+                              bool first) {
 #define ONEHOT_SWEEP(X, A, OP)                                            \
-  sweep<LAYOUT, X, A, OP>(rq, codes, c0, rows, nseg,                     \
-                          static_cast<A*>(slots), parts, first)
+  if constexpr (DIRECT) {                                                 \
+    sweep_direct<LAYOUT, X, A, OP>(rq, gid, c0, rows, nseg,              \
+                                   static_cast<A*>(slots), dst);         \
+  } else {                                                                \
+    sweep<LAYOUT, X, A, OP>(rq, codes, c0, rows, nseg,                   \
+                            static_cast<A*>(slots), dst, first);         \
+  }
   switch (rq.op * 4 + rq.xkind) {
     case OP_COUNT * 4 + X_NONE: ONEHOT_SWEEP(long long, long long, OP_COUNT); break;
     case OP_SUM * 4 + X_I64: ONEHOT_SWEEP(long long, long long, OP_SUM); break;
@@ -398,10 +491,12 @@ __device__ void sweep_request(const Request& rq, const uint16_t* codes,
 #undef ONEHOT_SWEEP
 }
 
-__device__ void combine_request(const Request& rq, const unsigned long long* parts,
+__device__ void combine_request(const Request& rq,
+                                const unsigned long long* parts, int blocks,
                                 int k, int nseg, int q, int s,
-                                unsigned long long* out) {
-#define ONEHOT_COMBINE(A, OP) combine_blocks<A, OP>(parts, k, nseg, q, s, out)
+                                unsigned long long* row) {
+#define ONEHOT_COMBINE(A, OP) \
+  combine_blocks<A, OP>(parts, blocks, k, nseg, q, s, row)
   switch (rq.op * 4 + rq.xkind) {
     case OP_COUNT * 4 + X_NONE: ONEHOT_COMBINE(long long, OP_SUM); break;
     case OP_SUM * 4 + X_I64: ONEHOT_COMBINE(long long, OP_SUM); break;
@@ -418,34 +513,40 @@ __device__ void combine_request(const Request& rq, const unsigned long long* par
 #undef ONEHOT_COMBINE
 }
 
-// scratch: [0] the ticket (zero between launches), then the [grid, k,
-// nseg] partials. out: [k, nseg] 8-byte slots.
+// The large form. gridDim.x = lanes * per_lane; block b takes span rows
+// of lane b / per_lane. tickets: one zeroed counter per lane (zero again
+// after the launch); parts: the [grid, k, nseg] partials. out: [k,
+// lanes, nseg] 8-byte slots.
 template <int LAYOUT>
 __global__ void __launch_bounds__(kThreads)
     onehot_many(const Requests rqs, int k, const int32_t* __restrict__ gid,
-                long long n, int nseg, long long span,
-                unsigned long long* scratch, unsigned long long* out) {
+                long long rows, int nseg, int per_lane, long long span,
+                unsigned int* tickets, unsigned long long* parts,
+                unsigned long long* out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ bool last;
   uint16_t* codes = reinterpret_cast<uint16_t*>(smem);
   void* slots = smem + kChunkRows * sizeof(uint16_t);
-  unsigned int* ticket = reinterpret_cast<unsigned int*>(scratch);
-  unsigned long long* parts = scratch + 1;
+  const int lanes = static_cast<int>(gridDim.x) / per_lane;
+  const int lane = static_cast<int>(blockIdx.x) / per_lane;
+  const long long base = static_cast<long long>(lane) * rows;
 
-  const long long b0 = static_cast<long long>(blockIdx.x) * span;
-  const long long b1 = min(n, b0 + span);
+  const long long b0 =
+      base + static_cast<long long>(blockIdx.x % per_lane) * span;
+  const long long b1 = min(base + rows, b0 + span);
   long long c0 = b0;
   bool first = true;
   do {
-    const int rows = static_cast<int>(
+    const int n = static_cast<int>(
         max(0LL, min(static_cast<long long>(kChunkRows), b1 - c0)));
-    load_codes(gid, c0, rows, nseg, codes);
+    load_codes(gid, c0, n, nseg, codes);
     __syncthreads();
     for (int q = 0; q < k; ++q) {
       unsigned long long* mine =
           parts + (static_cast<size_t>(blockIdx.x) * k + q) * nseg;
       const Request rq = rqs.r[q];
-      sweep_request<LAYOUT>(rq, codes, c0, rows, nseg, slots, mine, first);
+      sweep_request<LAYOUT, false>(rq, codes, nullptr, c0, n, nseg, slots,
+                                   mine, first);
     }
     first = false;
     c0 += kChunkRows;
@@ -453,15 +554,37 @@ __global__ void __launch_bounds__(kThreads)
 
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  if (threadIdx.x == 0) {
+    last = atomicAdd(tickets + lane, 1u) ==
+           static_cast<unsigned>(per_lane - 1);
+  }
   __syncthreads();
   if (!last) return;
   __threadfence();
+  const unsigned long long* mine =
+      parts + static_cast<size_t>(lane) * per_lane * k * nseg;
   for (int p = threadIdx.x >> 5; p < k * nseg; p += kWarps) {
-    const Request rq = rqs.r[p / nseg];
-    combine_request(rq, parts, k, nseg, p / nseg, p % nseg, out);
+    const int q = p / nseg;
+    const Request rq = rqs.r[q];
+    combine_request(rq, mine, per_lane, k, nseg, q, p % nseg,
+                    out + (static_cast<size_t>(q) * lanes + lane) * nseg);
   }
-  if (threadIdx.x == 0) *ticket = 0;
+  if (threadIdx.x == 0) tickets[lane] = 0;
+}
+
+// The direct form: block (q, l) sweeps request q over lane l's rows
+// (at most kDirectMaxRows) and writes out[q, l, :].
+template <int LAYOUT>
+__global__ void __launch_bounds__(kThreads)
+    onehot_many_direct(const Requests rqs, const int32_t* __restrict__ gid,
+                       int rows, int nseg, unsigned long long* out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int q = static_cast<int>(blockIdx.x);
+  const int lane = static_cast<int>(blockIdx.y);
+  const Request rq = rqs.r[q];
+  sweep_request<LAYOUT, true>(
+      rq, nullptr, gid, static_cast<long long>(lane) * rows, rows, nseg, smem,
+      out + (static_cast<size_t>(q) * gridDim.y + lane) * nseg, false);
 }
 
 // x may be null only where there are no rows (an empty tensor's pointer)
@@ -472,68 +595,107 @@ bool valid_request(const Request& r, long long n) {
          (r.x != nullptr || n == 0);
 }
 
-// The kernel for nseg segments and its dynamic shared memory: per-thread
-// slots up to kPerThreadMaxSegments, per-warp slots above.
+// The slots' bytes for nseg segments: per-thread slots up to
+// kPerThreadMaxSegments, per-warp slots above.
+size_t slots_bytes(int nseg) {
+  const bool per_thread = nseg <= kPerThreadMaxSegments;
+  return sizeof(long long) * (nseg + 1) * (per_thread ? kThreads : kWarps);
+}
+
+// The large form's kernel for nseg segments and its dynamic shared memory.
 using Kernel = void (*)(const Requests, int, const int32_t*, long long, int,
-                        long long, unsigned long long*, unsigned long long*);
+                        int, long long, unsigned int*, unsigned long long*,
+                        unsigned long long*);
 
 Kernel kernel_for(int nseg, size_t* smem) {
-  const bool per_thread = nseg <= kPerThreadMaxSegments;
-  *smem = kChunkRows * sizeof(uint16_t) +
-          sizeof(long long) * (nseg + 1) * (per_thread ? kThreads : kWarps);
-  return per_thread ? &onehot_many<PER_THREAD> : &onehot_many<PER_WARP>;
+  *smem = kChunkRows * sizeof(uint16_t) + slots_bytes(nseg);
+  return nseg <= kPerThreadMaxSegments ? &onehot_many<PER_THREAD>
+                                       : &onehot_many<PER_WARP>;
+}
+
+using DirectKernel = void (*)(const Requests, const int32_t*, int, int,
+                              unsigned long long*);
+
+DirectKernel direct_kernel_for(int nseg, size_t* smem) {
+  *smem = slots_bytes(nseg);
+  return nseg <= kPerThreadMaxSegments ? &onehot_many_direct<PER_THREAD>
+                                       : &onehot_many_direct<PER_WARP>;
+}
+
+template <typename F>
+cudaError_t allow_smem(F kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
 
 extern "C" {
 
-// K (<= 16) reductions over one gid in one launch: request q is (ops[q],
-// xkinds[q], xs[q], valids[q]) and its result is row q of out[k, nseg]
-// (8-byte slots). scratch is zeroed device memory of at least
-// 8 * (1 + grid * k * nseg) bytes that only stream-ordered launches
-// share; the launch leaves its first word zero again. Returns the CUDA
-// error code of the launch (0 on success); nothing synchronises.
-int onehot_reduce_many_launch(int k, const int* ops, const int* xkinds,
-                              const void* const* xs,
-                              const void* const* valids, const void* gid,
-                              long long n, int nseg, void* scratch, int grid,
-                              void* out, void* stream) {
+// K (<= 64) reductions over `lanes` lanes of `rows` rows each in one
+// launch: request q is (ops[q], xkinds[q], xs[q], valids[q]) over the
+// lanes * rows rows of gid, and its result for lane l is row q, columns
+// [l * nseg, (l + 1) * nseg) of out[k, lanes * nseg] (8-byte slots).
+// per_lane == 0 takes the direct form (rows <= 4,096, lanes <= 65,535;
+// tickets and parts unused); per_lane >= 1 the large form over
+// lanes * per_lane blocks, with tickets zeroed device memory of at least
+// 4 * lanes bytes (zero again after the launch) and parts device memory
+// of at least 8 * lanes * per_lane * k * nseg bytes, both shared only by
+// stream-ordered launches. Returns the CUDA error code of the launch (0
+// on success); nothing synchronises.
+int onehot_reduce_launch(int k, const int* ops, const int* xkinds,
+                         const void* const* xs, const void* const* valids,
+                         const void* gid, int lanes, long long rows, int nseg,
+                         int per_lane, void* tickets, void* parts, void* out,
+                         void* stream) {
   if (k < 1 || k > kMaxRequests || nseg < 1 || nseg > kMaxSegments ||
-      grid < 1 || n < 0) {
+      lanes < 1 || rows < 0 || per_lane < 0 ||
+      static_cast<long long>(lanes) * per_lane > INT_MAX ||
+      (per_lane == 0 && (rows > kDirectMaxRows || lanes > kMaxGridY))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long n = static_cast<long long>(lanes) * rows;
   Requests rqs = {};
   for (int q = 0; q < k; ++q) {
     rqs.r[q] = Request{xs[q], static_cast<const bool*>(valids[q]), ops[q],
                        xkinds[q]};
     if (!valid_request(rqs.r[q], n)) return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long span = (n + grid - 1) / grid;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* g = static_cast<const int32_t*>(gid);
+  auto* o = static_cast<unsigned long long*>(out);
   size_t smem = 0;
-  const auto kernel = kernel_for(nseg, &smem);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      rqs, k, static_cast<const int32_t*>(gid), n, nseg, span,
-      static_cast<unsigned long long*>(scratch),
-      static_cast<unsigned long long*>(out));
+  cudaError_t err;
+  if (per_lane == 0) {
+    const int r = static_cast<int>(rows);
+    const auto kernel = direct_kernel_for(nseg, &smem);
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(k, lanes), kThreads, smem, s>>>(rqs, g, r, nseg, o);
+  } else {
+    const long long span = (rows + per_lane - 1) / per_lane;
+    const auto kernel = kernel_for(nseg, &smem);
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<lanes * per_lane, kThreads, smem, s>>>(
+        rqs, k, g, rows, nseg, per_lane, span,
+        static_cast<unsigned int*>(tickets),
+        static_cast<unsigned long long*>(parts), o);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// How many blocks of the kernel for nseg segments fit on one SM of the
-// current device (at least 1), or a negative CUDA error code.
+// How many blocks of the large form's kernel for nseg segments fit on
+// one SM of the current device (at least 1), or a negative CUDA error
+// code.
 int onehot_reduce_many_blocks_per_sm(int nseg) {
   if (nseg < 1 || nseg > kMaxSegments) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }
   size_t smem = 0;
   const auto kernel = kernel_for(nseg, &smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = allow_smem(kernel, smem);
   int blocks = 0;
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,

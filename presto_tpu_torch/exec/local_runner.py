@@ -1308,8 +1308,8 @@ class LocalQueryRunner:
         once per lane (``page.tile_lanes``), and the plan runs once
         over those lane-blocked pages, where each RuntimeParam reads
         its lane's value and an aggregation reduces each lane on its
-        own (a one-hot GROUP BY is ``ceil(lanes * nseg / 256)`` K1
-        launches). Each lane is compacted to the speculative window on
+        own (a one-hot GROUP BY is one K1 launch for every lane).
+        Each lane is compacted to the speculative window on
         the device, and one host read fetches the control values and
         every lane's window.
 

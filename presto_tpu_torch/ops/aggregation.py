@@ -100,13 +100,16 @@ _ONEHOT_MAX_SEGMENTS = 256
 _ONEHOT_OPS = {"count": 0, "sum": 1, "min": 2, "max": 3}
 _ONEHOT_XKIND = {torch.int64: 1, torch.float64: 2, torch.float32: 3}
 #: requests per launch (kMaxRequests in csrc/onehot_reduce.cu)
-K_MAX = 16
+K_MAX = 64
 #: one reduction request: (op, x or None for count, validity or None)
 OnehotRequest = Tuple[str, Optional[torch.Tensor], Optional[torch.Tensor]]
-#: the kernel's persistent grid: up to this many blocks per SM (as many
-#: as fit), and no block for fewer rows than _MIN_ROWS_PER_BLOCK
+#: the large form's persistent grid: up to this many blocks per SM (as
+#: many as fit), and no block for fewer rows than _MIN_ROWS_PER_BLOCK
 _MAX_BLOCKS_PER_SM = 4
 _MIN_ROWS_PER_BLOCK = 4096
+#: a lane of at most this many rows takes the direct form
+#: (kDirectMaxRows in csrc/onehot_reduce.cu)
+_DIRECT_MAX_ROWS = 4096
 
 
 def _onehot_fill(op: str, dtype: torch.dtype):
@@ -203,14 +206,15 @@ def _onehot_lib():
     from presto_tpu_torch import kernels
 
     lib = kernels.load("onehot_reduce")
-    fn = lib.onehot_reduce_many_launch
+    fn = lib.onehot_reduce_launch
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_int,
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         lib.onehot_reduce_many_blocks_per_sm.argtypes = [ctypes.c_int]
@@ -222,7 +226,7 @@ def _onehot_lib():
 
 @functools.lru_cache(maxsize=None)
 def _grid_blocks(index: int, nseg: int) -> int:
-    """The largest grid the kernel runs for nseg segments on device
+    """The largest grid the large form runs for nseg segments on device
     ``index``: blocks per SM (as many as fit, at most
     ``_MAX_BLOCKS_PER_SM``) times the SM count; read once per device."""
     lib = _onehot_lib()
@@ -235,18 +239,106 @@ def _grid_blocks(index: int, nseg: int) -> int:
     return min(per_sm, _MAX_BLOCKS_PER_SM) * sms
 
 
-#: per device: the zeroed scratch whose first word is the kernel's ticket
-_scratch: Dict[int, torch.Tensor] = {}
+def onehot_blocks_per_lane(rows: int, lanes: int, grid: int) -> int:
+    """How the kernel takes ``lanes`` lanes of ``rows`` rows on a card
+    whose large-form grid is ``grid`` blocks. 0 is the direct form: a
+    lane of at most ``_DIRECT_MAX_ROWS`` rows, one block per (request,
+    lane). Otherwise the large form's blocks per lane: the grid split
+    evenly over the lanes, at least one block a lane and no block for
+    fewer than ``_MIN_ROWS_PER_BLOCK`` rows. Either way every lane and
+    up to ``K_MAX`` requests are one launch."""
+    if rows <= _DIRECT_MAX_ROWS:
+        return 0
+    return max(1, min(grid // lanes, -(-rows // _MIN_ROWS_PER_BLOCK)))
+
+
+#: per device: the zeroed per-lane tickets and the partials of the
+#: large form
+_scratch: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 #: guards ``onehot_reduce.launches``
 _launches_mu = threading.Lock()
 
 
-def _scratch_for(device: torch.device, slots: int) -> torch.Tensor:
-    buf = _scratch.get(device.index)
-    if buf is None or buf.numel() < 1 + slots:
-        buf = torch.zeros(1 + slots, dtype=torch.int64, device=device)
-        _scratch[device.index] = buf
-    return buf
+def _scratch_for(
+    device: torch.device, lanes: int, slots: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    tickets, parts = _scratch.get(device.index, (None, None))
+    if tickets is None or tickets.numel() < lanes:
+        tickets = torch.zeros(lanes, dtype=torch.int32, device=device)
+    if parts is None or parts.numel() < slots:
+        parts = torch.empty(slots, dtype=torch.int64, device=device)
+    _scratch[device.index] = (tickets, parts)
+    return tickets, parts
+
+
+def _onehot_launch(
+    gid: torch.Tensor,
+    requests: Sequence[OnehotRequest],
+    nseg: int,
+    lanes: int,
+) -> torch.Tensor:
+    """The kernel over a CUDA ``gid`` of ``lanes`` equal lanes: the
+    ``[K, lanes * nseg]`` slots, lane-major in each row, in one launch
+    per ``K_MAX`` requests (``onehot_blocks_per_lane``). Raises when a
+    launch fails."""
+    dev = gid.device
+    gid = gid.contiguous()
+    rows = gid.shape[0] // lanes
+    lib = _onehot_lib()
+    k_all = len(requests)
+    per_lane = onehot_blocks_per_lane(
+        rows, lanes, _grid_blocks(dev.index, nseg)
+    )
+    out = torch.empty((k_all, lanes * nseg), dtype=torch.int64, device=dev)
+    tickets = parts = None
+    if per_lane:
+        tickets, parts = _scratch_for(
+            dev, lanes, lanes * per_lane * min(k_all, K_MAX) * nseg
+        )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for k0 in range(0, k_all, K_MAX):
+            part = requests[k0:k0 + K_MAX]
+            k = len(part)
+            xs = [None if x is None else x.contiguous() for _, x, _ in part]
+            vs = [None if v is None else v.contiguous() for _, _, v in part]
+            rc = lib.onehot_reduce_launch(
+                k,
+                (ctypes.c_int * k)(*[_ONEHOT_OPS[op] for op, _, _ in part]),
+                (ctypes.c_int * k)(
+                    *[0 if x is None else _ONEHOT_XKIND[x.dtype] for x in xs]
+                ),
+                (ctypes.c_void_p * k)(
+                    *[None if x is None else x.data_ptr() for x in xs]
+                ),
+                (ctypes.c_void_p * k)(
+                    *[None if v is None else v.data_ptr() for v in vs]
+                ),
+                gid.data_ptr(), lanes, rows, nseg, per_lane,
+                None if tickets is None else tickets.data_ptr(),
+                None if parts is None else parts.data_ptr(),
+                out[k0].data_ptr(), stream,
+            )
+            if rc != 0:
+                msg = lib.onehot_reduce_error_string(rc).decode()
+                raise RuntimeError(
+                    f"onehot_reduce launch failed: {msg} ({rc})"
+                )
+            with _launches_mu:
+                # the server's task threads launch concurrently: the
+                # count must not lose an increment
+                onehot_reduce.launches += 1
+    return out
+
+
+def _on_cpu(gid: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain version), False for a CUDA one
+    (the kernel); raises for any other device."""
+    if gid.device.type == "cpu":
+        return True
+    if gid.device.type != "cuda":
+        raise ValueError(f"onehot_reduce: no kernel for {gid.device}")
+    return False
 
 
 def onehot_reduce_many(
@@ -260,58 +352,16 @@ def onehot_reduce_many(
     results as float64 bits; ``onehot_results`` gives each row its type).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (``csrc/onehot_reduce.cu``) once per ``K_MAX`` requests, in
-    order, or raises. Launches on one device must be stream-ordered: they
-    share one scratch. ``onehot_reduce.launches`` counts the launches."""
+    kernel (``csrc/onehot_reduce.cu``) once per ``K_MAX`` requests, or
+    raises. Launches on one device must be stream-ordered: they share
+    one scratch. ``onehot_reduce.launches`` counts the launches."""
     if not requests:
         raise ValueError("onehot_reduce_many: no requests")
     for op, x, valid in requests:
         _check_onehot_args(gid, x, valid, nseg, op)
-    if gid.device.type == "cpu":
+    if _on_cpu(gid):
         return onehot_reduce_many_plain(gid, requests, nseg)
-    if gid.device.type != "cuda":
-        raise ValueError(f"onehot_reduce: no kernel for {gid.device}")
-    dev = gid.device
-    gid = gid.contiguous()
-    n = gid.shape[0]
-    lib = _onehot_lib()
-    grid = max(1, min(_grid_blocks(dev.index, nseg),
-                      -(-n // _MIN_ROWS_PER_BLOCK)))
-    k_all = len(requests)
-    out = torch.empty((k_all, nseg), dtype=torch.int64, device=dev)
-    scratch = _scratch_for(dev, grid * min(k_all, K_MAX) * nseg)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for k0 in range(0, k_all, K_MAX):
-            part = requests[k0:k0 + K_MAX]
-            k = len(part)
-            xs = [None if x is None else x.contiguous() for _, x, _ in part]
-            vs = [None if v is None else v.contiguous() for _, _, v in part]
-            rc = lib.onehot_reduce_many_launch(
-                k,
-                (ctypes.c_int * k)(*[_ONEHOT_OPS[op] for op, _, _ in part]),
-                (ctypes.c_int * k)(
-                    *[0 if x is None else _ONEHOT_XKIND[x.dtype] for x in xs]
-                ),
-                (ctypes.c_void_p * k)(
-                    *[None if x is None else x.data_ptr() for x in xs]
-                ),
-                (ctypes.c_void_p * k)(
-                    *[None if v is None else v.data_ptr() for v in vs]
-                ),
-                gid.data_ptr(), n, nseg, scratch.data_ptr(), grid,
-                out[k0].data_ptr(), stream,
-            )
-            if rc != 0:
-                msg = lib.onehot_reduce_error_string(rc).decode()
-                raise RuntimeError(
-                    f"onehot_reduce launch failed: {msg} ({rc})"
-                )
-            with _launches_mu:
-                # the server's task threads launch concurrently: the
-                # count must not lose an increment
-                onehot_reduce.launches += 1
-    return out
+    return _onehot_launch(gid, requests, nseg, 1)
 
 
 def onehot_reduce(
@@ -347,21 +397,17 @@ def onehot_reduce_lanes(
 ) -> torch.Tensor:
     """K1's batching rule: ``onehot_reduce_many`` over a lane-blocked
     page, where lane l owns rows [l * C, (l + 1) * C) and its own gid
-    in [0, nseg] (nseg: the lane's dead row). Lane l is folded into the
-    segment id (``gid + l * nseg``, a dead row to the launch's sink),
-    so up to ``256 // nseg`` lanes share ONE launch over their
-    contiguous rows: Q1's 6 groups take 42 lanes per launch. Returns
-    the ``[K, lanes * nseg]`` slots, lane-major (lane l's segment s at
+    in [0, nseg] (nseg: the lane's dead row). Returns the
+    ``[K, lanes * nseg]`` slots, lane-major (lane l's segment s at
     ``l * nseg + s``).
 
-    Each lane's x is read in its own rows: a column the lanes share is
-    repeated per lane (``page.tile_lanes``), so a launch reads it once
-    per lane where the least traffic would read it once.
-
-    The fold is the same on every device; ``onehot_reduce_many`` then
-    launches the kernel on a CUDA tensor and takes its plain version on
-    a CPU one. ``onehot_reduce_lanes_plain`` is the independent
-    reference: one plain reduction per lane, no fold."""
+    A CUDA tensor launches the kernel once per ``K_MAX`` requests for
+    every lane together (the lane is a grid axis of the kernel, not part
+    of the segment id), or raises; a CPU tensor takes the plain version,
+    ``onehot_reduce_lanes_plain``. Each lane's x is read in its own
+    rows: a column the lanes share is repeated per lane
+    (``page.tile_lanes``), so a launch reads it once per lane where the
+    least traffic would read it once."""
     if not requests:
         raise ValueError("onehot_reduce_lanes: no requests")
     n = gid.shape[0]
@@ -370,34 +416,11 @@ def onehot_reduce_lanes(
             f"onehot_reduce_lanes: {n} rows do not split into "
             f"{lanes} lanes"
         )
-    rows = n // lanes
-    per = max(1, _ONEHOT_MAX_SEGMENTS // nseg)
-    parts = []
-    for l0 in range(0, lanes, per):
-        k = min(lanes, l0 + per) - l0
-        r0, r1 = l0 * rows, (l0 + k) * rows
-        g = gid[r0:r1].view(k, rows)
-        off = (
-            torch.arange(k, dtype=torch.int32, device=gid.device) * nseg
-        )[:, None]
-        folded = torch.where(
-            (g >= 0) & (g < nseg), g + off, k * nseg
-        ).to(torch.int32).reshape(-1)
-        part = [
-            (
-                op,
-                None if x is None else x[r0:r1],
-                None if v is None else v[r0:r1],
-            )
-            for op, x, v in requests
-        ]
-        parts.append(
-            onehot_reduce_many(folded, part, k * nseg).view(
-                len(requests), k, nseg
-            )
-        )
-    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    return out.reshape(len(requests), lanes * nseg)
+    for op, x, valid in requests:
+        _check_onehot_args(gid, x, valid, nseg, op)
+    if _on_cpu(gid):
+        return onehot_reduce_lanes_plain(gid, requests, nseg, lanes)
+    return _onehot_launch(gid, requests, nseg, lanes)
 
 
 def onehot_reduce_lanes_plain(

@@ -19,6 +19,8 @@ import torch
 from presto_tpu_torch.ops.aggregation import (
     K_MAX,
     onehot_reduce,
+    onehot_reduce_lanes,
+    onehot_reduce_lanes_plain,
     onehot_reduce_many,
     onehot_reduce_many_plain,
     onehot_reduce_plain,
@@ -155,14 +157,15 @@ def _assert_many_agrees(g, reqs, nseg, out):
 @pytest.mark.parametrize(
     "nseg", [1, LAYOUT_LIMIT, LAYOUT_LIMIT + 1, 256]
 )
-@pytest.mark.parametrize("k", [1, K_MAX, K_MAX + 1])
+@pytest.mark.parametrize("k", [1, 16, 17, K_MAX, K_MAX + 1])
 def test_onehot_reduce_many_matches_plain(cuda, rows, nseg, k):
     g = _inputs(rows, nseg, torch.int64, False, rows + nseg, cuda)[0]
     reqs = _requests(rows, k, nseg, rows + k, cuda)
     before = onehot_reduce.launches
     out = onehot_reduce_many(g, reqs, nseg)
     torch.cuda.synchronize()
-    assert onehot_reduce.launches == before + -(-k // K_MAX)
+    # one launch for up to K_MAX (64) requests, a second past them
+    assert onehot_reduce.launches == before + (1 if k <= K_MAX else 2)
     _assert_many_agrees(g, reqs, nseg, out)
 
 
@@ -201,6 +204,82 @@ def test_onehot_reduce_many_float_sums_are_bit_identical(cuda, nseg):
     first = onehot_reduce_many(g, reqs, nseg)
     for _ in range(3):
         assert torch.equal(onehot_reduce_many(g, reqs, nseg), first)
+
+
+# ------------------------------- the direct and large forms, lane by lane
+
+
+def _assert_lanes_agree(g, reqs, nseg, lanes, out):
+    assert out.shape == (len(reqs), lanes * nseg) and out.dtype == torch.int64
+    want = onehot_reduce_lanes_plain(g, reqs, nseg, lanes)
+    for got, exp, (op, x, v) in zip(
+        onehot_results(out, reqs), onehot_results(want, reqs), reqs
+    ):
+        abs_sum = None
+        if op == "sum" and x.is_floating_point():
+            req = [("sum", x.abs(), v)]
+            abs_sum = onehot_results(
+                onehot_reduce_lanes_plain(g, req, nseg, lanes), req)[0]
+        _assert_agrees(got, exp, op, abs_sum)
+
+
+def _lanes_once(g, reqs, nseg, lanes):
+    """One lane call: its result, held to one launch and to a second
+    call bit for bit."""
+    before = onehot_reduce.launches
+    out = onehot_reduce_lanes(g, reqs, nseg, lanes)
+    torch.cuda.synchronize()
+    assert onehot_reduce.launches == before + 1
+    assert torch.equal(onehot_reduce_lanes(g, reqs, nseg, lanes), out)
+    return out
+
+
+@pytest.mark.parametrize("rows", [0, 1, 4095])
+@pytest.mark.parametrize("nseg", [1, LAYOUT_LIMIT, LAYOUT_LIMIT + 1, 256])
+@pytest.mark.parametrize("lanes", [1, 8, 64])
+def test_direct_form_matches_plain(cuda, rows, nseg, lanes):
+    # lanes of at most 4,096 rows: one block per (request, lane), the
+    # result written straight to out; 17 requests cover every op and
+    # dtype, masked and not
+    g = _inputs(lanes * rows, nseg, torch.int64, False, rows + nseg, cuda)[0]
+    reqs = _requests(lanes * rows, 17, nseg, rows + lanes, cuda)
+    _assert_lanes_agree(g, reqs, nseg, lanes, _lanes_once(g, reqs, nseg, lanes))
+
+
+@pytest.mark.parametrize("rows", [4097, 70_001])
+@pytest.mark.parametrize("nseg", [1, 6, LAYOUT_LIMIT + 1, 256])
+@pytest.mark.parametrize("lanes", [1, 8, 64])
+def test_large_lane_form_matches_plain(cuda, rows, nseg, lanes):
+    # lanes past 4,096 rows: the persistent grid split over the lanes,
+    # each lane combined by its own last block
+    g = _inputs(lanes * rows, nseg, torch.int64, False, rows + nseg, cuda)[0]
+    reqs = _requests(lanes * rows, 17, nseg, rows + lanes, cuda)
+    _assert_lanes_agree(g, reqs, nseg, lanes, _lanes_once(g, reqs, nseg, lanes))
+
+
+@pytest.mark.parametrize("rows", [100, 4095, 70_001])
+@pytest.mark.parametrize("k", [1, 16, 17, K_MAX])
+def test_k_requests_over_lanes_are_one_launch(cuda, rows, k):
+    lanes, nseg = 8, LAYOUT_LIMIT + 1
+    g = _inputs(lanes * rows, nseg, torch.int64, True, rows + k, cuda)[0]
+    reqs = _requests(lanes * rows, k, nseg, rows * k, cuda)
+    _assert_lanes_agree(g, reqs, nseg, lanes, _lanes_once(g, reqs, nseg, lanes))
+
+
+def test_lane_form_takes_a_dead_lane_and_unaligned_views(cuda):
+    # lane 3 keeps no row; gid and x start off 16-byte alignment
+    lanes, rows, nseg = 8, 10_001, 6
+    g, x, v = _inputs(lanes * rows + 3, nseg, torch.int64, True, 21, cuda)
+    g[1 + 3 * rows:1 + 4 * rows] = nseg
+    g = g[1:lanes * rows + 1]  # 4 bytes past an aligned start; odd lanes
+    _, xd, _ = _inputs(lanes * rows + 3, nseg, torch.float64, False, 22, cuda)
+    reqs = [("count", None, v[2:lanes * rows + 2]),
+            ("sum", x[3:lanes * rows + 3], None),
+            ("max", xd[1:lanes * rows + 1], v[1:lanes * rows + 1]),
+            ("sum", xd[3:lanes * rows + 3], None)]
+    out = _lanes_once(g, reqs, nseg, lanes)
+    _assert_lanes_agree(g, reqs, nseg, lanes, out)
+    assert int(out[0][3 * nseg:4 * nseg].sum()) == 0
 
 
 # ------------------------------------------- the slice's queries on the card
@@ -306,10 +385,10 @@ def test_streamed_queries_on_the_card_equal_the_cpu(cuda, q):
     assert stats.batches > 0 and stats.buckets > 0
     assert len(got) > 0 and _rows_agree(got, cpu.execute(sql).rows())
     if q == "q1":
-        # one one-hot call per batch and per bucket merge, one launch
-        # per K_MAX of its requests
+        # one one-hot call per batch and per bucket merge, each one
+        # launch (a call makes at most K_MAX requests)
         assert len(calls) == stats.batches + stats.buckets
-        assert launches == sum(-(-k // K_MAX) for k in calls) > 0
+        assert launches == len(calls) > 0 and max(calls) <= K_MAX
     assert got == gpu.execute(sql).rows()  # a warm run repeats
 
 

@@ -515,8 +515,11 @@ def test_q1_shaped_group_by_batch_equals_reference_scalar():
 def test_onehot_reduce_lanes_equals_one_plain_call_per_lane(lanes, nseg):
     """L lanes through the batched call equal L plain calls: integers
     exact, float64 sums within rel 1e-12 of each segment's sum of |x|;
-    lanes with no live row included, L x nseg at 256 in one fold, and 50
-    lanes of 6 groups in two (256 // 6 = 42 lanes a fold)."""
+    lanes with no live row included, L x nseg at 256, and 50 lanes of 6
+    groups (300 segments in all). The lane is no part of the segment id
+    (no ``onehot_reduce_many`` call folds it in): a CPU tensor takes the
+    plain version once, and on a card every lane and request is one
+    launch."""
     rows = 512
     rng = np.random.default_rng(lanes * 100 + nseg)
     g = rng.integers(0, nseg + 1, lanes * rows).astype(np.int32)
@@ -531,22 +534,29 @@ def test_onehot_reduce_lanes_equals_one_plain_call_per_lane(lanes, nseg):
     reqs = [("count", None, None), ("count", None, valid),
             ("sum", x, None), ("min", x, valid), ("max", x, None),
             ("sum", f, valid), ("min", f, None), ("max", f, valid)]
-    folds = []
-    real = PA.onehot_reduce_many
+    folds, plains = [], []
+    real, real_plain = PA.onehot_reduce_many, PA.onehot_reduce_lanes_plain
 
     def record(gid_, requests, nseg_):
         folds.append(nseg_)
         return real(gid_, requests, nseg_)
 
+    def record_plain(gid_, requests, nseg_, lanes_):
+        plains.append((nseg_, lanes_))
+        return real_plain(gid_, requests, nseg_, lanes_)
+
     PA.onehot_reduce_many = record
+    PA.onehot_reduce_lanes_plain = record_plain
     try:
         got = PA.onehot_reduce_lanes(gid, reqs, nseg, lanes)
     finally:
         PA.onehot_reduce_many = real
-    per = 256 // nseg
-    assert folds == [
-        min(per, lanes - l0) * nseg for l0 in range(0, lanes, per)
-    ]
+        PA.onehot_reduce_lanes_plain = real_plain
+    assert folds == [] and plains == [(nseg, lanes)]
+    # on a card: the direct form (the H100's grid: 4 blocks on each of
+    # 132 SMs), all requests in one launch
+    assert PA.onehot_blocks_per_lane(rows, lanes, 528) == 0
+    assert len(reqs) <= PA.K_MAX
     assert got.shape == (len(reqs), lanes * nseg)
     res = PA.onehot_results(got, reqs)
     for lane in range(lanes):
