@@ -33,8 +33,16 @@ eligible aggregate over a base table reads the view that maintains it
 (``server/result_cache.py::mview_rewrite``).
 
 Every query is observed as the reference observes it: a ``Trace``
-(query -> plan -> execute spans), a ``QueryStats`` in the runner's
-``history`` (``system.runtime.queries``), per-operator row counts
+(query -> plan -> execute spans; under execute, a ``staging`` span per
+table staged, per run of the operators ``dispatch``, ``control_read``
+and ``result_copy``, a ``dynamic_filter`` per build-side key read and
+``host_ops``; each mirrored on the profiler's timeline as
+``presto.<name>`` while a profiler records, the root as ``execute``'s
+``presto.query`` around the whole statement, with ``presto.parse``,
+``presto.fragments``, ``presto.operator_stats`` and a
+``presto.op.<NodeClass>`` span per plan node there alone), a
+``QueryStats`` in the runner's ``history``
+(``system.runtime.queries``), per-operator row counts
 (session ``enable_operator_stats``: each counted node's 0-d live count
 rides the run's one control read), device-plane counters
 (``utils/telemetry.DEVICE``) and the query-completed listeners: the
@@ -90,6 +98,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import expr as E
+from presto_tpu_torch import kernels
 from presto_tpu_torch import types as T
 from presto_tpu_torch.connectors import create_connector
 from presto_tpu_torch.connectors.spi import ConnectorSplit, payload_len
@@ -154,6 +163,7 @@ from presto_tpu_torch.plan.optimizer import (
 from presto_tpu_torch.plan.planner import Plan, plan_statement
 from presto_tpu_torch.session import SYSTEM_SESSION_PROPERTIES, Session
 from presto_tpu_torch.sql import ast, parse_statement
+from presto_tpu_torch.utils import tracing
 from presto_tpu_torch.utils.metrics import REGISTRY
 from presto_tpu_torch.utils.telemetry import DEVICE
 from presto_tpu_torch.utils.tracing import Trace
@@ -345,10 +355,28 @@ class LocalQueryRunner:
     def _active_qs(self, qs) -> None:
         self._qs_local.value = qs
 
+    def _span(self, name: str, **attrs):
+        """A span of the active query's tree when this thread runs inside
+        it (the span yields its ``Span``), else one on the profiler's
+        timeline alone (it yields None): a prefetch thread's or a
+        micro-batch's spans never land beside the tree's root spans."""
+        trace = getattr(self._active_qs, "trace", None)
+        if trace is not None and trace.current() is not None:
+            return trace.span(name, **attrs)
+        return tracing.profiled(name)
+
     # ------------------------------------------------------------- public
 
     def execute(self, sql: str) -> QueryResult:
-        stmt = parse_statement(sql)
+        # the statement's whole life, its parse included, is one
+        # presto.query on the profiler's timeline; the parse comes before
+        # the query's trace exists, so the tree's root is not mirrored
+        with tracing.profiled("query"):
+            return self._execute_statement(sql)
+
+    def _execute_statement(self, sql: str) -> QueryResult:
+        with tracing.profiled("parse"):
+            stmt = parse_statement(sql)
         if isinstance(stmt, ast.SetSession):
             self.session.set(stmt.name, stmt.value)
             return QueryResult(("result",), _message_page("SET SESSION"))
@@ -431,8 +459,10 @@ class LocalQueryRunner:
         REGISTRY.counter("queries.submitted").update()
         t0 = time.perf_counter()
         try:
+            # on the profiler's timeline, ``execute`` (or a coordinator's
+            # own query span) already holds this one
             with REGISTRY.timer("query.wall_time").time(), trace.span(
-                "query", query_id=qs.query_id
+                "query", query_id=qs.query_id, mirror=False
             ):
                 with trace.span("plan"):
                     if isinstance(stmt, ast.Select):
@@ -1024,7 +1054,8 @@ class LocalQueryRunner:
             self._run_meta.value = (memo, {})
             page = self._run(root)
             if host_ops:
-                page = apply_host_ops(page, host_ops)
+                with self._span("host_ops"):
+                    page = apply_host_ops(page, host_ops)
             if qs is not None:
                 qs.execution_ms += (time.perf_counter() - t0) * 1000.0
                 qs.output_rows = int(page.num_valid)
@@ -1065,7 +1096,8 @@ class LocalQueryRunner:
         page = self._run_with_pages(root, scans, pages, stats_out=stats_cell)
         host_rows: List[int] = []
         if host_ops:
-            page = apply_host_ops(page, host_ops, rows_out=host_rows)
+            with self._span("host_ops"):
+                page = apply_host_ops(page, host_ops, rows_out=host_rows)
         stats = collect_node_stats(stats_cell)
         self._record_history(root, stats, stmt_root=bound_root, sql=sql)
         return (
@@ -1169,7 +1201,8 @@ class LocalQueryRunner:
         fragments of their own, their outputs stay on the device, and
         the remaining tree consumes them as leaves."""
         pages_map: Dict[int, Page] = {}
-        reduced = self._reduce_fragment(root, budget, pages_map)
+        with tracing.profiled("fragments"):
+            reduced = self._reduce_fragment(root, budget, pages_map)
         leaves, pages = self.leaf_pages(reduced, pages_map)
         return self._run_with_pages(reduced, leaves, pages)
 
@@ -1241,12 +1274,15 @@ class LocalQueryRunner:
             and not isinstance(node.left, (N.RemoteSourceNode, N.ValuesNode))
         ):
             return node
-        conjuncts, n_filters = dynfilter.device_conjuncts(
-            pages_map[id(leaf)],
-            list(zip(node.left_keys, node.right_keys)),
-            node.left.output_schema(),
-            ndv_limit=int(self.session.get("dynamic_filtering_ndv_limit")),
-        )
+        with self._span("dynamic_filter"):
+            conjuncts, n_filters = dynfilter.device_conjuncts(
+                pages_map[id(leaf)],
+                list(zip(node.left_keys, node.right_keys)),
+                node.left.output_schema(),
+                ndv_limit=int(
+                    self.session.get("dynamic_filtering_ndv_limit")
+                ),
+            )
         if not conjuncts:
             return node
         self.dynamic_filters_applied += n_filters
@@ -1375,60 +1411,76 @@ class LocalQueryRunner:
             counters=[] if counted else None, count_all=False, lanes=n,
         )
         t_disp = time.perf_counter()
-        try:
-            ctx.pages = [tile_lanes(p, n) for p in pages]
-            with canonical.active_params(
-                canonical.lane_vectors(stacked, self.device)
-            ):
-                out = _execute_node(root, ctx)
-        except NoLaneForm:
-            # the shape has no lane form: scalar serving still works
-            self._no_batch.add(cfp)
-            REGISTRY.counter("serving.batch_retired").update()
-            return none
-        lane_cap = out.capacity // n
-        window = min(spec, lane_cap)
-        live = out.row_mask().reshape(n, lane_cap)
-        # each lane's first ``window`` live rows, in order, as indices
-        # into the lane-blocked page (nonzero_static along each lane)
-        rank = torch.cumsum(live.to(torch.int64), dim=1) - 1
-        slot = torch.where(live & (rank < window), rank, window)
-        sel = torch.zeros((n, window + 1), dtype=torch.int64, device=live.device)
-        sel.scatter_(
-            1,
-            slot,
-            torch.arange(lane_cap, dtype=torch.int64, device=live.device)
-            .expand(n, lane_cap),
-        )
-        idx = (
-            sel[:, :window]
-            + torch.arange(n, dtype=torch.int64, device=live.device)[:, None]
-            * lane_cap
-        ).reshape(-1)
-        counts = [c for _, c, _, _ in ctx.counters or ()]
-        scalars = [f.reshape(()) for f in ctx.flags] + [
-            e.reshape(()) for _, e in ctx.errors
-        ]
-        control = torch.cat(
-            ([torch.stack(scalars).to(torch.int64)] if scalars else [])
-            + [c.to(torch.int64) for c in counts]
-            + [torch.sum(live, dim=1, dtype=torch.int64)]
-        )
-        leaves = [control]
-        for blk in out.blocks:
-            leaves.append(blk.data[idx])
-            if blk.valid is not None:
-                leaves.append(torch.broadcast_to(blk.valid, (out.capacity,))[idx])
+        with self._span("dispatch"):
+            try:
+                ctx.pages = [tile_lanes(p, n) for p in pages]
+                with canonical.active_params(
+                    canonical.lane_vectors(stacked, self.device)
+                ):
+                    out = _execute_node(root, ctx)
+            except NoLaneForm:
+                # the shape has no lane form: scalar serving still works
+                self._no_batch.add(cfp)
+                REGISTRY.counter("serving.batch_retired").update()
+                return none
+            lane_cap = out.capacity // n
+            window = min(spec, lane_cap)
+            live = out.row_mask().reshape(n, lane_cap)
+            # each lane's first ``window`` live rows, in order, as indices
+            # into the lane-blocked page (nonzero_static along each lane)
+            rank = torch.cumsum(live.to(torch.int64), dim=1) - 1
+            slot = torch.where(live & (rank < window), rank, window)
+            sel = torch.zeros(
+                (n, window + 1), dtype=torch.int64, device=live.device
+            )
+            sel.scatter_(
+                1,
+                slot,
+                torch.arange(lane_cap, dtype=torch.int64, device=live.device)
+                .expand(n, lane_cap),
+            )
+            idx = (
+                sel[:, :window]
+                + torch.arange(n, dtype=torch.int64, device=live.device)[
+                    :, None
+                ]
+                * lane_cap
+            ).reshape(-1)
+            counts = [c for _, c, _, _ in ctx.counters or ()]
+            scalars = [f.reshape(()) for f in ctx.flags] + [
+                e.reshape(()) for _, e in ctx.errors
+            ]
+            control = torch.cat(
+                ([torch.stack(scalars).to(torch.int64)] if scalars else [])
+                + [c.to(torch.int64) for c in counts]
+                + [torch.sum(live, dim=1, dtype=torch.int64)]
+            )
+            leaves = [control]
+            for blk in out.blocks:
+                leaves.append(blk.data[idx])
+                if blk.valid is not None:
+                    leaves.append(
+                        torch.broadcast_to(blk.valid, (out.capacity,))[idx]
+                    )
         t_disped = time.perf_counter()
         # ONE host read for every lane: the control values and each
         # lane's window of every block
-        fetched = to_host(leaves)
+        with self._span("control_read"):
+            fetched = to_host(leaves)
         t_fetched = time.perf_counter()
         control = fetched[0].tolist()
         batch_d2h = sum(int(t.nbytes) for t in fetched)
+        builds = kernels.take_builds()
         if DEVICE.enabled:
             DEVICE.count_dispatch()
             DEVICE.count_d2h(batch_d2h)
+            for ms in builds:
+                DEVICE.count_compile(ms)
+            if builds and leader is not None:
+                # a kernel built in this pass is the leader's to show
+                with self._qs_mu:
+                    leader.device_compiles += len(builds)
+                    leader.device_compile_ms += sum(builds)
         bad = any(control[: len(scalars)])
         pos = len(scalars)
         lane_counts = []
@@ -1459,7 +1511,8 @@ class LocalQueryRunner:
                 n_i,
             )
             if host_ops:
-                lane_page = apply_host_ops(lane_page, host_ops)
+                with self._span("host_ops"):
+                    lane_page = apply_host_ops(lane_page, host_ops)
             results[i] = QueryResult(plan0.output_names, lane_page)
             served += 1
             qs = qs_list[i]
@@ -1540,32 +1593,35 @@ class LocalQueryRunner:
                 counters=[] if counted else None, count_all=analyzed,
             )
             t_disp = time.perf_counter()
-            try:
-                with canonical.active_params(bound):
-                    out = compact_page(_execute_node(root, ctx))
-            except Exception:
-                if not bound:
-                    raise
-                # the parameterized form failed (a RuntimeParam fed an
-                # operator that needs its value on the host): re-run
-                # with the values bound back as Literals, as the
-                # reference's literal-form lane does. The literal form
-                # has no parameter vector, so this cannot loop; the
-                # failed attempt's counters are discarded with ctx.
-                root, scan_ids = _literal_form(root, scan_ids, bound)
-                bound = None
-                self.literal_form_reruns += 1
-                continue
-            counts = [c for _, c, _, _ in ctx.counters or ()]
-            control_t, order = _control_vector(
-                [f.reshape(()) for f in ctx.flags]
-                + [e.reshape(()) for _, e in ctx.errors]
-                + [c.reshape(()) for c in counts]
-                + [d.reshape(()) for d in ctx.dyn]
-                + [out.num_valid.reshape(())]
-            )
+            with self._span("dispatch"):
+                try:
+                    with canonical.active_params(bound):
+                        out = compact_page(_execute_node(root, ctx))
+                except Exception:
+                    if not bound:
+                        raise
+                    # the parameterized form failed (a RuntimeParam fed
+                    # an operator that needs its value on the host):
+                    # re-run with the values bound back as Literals, as
+                    # the reference's literal-form lane does. The literal
+                    # form has no parameter vector, so this cannot loop;
+                    # the failed attempt's counters are discarded with
+                    # ctx.
+                    root, scan_ids = _literal_form(root, scan_ids, bound)
+                    bound = None
+                    self.literal_form_reruns += 1
+                    continue
+                counts = [c for _, c, _, _ in ctx.counters or ()]
+                control_t, order = _control_vector(
+                    [f.reshape(()) for f in ctx.flags]
+                    + [e.reshape(()) for _, e in ctx.errors]
+                    + [c.reshape(()) for c in counts]
+                    + [d.reshape(()) for d in ctx.dyn]
+                    + [out.num_valid.reshape(())]
+                )
             t_disped = time.perf_counter()
-            control = _in_order(control_t.cpu().tolist(), order)
+            with self._span("control_read"):
+                control = _in_order(control_t.cpu().tolist(), order)
             t_fetched = time.perf_counter()
             # one attempt of the plan's operators (an overflowed one ran
             # too) and the bytes of its control read
@@ -1579,23 +1635,26 @@ class LocalQueryRunner:
                 dyn = control[nf + ne + nc: -1]
                 n = control[-1]
                 if counted and ctx.counters:
-                    cells = self._counter_cells(root, ctx.counters, analyzed)
-                    if analyzed:
-                        stats_out.clear()
-                        stats_out.extend(
-                            (walk_id, label, int(c), cap)
-                            for (walk_id, label, cap, _nb, _dp, _fp, _ch), c
-                            in zip(cells, cnt)
+                    with tracing.profiled("operator_stats"):
+                        cells = self._counter_cells(
+                            root, ctx.counters, analyzed
                         )
-                    # only the successful attempt counts: an overflowed
-                    # one re-ran the same rows
-                    self._fold_operator_stats(
-                        cells,
-                        cnt,
-                        wall_ms=(t_fetched - t_disp) * 1000.0,
-                        device_ms=(t_fetched - t_disped) * 1000.0,
-                        prog=prog_root,
-                    )
+                        if analyzed:
+                            stats_out.clear()
+                            stats_out.extend(
+                                (walk_id, label, int(c), cap)
+                                for (walk_id, label, cap, _nb, _dp, _fp,
+                                     _ch), c in zip(cells, cnt)
+                            )
+                        # only the successful attempt counts: an
+                        # overflowed one re-ran the same rows
+                        self._fold_operator_stats(
+                            cells,
+                            cnt,
+                            wall_ms=(t_fetched - t_disp) * 1000.0,
+                            device_ms=(t_fetched - t_disped) * 1000.0,
+                            prog=prog_root,
+                        )
                 pruned = sum(dyn)
                 if pruned:
                     REGISTRY.counter("dynamic_filter.rows_pruned").update(
@@ -1616,7 +1675,9 @@ class LocalQueryRunner:
                     d2h = sum(int(t.nbytes) for t in out.prefix_leaves(n))
                     DEVICE.count_d2h(d2h)
                     self._fold_device_stat(device_d2h_bytes=d2h)
-                return materialize_page(out, n)
+                with self._span("result_copy"):
+                    page = materialize_page(out, n)
+                return page
             tries += 1
             self.overflow_retries += 1
             if self._active_qs is not None:
@@ -1710,12 +1771,22 @@ class LocalQueryRunner:
         """Count one dispatch and the bytes of its control read on the
         device plane and the active query's sink: the seam through which
         every runner tier (the distributed runner's fragments too)
-        counts its host reads."""
+        counts its host reads. A kernel that ``kernels.load`` built
+        during the dispatch is counted as a compile and folded into the
+        sink here too."""
+        builds = kernels.take_builds()
         if DEVICE.enabled:
             d2h = int(control_t.nbytes)
             DEVICE.count_dispatch()
             DEVICE.count_d2h(d2h)
-            self._fold_device_stat(device_dispatches=1, device_d2h_bytes=d2h)
+            for ms in builds:
+                DEVICE.count_compile(ms)
+            self._fold_device_stat(
+                device_dispatches=1,
+                device_d2h_bytes=d2h,
+                device_compiles=len(builds),
+                device_compile_ms=sum(builds),
+            )
 
     def _fold_device_stat(self, **fields) -> None:
         """Add device-plane quantities (utils/telemetry.py families) to
@@ -1864,33 +1935,37 @@ class LocalQueryRunner:
             if pin:
                 self._note_pinned_key(key)
         else:
-            t0 = time.perf_counter()
-            merged = self._load_merged_payload(scan)
-            self._staged_rows[key] = _payload_rows(merged, scan.columns)
-            page = stage_page(merged, dict(scan.schema), device=self.device)
-            nbytes = page_nbytes(page)
-            REGISTRY.distribution("staging.bytes").add(nbytes)
-            # per-query h2d attribution (the process counter lives in
-            # staging.stage_page); cache hits copied nothing
-            self._fold_device_stat(device_h2d_bytes=nbytes)
-            cached = cacheable and self.split_cache.put(
-                key, page, nbytes, reserve_required=True, pin=pin
-            )
-            if cached and pin:
-                self._note_pinned_key(key)
-            if not cached and self.memory_pool is not None:
-                # not cache-owned (non-cacheable connector, or bigger
-                # than the budget): accounted under the query
-                owner = (
-                    self._active_qs.query_id
-                    if self._active_qs is not None
-                    else "adhoc"
+            with self._span("staging", table=_table_name(scan)) as span:
+                t0 = time.perf_counter()
+                merged = self._load_merged_payload(scan)
+                rows = _payload_rows(merged, scan.columns)
+                self._staged_rows[key] = rows
+                page = stage_page(merged, dict(scan.schema), device=self.device)
+                nbytes = page_nbytes(page)
+                if span is not None:
+                    span.attrs.update(rows=rows, bytes=nbytes)
+                REGISTRY.distribution("staging.bytes").add(nbytes)
+                # per-query h2d attribution (the process counter lives in
+                # staging.stage_page); cache hits copied nothing
+                self._fold_device_stat(device_h2d_bytes=nbytes)
+                cached = cacheable and self.split_cache.put(
+                    key, page, nbytes, reserve_required=True, pin=pin
                 )
-                self.memory_pool.reserve(owner, nbytes)
-            if self._active_qs is not None:
-                self._active_qs.staging_ms += (
-                    time.perf_counter() - t0
-                ) * 1000.0
+                if cached and pin:
+                    self._note_pinned_key(key)
+                if not cached and self.memory_pool is not None:
+                    # not cache-owned (non-cacheable connector, or bigger
+                    # than the budget): accounted under the query
+                    owner = (
+                        self._active_qs.query_id
+                        if self._active_qs is not None
+                        else "adhoc"
+                    )
+                    self.memory_pool.reserve(owner, nbytes)
+                if self._active_qs is not None:
+                    self._active_qs.staging_ms += (
+                        time.perf_counter() - t0
+                    ) * 1000.0
         self._note_input(key, page)
         return page
 
@@ -1949,31 +2024,37 @@ class LocalQueryRunner:
                 if pin and not per_batch:
                     self._note_pinned_key(key)
                 return page, unpin
-        t0 = time.perf_counter()
-        payload = (
-            page_source()
-            if page_source is not None
-            else conn.create_page_source(
-                ConnectorSplit(scan.handle, lo, hi), list(scan.columns)
+        with self._span("staging", table=_table_name(scan)) as span:
+            t0 = time.perf_counter()
+            payload = (
+                page_source()
+                if page_source is not None
+                else conn.create_page_source(
+                    ConnectorSplit(scan.handle, lo, hi), list(scan.columns)
+                )
             )
-        )
-        t1 = time.perf_counter()
-        page = stage_page(
-            payload, dict(scan.schema), capacity=capacity, device=self.device
-        )
-        nbytes = page_nbytes(page)
-        REGISTRY.distribution("staging.bytes").add(nbytes)
-        self._fold_device_stat(device_h2d_bytes=nbytes)
-        # the prefetch thread adds here too; a lost update of a float
-        # total only blurs a timing
-        stats.generate_s += t1 - t0
-        stats.stage_s += time.perf_counter() - t1
-        stats.staged_bytes += nbytes
-        if self._active_qs is not None:
-            with self._qs_mu:
-                self._active_qs.staging_ms += (
-                    time.perf_counter() - t0
-                ) * 1000.0
+            t1 = time.perf_counter()
+            page = stage_page(
+                payload, dict(scan.schema), capacity=capacity,
+                device=self.device,
+            )
+            nbytes = page_nbytes(page)
+            if span is not None:
+                span.attrs.update(
+                    rows=_payload_rows(payload, scan.columns), bytes=nbytes
+                )
+            REGISTRY.distribution("staging.bytes").add(nbytes)
+            self._fold_device_stat(device_h2d_bytes=nbytes)
+            # the prefetch thread adds here too; a lost update of a float
+            # total only blurs a timing
+            stats.generate_s += t1 - t0
+            stats.stage_s += time.perf_counter() - t1
+            stats.staged_bytes += nbytes
+            if self._active_qs is not None:
+                with self._qs_mu:
+                    self._active_qs.staging_ms += (
+                        time.perf_counter() - t0
+                    ) * 1000.0
         if cache_on and conn.cacheable() and self.split_cache.put(
             key, page, nbytes, pin=pin
         ):
@@ -2075,8 +2156,13 @@ _COUNTED_NODES = (
 
 def _execute_node(node: N.PlanNode, ctx: _ExecContext) -> Page:
     """Execute one plan node eagerly, recording its live count when the
-    run counts it."""
-    out = _execute_node_inner(node, ctx)
+    run counts it. While a profiler records, the node's operators (its
+    sources' nested inside) sit in a ``presto.op.<NodeClass>`` span."""
+    if tracing.recording():
+        with tracing.profiled("op." + type(node).__name__):
+            out = _execute_node_inner(node, ctx)
+    else:
+        out = _execute_node_inner(node, ctx)
     if ctx.counters is not None and (
         ctx.count_all or isinstance(node, _COUNTED_NODES)
     ):
@@ -2389,6 +2475,11 @@ def _literal_form(root: N.PlanNode, scan_ids: Dict[int, int], bound):
         if id(old) in scan_ids:
             remapped[id(new)] = scan_ids[id(old)]
     return lroot, remapped
+
+
+def _table_name(scan: N.TableScanNode) -> str:
+    h = scan.handle
+    return f"{h.catalog}.{h.schema}.{h.table}"
 
 
 def _payload_rows(payload: Dict, columns) -> int:

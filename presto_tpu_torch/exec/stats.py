@@ -337,7 +337,8 @@ class QueryStats:
     peak_memory_bytes: int = 0
     spilled_bytes: int = 0
     #: device-plane accounting (utils/telemetry.py): dispatches /
-    #: compiles (always 0 in the port: nothing compiles per query) /
+    #: compiles (the hand-written kernels' nvcc builds this query's runs
+    #: made; nothing else compiles per query) /
     #: transfer bytes / padding waste of THIS query's runs — local
     #: executions accumulate directly (runner._fold_device_stat);
     #: worker-task portions fold in as deltas in roll_up

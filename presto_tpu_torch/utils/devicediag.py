@@ -123,6 +123,8 @@ def probe_backend(device=None) -> BackendDiag:
         from presto_tpu_torch import kernels
 
         kernels.load("onehot_reduce")
+        # the probe's build is no query's: no run takes it later
+        kernels.take_builds()
         diag.phases["compile"] = "ok"
 
         phase = "execute"

@@ -11,9 +11,11 @@ its three pieces, all host-side):
   counts one dispatch per ``_run_with_pages`` attempt, the bytes its
   control read and its result copy bring back, and the padding of
   each result page. The port runs operators eagerly and compiles no
-  program per query, so ``compiles`` and ``compile_ms`` stay 0 (the
-  one hand-written kernel is built once per process by
-  ``presto_tpu_torch/kernels.py``). ``enabled=False`` short-circuits
+  program per query: ``compiles`` and ``compile_ms`` count the builds
+  of the hand-written CUDA kernels that ``presto_tpu_torch/kernels.py``
+  ran ``nvcc`` for (a cached library's load counts nothing), which the
+  runner counts where it folds them into the query whose run made
+  them. ``enabled=False`` short-circuits
   every ``count_*`` method before it touches a counter, and callers
   guard their byte-size computations on ``enabled``.
 - :func:`parse_prometheus` + :class:`MetricsFederation` — render many
@@ -72,9 +74,9 @@ class DeviceTelemetry:
             self._dispatches.update(n)
 
     def count_compile(self, ms: float) -> None:
-        """A program compiled for one query. The port compiles none
-        (its operators run eagerly), so nothing calls this; it stays
-        for the snapshot's shape."""
+        """One build of a hand-written kernel by ``nvcc`` that a run
+        made (``kernels.take_builds``), counted by the runner where it
+        folds the build into the run's query."""
         if self.enabled:
             self._compiles.update()
             self._compile_ms.add(float(ms))

@@ -13,29 +13,73 @@ in both coordinator and worker logs.
 The tree is servable WHILE the query runs (an open span has
 ``end == 0``), which is what makes "what is query q_7 doing right now"
 answerable from ``/v1/query/{id}``.
+
+While a ``torch.profiler`` records, every span of a tree is mirrored on
+the profiler's clock (the clock of the device trace) as
+``presto.<name>``, and :func:`profiled` puts spans too fine for the tree
+there alone (one per plan node, ``presto.op.<NodeClass>``). Both record
+at FUNCTION scope (``_RecordFunctionFast``), as an aten operator does,
+never as a USER_SCOPE range, which the profiler would mirror on the
+device as an annotation. With no profiler recording, the mirror costs
+one flag check.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import os
+import random
 import threading
 import time
-import uuid
 from typing import Dict, List, Optional
 
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
+
 log = logging.getLogger("presto_tpu_torch.trace")
+
+#: the name prefix of every program span on the profiler's timeline
+PROFILER_PREFIX = "presto."
+
+#: the shared context :func:`profiled` returns while no profiler records
+_NOOP = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """True while a ``torch.profiler`` records in this process."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def profiled(name: str):
+    """A span on the profiler's timeline alone, named ``presto.<name>``;
+    the shared no-op context (nothing allocated) while no profiler
+    records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NOOP
+    return _RecordFunctionFast(PROFILER_PREFIX + name)
+
 
 #: traceparent version field (only 00 exists; parsed leniently)
 _TP_VERSION = "00"
 
 
+#: the ids' own generator, seeded from the OS once per process (and
+#: again in a forked child), apart from the global ``random`` that
+#: callers may seed: an ``os.urandom`` call per id took 0.15-0.3 ms
+#: inside a query on an H100 machine's host, about 10 ms over the 51
+#: spans of a TPC-DS Q95
+_ids = random.Random()
+os.register_at_fork(after_in_child=_ids.seed)
+
+
 def new_trace_id() -> str:
-    return uuid.uuid4().hex  # 32 lowercase hex chars, W3C width
+    return f"{_ids.getrandbits(128):032x}"  # W3C width
 
 
 def new_span_id() -> str:
-    return uuid.uuid4().hex[:16]  # 16 hex chars, W3C width
+    return f"{_ids.getrandbits(64):016x}"  # W3C width
 
 
 def format_traceparent(trace_id: str, span_id: str) -> str:
@@ -100,17 +144,30 @@ class Span:
 
 
 class _SpanCtx:
-    """Context manager yielded by :meth:`Trace.span`."""
+    """Context manager yielded by :meth:`Trace.span`; mirrors the span on
+    the profiler's timeline while a profiler records, unless opened with
+    ``mirror=False``."""
 
-    def __init__(self, trace: "Trace", span: Span):
+    __slots__ = ("_trace", "span", "_mirror", "_record")
+
+    def __init__(self, trace: "Trace", span: Span, mirror: bool):
         self._trace = trace
         self.span = span
+        self._mirror = mirror
+        self._record = None
 
     def __enter__(self) -> Span:
         self._trace._push(self.span)
+        if self._mirror and _autograd_profiler._is_profiler_enabled:
+            self._record = _RecordFunctionFast(
+                PROFILER_PREFIX + self.span.name
+            )
+            self._record.__enter__()
         return self.span
 
     def __exit__(self, exc_type, exc, tb):
+        if self._record is not None:
+            self._record.__exit__(None, None, None)
         self._trace._pop(self.span, failed=exc is not None)
         return False
 
@@ -134,8 +191,17 @@ class Trace:
 
     # ------------------------------------------------------------ spans
 
-    def span(self, name: str, parent: Optional[Span] = None, **attrs):
-        """Open a span; use as ``with trace.span("plan"):``."""
+    def span(
+        self,
+        name: str,
+        parent: Optional[Span] = None,
+        *,
+        mirror: bool = True,
+        **attrs,
+    ):
+        """Open a span; use as ``with trace.span("plan"):``. With
+        ``mirror=False`` it stays off the profiler's timeline (a caller
+        that already put the same phase there)."""
         if parent is None:
             stack = getattr(self._stack, "value", None)
             if stack:
@@ -148,9 +214,14 @@ class Trace:
             parent_id=parent.span_id if parent is not None else None,
             name=name,
             start=time.time(),
-            attrs=dict(attrs),
+            attrs=attrs,
         )
-        return _SpanCtx(self, s)
+        return _SpanCtx(self, s, mirror)
+
+    def current(self) -> Optional[Span]:
+        """The innermost span open on this thread, or None."""
+        stack = getattr(self._stack, "value", None)
+        return stack[-1] if stack else None
 
     def _push(self, span: Span) -> None:
         with self._lock:
@@ -162,22 +233,26 @@ class Trace:
             stack = []
             self._stack.value = stack
         stack.append(span)
-        log.debug(
-            "trace=%s span=%s start name=%s parent=%s",
-            self.trace_id, span.span_id, span.name, span.parent_id,
-        )
+        if log.isEnabledFor(logging.DEBUG):
+            log.debug(
+                "trace=%s span=%s start name=%s parent=%s",
+                self.trace_id, span.span_id, span.name, span.parent_id,
+            )
 
     def _pop(self, span: Span, failed: bool = False) -> None:
         span.end = time.time()
         if failed:
             span.attrs["error"] = True
         stack = getattr(self._stack, "value", None)
-        if stack and span in stack:
+        if stack and stack[-1] is span:
+            stack.pop()  # the common case: spans close innermost first
+        elif stack and span in stack:
             stack.remove(span)
-        log.debug(
-            "trace=%s span=%s end name=%s dur_ms=%.1f",
-            self.trace_id, span.span_id, span.name, span.duration_ms,
-        )
+        if log.isEnabledFor(logging.DEBUG):
+            log.debug(
+                "trace=%s span=%s end name=%s dur_ms=%.1f",
+                self.trace_id, span.span_id, span.name, span.duration_ms,
+            )
 
     def graft(self, span_dicts) -> None:
         """Attach foreign (worker-side) spans to this tree. Spans whose

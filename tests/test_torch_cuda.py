@@ -686,6 +686,41 @@ def test_explain_analyze_on_the_card_equals_the_cpu(cuda):
     assert gpu[-1].split(" rows in ")[0] == cpu[-1].split(" rows in ")[0]
 
 
+def test_program_spans_stay_off_the_device_on_the_card(
+    cuda, tmp_path, monkeypatch
+):
+    # a fresh build of K1 counts one compile on the query that made it;
+    # under a profiler with the card's activity, every presto.* span is a
+    # host event at FUNCTION scope and none is mirrored on the device
+    from torch.autograd import DeviceType
+
+    from presto_tpu_torch import kernels
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from tpch_queries import QUERIES
+
+    monkeypatch.setattr(kernels, "BUILD", tmp_path)
+    monkeypatch.delitem(kernels._loaded, "onehot_reduce", raising=False)
+    kernels.take_builds()  # a build an earlier test made outside a run
+    r = LocalQueryRunner(device="cuda")
+    r.execute(QUERIES[1])
+    cold = r.history.snapshot()[-1]
+    assert cold.device_compiles == 1 and cold.device_compile_ms > 0
+    r.execute(QUERIES[1])
+    assert r.history.snapshot()[-1].device_compiles == 0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        r.execute(QUERIES[1])
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    spans = [e for e in events if e.name.startswith("presto.")]
+    assert {"presto.query", "presto.dispatch", "presto.control_read",
+            "presto.op.AggregationNode"} <= {e.name for e in spans}
+    assert {int(e.scope) for e in spans} == {0}
+    assert not [e for e in events if e.device_type == DeviceType.CUDA
+                and "presto." in e.name]
+
+
 def _syncs_of(fn):
     """(result, cudaStreamSynchronize-backed waits) of ``fn()``, counted
     through torch's sync debug mode. The mode is switched on once before
