@@ -8,6 +8,16 @@ stage carries its row numbers through the sort and limit, and gathers
 the block's host copy once at the end (``page.gather_block``).
 ``materialize_page`` is the same copy for a result with no host op.
 
+A root TopN (the innermost peeled op a ``SortNode`` with a limit, see
+``root_topn``) over more live rows than its limit runs on the card
+before the copy (``LocalQueryRunner._run_with_pages``): the device
+ORDER BY of ``ops/sort.py`` keeps the limit's rows, only those are
+copied, and the host stage below re-sorts them, which leaves rows that
+are already in order where they are (both sorts are stable over the
+same prefix order, with the same lanes). A result of at most the limit
+keeps the host sort alone, as do EXPLAIN ANALYZE, the micro-batch and
+the streamed path.
+
 
 Reference parity: the single-partition ROOT STAGE — presto executes the
 final ordering/limit of a query in one task over the gathered exchange
@@ -93,6 +103,15 @@ def peel_host_ops(
             continue
         break
     return node, peeled
+
+
+def root_topn(host_ops: List[N.PlanNode]) -> Optional[N.SortNode]:
+    """The innermost peeled op when it is a TopN (a ``SortNode`` with a
+    limit): the sort the card may run before the result copy."""
+    if host_ops and isinstance(host_ops[-1], N.SortNode):
+        if host_ops[-1].limit is not None:
+            return host_ops[-1]
+    return None
 
 
 def apply_host_ops(

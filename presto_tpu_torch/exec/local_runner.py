@@ -8,7 +8,9 @@ warm ``EXECUTE`` of a prepared statement) binds new values into a plan
 it has already planned and optimized. Scalar subqueries run first and
 bind as literals, the root Output/Sort/Limit is peeled to the host
 (``exec/host_ops.py``), and the rest runs as eager torch operators over
-pages staged on the runner's device. ``SET SESSION``, ``SHOW
+pages staged on the runner's device. A peeled root TopN over more rows
+than its limit runs on the device before the result copy, which then
+copies only the limit's rows. ``SET SESSION``, ``SHOW
 SESSION/SCHEMAS/TABLES/COLUMNS``, ``PREPARE``, ``EXECUTE``,
 ``DEALLOCATE``, ``EXPLAIN`` and ``EXPLAIN ANALYZE`` run as in the
 reference.
@@ -35,7 +37,8 @@ eligible aggregate over a base table reads the view that maintains it
 Every query is observed as the reference observes it: a ``Trace``
 (query -> plan -> execute spans; under execute, a ``staging`` span per
 table staged, per run of the operators ``dispatch``, ``control_read``
-and ``result_copy``, a ``dynamic_filter`` per build-side key read and
+and ``result_copy``, a ``dynamic_filter`` per build-side key read, a
+``root_topn`` where the root TopN runs on the device, and
 ``host_ops``; each mirrored on the profiler's timeline as
 ``presto.<name>`` while a profiler records, the root as ``execute``'s
 ``presto.query`` around the whole statement, with ``presto.parse``,
@@ -108,6 +111,7 @@ from presto_tpu_torch.exec.host_ops import (
     host_page,
     materialize_page,
     peel_host_ops,
+    root_topn,
 )
 from presto_tpu_torch.exec.staging import (
     DEFAULT_CACHE_BYTES,
@@ -1052,7 +1056,7 @@ class LocalQueryRunner:
                 root, host_ops = peel_host_ops(root)
             t0 = time.perf_counter()
             self._run_meta.value = (memo, {})
-            page = self._run(root)
+            page = self._run(root, topn=root_topn(host_ops))
             if host_ops:
                 with self._span("host_ops"):
                     page = apply_host_ops(page, host_ops)
@@ -1182,29 +1186,41 @@ class LocalQueryRunner:
 
     # ---------------------------------------------------------- execution
 
-    def _run(self, root: N.PlanNode) -> Page:
+    def _run(
+        self, root: N.PlanNode, topn: Optional[N.SortNode] = None
+    ) -> Page:
+        """Run a device plan and fetch its result. ``topn``, the
+        statement's peeled root TopN (``execute_plan`` alone passes it),
+        rides to the run that fetches the statement's result; a streamed
+        run keeps the host sort."""
         if streaming.needs_streaming(root, self.catalogs, self.session):
             # larger-than-device input: split-streamed partial
             # aggregation with hash-bucketed host spill
             return streaming.run_streamed(self, root)
         budget = int(self.session.get("max_fragment_weight"))
         if budget > 0 and _plan_weight(root) > budget:
-            return self._run_fragmented(root, budget)
+            return self._run_fragmented(root, budget, topn)
         scans = [n for n in N.walk(root) if isinstance(n, N.TableScanNode)]
         pages = [self._load_table(s) for s in scans]
-        return self._run_with_pages(root, scans, pages)
+        return self._run_with_pages(root, scans, pages, topn=topn)
 
     # ------------------------------------------- stage-at-a-time execution
 
-    def _run_fragmented(self, root: N.PlanNode, budget: int) -> Page:
+    def _run_fragmented(
+        self,
+        root: N.PlanNode,
+        budget: int,
+        topn: Optional[N.SortNode] = None,
+    ) -> Page:
         """Execute a heavy plan stage-at-a-time: heavy subtrees run as
         fragments of their own, their outputs stay on the device, and
-        the remaining tree consumes them as leaves."""
+        the remaining tree consumes them as leaves (its run alone takes
+        ``topn``)."""
         pages_map: Dict[int, Page] = {}
         with tracing.profiled("fragments"):
             reduced = self._reduce_fragment(root, budget, pages_map)
         leaves, pages = self.leaf_pages(reduced, pages_map)
-        return self._run_with_pages(reduced, leaves, pages)
+        return self._run_with_pages(reduced, leaves, pages, topn=topn)
 
     def leaf_pages(
         self, root: N.PlanNode, pages_map: Dict[int, Page]
@@ -1558,6 +1574,7 @@ class LocalQueryRunner:
         pages: List[Page],
         fetch_result: bool = True,
         stats_out: Optional[List] = None,
+        topn: Optional[N.SortNode] = None,
     ) -> Page:
         """Run the plan over its leaf pages, re-running at 4x capacities
         while an operator reports overflow. One host read per attempt
@@ -1574,7 +1591,10 @@ class LocalQueryRunner:
 
         Returns the result page on the host; with ``fetch_result=False``
         (a stage-at-a-time fragment) the page stays on the device,
-        compacted and re-bucketed to its live rows."""
+        compacted and re-bucketed to its live rows. With ``topn`` (the
+        statement's root TopN) and more live rows than its limit, the
+        card sorts the rows and only the limit's rows are copied
+        (``_root_topn``); the host stage still applies the TopN."""
         scan_ids = {id(s): i for i, s in enumerate(scans)}
         bound = getattr(self._bound_local, "value", None)
         analyzed = stats_out is not None
@@ -1671,6 +1691,8 @@ class LocalQueryRunner:
                     )
                 if not fetch_result:
                     return pad_capacity(out, bucket_capacity(n))
+                if topn is not None and n > topn.limit:
+                    out, n = self._root_topn(out, n, topn)
                 if DEVICE.enabled:
                     d2h = sum(int(t.nbytes) for t in out.prefix_leaves(n))
                     DEVICE.count_d2h(d2h)
@@ -1691,6 +1713,24 @@ class LocalQueryRunner:
             # leaves carry no capacity, so they keep their identity and
             # scan_ids stays valid
             root = _scale_capacities(root, 4)
+
+    def _root_topn(
+        self, out: Page, n: int, topn: N.SortNode
+    ) -> Tuple[Page, int]:
+        """The root TopN on the device, before the result copy: the
+        prefix-form result re-bucketed to its ``n`` live rows (a slice)
+        and ``order_by``'s stable sort with the host stage's keys, null
+        placement and tie order. No host read: the copy's own
+        synchronize waits for it. Returns the TopN page and its rows."""
+        with self._span("root_topn"):
+            out = order_by(
+                pad_capacity(out, bucket_capacity(n)),
+                topn.keys,
+                limit=topn.limit,
+            )
+        REGISTRY.counter("root_topn.device").update()
+        REGISTRY.counter("root_topn.rows_cut").update(n - topn.limit)
+        return out, topn.limit
 
     def _counter_cells(self, root, counters, analyzed: bool) -> List[tuple]:
         """One (walk_id, label, capacity, page bytes, depth, fingerprint,

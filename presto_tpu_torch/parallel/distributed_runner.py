@@ -168,9 +168,11 @@ class DistributedQueryRunner(LocalQueryRunner):
 
         return super().execute_plan(canonical.materialize_plan(plan), qs=qs)
 
-    def _run(self, root: N.PlanNode) -> Page:
+    def _run(
+        self, root: N.PlanNode, topn: Optional[N.SortNode] = None
+    ) -> Page:
         if self.n == 1:
-            return super()._run(root)
+            return super()._run(root, topn)
         froot = insert_gathers(root)
         sources = [
             n
@@ -183,7 +185,7 @@ class DistributedQueryRunner(LocalQueryRunner):
                 pages.append(self._run_fragment(s.fragment_root))
             else:
                 pages.append(self._load_table(s))
-        return self._run_with_pages(froot, sources, pages)
+        return self._run_with_pages(froot, sources, pages, topn=topn)
 
     # ----------------------------------------------------- fragment stage
 

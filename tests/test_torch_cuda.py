@@ -763,6 +763,76 @@ def test_operator_stats_add_no_host_wait_on_the_card(cuda, q):
     assert syncs[0] == syncs[1] > 0
 
 
+def test_root_topn_on_the_card_copies_its_limit_and_adds_no_wait(
+    cuda, monkeypatch
+):
+    # Q3's root TopN runs on the card before the result copy: no host
+    # wait of its own, as many waits as the same plan under a limit no
+    # TopN engages (one control read and one result copy for the run
+    # that fetches the result), a copy of 10 rows' bytes, a root_topn
+    # span in the query tree and on the profiler's timeline, and the
+    # CPU runner's rows
+    from presto_tpu_torch.exec import local_runner as LR
+    from presto_tpu_torch.utils.metrics import REGISTRY
+    from tpch_queries import QUERIES
+
+    q3 = QUERIES[3].strip()
+    assert q3.endswith("limit 10")
+    wide = q3[: -len("10")] + "1000000"
+    copies = []
+    real_copy = LR.materialize_page
+
+    def spy_copy(page, n):
+        copies.append((n, sum(int(t.nbytes) for t in page.prefix_leaves(n))))
+        return real_copy(page, n)
+
+    topn_waits = []
+    real_topn = LR.LocalQueryRunner._root_topn
+
+    def spy_topn(self, out, n, topn):
+        got, waits = _syncs_of(lambda: real_topn(self, out, n, topn))
+        topn_waits.append(waits)
+        return got
+
+    monkeypatch.setattr(LR, "materialize_page", spy_copy)
+    r = LR.LocalQueryRunner(device="cuda")
+    r.execute(q3)  # cold: stages the tables
+    r.execute(wide)
+    monkeypatch.setattr(LR.LocalQueryRunner, "_root_topn", spy_topn)
+    r.execute(q3)
+    assert topn_waits == [0]
+    monkeypatch.setattr(LR.LocalQueryRunner, "_root_topn", real_topn)
+
+    runs = REGISTRY.counter("root_topn.device")
+    before = runs.total
+    copies.clear()
+    got, waits = _syncs_of(lambda: r.execute(q3).rows())
+    names = [
+        c["name"]
+        for c in r.history.snapshot()[-1].trace.to_tree()[0]["children"][1][
+            "children"
+        ]
+    ]
+    wide_rows, wide_waits = _syncs_of(lambda: r.execute(wide).rows())
+    assert runs.total == before + 1
+    assert waits == wide_waits > 0
+    assert names.count("root_topn") == names.count("result_copy") == 1
+    assert names.index("root_topn") == len(names) - 3  # copy, host_ops
+    assert names[names.index("root_topn") - 1] == "control_read"
+    (n, nbytes), (n_wide, wide_bytes) = copies
+    assert n == 10 < n_wide and nbytes * n_wide == wide_bytes * 10
+    assert got == wide_rows[:10]
+    assert _rows_agree(got, LR.LocalQueryRunner(device="cpu").execute(q3).rows())
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        r.execute(q3)
+        torch.cuda.synchronize()
+    spans = [e for e in prof.events() if e.name == "presto.root_topn"]
+    assert len(spans) == 1 and int(spans[0].scope) == 0
+
+
 # ------------------------------------------- writes and views on the card
 
 

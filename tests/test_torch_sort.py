@@ -195,3 +195,98 @@ def test_distinct_matches_reference(columns):
     port, port_ovf = PS.distinct(port_page, 64)
     assert bool(port_ovf) == bool(ref_ovf)
     assert_columns_equal(jax_live_columns(ref), convert.page_to_numpy(port))
+
+
+# ------------------------------------------------- the root TopN on the card
+
+
+def _topn_table():
+    """64 seeded rows: few distinct keys (ties), NULLs in every nullable
+    key, doubles with NaN, -0.0, +0.0 and +-inf, long decimals, varchars
+    and an array column."""
+    import decimal
+
+    rng = np.random.default_rng(21)
+    n = 64
+    f = rng.choice(
+        np.array([np.nan, -0.0, 0.0, 1.5, -2.25, np.inf, -np.inf]), n
+    )
+    amts = [decimal.Decimal(v).scaleb(-3)
+            for v in (2**70 + 1, -(2**66), 5, -5, 2**63)]
+    return {
+        "id": list(range(n)),
+        "k": [int(v) for v in rng.integers(0, 4, n)],
+        "ni": [None if rng.random() < 0.25 else int(v)
+               for v in rng.integers(-2, 3, n)],
+        "f": [None if rng.random() < 0.1 else float(v) for v in f],
+        "amt": [None if rng.random() < 0.15 else amts[int(i)]
+                for i in rng.integers(0, len(amts), n)],
+        "s": [None if rng.random() < 0.2 else "abc"[int(i)] * (1 + int(i))
+              for i in rng.integers(0, 3, n)],
+        "arr": [None if i % 9 == 0 else list(range(i % 4)) for i in range(n)],
+    }
+
+
+def _topn_types(T):
+    return {"id": T.BIGINT, "k": T.INTEGER, "ni": T.BIGINT, "f": T.DOUBLE,
+            "amt": T.decimal(30, 3), "s": T.VARCHAR, "arr": T.array(T.BIGINT)}
+
+
+#: name -> (SELECT ... FROM mem.s.t ..., whether the TopN runs on the
+#: device: the statement's live rows exceed its limit)
+ROOT_TOPN = {
+    "ties_on_first_key": ("select id, k from mem.s.t order by k limit 9",
+                          True),
+    "nulls_default_asc": ("select id, ni from mem.s.t order by ni limit 52",
+                          True),
+    "nulls_first_asc": (
+        "select id, ni from mem.s.t order by ni asc nulls first limit 20",
+        True),
+    "nulls_default_desc": (
+        "select id, ni from mem.s.t order by ni desc limit 20", True),
+    "nulls_last_desc": (
+        "select id, ni from mem.s.t order by ni desc nulls last, k limit 55",
+        True),
+    "double_nan_negative_zero": (
+        "select id, f from mem.s.t order by f limit 40", True),
+    "double_desc_nulls_last": (
+        "select id, f from mem.s.t order by f desc nulls last, k limit 12",
+        True),
+    "long_decimal_key": (
+        "select id, amt from mem.s.t order by amt desc, k limit 10", True),
+    "varchar_key": (
+        "select id, s from mem.s.t order by s desc nulls last, k limit 11",
+        True),
+    "array_column_in_output": (
+        "select id, arr, s from mem.s.t order by k desc, ni limit 6", True),
+    "masked_input": (
+        "select id, f from mem.s.t where k > 0 order by f, ni limit 5",
+        True),
+    "limit_zero": ("select id, k from mem.s.t order by k limit 0", True),
+    "limit_covers_every_row": (
+        "select id, k from mem.s.t order by k desc limit 64", False),
+}
+
+
+@pytest.fixture(scope="module")
+def topn_runners():
+    from test_torch_arrays import both_runners
+
+    return both_runners({("s", "t"): (_topn_types, _topn_table)})
+
+
+@pytest.mark.parametrize("case", sorted(ROOT_TOPN))
+def test_root_topn_matches_reference_row_for_row(topn_runners, case):
+    # the statement's root ORDER BY ... LIMIT: over more rows than its
+    # limit the port sorts on its device and copies the limit's rows;
+    # the reference sorts every row on the host. Same rows, same order
+    from test_torch_arrays import assert_same_rows
+    from presto_tpu_torch.utils.metrics import REGISTRY
+
+    sql, engaged = ROOT_TOPN[case]
+    ref, port = topn_runners
+    runs = REGISTRY.counter("root_topn.device")
+    before = runs.total
+    got = port.execute(sql).rows()
+    assert runs.total - before == int(engaged)
+    assert_same_rows(got, ref.execute(sql).rows())

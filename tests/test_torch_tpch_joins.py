@@ -11,6 +11,7 @@ run must give the reference's rows."""
 from __future__ import annotations
 
 import functools
+import re
 
 import pytest
 
@@ -18,6 +19,7 @@ from presto_tpu.exec.local_runner import LocalQueryRunner as RefRunner
 from presto_tpu_torch import convert
 from presto_tpu_torch.exec.local_runner import LocalQueryRunner
 from presto_tpu_torch.session import Session
+from presto_tpu_torch.utils.metrics import REGISTRY
 from tpch_queries import QUERIES
 from torch_parity import assert_columns_equal, jax_live_columns
 from torch_parity import one_torch_thread  # noqa: F401
@@ -47,8 +49,27 @@ SESSIONS = {
 }
 
 
+#: statements for the root TopN's engagement checks
+TOPN_EXTRA = {
+    "topn_within_limit": """
+        select n_name, n_regionkey from tpch.tiny.nation
+        order by n_regionkey, n_name limit 25
+    """,
+    "scalar_subquery_topn": """
+        select n_name, n_nationkey from tpch.tiny.nation
+        where n_regionkey = (
+            select r_regionkey from tpch.tiny.region
+            order by r_name desc limit 1)
+          or n_nationkey < 12
+        order by n_name desc limit 4
+    """,
+}
+
+
 def _sql(name):
-    return QUERIES[name] if isinstance(name, int) else EXTRA[name]
+    if isinstance(name, int):
+        return QUERIES[name]
+    return EXTRA[name] if name in EXTRA else TOPN_EXTRA[name]
 
 
 @pytest.fixture(scope="module")
@@ -110,3 +131,38 @@ def test_q5_groups_by_one_onehot_reduction(ports, monkeypatch):
     monkeypatch.setattr(PA, "onehot_reduce_many", spy)
     ports["default"].execute(QUERIES[5])
     assert calls == [25]
+
+
+#: the statements whose root TopN keeps fewer rows than reach it at tiny
+TOPN_ENGAGED = {3, 10, "scalar_subquery_topn"}
+
+
+@pytest.mark.parametrize(
+    "name", [3, 10, 2, 18, 21, 1, 6] + sorted(TOPN_EXTRA), ids=str
+)
+def test_root_topn_runs_on_the_device_only_over_its_limit(
+    reference, ports, name
+):
+    # the statement's own root ORDER BY ... LIMIT k, and only it (a
+    # scalar subquery's TopN runs inside its plan), runs on the device
+    # when more than k rows reach it: one engagement, n - k rows not
+    # copied; Q1 and Q6 (no limit) and a TopN over at most k rows keep
+    # the host sort alone. Every statement gives the reference's rows
+    sql = _sql(name).strip()
+    runner = ports["default"]
+    runs = REGISTRY.counter("root_topn.device")
+    cut = REGISTRY.counter("root_topn.rows_cut")
+    before = (runs.total, cut.total)
+    port = runner.execute(sql)
+    moved = (runs.total - before[0], cut.total - before[1])
+    ref_columns, ref_cols = reference(name)
+    assert port.columns == ref_columns
+    assert_columns_equal(ref_cols, convert.page_to_numpy(port.page))
+    tail = re.search(r"\blimit\s+(\d+)$", sql)
+    if tail is None:
+        assert name not in TOPN_ENGAGED and moved == (0, 0)
+        return
+    k = int(tail.group(1))
+    n = len(runner.execute(sql[: tail.start()]).rows())
+    assert (n > k) == (name in TOPN_ENGAGED), (n, k)
+    assert moved == ((1, n - k) if n > k else (0, 0))
