@@ -41,6 +41,7 @@ from presto_tpu_torch import types as T
 from presto_tpu_torch.expr import Expr, ExprLowerer
 from presto_tpu_torch.ops.common import boundaries, sort_order
 from presto_tpu_torch.page import Block, NoLaneForm, Page, nonzero_static
+from presto_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -522,12 +523,10 @@ def hash_aggregate(
 
     keys = [(name, *lowerer.eval(e), e) for name, e in group_keys]
     domains = [_static_domain(e, lowerer) for _, _, _, e in keys]
-    if any(a.func in _ORDER_FUNCS for a in aggs):
-        # these need the sorted layout (a per-group value order)
-        return _sorted_aggregate(
-            page, keys, aggs, max_groups, live, lowerer, errors_out
-        )
-    if all(d is not None for d in domains):
+    # order-dependent aggregates need the sorted layout (a per-group
+    # value order)
+    ordered = any(a.func in _ORDER_FUNCS for a in aggs)
+    if not ordered and all(d is not None for d in domains):
         # a key over an empty dictionary (an empty string column) still
         # takes one slot: its strides and digits must not divide by 0
         slots = [
@@ -544,9 +543,10 @@ def hash_aggregate(
             )
     if lanes > 1:
         raise NoLaneForm("sorted GROUP BY in a micro-batch")
-    return _sorted_aggregate(
-        page, keys, aggs, max_groups, live, lowerer, errors_out
-    )
+    with tracing.profiled("sorted_agg"):
+        return _sorted_aggregate(
+            page, keys, aggs, max_groups, live, lowerer, errors_out
+        )
 
 
 # --------------------------------------------------------- one-hot path

@@ -721,6 +721,30 @@ def test_program_spans_stay_off_the_device_on_the_card(
                 and "presto." in e.name]
 
 
+def test_the_sorted_group_by_span_stays_off_the_device(cuda):
+    # TPC-H Q18's two sorted GROUP BYs: one presto.sorted_agg host event
+    # each, at FUNCTION scope, none on the device, and no capacity re-run
+    from torch.autograd import DeviceType
+
+    from presto_tpu_torch.exec.local_runner import LocalQueryRunner
+    from tpch_queries import QUERIES
+
+    r = LocalQueryRunner(device="cuda")
+    r.execute(QUERIES[18])
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        r.execute(QUERIES[18])
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    spans = [e for e in events if e.name == "presto.sorted_agg"]
+    assert len(spans) == 2
+    assert {int(e.scope) for e in spans} == {0}
+    assert not [e for e in events if e.device_type == DeviceType.CUDA
+                and "presto." in e.name]
+    assert r.overflow_retries == 0
+
+
 def _syncs_of(fn):
     """(result, cudaStreamSynchronize-backed waits) of ``fn()``, counted
     through torch's sync debug mode. The mode is switched on once before

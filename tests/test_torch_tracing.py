@@ -279,3 +279,80 @@ def test_a_kernel_build_counts_one_compile_on_the_query_that_made_it(
     assert r.history.snapshot()[-1].device_compiles == 0
     assert DEVICE.snapshot()["compiles"] == after["compiles"]
     kernels._loaded.pop(name, None)
+
+
+#: a GROUP BY over an integer key with no provable domain: the sorted
+#: path (one stable sort, group spans, aggregates), not K1
+SORTED = (
+    "select o_custkey, count(*) c from tpch.tiny.orders "
+    "group by o_custkey order by c desc, o_custkey limit 3"
+)
+
+
+def test_the_sorted_group_by_opens_its_span_once_a_call(warm_runner):
+    warm_runner.execute(SORTED)
+    _, evs = _profiled(lambda: warm_runner.execute(SORTED))
+    span = _one(evs, "presto.sorted_agg")
+    assert span[1] == 0  # FUNCTION scope: never mirrored on a card
+    assert _inside(span, _one(evs, "presto.op.AggregationNode"))
+    assert _inside(span, _one(evs, "presto.dispatch"))
+    # the one-hot GROUP BY (K1) never opens it
+    _, evs = _profiled(lambda: warm_runner.execute(Q1_LIKE))
+    assert "presto.sorted_agg" not in {e[0] for e in evs}
+    # a query with two sorted GROUP BYs opens it twice
+    two = (
+        "select c, count(*) n from (select o_custkey, count(*) c from "
+        "tpch.tiny.orders group by o_custkey) t group by c order by c"
+    )
+    warm_runner.execute(two)
+    _, evs = _profiled(lambda: warm_runner.execute(two))
+    assert [e[0] for e in evs].count("presto.sorted_agg") == 2
+
+
+_NOOP_SPAN = contextlib.nullcontext()
+
+
+def test_the_sorted_span_is_not_made_without_a_profiler(warm_runner,
+                                                        monkeypatch):
+    made = []
+    monkeypatch.setattr(tracing, "_RecordFunctionFast",
+                        lambda name: made.append(name) or _NOOP_SPAN)
+    warm_runner.execute(SORTED)
+    assert made == []
+    _profiled(lambda: warm_runner.execute(SORTED))
+    assert made.count("presto.sorted_agg") == 1
+
+
+def test_an_order_dependent_aggregate_takes_the_sorted_span(warm_runner):
+    # a key with a small provable domain, but max_by needs each group's
+    # value order: the sorted path, not K1, and so the span
+    sql = (
+        "select o_orderstatus, max_by(o_orderkey, o_totalprice) k "
+        "from tpch.tiny.orders group by o_orderstatus order by 1"
+    )
+    warm_runner.execute(sql)
+    _, evs = _profiled(lambda: warm_runner.execute(sql))
+    assert _inside(_one(evs, "presto.sorted_agg"),
+                   _one(evs, "presto.op.AggregationNode"))
+
+
+def test_a_forced_capacity_overflow_counts_each_re_run(monkeypatch):
+    from presto_tpu_torch.plan import planner
+
+    # every GROUP BY planned at the smallest bucket: 1,024 groups
+    monkeypatch.setattr(planner._Planner, "_agg_bucket",
+                        lambda self, node: 1024)
+    r = LocalQueryRunner(device="cpu")
+    res = r.execute(
+        "select o_orderkey, count(*) c from tpch.tiny.orders "
+        "group by o_orderkey"
+    )
+    assert len(res.rows()) == 15_000
+    # 15,000 groups: the run at 1,024 and the one at 4,096 overflow,
+    # the one at 16,384 holds them
+    assert r.overflow_retries == 2
+    assert r.history.snapshot()[-1].retries == 2
+    # a plan that fits re-runs nothing
+    r.execute(Q1_LIKE)
+    assert r.overflow_retries == 2
+    assert r.history.snapshot()[-1].retries == 0
